@@ -1,0 +1,424 @@
+"""The gathered cluster walk: one spp chunk for every lane of a
+lane→pixel map (counterpart of the cluster-walk variant of
+``raytracer_tpu/render/pallas_kernel.py`` ``_make_kernel(...).kernel``,
+launched by ``_render_chunk_impl``).
+
+:func:`cluster_walk` launches the CUDA kernel ``csrc/cluster_walk.cu`` on
+CUDA tensors and counts its launches in ``cluster_walk.launches``; on CPU
+tensors it runs :func:`cluster_walk_plain`, the same function written as
+masked tensor code. Both return
+
+- ``out`` (4, n) float32, lane order: rgb sums of the lane's pixel over
+  the chunk's samples, and the walk-iteration count (the path cost that
+  drives pixel sorting);
+- ``segs`` (n,) int32: bounce-completed segments per lane.
+
+Per lane: ray generation from the counter-hash RNG, exact tests of the
+global spheres when a bounce starts, a slab test of every cluster box,
+extraction of the two nearest unvisited packed (entry, cluster) keys,
+an exact test of the first one's members, the fused bounce-done test on
+the second, and on bounce completion the shared tail: winner lookup,
+front-face normal, diffuse / metal / glass scatter, Russian roulette,
+depth exhaustion, accumulation and path regeneration.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from raytracer_tpu_torch.render import rng
+from raytracer_tpu_torch.render.options import MAX_T, MIN_T, TraceOptions
+from raytracer_tpu_torch.render.tables import MAX_CLUSTERS, WalkTables
+
+LANES_TPU = 128  # the RNG's pixel id keeps the TPU's padded row width
+DRAWS_PER_BOUNCE = 8
+FILLQ = 3e38
+NEG_BIG = -3e38
+#: float32 3e38 with the 7 key bits cleared: a selection at or above it is
+#: a miss or an exhausted list
+FILL_FLOOR = float(
+    np.int32(np.float32(FILLQ).view(np.int32) & ~np.int32(127))
+    .view(np.float32)
+)
+
+
+def padded_width(width: int) -> int:
+    return -(-width // LANES_TPU) * LANES_TPU
+
+
+def identity_map(width: int, height: int, device) -> torch.Tensor:
+    """(W·H, 2) int32 [px, py] with lane = py·W + px."""
+    lane = torch.arange(width * height, device=device, dtype=torch.int64)
+    return torch.stack([lane % width, lane // width], 1).to(torch.int32)
+
+
+def _check(tables: WalkTables, pixel_map: torch.Tensor, width: int,
+           height: int, spp: int):
+    dev = pixel_map.device
+    for name in ("camera", "globals", "bounds", "members", "winner"):
+        t = getattr(tables, name)
+        if t.device != dev:
+            raise ValueError(f"tables.{name} is on {t.device}, map on {dev}")
+        if t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"tables.{name} must be contiguous float32")
+    k, group = tables.members.shape[:2]
+    n_global = tables.globals.shape[0]
+    if (tables.camera.shape != (19,) or tables.globals.shape[1:] != (4,)
+            or tables.bounds.shape != (k, 6)
+            or tables.members.shape[2:] != (4,)
+            or tables.winner.shape != (n_global + k * group, 11)):
+        raise ValueError("inconsistent walk table shapes")
+    if not 1 <= k <= MAX_CLUSTERS:
+        raise ValueError(f"cluster count {k} outside [1, {MAX_CLUSTERS}]")
+    if (pixel_map.dtype != torch.int32 or pixel_map.ndim != 2
+            or pixel_map.shape[1] != 2 or not pixel_map.is_contiguous()):
+        raise ValueError("pixel_map must be a contiguous (n, 2) int32 tensor")
+    if width < 1 or height < 1 or spp < 1:
+        raise ValueError("width, height and spp must be >= 1")
+
+
+def cluster_walk(tables: WalkTables, pixel_map: torch.Tensor, seed: int,
+                 sample_offset: int, spp: int, width: int, height: int,
+                 opts: TraceOptions):
+    """One chunk of ``spp`` samples for every lane of ``pixel_map``."""
+    _check(tables, pixel_map, width, height, spp)
+    dev = pixel_map.device
+    if dev.type == "cpu":
+        return cluster_walk_plain(tables, pixel_map, seed, sample_offset,
+                                  spp, width, height, opts)
+    if dev.type != "cuda":
+        raise ValueError(f"no cluster walk for device {dev}")
+    return _launch(tables, pixel_map, seed, sample_offset, spp, width,
+                   height, opts)
+
+
+cluster_walk.launches = 0
+
+
+def _lib():
+    from raytracer_tpu_torch.utils import cuda_build
+
+    lib = cuda_build.load("cluster_walk")
+    fn = lib.cluster_walk_launch
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 12
+                       + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch(tables, pixel_map, seed, sample_offset, spp, width, height,
+            opts):
+    n = pixel_map.shape[0]
+    k, group = tables.members.shape[:2]
+    dev = pixel_map.device
+    out = torch.empty((4, n), dtype=torch.float32, device=dev)
+    segs = torch.empty((n,), dtype=torch.int32, device=dev)
+    if n == 0:
+        return out, segs
+    fn = _lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(
+            tables.camera.data_ptr(), tables.globals.data_ptr(),
+            tables.bounds.data_ptr(), tables.members.data_ptr(),
+            tables.winner.data_ptr(), pixel_map.data_ptr(),
+            out.data_ptr(), segs.data_ptr(),
+            n, tables.globals.shape[0], k, group, padded_width(width),
+            int(seed), int(sample_offset), int(spp),
+            opts.max_depth, opts.russian_roulette_depth,
+            int(opts.exhaust_black), int(opts.near_zero_guard),
+            float(np.float32(1.0 / width)), float(np.float32(1.0 / height)),
+            stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"cluster_walk kernel launch failed: CUDA error {err}")
+    cluster_walk.launches += 1
+    return out, segs
+
+
+def _gen_ray(cam, s_abs, px, py, pix, inv_w, inv_h, dps):
+    """Camera ray of absolute sample index ``s_abs``: draws 0-3 of the
+    sample's counter block jitter the pixel and sample the lens disc."""
+    ctr0 = (s_abs * dps) & rng.M32
+    u0 = rng.u01(pix, ctr0, 0)
+    u1 = rng.u01(pix, ctr0, 1)
+    u2 = rng.u01(pix, ctr0, 2)
+    u3 = rng.u01(pix, ctr0, 3)
+    (ox0, oy0, oz0, llx, lly, llz, hx, hy, hz, vx, vy, vz,
+     ux, uy, uz, vvx, vvy, vvz, lens) = cam
+    st_s = (px + 0.5 + u0) * inv_w
+    st_t = (py + 0.5 + u1) * inv_h
+    ang = u2 * rng.TWO_PI
+    rad = lens * torch.sqrt(u3)
+    rdx = rad * torch.cos(ang)
+    rdy = rad * torch.sin(ang)
+    ox = ox0 + (ux * rdx + vvx * rdy)
+    oy = oy0 + (uy * rdx + vvy * rdy)
+    oz = oz0 + (uz * rdx + vvz * rdy)
+    dx = llx + st_s * hx + st_t * vx - ox
+    dy = lly + st_s * hy + st_t * vy - oy
+    dz = llz + st_s * hz + st_t * vz - oz
+    return ox, oy, oz, dx, dy, dz
+
+
+def _exact_q(cx, cy, cz, k1, ox, oy, oz, dx, dy, dz, a, o_dot_d, o_dot_o,
+             min_t_a):
+    """Nearest root q = t·|d|² of the sphere quadratic with t >= MIN_T
+    (near root, else far root), FILLQ when there is none. A negative
+    discriminant poisons the root to -3e38, never NaN."""
+    cdd = cx * dx + cy * dy + cz * dz
+    cdo = cx * ox + cy * oy + cz * oz
+    nb = cdd - o_dot_d
+    cc = o_dot_o - 2.0 * cdo + k1
+    ds = nb * nb - a * cc
+    sq = torch.where(ds >= 0.0, torch.sqrt(torch.abs(ds)), NEG_BIG)
+    qn = nb - sq
+    q = torch.where(qn >= min_t_a, qn, nb + sq)
+    return torch.where(q >= min_t_a, q, FILLQ)
+
+
+def _first_min(q: torch.Tensor):
+    """(min, first index of the min) over the last axis: a sequential
+    strict-< running minimum keeps the first of equal values."""
+    m = q.min(dim=-1).values
+    first = (q == m[..., None]).to(torch.uint8).argmax(dim=-1)
+    return m, first
+
+
+def _col(t: torch.Tensor) -> torch.Tensor:
+    return t[:, None]
+
+
+def _inv_dir(d: torch.Tensor) -> torch.Tensor:
+    """Direction reciprocal clamped away from zero: no slab product
+    reaches inf."""
+    return 1.0 / torch.where(d >= 0.0, torch.clamp_min(d, 1e-12),
+                             torch.clamp_max(d, -1e-12))
+
+
+def _key_floor(key: torch.Tensor) -> torch.Tensor:
+    return (key.view(torch.int32) & -128).view(torch.float32)
+
+
+def cluster_walk_plain(tables: WalkTables, pixel_map: torch.Tensor,
+                       seed: int, sample_offset: int, spp: int, width: int,
+                       height: int, opts: TraceOptions):
+    """The cluster walk as masked tensor code: every lane runs the same
+    regeneration loop, one walk iteration per pass, ``while`` any lane is
+    alive. The arithmetic and its order are the kernel's."""
+    dev = pixel_map.device
+    f32 = torch.float32
+    n = pixel_map.shape[0]
+    n_global = tables.globals.shape[0]
+    k, group = tables.members.shape[:2]
+    cam = list(tables.camera.unbind(0))
+    glob = [list(g.unbind(0)) for g in tables.globals]
+    bnd = [tables.bounds[:, j] for j in range(6)]
+    dps = 4 + opts.max_depth * DRAWS_PER_BOUNCE
+    inv_w, inv_h = 1.0 / width, 1.0 / height
+    rr = opts.russian_roulette_depth
+
+    pxi = pixel_map[:, 0].to(torch.int64)
+    pyi = pixel_map[:, 1].to(torch.int64)
+    px, py = pxi.to(f32), pyi.to(f32)
+    gid = (pyi * padded_width(width) + pxi) & rng.M32
+    pix = rng.lowbias32(gid ^ (int(seed) & rng.M32))
+    idx_k = torch.arange(k, device=dev, dtype=torch.int32)
+
+    zero = torch.zeros(n, dtype=f32, device=dev)
+    one = torch.ones(n, dtype=f32, device=dev)
+    s = torch.zeros(n, dtype=torch.int64, device=dev)
+    i = torch.zeros(n, dtype=torch.int64, device=dev)
+    ox, oy, oz, dx, dy, dz = _gen_ray(cam, s + sample_offset, px, py, pix,
+                                      inv_w, inv_h, dps)
+    cr, cg, cb = one, one, one
+    alive = torch.ones(n, dtype=torch.bool, device=dev)
+    bq = torch.full((n,), FILLQ, dtype=f32, device=dev)
+    bs = torch.zeros(n, dtype=torch.int64, device=dev)
+    kl = torch.full((n,), NEG_BIG, dtype=f32, device=dev)
+    out = torch.zeros((4, n), dtype=f32, device=dev)
+    segs = torch.zeros(n, dtype=torch.int32, device=dev)
+
+    while bool(alive.any()):
+        out[3] += alive.to(f32)
+        ctr0 = ((sample_offset + s) * dps) & rng.M32
+        ctr = (ctr0 + 4 + i * DRAWS_PER_BOUNCE) & rng.M32
+
+        a = rng.dot3(dx, dy, dz, dx, dy, dz)
+        inv_a = 1.0 / a
+        o_dot_d = rng.dot3(ox, oy, oz, dx, dy, dz)
+        o_dot_o = rng.dot3(ox, oy, oz, ox, oy, oz)
+        min_t_a = MIN_T * a
+        ray = (ox, oy, oz, dx, dy, dz, a, o_dot_d, o_dot_o, min_t_a)
+
+        # a fresh bounce first tests the global spheres exactly
+        fresh = kl < -1e38
+        g_best = torch.full((n,), FILLQ, dtype=f32, device=dev)
+        g_slot = torch.zeros(n, dtype=torch.int64, device=dev)
+        for g in range(n_global):
+            qg = _exact_q(*glob[g], *ray)
+            upd = qg < g_best
+            g_best = torch.where(upd, qg, g_best)
+            g_slot = torch.where(upd, g, g_slot)
+        bq = torch.where(fresh, g_best, bq)
+        bs = torch.where(fresh, g_slot, bs)
+
+        # slab test of every cluster box, in q-space
+        tn = tf = None
+        for o_, d_, lo, hi in ((ox, dx, bnd[0], bnd[3]),
+                               (oy, dy, bnd[1], bnd[4]),
+                               (oz, dz, bnd[2], bnd[5])):
+            iv = _col(_inv_dir(d_))
+            t1 = (lo[None, :] - _col(o_)) * iv
+            t2 = (hi[None, :] - _col(o_)) * iv
+            if tn is None:
+                tn, tf = torch.minimum(t1, t2), torch.maximum(t1, t2)
+            else:
+                tn = torch.maximum(tn, torch.minimum(t1, t2))
+                tf = torch.minimum(tf, torch.maximum(t1, t2))
+        qn_q = torch.maximum(tn * _col(a), _col(min_t_a))
+        hitb = (tf >= tn) & (tf * _col(a) >= _col(min_t_a)) & (qn_q < 1e20)
+        qe = torch.where(hitb, qn_q, FILLQ)
+        # packed key: entry with its 7 low bits floored, OR cluster index
+        keys = ((qe.view(torch.int32) & -128) | idx_k).view(f32)
+        inf = float("inf")
+        m0 = torch.where(keys > _col(kl), keys, inf).min(dim=1).values
+        m1 = torch.where(keys > _col(m0), keys, inf).min(dim=1).values
+
+        imm_done = (_key_floor(m0) >= bq) | (m0 >= FILL_FLOOR)
+        u_live = alive & ~imm_done
+        cidx = (m0.view(torch.int32) & 127).to(torch.int64)
+        mem = tables.members[cidx]
+        qm = _exact_q(mem[..., 0], mem[..., 1], mem[..., 2], mem[..., 3],
+                      *(_col(t) for t in ray))
+        qmin, mfirst = _first_min(qm)
+        upd = u_live & (qmin < bq)
+        bq = torch.where(upd, qmin, bq)
+        bs = torch.where(upd, n_global + cidx * group + mfirst, bs)
+        kl = torch.where(u_live, m0, kl)
+        new_done = u_live & ((_key_floor(m1) >= bq) | (m1 >= FILL_FLOOR))
+        bdone = imm_done | new_done
+        ab = alive & bdone
+        segs += ab.to(torch.int32)
+
+        # --- shared tail: runs for lanes whose bounce completed ---
+        w = tables.winner[bs]
+        scx, scy, scz, inv_r, mat = (w[:, j] for j in range(5))
+        al_r, al_g, al_b, fuzz, refr = (w[:, j] for j in range(5, 10))
+        best_t = bq * inv_a
+        hit = best_t < 1e20
+        best_t = torch.where(hit, best_t, MAX_T)
+        hpx = ox + best_t * dx
+        hpy = oy + best_t * dy
+        hpz = oz + best_t * dz
+        nx = (hpx - scx) * inv_r
+        ny = (hpy - scy) * inv_r
+        nz = (hpz - scz) * inv_r
+        front = rng.dot3(dx, dy, dz, nx, ny, nz) < 0.0
+        sgn = torch.where(front, 1.0, -1.0)
+        nx, ny, nz = nx * sgn, ny * sgn, nz * sgn
+
+        uvx, uvy, uvz = rng.unit_vec(pix, ctr, 0)
+        usx, usy, usz = rng.unit_sphere(pix, ctr, 3)
+        glass_u = rng.u01(pix, ctr, 6)
+
+        ddx, ddy, ddz = nx + uvx, ny + uvy, nz + uvz
+        if opts.near_zero_guard:
+            nzm = ((torch.abs(ddx) < 1e-8) & (torch.abs(ddy) < 1e-8)
+                   & (torch.abs(ddz) < 1e-8))
+            ddx = torch.where(nzm, nx, ddx)
+            ddy = torch.where(nzm, ny, ddy)
+            ddz = torch.where(nzm, nz, ddz)
+
+        d_dot_n = rng.dot3(dx, dy, dz, nx, ny, nz)
+        mdx = dx - 2.0 * d_dot_n * nx + fuzz * usx
+        mdy = dy - 2.0 * d_dot_n * ny + fuzz * usy
+        mdz = dz - 2.0 * d_dot_n * nz + fuzz * usz
+        metal_ok = rng.dot3(nx, ny, nz, mdx, mdy, mdz) > 0.0
+
+        ratio = torch.where(front, 1.0 / refr, refr)
+        udx, udy, udz = rng.normalize3(dx, dy, dz)
+        cos_t = torch.clamp_max(-rng.dot3(udx, udy, udz, nx, ny, nz), 1.0)
+        sin_t = torch.sqrt(torch.clamp_min(1.0 - cos_t * cos_t, 0.0))
+        cannot = ratio * sin_t > 1.0
+        r0 = (1.0 - ratio) / (1.0 + ratio)
+        r0 = r0 * r0
+        one_m = 1.0 - cos_t
+        one_m2 = one_m * one_m
+        schlick = r0 + (1.0 - r0) * one_m2 * one_m2 * one_m
+        reflects = cannot | (schlick > glass_u)
+        rpx = ratio * (udx + cos_t * nx)
+        rpy = ratio * (udy + cos_t * ny)
+        rpz = ratio * (udz + cos_t * nz)
+        kk = torch.clamp_min(1.0 - (rpx * rpx + rpy * rpy + rpz * rpz), 0.0)
+        sk = torch.sqrt(kk)
+        ud_dot_n = rng.dot3(udx, udy, udz, nx, ny, nz)
+        gdx = torch.where(reflects, udx - 2.0 * ud_dot_n * nx, rpx - sk * nx)
+        gdy = torch.where(reflects, udy - 2.0 * ud_dot_n * ny, rpy - sk * ny)
+        gdz = torch.where(reflects, udz - 2.0 * ud_dot_n * nz, rpz - sk * nz)
+
+        is_diffuse = mat < 0.5
+        is_metal = (mat >= 0.5) & (mat < 1.5)
+        is_glass = (mat >= 1.5) & (mat < 2.5)
+        ndx = torch.where(is_diffuse, ddx, torch.where(is_metal, mdx, gdx))
+        ndy = torch.where(is_diffuse, ddy, torch.where(is_metal, mdy, gdy))
+        ndz = torch.where(is_diffuse, ddz, torch.where(is_metal, mdz, gdz))
+        did_scatter = is_diffuse | (is_metal & metal_ok) | is_glass
+
+        miss = ab & ~hit
+        scat = ab & hit & did_scatter
+        sky_t = 0.5 * (udy + 1.0)
+        con_r = torch.where(miss, cr * (1.0 - 0.5 * sky_t), zero)
+        con_g = torch.where(miss, cg * (1.0 - 0.3 * sky_t), zero)
+        con_b = torch.where(miss, cb, zero)
+
+        cr = torch.where(scat, cr * al_r, cr)
+        cg = torch.where(scat, cg * al_g, cg)
+        cb = torch.where(scat, cb * al_b, cb)
+        if rr > 0:
+            p_surv = torch.clamp(
+                torch.maximum(cr, torch.maximum(cg, cb)), 0.05, 1.0
+            )
+            survive = (i < rr) | (rng.u01(pix, ctr, 7) < p_surv)
+            boost = torch.where((i >= rr) & survive & scat, 1.0 / p_surv,
+                                1.0)
+            cr, cg, cb = cr * boost, cg * boost, cb * boost
+            scat = scat & survive
+
+        exhausted = scat & (i >= opts.max_depth - 1)
+        if not opts.exhaust_black:
+            con_r = torch.where(exhausted, cr, con_r)
+            con_g = torch.where(exhausted, cg, con_g)
+            con_b = torch.where(exhausted, cb, con_b)
+        scat_cont = scat & ~exhausted
+        out[0] += con_r
+        out[1] += con_g
+        out[2] += con_b
+
+        # regeneration: an ended path starts the lane's next sample
+        done = ab & ~scat_cont
+        s = s + done.to(torch.int64)
+        regen = done & (s < spp)
+        nox, noy, noz, ndx2, ndy2, ndz2 = _gen_ray(
+            cam, s + sample_offset, px, py, pix, inv_w, inv_h, dps
+        )
+        ox = torch.where(regen, nox, torch.where(scat_cont, hpx, ox))
+        oy = torch.where(regen, noy, torch.where(scat_cont, hpy, oy))
+        oz = torch.where(regen, noz, torch.where(scat_cont, hpz, oz))
+        dx = torch.where(regen, ndx2, torch.where(scat_cont, ndx, dx))
+        dy = torch.where(regen, ndy2, torch.where(scat_cont, ndy, dy))
+        dz = torch.where(regen, ndz2, torch.where(scat_cont, ndz, dz))
+        cr = torch.where(regen, one, cr)
+        cg = torch.where(regen, one, cg)
+        cb = torch.where(regen, one, cb)
+        i = torch.where(regen, 0, torch.where(scat_cont, i + 1, i))
+
+        alive = scat_cont | regen | (alive & ~bdone)
+        bq = torch.where(ab, FILLQ, bq)
+        bs = torch.where(ab, 0, bs)
+        kl = torch.where(ab, NEG_BIG, kl)
+    return out, segs

@@ -1,0 +1,80 @@
+"""Trace options of the port (counterpart of
+``raytracer_tpu/render/options.py``), limited to what the cover render's
+main path reads. The production cluster-walk configuration of the JAX
+package (one cluster per walk step, packed visit key, fused bounce-done
+test) is the only walk the port has, so it carries no knobs for it."""
+
+from __future__ import annotations
+
+import dataclasses
+
+# Kernel constants (the reference shader's t range).
+MIN_T = 0.001
+MAX_T = 1e5
+
+#: scenes below this slot count take the flat scan in the JAX package
+CLUSTER_AUTO_MIN_SPHERES = 64
+
+
+@dataclasses.dataclass(frozen=True)
+class TraceOptions:
+    """Static tracing options.
+
+    ``exhaust_black`` returns black instead of the accumulated throughput
+    when a path runs out of bounces; ``near_zero_guard`` re-aims a
+    near-zero diffuse direction at the normal. Both default to the
+    reference shader's behaviour. ``russian_roulette_depth`` > 0 ends
+    paths from that bounce on with probability 1 - max(throughput) and
+    reweights survivors. ``sort_pixels`` renders chunks after the first in
+    descending measured per-pixel cost; the image does not change.
+
+    Options the JAX package has and the port does not yet serve raise
+    ``NotImplementedError`` naming their ROADMAP item.
+    """
+
+    max_depth: int = 8
+    exhaust_black: bool = False
+    near_zero_guard: bool = False
+    gamma: bool = True
+    russian_roulette_depth: int = 0
+    sort_pixels: bool = True
+    #: spheres per cluster of the partition
+    cluster_group: int = 16
+    cluster_bounds: str = "box"
+    cluster_partition: str = "kd"
+    adaptive_tolerance: float = 0.0
+    sampler: str = "random"
+    enable_debug: bool = False
+
+    def __post_init__(self):
+        if self.max_depth < 1:
+            raise ValueError(f"max_depth must be >= 1, got {self.max_depth}")
+        if self.cluster_group < 1:
+            raise ValueError(
+                f"cluster_group must be >= 1, got {self.cluster_group}"
+            )
+        if self.adaptive_tolerance > 0.0:
+            raise NotImplementedError(
+                "adaptive sampling is not ported yet (ROADMAP: kernel "
+                "variant K1a)"
+            )
+        if self.sampler != "random":
+            raise NotImplementedError(
+                f"sampler {self.sampler!r} is not ported yet (ROADMAP: "
+                "kernel variant K1s)"
+            )
+        if self.enable_debug:
+            raise NotImplementedError(
+                "the debug overlay is not ported yet (ROADMAP: kernel "
+                "variant K3)"
+            )
+        if self.cluster_bounds != "box":
+            raise NotImplementedError(
+                f"cluster_bounds {self.cluster_bounds!r}: only 'box' is "
+                "ported"
+            )
+        if self.cluster_partition != "kd":
+            raise NotImplementedError(
+                f"cluster_partition {self.cluster_partition!r}: only 'kd' "
+                "is ported"
+            )

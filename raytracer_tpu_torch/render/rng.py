@@ -1,0 +1,84 @@
+"""Counter-based RNG and sampling primitives of the cluster walk, on
+tensors (counterpart of ``raytracer_tpu/render/pallas_kernel.py``
+``_lowbias32`` … ``_unit_vec``; the CUDA kernel carries the same
+functions in ``csrc/cluster_walk.cu``).
+
+Unsigned 32-bit values ride in int64 tensors holding [0, 2^32). Products
+are formed from 16-bit halves of the constant so no intermediate leaves
+the int64 range: the integer streams are bit-exact with the JAX package.
+Float constants are Python doubles that torch rounds once to float32,
+as JAX's weakly typed scalars are.
+"""
+
+from __future__ import annotations
+
+import torch
+
+M32 = 0xFFFFFFFF
+TWO_PI = 6.2831853071795864
+INV_24 = 1.0 / 16777216.0  # 2^-24
+GOLDEN = 0x9E3779B9
+
+
+def mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """(x · c) mod 2^32 for x in [0, 2^32) held in int64."""
+    lo, hi = c & 0xFFFF, c >> 16
+    return (x * lo + (((x * hi) & 0xFFFF) << 16)) & M32
+
+
+def lowbias32(x: torch.Tensor) -> torch.Tensor:
+    """The lowbias32 integer hash (constants by the Hash Prospector)."""
+    x = x ^ (x >> 16)
+    x = mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def kernel_seed(seed: int) -> int:
+    """The int32 kernel seed of integer ``seed``, as the JAX package
+    derives it from ``jax.random.PRNGKey(seed)``: kernel seed =
+    int32(kd0 ^ lowbias32(kd1)) of the key data [kd0, kd1]. Without
+    64-bit mode, which the package never enables, the key data are
+    [0, seed mod 2^32]."""
+    v = int(lowbias32(torch.tensor(int(seed) & M32, dtype=torch.int64)))
+    return v - (1 << 32) if v >= (1 << 31) else v
+
+
+def hash32(pix: torch.Tensor, ctr: torch.Tensor, salt: int) -> torch.Tensor:
+    """hash(pixel ⊕ golden·(ctr + salt)), all mod 2^32."""
+    c = mul32((ctr + salt) & M32, GOLDEN)
+    return lowbias32(pix ^ c)
+
+
+def to_u01(h: torch.Tensor) -> torch.Tensor:
+    """Top 24 bits of a 32-bit hash → float32 in [0, 1)."""
+    return (h >> 8).to(torch.float32) * INV_24
+
+
+def u01(pix, ctr, salt: int) -> torch.Tensor:
+    return to_u01(hash32(pix, ctr, salt))
+
+
+def dot3(ax, ay, az, bx, by, bz):
+    return ax * bx + ay * by + az * bz
+
+
+def normalize3(x, y, z, eps=1e-20):
+    inv = torch.rsqrt(torch.clamp_min(x * x + y * y + z * z, eps))
+    return x * inv, y * inv, z * inv
+
+
+def unit_sphere(pix, ctr, salt: int):
+    """A point in the unit ball; the cube root is exp(log(u)/3)."""
+    hx = u01(pix, ctr, salt) * 2.0 - 1.0
+    phi = u01(pix, ctr, salt + 1) * TWO_PI
+    u = u01(pix, ctr, salt + 2)
+    r = torch.exp(torch.log(torch.clamp_min(u, 1e-12)) * (1.0 / 3.0))
+    s = torch.sqrt(torch.clamp_min(1.0 - hx * hx, 0.0))
+    return r * s * torch.sin(phi), r * s * torch.cos(phi), r * hx
+
+
+def unit_vec(pix, ctr, salt: int):
+    x, y, z = unit_sphere(pix, ctr, salt)
+    return normalize3(x, y, z)

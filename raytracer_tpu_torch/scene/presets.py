@@ -1,0 +1,158 @@
+"""Scene and camera presets (counterpart of
+``raytracer_tpu/scene/presets.py``): the reference demo scene and the
+BASELINE configs from *Ray Tracing in One Weekend*. The cover scene is
+drawn from ``np.random.default_rng(seed)`` exactly as the JAX package
+draws it, so both packages build equal arrays."""
+
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import numpy as np
+
+from raytracer_tpu_torch.camera.camera import CameraConfig
+from raytracer_tpu_torch.scene.materials import Material
+from raytracer_tpu_torch.scene.spheres import Scene, make_scene
+
+
+def demo_scene() -> Scene:
+    """The reference's default 9-sphere scene."""
+    d, m, g = Material.diffuse, Material.metal, Material.glass
+    return make_scene(
+        [
+            ((0.0, -100.5, -1.0), 100.0, d((0.75, 0.6, 0.5))),
+            ((0.0, 0.0, -1.0), 0.5, d((0.3, 0.3, 0.4))),
+            ((-1.1, 0.0, -1.0), 0.5, m((1.0, 1.0, 1.0))),
+            ((1.1, 0.0, -1.0), 0.5, g(1.5)),
+            ((-0.5, -0.35, -0.55), -0.15, m((1.0, 1.0, 1.0))),
+            ((-0.75, -0.4, -0.35), -0.1, m((1.0, 1.0, 1.0))),
+            ((0.0, 1.2, 4.0), 2.0, d((1.0, 0.8, 0.8))),
+            ((150.0, 20.0, -500.0), 100.0, d((0.95, 0.95, 1.0))),
+            ((170.0, -20.0, -350.0), 30.0, d((1.0, 1.0, 1.0))),
+        ]
+    )
+
+
+def demo_camera(width: int, height: int) -> CameraConfig:
+    return CameraConfig.create(
+        origin=(0.0, 0.0, 1.0), yaw=-90.0, pitch=0.0, fov=math.pi / 3.0,
+        aperture=0.0, focus_distance=0.75, aspect_ratio=width / height,
+    )
+
+
+def two_sphere_scene() -> Scene:
+    """Config 1: diffuse sphere + ground."""
+    d = Material.diffuse
+    return make_scene(
+        [
+            ((0.0, 0.0, -1.0), 0.5, d((0.5, 0.5, 0.5))),
+            ((0.0, -100.5, -1.0), 100.0, d((0.5, 0.5, 0.5))),
+        ]
+    )
+
+
+def three_sphere_scene(hollow_glass: bool = True) -> Scene:
+    """Config 2: diffuse / glass / metal trio, with the hollow-glass inner
+    shell when ``hollow_glass``."""
+    d, m, g = Material.diffuse, Material.metal, Material.glass
+    spheres = [
+        ((0.0, -100.5, -1.0), 100.0, d((0.8, 0.8, 0.0))),
+        ((0.0, 0.0, -1.0), 0.5, d((0.1, 0.2, 0.5))),
+        ((-1.0, 0.0, -1.0), 0.5, g(1.5)),
+        ((1.0, 0.0, -1.0), 0.5, m((0.8, 0.6, 0.2), fuzz=0.0)),
+    ]
+    if hollow_glass:
+        spheres.append(((-1.0, 0.0, -1.0), -0.45, g(1.5)))
+    return make_scene(spheres)
+
+
+def simple_camera(width: int, height: int) -> CameraConfig:
+    return CameraConfig.create(
+        origin=(0.0, 0.0, 0.0), yaw=-90.0, pitch=0.0, fov=math.pi / 2.0,
+        aperture=0.0, focus_distance=1.0, aspect_ratio=width / height,
+    )
+
+
+def dof_camera(width: int, height: int) -> CameraConfig:
+    """Config 3: lookfrom (3,3,2) → lookat (0,0,-1), fov 20°, aperture 2."""
+    lookfrom = np.array([3.0, 3.0, 2.0])
+    lookat = np.array([0.0, 0.0, -1.0])
+    yaw, pitch = yaw_pitch_from_lookat(lookfrom, lookat)
+    return CameraConfig.create(
+        origin=tuple(lookfrom), yaw=yaw, pitch=pitch,
+        fov=math.radians(20.0), aperture=2.0,
+        focus_distance=float(np.linalg.norm(lookfrom - lookat)),
+        aspect_ratio=width / height,
+    )
+
+
+def cover_scene(seed: int = 0) -> Scene:
+    """Config 5: the RTiOW cover scene (487 spheres for seed 0)."""
+    rng = np.random.default_rng(seed)
+    d, m, g = Material.diffuse, Material.metal, Material.glass
+    spheres = [((0.0, -1000.0, 0.0), 1000.0, d((0.5, 0.5, 0.5)))]
+    for a in range(-11, 11):
+        for b in range(-11, 11):
+            choose_mat = rng.random()
+            center = (a + 0.9 * rng.random(), 0.2, b + 0.9 * rng.random())
+            if np.linalg.norm(np.array(center)
+                              - np.array([4.0, 0.2, 0.0])) <= 0.9:
+                continue
+            if choose_mat < 0.8:
+                albedo = tuple(rng.random(3) * rng.random(3))
+                spheres.append((center, 0.2, d(albedo)))
+            elif choose_mat < 0.95:
+                albedo = tuple(rng.random(3) * 0.5 + 0.5)
+                fuzz = float(rng.random() * 0.5)
+                spheres.append((center, 0.2, m(albedo, fuzz=fuzz)))
+            else:
+                spheres.append((center, 0.2, g(1.5)))
+    spheres.append(((0.0, 1.0, 0.0), 1.0, g(1.5)))
+    spheres.append(((-4.0, 1.0, 0.0), 1.0, d((0.4, 0.2, 0.1))))
+    spheres.append(((4.0, 1.0, 0.0), 1.0, m((0.7, 0.6, 0.5), fuzz=0.0)))
+    return make_scene(spheres)
+
+
+def cover_camera(width: int, height: int) -> CameraConfig:
+    """Cover camera: lookfrom (13,2,3) → (0,0,0), fov 20°, aperture 0.1,
+    focus 10."""
+    lookfrom = np.array([13.0, 2.0, 3.0])
+    lookat = np.array([0.0, 0.0, 0.0])
+    yaw, pitch = yaw_pitch_from_lookat(lookfrom, lookat)
+    return CameraConfig.create(
+        origin=tuple(lookfrom), yaw=yaw, pitch=pitch,
+        fov=math.radians(20.0), aperture=0.1, focus_distance=10.0,
+        aspect_ratio=width / height,
+    )
+
+
+def yaw_pitch_from_lookat(lookfrom, lookat) -> Tuple[float, float]:
+    """Invert front = (cos(yaw)cos(pitch), sin(pitch), sin(yaw)cos(pitch)),
+    in degrees."""
+    front = (np.asarray(lookat, dtype=np.float64)
+             - np.asarray(lookfrom, dtype=np.float64))
+    front = front / np.linalg.norm(front)
+    pitch = math.degrees(math.asin(np.clip(front[1], -1.0, 1.0)))
+    yaw = math.degrees(math.atan2(front[2], front[0]))
+    return yaw, pitch
+
+
+#: name → (scene builder, camera builder, default W, H, spp, depth)
+BASELINE_CONFIGS = {
+    "two_sphere": (two_sphere_scene, simple_camera, 400, 225, 16, 8),
+    "three_sphere": (three_sphere_scene, simple_camera, 1280, 720, 64, 16),
+    "dof": (three_sphere_scene, dof_camera, 1920, 1080, 128, 16),
+    "progressive": (demo_scene, demo_camera, 1920, 1080, 1, 8),
+    "cover": (cover_scene, cover_camera, 1200, 800, 500, 50),
+    "demo": (demo_scene, demo_camera, 1280, 720, 1, 8),
+}
+
+
+def get_config(name: str, width: int | None = None,
+               height: int | None = None):
+    """Resolve a named config → (scene, camera, w, h, spp, depth)."""
+    scene_fn, cam_fn, w, h, spp, depth = BASELINE_CONFIGS[name]
+    w = width or w
+    h = height or h
+    return scene_fn(), cam_fn(w, h), w, h, spp, depth

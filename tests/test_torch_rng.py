@@ -1,0 +1,84 @@
+"""The port's counter-hash RNG against the TPU kernel's
+(``pallas_kernel._lowbias32`` … ``_unit_vec``) on the same random
+inputs: the integer streams bit for bit, the sampled directions within
+the float32 ulps by which the two libraries' transcendentals differ."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from raytracer_tpu.render import pallas_kernel as pk
+from raytracer_tpu_torch.render import rng
+
+N = 200_000
+
+
+@pytest.fixture(scope="module")
+def inputs():
+    r = np.random.default_rng(1234)
+    pix = r.integers(0, 2**32, N, dtype=np.uint64).astype(np.uint32)
+    # counters as the kernel forms them: int32 products that may wrap
+    ctr = r.integers(-(2**31), 2**31, N, dtype=np.int64).astype(np.int32)
+    return pix, ctr
+
+
+def as_port(a: np.ndarray) -> torch.Tensor:
+    """uint32 / int32 bits → the port's int64 in [0, 2^32)."""
+    return torch.from_numpy(a.view(np.uint32).astype(np.int64))
+
+
+def test_lowbias32_bit_exact(inputs):
+    pix, _ = inputs
+    ref = np.asarray(pk._lowbias32(jnp.asarray(pix))).astype(np.int64)
+    np.testing.assert_array_equal(rng.lowbias32(as_port(pix)).numpy(), ref)
+
+
+@pytest.mark.parametrize("salt", [0, 1, 3, 6, 7])
+def test_hash32_and_u01_bit_exact(inputs, salt):
+    pix, ctr = inputs
+    h = np.asarray(pk._hash32(jnp.asarray(pix), jnp.asarray(ctr), salt))
+    got = rng.hash32(as_port(pix), as_port(ctr), salt)
+    np.testing.assert_array_equal(got.numpy(), h.astype(np.int64))
+    np.testing.assert_array_equal(
+        rng.to_u01(got).numpy(), np.asarray(pk._to_u01(jnp.asarray(h)))
+    )
+    u = np.asarray(pk._u01(jnp.asarray(pix), jnp.asarray(ctr), salt))
+    np.testing.assert_array_equal(
+        rng.u01(as_port(pix), as_port(ctr), salt).numpy(), u
+    )
+
+
+#: absolute error bound on the unit-ball and unit-vector components, in
+#: float32 ulps at 1.0: sin, cos, log and exp differ by 1 ulp and rsqrt
+#: by up to 2 between XLA's and PyTorch's CPU kernels, and a draw chains
+#: them (measured at most 1.5 ulps at 1.0 over 200k draws)
+UNIT_MAX_ABS = 4 * 2.0**-23
+
+
+@pytest.mark.parametrize("fn", ["unit_sphere", "unit_vec"])
+def test_unit_draws_within_ulps(inputs, fn):
+    pix, ctr = inputs
+    ref = np.stack([np.asarray(t) for t in getattr(pk, "_" + fn)(
+        jnp.asarray(pix), jnp.asarray(ctr), 3)])
+    got = np.stack([t.numpy() for t in getattr(rng, fn)(
+        as_port(pix), as_port(ctr), 3)])
+    np.testing.assert_allclose(got, ref, rtol=0, atol=UNIT_MAX_ABS)
+
+
+@pytest.mark.parametrize(
+    "seed", [0, 1, 7, -1, 123456789, 2**31, 2**32 + 5, 2**40 + 3]
+)
+def test_kernel_seed_matches_prng_key(seed):
+    """``seed`` drives the same hash streams as ``PRNGKey(seed)``: the
+    kernel seed is int32(kd0 ^ lowbias32(kd1)) of the key data, as
+    ``_render_pallas`` derives it."""
+    kd = np.asarray(
+        jax.random.key_data(jax.random.PRNGKey(seed))
+    ).astype(np.uint32)
+    ref = np.int32(
+        (kd[0] ^ np.asarray(pk._lowbias32(jnp.uint32(kd[1]))))
+        .astype(np.uint32).view(np.int32)
+    )
+    assert rng.kernel_seed(seed) == int(ref)
