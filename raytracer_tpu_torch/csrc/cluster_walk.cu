@@ -1,11 +1,24 @@
 // The gathered cluster walk on Hopper: one spp chunk for every lane of a
 // lane->pixel map.
 //
-// Replaces the cluster-walk variant of the TPU kernel
+// Replaces the cluster-walk variants of the TPU kernel
 // raytracer_tpu/render/pallas_kernel.py `_make_kernel(...).kernel`
 // (launched by `_render_chunk_impl`) in its production configuration:
 // kd partition with box bounds, one cluster per walk step, packed visit
-// key, fused bounce-done test, random sampler, fixed spp.
+// key, fused bounce-done test. Two template parameters give its four
+// instantiations:
+//   kAdaptive   (the TPU kernel's `adaptive=True`): a lane samples up to
+//               its own budget (0 = its pixel has converged: the lane does
+//               nothing), and two more output rows carry the lane's
+//               completed-sample count and its sum of squared sample
+//               luminances;
+//   kStratified (`sampler='stratified'`): the four camera draws, and on a
+//               sample's first bounce the diffuse direction and the glass
+//               roll, are the (sample_offset + s)-th point of a Kronecker
+//               sequence in 32-bit fixed point under the pixel's hashed
+//               rotation. Every other draw stays counter-hashed.
+// Both sit in the loop every lane runs, so they are compile-time: the
+// <false, false> instantiation carries no trace of either.
 //
 // Design. One thread per lane, one lane per pixel of the chunk's map.
 // Each thread runs the TPU kernel's path-regeneration state machine
@@ -51,6 +64,17 @@ constexpr float kQCut = 0x1.5af1d8p+66f;         // 1e20
 constexpr float kSkyG = 0x1.333334p-2f;          // 0.3
 constexpr float kRRMin = 0x1.99999ap-5f;         // 0.05
 constexpr float kNearZero = 0x1.5798eep-27f;     // 1e-8
+// stratified sampler: alphas as round(alpha * 2^32), and the counters of
+// the per-pixel rotations (-4 camera, -8 first bounce)
+constexpr uint32_t kA4Fix0 = 0xC13FA9A9u;   // 1/g, g^3 = g + 1: jitter u
+constexpr uint32_t kA4Fix1 = 0x91E10DA6u;   // 1/g^2: jitter v
+constexpr uint32_t kA4Fix2 = 0x6A09E668u;   // sqrt(2) - 1: lens u
+constexpr uint32_t kA4Fix3 = 0xBB67AE86u;   // sqrt(3) - 1: lens v
+constexpr uint32_t kAB0Fix0 = 0xAEAD08F3u;  // 1/h, h^3 = h^2 + 1: diffuse hx
+constexpr uint32_t kAB0Fix1 = 0x772FAD1Fu;  // 1/h^2: diffuse phi
+constexpr uint32_t kAB0Fix2 = 0x9E3779B9u;  // (sqrt(5) - 1)/2: glass roll
+constexpr uint32_t kRotCamera = 0xFFFFFFFCu;
+constexpr uint32_t kRotBounce0 = 0xFFFFFFF8u;
 constexpr int kDrawsPerBounce = 8;
 constexpr int kThreads = 128;
 
@@ -61,7 +85,9 @@ struct Params {
   const float* members;  // (k, group, 4) [cx, cy, cz, k1]
   const float* winner;   // (slots, 11) [c xyz, 1/r, mat, albedo rgb, fuzz, ior, uuid]
   const int* pixel_map;  // (n, 2) [px, py]
-  float* out;            // (4, n) rgb sums and walk iterations, lane order
+  const int* budget;     // (n,) samples per lane, or null: spp for every lane
+  float* out;            // (4, n) rgb sums and walk iterations, lane order;
+                         // (6, n) with sample count and sum of lum^2
   int* segs;             // (n,) completed bounces
   int n, n_global, k, group, slots;
   int wp;                // image width padded to 128: the RNG's row stride
@@ -85,6 +111,15 @@ __device__ __forceinline__ float u01(uint32_t pix, uint32_t ctr,
                                      uint32_t salt) {
   uint32_t h = lowbias32(pix ^ ((ctr + salt) * 0x9E3779B9u));
   return (float)(int)(h >> 8) * kInv24;
+}
+
+// the s_u-th Kronecker point of dimension d: the pixel's hash at counter
+// rot + d is the rotation, and rotation + s * alpha wraps mod 2^32
+__device__ __forceinline__ float r2_fixed(uint32_t pix, uint32_t rot,
+                                          uint32_t d, uint32_t s_u,
+                                          uint32_t a_fix) {
+  uint32_t x = lowbias32(pix ^ ((rot + d) * 0x9E3779B9u)) + s_u * a_fix;
+  return (float)(int)(x >> 8) * kInv24;
 }
 
 __device__ __forceinline__ float dot3(float ax, float ay, float az, float bx,
@@ -140,14 +175,27 @@ __device__ __forceinline__ float inv_dir(float d) {
   return 1.0f / (d >= 0.0f ? fmaxf(d, kUEps) : fminf(d, -kUEps));
 }
 
-// camera ray of the sample whose counter block starts at ctr0
+// camera ray of absolute sample index s_abs, whose counter block starts
+// at s_abs * dps
+template <bool kStratified>
 __device__ __forceinline__ void gen_ray(const float* cam, const Params& p,
-                                        uint32_t ctr0, float px, float py,
-                                        uint32_t pix, float& ox, float& oy,
-                                        float& oz, float& dx, float& dy,
-                                        float& dz) {
-  float u0 = u01(pix, ctr0, 0), u1 = u01(pix, ctr0, 1);
-  float u2 = u01(pix, ctr0, 2), u3 = u01(pix, ctr0, 3);
+                                        uint32_t s_abs, uint32_t dps,
+                                        float px, float py, uint32_t pix,
+                                        float& ox, float& oy, float& oz,
+                                        float& dx, float& dy, float& dz) {
+  float u0, u1, u2, u3;
+  if (kStratified) {
+    u0 = r2_fixed(pix, kRotCamera, 0, s_abs, kA4Fix0);
+    u1 = r2_fixed(pix, kRotCamera, 1, s_abs, kA4Fix1);
+    u2 = r2_fixed(pix, kRotCamera, 2, s_abs, kA4Fix2);
+    u3 = r2_fixed(pix, kRotCamera, 3, s_abs, kA4Fix3);
+  } else {
+    const uint32_t ctr0 = s_abs * dps;
+    u0 = u01(pix, ctr0, 0);
+    u1 = u01(pix, ctr0, 1);
+    u2 = u01(pix, ctr0, 2);
+    u3 = u01(pix, ctr0, 3);
+  }
   float st_s = (px + 0.5f + u0) * p.inv_w;
   float st_t = (py + 0.5f + u1) * p.inv_h;
   float ang = u2 * kTwoPi;
@@ -167,6 +215,7 @@ __host__ __device__ constexpr int smem_floats(int n_global, int k, int group,
   return 20 + 4 * n_global + 6 * k + 4 * k * group + 11 * slots;
 }
 
+template <bool kAdaptive, bool kStratified>
 __global__ void __launch_bounds__(kThreads) cluster_walk_kernel(Params p) {
   extern __shared__ float smem[];
   float* s_cam = smem;                       // 19, padded to 20
@@ -194,14 +243,27 @@ __global__ void __launch_bounds__(kThreads) cluster_walk_kernel(Params p) {
   const uint32_t pix = lowbias32(gid ^ p.seed);
   const uint32_t dps = 4u + (uint32_t)p.max_depth * kDrawsPerBounce;
 
+  // samples this lane takes: its own budget, else the chunk's spp
+  int limit = p.spp;
+  if (kAdaptive) {
+    if (p.budget != nullptr) limit = p.budget[lane];
+    if (limit <= 0) {
+      // a converged pixel: dead at launch, all sums zero
+      for (int c = 0; c < 6; ++c) p.out[c * p.n + lane] = 0.0f;
+      p.segs[lane] = 0;
+      return;
+    }
+  }
+
   int s = 0, i = 0;
   float ox, oy, oz, dx, dy, dz;
-  gen_ray(s_cam, p, (uint32_t)p.sample_offset * dps, px, py, pix, ox, oy,
-          oz, dx, dy, dz);
+  gen_ray<kStratified>(s_cam, p, (uint32_t)p.sample_offset, dps, px, py, pix,
+                       ox, oy, oz, dx, dy, dz);
   float cr = 1.0f, cg = 1.0f, cb = 1.0f;
   float bq = kFillQ, kl = kNegBig;  // best q, visited cursor (packed key)
   int bs = 0;                       // winner slot
   float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f, cost = 0.0f;
+  float acc_l2 = 0.0f;  // adaptive: sum of squared sample luminances
   int segs = 0;
 
   for (;;) {
@@ -311,8 +373,21 @@ __global__ void __launch_bounds__(kThreads) cluster_walk_kernel(Params p) {
       const float mat = w[4];
       if (mat < 0.5f) {  // diffuse
         float uvx, uvy, uvz;
-        unit_sphere(pix, ctr, 0, uvx, uvy, uvz);
-        normalize3(uvx, uvy, uvz);
+        if (kStratified && i == 0) {
+          // first bounce: (hx, phi) on the unit sphere, already unit
+          const uint32_t s_u = (uint32_t)(p.sample_offset + s);
+          const float b_hx =
+              r2_fixed(pix, kRotBounce0, 0, s_u, kAB0Fix0) * 2.0f - 1.0f;
+          const float b_phi =
+              r2_fixed(pix, kRotBounce0, 1, s_u, kAB0Fix1) * kTwoPi;
+          const float b_s = sqrtf(fmaxf(1.0f - b_hx * b_hx, 0.0f));
+          uvx = b_s * sinf(b_phi);
+          uvy = b_s * cosf(b_phi);
+          uvz = b_hx;
+        } else {
+          unit_sphere(pix, ctr, 0, uvx, uvy, uvz);
+          normalize3(uvx, uvy, uvz);
+        }
         ndx = nx + uvx;
         ndy = ny + uvy;
         ndz = nz + uvz;
@@ -343,7 +418,12 @@ __global__ void __launch_bounds__(kThreads) cluster_walk_kernel(Params p) {
         const float one_m = 1.0f - cos_t;
         const float one_m2 = one_m * one_m;
         const float schlick = r0 + (1.0f - r0) * one_m2 * one_m2 * one_m;
-        if (cannot || schlick > u01(pix, ctr, 6)) {
+        const float glass_u =
+            (kStratified && i == 0)
+                ? r2_fixed(pix, kRotBounce0, 2,
+                           (uint32_t)(p.sample_offset + s), kAB0Fix2)
+                : u01(pix, ctr, 6);
+        if (cannot || schlick > glass_u) {
           const float ud_dot_n = dot3(udx, udy, udz, nx, ny, nz);
           ndx = udx - 2.0f * ud_dot_n * nx;
           ndy = udy - 2.0f * ud_dot_n * ny;
@@ -388,6 +468,11 @@ __global__ void __launch_bounds__(kThreads) cluster_walk_kernel(Params p) {
     acc_r = acc_r + con_r;
     acc_g = acc_g + con_g;
     acc_b = acc_b + con_b;
+    if (kAdaptive) {
+      // the sample's luminance: zero unless the path ended with light
+      const float lum = (con_r + con_g + con_b) * kOneThird;
+      acc_l2 = acc_l2 + lum * lum;
+    }
 
     if (scat && !exhausted) {
       ox = hpx;
@@ -400,9 +485,9 @@ __global__ void __launch_bounds__(kThreads) cluster_walk_kernel(Params p) {
     } else {
       // the path ended: regenerate the lane's next sample, if any
       ++s;
-      if (s >= p.spp) break;
-      gen_ray(s_cam, p, (uint32_t)(p.sample_offset + s) * dps, px, py, pix,
-              ox, oy, oz, dx, dy, dz);
+      if (s >= limit) break;
+      gen_ray<kStratified>(s_cam, p, (uint32_t)(p.sample_offset + s), dps, px,
+                           py, pix, ox, oy, oz, dx, dy, dz);
       cr = cg = cb = 1.0f;
       i = 0;
     }
@@ -415,17 +500,35 @@ __global__ void __launch_bounds__(kThreads) cluster_walk_kernel(Params p) {
   p.out[p.n + lane] = acc_g;
   p.out[2 * p.n + lane] = acc_b;
   p.out[3 * p.n + lane] = cost;
+  if (kAdaptive) {
+    p.out[4 * p.n + lane] = (float)s;  // every sample up to s completed
+    p.out[5 * p.n + lane] = acc_l2;
+  }
   p.segs[lane] = segs;
+}
+
+template <bool kAdaptive, bool kStratified>
+cudaError_t launch(const Params& p, int blocks, size_t smem,
+                   cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      cluster_walk_kernel<kAdaptive, kStratified>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  cluster_walk_kernel<kAdaptive, kStratified>
+      <<<blocks, kThreads, smem, stream>>>(p);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// Launches the walk on `stream`; returns the launch's cudaError_t (0 on
-// success). Tables and map are device pointers; the caller checks shapes.
+// Launches the walk's <adaptive, stratified> instantiation on `stream`;
+// returns the launch's cudaError_t (0 on success). Tables, map and budget
+// (null without one) are device pointers; the caller checks shapes.
 extern "C" int cluster_walk_launch(
     const float* camera, const float* globals, const float* bounds,
     const float* members, const float* winner, const int* pixel_map,
-    float* out, int* segs, int n, int n_global, int k, int group, int wp,
+    const int* budget, float* out, int* segs, int adaptive, int stratified,
+    int n, int n_global, int k, int group, int wp,
     int seed, int sample_offset, int spp, int max_depth, int rr_depth,
     int exhaust_black, int near_zero_guard, float inv_w, float inv_h,
     void* stream) {
@@ -437,6 +540,7 @@ extern "C" int cluster_walk_launch(
   p.members = members;
   p.winner = winner;
   p.pixel_map = pixel_map;
+  p.budget = budget;
   p.out = out;
   p.segs = segs;
   p.n = n;
@@ -456,11 +560,11 @@ extern "C" int cluster_walk_launch(
   p.inv_h = inv_h;
   const size_t smem =
       sizeof(float) * (size_t)smem_floats(n_global, k, group, p.slots);
-  cudaError_t err = cudaFuncSetAttribute(
-      cluster_walk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
   const int blocks = (n + kThreads - 1) / kThreads;
-  cluster_walk_kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(p);
-  return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  if (adaptive)
+    return (int)(stratified ? launch<true, true>(p, blocks, smem, st)
+                            : launch<true, false>(p, blocks, smem, st));
+  return (int)(stratified ? launch<false, true>(p, blocks, smem, st)
+                          : launch<false, false>(p, blocks, smem, st));
 }

@@ -39,7 +39,9 @@ def render_image(scene: Scene, camera, width: int, height: int, spp: int,
     ``seed`` drives the same hash streams as ``jax.random.PRNGKey(seed)``
     in the JAX package. Returns an (H, W, 3) float32 image in [0, 1] on
     ``device``, row 0 at the image bottom, and with ``return_stats`` a
-    dict of segment totals."""
+    dict of segment totals (``segments``, ``segments_exact``); an adaptive
+    render adds ``mean_spp`` (float, mean samples per pixel) and
+    ``spp_map`` ((H, W) tensor of per-pixel sample counts)."""
     if spp < 1:
         raise ValueError(f"spp must be >= 1, got {spp}")
     if width < 1 or height < 1:

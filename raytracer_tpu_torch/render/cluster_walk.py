@@ -1,16 +1,19 @@
 """The gathered cluster walk: one spp chunk for every lane of a
-lane→pixel map (counterpart of the cluster-walk variant of
+lane→pixel map (counterpart of the cluster-walk variants of
 ``raytracer_tpu/render/pallas_kernel.py`` ``_make_kernel(...).kernel``,
 launched by ``_render_chunk_impl``).
 
 :func:`cluster_walk` launches the CUDA kernel ``csrc/cluster_walk.cu`` on
-CUDA tensors and counts its launches in ``cluster_walk.launches``; on CPU
-tensors it runs :func:`cluster_walk_plain`, the same function written as
-masked tensor code. Both return
+CUDA tensors and counts its launches in ``cluster_walk.launches`` (and by
+kernel variant in ``cluster_walk.launches_by_variant``); on CPU tensors it
+runs :func:`cluster_walk_plain`, the same function written as masked
+tensor code. Both return
 
 - ``out`` (4, n) float32, lane order: rgb sums of the lane's pixel over
   the chunk's samples, and the walk-iteration count (the path cost that
-  drives pixel sorting);
+  drives pixel sorting); with ``opts.adaptive_tolerance`` > 0 two more
+  rows, the lane's completed-sample count and its sum of squared sample
+  luminances;
 - ``segs`` (n,) int32: bounce-completed segments per lane.
 
 Per lane: ray generation from the counter-hash RNG, exact tests of the
@@ -20,6 +23,14 @@ an exact test of the first one's members, the fused bounce-done test on
 the second, and on bounce completion the shared tail: winner lookup,
 front-face normal, diffuse / metal / glass scatter, Russian roulette,
 depth exhaustion, accumulation and path regeneration.
+
+Two compile-time switches of the kernel follow ``opts``. Adaptive
+(``adaptive_tolerance`` > 0): a lane samples up to its own ``budget``
+(the chunk's ``spp`` where no budget is given) and a lane whose budget is
+0 does nothing. Stratified (``sampler='stratified'``): the four camera
+draws, and on a sample's first bounce the diffuse direction and the
+glass roll, are the (sample_offset + s)-th point of the pixel's rotated
+Kronecker sequence; every other draw stays counter-hashed.
 """
 
 from __future__ import annotations
@@ -29,6 +40,7 @@ import ctypes
 import numpy as np
 import torch
 
+from raytracer_tpu_torch.core.sampling import A4_FIX, AB0_FIX
 from raytracer_tpu_torch.render import rng
 from raytracer_tpu_torch.render.options import MAX_T, MIN_T, TraceOptions
 from raytracer_tpu_torch.render.tables import MAX_CLUSTERS, WalkTables
@@ -55,8 +67,15 @@ def identity_map(width: int, height: int, device) -> torch.Tensor:
     return torch.stack([lane % width, lane // width], 1).to(torch.int32)
 
 
+def variant_name(opts: TraceOptions) -> str:
+    """The kernel instantiation that serves ``opts``."""
+    return "cluster_walk" + (
+        "_adaptive" if opts.adaptive_tolerance > 0.0 else ""
+    ) + ("_stratified" if opts.sampler == "stratified" else "")
+
+
 def _check(tables: WalkTables, pixel_map: torch.Tensor, width: int,
-           height: int, spp: int):
+           height: int, spp: int, opts: TraceOptions, budget):
     dev = pixel_map.device
     for name in ("camera", "globals", "bounds", "members", "winner"):
         t = getattr(tables, name)
@@ -78,24 +97,42 @@ def _check(tables: WalkTables, pixel_map: torch.Tensor, width: int,
         raise ValueError("pixel_map must be a contiguous (n, 2) int32 tensor")
     if width < 1 or height < 1 or spp < 1:
         raise ValueError("width, height and spp must be >= 1")
+    if budget is not None:
+        if not opts.adaptive_tolerance > 0.0:
+            raise ValueError("a budget needs opts.adaptive_tolerance > 0")
+        if (budget.dtype != torch.int32 or budget.device != dev
+                or budget.shape != pixel_map.shape[:1]
+                or not budget.is_contiguous()):
+            raise ValueError(
+                "budget must be a contiguous (n,) int32 tensor on the "
+                "map's device"
+            )
 
 
 def cluster_walk(tables: WalkTables, pixel_map: torch.Tensor, seed: int,
                  sample_offset: int, spp: int, width: int, height: int,
-                 opts: TraceOptions):
-    """One chunk of ``spp`` samples for every lane of ``pixel_map``."""
-    _check(tables, pixel_map, width, height, spp)
+                 opts: TraceOptions, budget: torch.Tensor | None = None):
+    """One chunk of ``spp`` samples for every lane of ``pixel_map``;
+    with ``budget`` (adaptive only), lane j takes ``budget[j]`` samples
+    instead."""
+    _check(tables, pixel_map, width, height, spp, opts, budget)
     dev = pixel_map.device
     if dev.type == "cpu":
         return cluster_walk_plain(tables, pixel_map, seed, sample_offset,
-                                  spp, width, height, opts)
+                                  spp, width, height, opts, budget)
     if dev.type != "cuda":
         raise ValueError(f"no cluster walk for device {dev}")
     return _launch(tables, pixel_map, seed, sample_offset, spp, width,
-                   height, opts)
+                   height, opts, budget)
 
 
 cluster_walk.launches = 0
+cluster_walk.launches_by_variant = {}
+
+
+def reset_launch_counts():
+    cluster_walk.launches = 0
+    cluster_walk.launches_by_variant = {}
 
 
 def _lib():
@@ -104,18 +141,21 @@ def _lib():
     lib = cuda_build.load("cluster_walk")
     fn = lib.cluster_walk_launch
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 12
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 14
                        + [ctypes.c_float] * 2 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
 
 def _launch(tables, pixel_map, seed, sample_offset, spp, width, height,
-            opts):
+            opts, budget):
     n = pixel_map.shape[0]
     k, group = tables.members.shape[:2]
     dev = pixel_map.device
-    out = torch.empty((4, n), dtype=torch.float32, device=dev)
+    adaptive = opts.adaptive_tolerance > 0.0
+    # the kernel writes every element, zeros for a lane without budget
+    out = torch.empty((6 if adaptive else 4, n), dtype=torch.float32,
+                      device=dev)
     segs = torch.empty((n,), dtype=torch.int32, device=dev)
     if n == 0:
         return out, segs
@@ -126,7 +166,9 @@ def _launch(tables, pixel_map, seed, sample_offset, spp, width, height,
             tables.camera.data_ptr(), tables.globals.data_ptr(),
             tables.bounds.data_ptr(), tables.members.data_ptr(),
             tables.winner.data_ptr(), pixel_map.data_ptr(),
+            None if budget is None else budget.data_ptr(),
             out.data_ptr(), segs.data_ptr(),
+            int(adaptive), int(opts.sampler == "stratified"),
             n, tables.globals.shape[0], k, group, padded_width(width),
             int(seed), int(sample_offset), int(spp),
             opts.max_depth, opts.russian_roulette_depth,
@@ -137,17 +179,29 @@ def _launch(tables, pixel_map, seed, sample_offset, spp, width, height,
     if err != 0:
         raise RuntimeError(f"cluster_walk kernel launch failed: CUDA error {err}")
     cluster_walk.launches += 1
+    name = variant_name(opts)
+    by_variant = cluster_walk.launches_by_variant
+    by_variant[name] = by_variant.get(name, 0) + 1
     return out, segs
 
 
-def _gen_ray(cam, s_abs, px, py, pix, inv_w, inv_h, dps):
-    """Camera ray of absolute sample index ``s_abs``: draws 0-3 of the
-    sample's counter block jitter the pixel and sample the lens disc."""
-    ctr0 = (s_abs * dps) & rng.M32
-    u0 = rng.u01(pix, ctr0, 0)
-    u1 = rng.u01(pix, ctr0, 1)
-    u2 = rng.u01(pix, ctr0, 2)
-    u3 = rng.u01(pix, ctr0, 3)
+def _gen_ray(cam, s_abs, px, py, pix, inv_w, inv_h, dps, stratified):
+    """Camera ray of absolute sample index ``s_abs``: four draws jitter
+    the pixel and sample the lens disc. They are draws 0-3 of the
+    sample's counter block, or with the stratified sampler the
+    ``s_abs``-th point of the pixel's four camera dimensions."""
+    if stratified:
+        s_u = s_abs & rng.M32
+        u0, u1, u2, u3 = (
+            rng.r2_fixed(pix, rng.ROT_CAMERA, d, s_u, A4_FIX[d])
+            for d in range(4)
+        )
+    else:
+        ctr0 = (s_abs * dps) & rng.M32
+        u0 = rng.u01(pix, ctr0, 0)
+        u1 = rng.u01(pix, ctr0, 1)
+        u2 = rng.u01(pix, ctr0, 2)
+        u3 = rng.u01(pix, ctr0, 3)
     (ox0, oy0, oz0, llx, lly, llz, hx, hy, hz, vx, vy, vz,
      ux, uy, uz, vvx, vvy, vvz, lens) = cam
     st_s = (px + 0.5 + u0) * inv_w
@@ -206,7 +260,8 @@ def _key_floor(key: torch.Tensor) -> torch.Tensor:
 
 def cluster_walk_plain(tables: WalkTables, pixel_map: torch.Tensor,
                        seed: int, sample_offset: int, spp: int, width: int,
-                       height: int, opts: TraceOptions):
+                       height: int, opts: TraceOptions,
+                       budget: torch.Tensor | None = None):
     """The cluster walk as masked tensor code: every lane runs the same
     regeneration loop, one walk iteration per pass, ``while`` any lane is
     alive. The arithmetic and its order are the kernel's."""
@@ -221,6 +276,10 @@ def cluster_walk_plain(tables: WalkTables, pixel_map: torch.Tensor,
     dps = 4 + opts.max_depth * DRAWS_PER_BOUNCE
     inv_w, inv_h = 1.0 / width, 1.0 / height
     rr = opts.russian_roulette_depth
+    adaptive = opts.adaptive_tolerance > 0.0
+    stratified = opts.sampler == "stratified"
+    # samples a lane takes: its own budget, else the chunk's spp
+    limit = spp if budget is None else budget.to(torch.int64)
 
     pxi = pixel_map[:, 0].to(torch.int64)
     pyi = pixel_map[:, 1].to(torch.int64)
@@ -234,13 +293,14 @@ def cluster_walk_plain(tables: WalkTables, pixel_map: torch.Tensor,
     s = torch.zeros(n, dtype=torch.int64, device=dev)
     i = torch.zeros(n, dtype=torch.int64, device=dev)
     ox, oy, oz, dx, dy, dz = _gen_ray(cam, s + sample_offset, px, py, pix,
-                                      inv_w, inv_h, dps)
+                                      inv_w, inv_h, dps, stratified)
     cr, cg, cb = one, one, one
-    alive = torch.ones(n, dtype=torch.bool, device=dev)
+    # a lane without budget is dead at launch
+    alive = s < limit
     bq = torch.full((n,), FILLQ, dtype=f32, device=dev)
     bs = torch.zeros(n, dtype=torch.int64, device=dev)
     kl = torch.full((n,), NEG_BIG, dtype=f32, device=dev)
-    out = torch.zeros((4, n), dtype=f32, device=dev)
+    out = torch.zeros((6 if adaptive else 4, n), dtype=f32, device=dev)
     segs = torch.zeros(n, dtype=torch.int32, device=dev)
 
     while bool(alive.any()):
@@ -325,6 +385,22 @@ def cluster_walk_plain(tables: WalkTables, pixel_map: torch.Tensor,
         uvx, uvy, uvz = rng.unit_vec(pix, ctr, 0)
         usx, usy, usz = rng.unit_sphere(pix, ctr, 3)
         glass_u = rng.u01(pix, ctr, 6)
+        if stratified:
+            # a sample's first bounce: direction from (hx, phi) on the
+            # unit sphere, not normalised again, and the glass roll
+            s_u = (sample_offset + s) & rng.M32
+            b0, b1, b2 = (
+                rng.r2_fixed(pix, rng.ROT_BOUNCE0, d, s_u, AB0_FIX[d])
+                for d in range(3)
+            )
+            b_hx = b0 * 2.0 - 1.0
+            b_phi = b1 * rng.TWO_PI
+            b_s = torch.sqrt(torch.clamp_min(1.0 - b_hx * b_hx, 0.0))
+            first = i == 0
+            uvx = torch.where(first, b_s * torch.sin(b_phi), uvx)
+            uvy = torch.where(first, b_s * torch.cos(b_phi), uvy)
+            uvz = torch.where(first, b_hx, uvz)
+            glass_u = torch.where(first, b2, glass_u)
 
         ddx, ddy, ddz = nx + uvx, ny + uvy, nz + uvz
         if opts.near_zero_guard:
@@ -401,10 +477,17 @@ def cluster_walk_plain(tables: WalkTables, pixel_map: torch.Tensor,
 
         # regeneration: an ended path starts the lane's next sample
         done = ab & ~scat_cont
+        if adaptive:
+            # the sample's luminance is its contribution's mean, zero for
+            # an absorbed or roulette-killed path
+            lum = (con_r + con_g + con_b) * (1.0 / 3.0)
+            out[4] += done.to(f32)
+            out[5] += lum * lum
         s = s + done.to(torch.int64)
-        regen = done & (s < spp)
+        regen = done & (s < limit)
         nox, noy, noz, ndx2, ndy2, ndz2 = _gen_ray(
-            cam, s + sample_offset, px, py, pix, inv_w, inv_h, dps
+            cam, s + sample_offset, px, py, pix, inv_w, inv_h, dps,
+            stratified
         )
         ox = torch.where(regen, nox, torch.where(scat_cont, hpx, ox))
         oy = torch.where(regen, noy, torch.where(scat_cont, hpy, oy))

@@ -1,7 +1,9 @@
 """Chunked cluster-walk render (counterpart of the host orchestration in
 ``raytracer_tpu/render/pallas_kernel.py``: ``render_image_pallas``,
-``_render_pallas``, ``_plan_from_cost``, ``_accumulate_sorted``,
-``_finalize_flat`` and ``_finalize``).
+``_render_pallas``, ``_plan_from_cost``, ``_plan_adaptive``,
+``_accumulate_sorted``, ``_render_adaptive_profiled``,
+``_render_adaptive_scan``, ``_finalize_flat``, ``_finalize_adaptive``
+and ``_finalize``).
 
 The spp run is cut by the shared schedule. With ``sort_pixels`` and more
 than one chunk, the first chunk renders in the identity lane order and
@@ -11,6 +13,15 @@ lane-order sums back into pixel order. Per-pixel results depend only on
 the pixel and the chunk, and every pixel sums its chunks in schedule
 order, so sorted and unsorted renders are bitwise equal.
 
+An adaptive render (``adaptive_tolerance`` > 0) runs finer chunks and
+carries two more accumulator rows, each pixel's completed-sample count
+and its sum of squared sample luminances. After every chunk it decides
+per pixel whether the confidence interval of the mean luminance meets
+the tolerance; converged pixels get budget 0 and sort last, so their
+lanes do nothing, and the image divides each pixel's sums by its own
+count. Budgets, maps and statistics are built on the device: the loop
+never waits for it.
+
 Segment totals are exact int64 sums of the kernel's per-lane counts;
 ``return_stats`` reports them rounded once to float32 under
 ``"segments"`` (as the JAX package does) and exactly under
@@ -19,12 +30,18 @@ Segment totals are exact int64 sums of the kernel's per-lane counts;
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
 from raytracer_tpu_torch.camera.camera import DerivedCamera
 from raytracer_tpu_torch.render import schedule
-from raytracer_tpu_torch.render.cluster_walk import cluster_walk, identity_map
+from raytracer_tpu_torch.render.cluster_walk import (
+    cluster_walk,
+    identity_map,
+    padded_width,
+)
 from raytracer_tpu_torch.render.options import TraceOptions
 from raytracer_tpu_torch.render.rng import kernel_seed
 from raytracer_tpu_torch.render.tables import cluster_partition, walk_tables
@@ -41,12 +58,76 @@ def plan_from_cost(cost: torch.Tensor, width: int):
     return inv, pixel_map.to(torch.int32).contiguous()
 
 
+def plan_adaptive(acc: torch.Tensor, width: int, cs: int, tol: float,
+                  chunk_stats: torch.Tensor | None = None,
+                  t975: torch.Tensor | None = None):
+    """Adaptive variant of :func:`plan_from_cost`: ``(inv, pixel_map,
+    budget)`` with unconverged pixels first in descending cost, converged
+    ones last, and a lane-order sample budget (``cs``, or 0 for a
+    converged pixel).
+
+    ``acc`` rows: [r, g, b, cost, n, Σ lum²], cumulative. A pixel has
+    converged when n >= ``schedule.ADAPTIVE_MIN_N`` and the 95 % half-width
+    of its mean luminance is within tol · (mean + ``ADAPTIVE_ABS_FLOOR``).
+    The half-width is 1.96 · sqrt(var / n) from the per-sample variance.
+    With ``chunk_stats`` ([n_c, Σ m, Σ m²] per pixel, m a full chunk's mean
+    luminance; the stratified sampler only) and n_c >= 3 it is the smaller
+    of that and the Student-t interval on the between-chunk-mean variance,
+    which sees the stratification that the per-sample variance cannot.
+    ``t975`` is ``schedule.T975_BY_CHUNKS`` on ``acc``'s device."""
+    n = acc[4]
+    n_safe = torch.clamp_min(n, 1.0)
+    mean = (acc[0] + acc[1] + acc[2]) * (1.0 / 3.0) / n_safe
+    var = torch.clamp_min(acc[5] / n_safe - mean * mean, 0.0)
+    ci = 1.96 * torch.sqrt(var / n_safe)
+    if chunk_stats is not None:
+        if t975 is None:
+            t975 = t975_table(acc.device)
+        n_c = chunk_stats[0]
+        nc_safe = torch.clamp_min(n_c, 1.0)
+        m_mean = chunk_stats[1] / nc_safe
+        s2 = (torch.clamp_min(chunk_stats[2] / nc_safe - m_mean * m_mean, 0.0)
+              * nc_safe / torch.clamp_min(n_c - 1.0, 1.0))
+        t = t975[torch.clamp(n_c.to(torch.int64), 0, t975.shape[0] - 1)]
+        ci_c = t * torch.sqrt(s2 / nc_safe)
+        ci = torch.where(n_c >= 3.0, torch.minimum(ci, ci_c), ci)
+    converged = (n >= schedule.ADAPTIVE_MIN_N) & (
+        ci <= tol * (mean + schedule.ADAPTIVE_ABS_FLOOR)
+    )
+    key = torch.where(converged, 3e38, -acc[3])
+    order = torch.argsort(key, stable=True)
+    inv = torch.argsort(order, stable=True)
+    pixel_map = torch.stack([order % width, order // width], 1)
+    budget = torch.where(converged, 0, cs)[order].to(torch.int32)
+    return inv, pixel_map.to(torch.int32).contiguous(), budget.contiguous()
+
+
+def t975_table(device) -> torch.Tensor:
+    return torch.tensor(schedule.T975_BY_CHUNKS, dtype=torch.float32,
+                        device=device)
+
+
+def chunk_mean_stats(chunk_stats: torch.Tensor, acc: torch.Tensor,
+                     lsum_prev: torch.Tensor, n_prev: torch.Tensor):
+    """Add one chunk to the per-pixel between-chunk statistics [n_c, Σ m,
+    Σ m²]: m is the chunk's mean luminance, from the accumulator after the
+    chunk and its rgb sum and count before it; a pixel that took no
+    sample adds nothing."""
+    dn = acc[4] - n_prev
+    sampled = (dn > 0.0).to(torch.float32)
+    m_c = ((acc[0] + acc[1] + acc[2] - lsum_prev) * (1.0 / 3.0)
+           / torch.clamp_min(dn, 1.0))
+    return chunk_stats + torch.stack(
+        [sampled, m_c * sampled, m_c * m_c * sampled]
+    )
+
+
 def accumulate_sorted(out: torch.Tensor, segs: torch.Tensor,
                       acc: torch.Tensor, segments: torch.Tensor,
                       inv: torch.Tensor):
-    """Fold one chunk's lane-order (4, n) sums into the pixel-order
-    accumulator [rgb, cumulative cost], and its per-lane segment counts
-    into the exact int64 total."""
+    """Fold one chunk's lane-order sums into the pixel-order accumulator
+    ([rgb, cumulative cost], and [n, Σ lum²] when adaptive), and its
+    per-lane segment counts into the exact int64 total."""
     acc = acc + out[:, inv]
     return acc, segments + segs.sum(dtype=torch.int64)
 
@@ -58,6 +139,68 @@ def finalize_flat(acc: torch.Tensor, width: int, height: int, spp: int,
     if gamma:
         image = torch.sqrt(torch.clamp_min(image, 0.0))
     return image
+
+
+def finalize_adaptive(acc: torch.Tensor, width: int, height: int,
+                      gamma: bool):
+    """(6, H·W) sums → ``(image, spp_map)``: every pixel divides its rgb
+    sums by its OWN sample count; ``spp_map`` is that (H, W) count."""
+    n = torch.clamp_min(acc[4], 1.0)
+    image = (acc[:3] / n).reshape(3, height, width).permute(1, 2, 0)
+    if gamma:
+        image = torch.sqrt(torch.clamp_min(image, 0.0))
+    return image, acc[4].reshape(height, width)
+
+
+def adaptive_state_from_numpy(acc, width: int, height: int,
+                              chunk_stats=None, device="cpu"):
+    """Carry the JAX package's adaptive state across: its (6, Hp·Wp)
+    accumulator and (3, Hp·Wp) chunk statistics live in padded pixel space
+    (rows of ``padded_width(width)``); crop them to the port's row-major
+    (·, H·W) tensors. Returns ``(acc, chunk_stats)``, the second ``None``
+    when none was given."""
+    wp = padded_width(width)
+
+    def crop(a):
+        a = np.asarray(a, dtype=np.float32)
+        a = a.reshape(a.shape[0], -1, wp)[:, :height, :width]
+        return torch.from_numpy(
+            np.ascontiguousarray(a.reshape(a.shape[0], -1))
+        ).to(device)
+
+    return crop(acc), None if chunk_stats is None else crop(chunk_stats)
+
+
+def _render_adaptive(tables, kseed, sizes, width, height, opts, device):
+    """The adaptive host loop: an identity-order profile chunk at full
+    budget, then equal sorted chunks, each followed by accumulation and a
+    new convergence decision. Returns the (6, H·W) accumulator and the
+    int64 segment total, both on the device."""
+    tol = opts.adaptive_tolerance
+    track_chunks = opts.sampler == "stratified"
+    acc, segs = cluster_walk(tables, identity_map(width, height, device),
+                             kseed, 0, sizes[0], width, height, opts)
+    segments = segs.sum(dtype=torch.int64)
+    inv, pixel_map, budget = plan_adaptive(acc, width, sizes[1], tol)
+    # between-chunk statistics start after the profile chunk, whose size
+    # differs; only the stratified sampler keeps them
+    cstats = torch.zeros((3, acc.shape[1]), dtype=torch.float32,
+                         device=device) if track_chunks else None
+    t975 = t975_table(device) if track_chunks else None
+    offset, spp = sizes[0], sum(sizes)
+    for cs in sizes[1:]:
+        if track_chunks:
+            lsum_prev, n_prev = acc[0] + acc[1] + acc[2], acc[4]
+        out, segs = cluster_walk(tables, pixel_map, kseed, offset, cs, width,
+                                 height, opts, budget=budget)
+        acc, segments = accumulate_sorted(out, segs, acc, segments, inv)
+        if track_chunks:
+            cstats = chunk_mean_stats(cstats, acc, lsum_prev, n_prev)
+        offset += cs
+        if offset < spp:
+            inv, pixel_map, budget = plan_adaptive(acc, width, cs, tol,
+                                                   cstats, t975)
+    return acc, segments
 
 
 def render_image_cluster(scene: Scene, dcam: DerivedCamera, width: int,
@@ -75,6 +218,25 @@ def render_image_cluster(scene: Scene, dcam: DerivedCamera, width: int,
         spp, width * height, scene.count, opts.max_depth,
         opts.russian_roulette_depth,
     )
+    adaptive_sizes = None
+    if opts.adaptive_tolerance > 0.0:
+        adaptive_sizes = schedule.adaptive_schedule(
+            spp, chunk, opts.adaptive_chunk_spp, opts.sort_pixels
+        )
+        if adaptive_sizes is None:
+            # nothing could gate a later chunk: render fixed spp through
+            # the four-row kernels
+            opts = dataclasses.replace(opts, adaptive_tolerance=0.0)
+    if adaptive_sizes is not None:
+        acc, segments = _render_adaptive(tables, kseed, adaptive_sizes,
+                                         width, height, opts, device)
+        image, spp_map = finalize_adaptive(acc, width, height, opts.gamma)
+        if not return_stats:
+            return image
+        stats = _segment_stats(segments)
+        stats["mean_spp"] = float(spp_map.mean(dtype=torch.float64))
+        stats["spp_map"] = spp_map
+        return image, stats
     sizes, _ = schedule.chunk_schedule(spp, chunk)
     n = width * height
     identity = identity_map(width, height, device)
@@ -97,6 +259,9 @@ def render_image_cluster(scene: Scene, dcam: DerivedCamera, width: int,
     image = finalize_flat(acc[:3], width, height, spp, opts.gamma)
     if not return_stats:
         return image
+    return image, _segment_stats(segments)
+
+
+def _segment_stats(segments: torch.Tensor) -> dict:
     total = int(segments)
-    return image, {"segments": float(np.float32(total)),
-                   "segments_exact": total}
+    return {"segments": float(np.float32(total)), "segments_exact": total}

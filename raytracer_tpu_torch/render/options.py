@@ -1,8 +1,9 @@
 """Trace options of the port (counterpart of
 ``raytracer_tpu/render/options.py``), limited to what the cover render's
-main path reads. The production cluster-walk configuration of the JAX
-package (one cluster per walk step, packed visit key, fused bounce-done
-test) is the only walk the port has, so it carries no knobs for it."""
+paths (fixed spp, adaptive, stratified) read. The production cluster-walk
+configuration of the JAX package (one cluster per walk step, packed visit
+key, fused bounce-done test) is the only walk the port has, so it carries
+no knobs for it."""
 
 from __future__ import annotations
 
@@ -28,6 +29,16 @@ class TraceOptions:
     reweights survivors. ``sort_pixels`` renders chunks after the first in
     descending measured per-pixel cost; the image does not change.
 
+    ``adaptive_tolerance`` > 0 stops sampling a pixel, between chunks, once
+    the 95 % confidence half-width of its mean luminance is within
+    tolerance · (mean + 0.02); it needs ``sort_pixels`` and a multi-chunk
+    uniform schedule, and renders fixed spp otherwise.
+    ``adaptive_chunk_spp`` > 0 overrides the adaptive chunk cap (never
+    above the fixed render's chunk). ``sampler`` is ``'random'``
+    (independent hashed draws) or ``'stratified'`` (the camera draws and
+    the first bounce's diffuse direction and glass roll come from a
+    per-pixel rotated Kronecker sequence; marginals are unchanged).
+
     Options the JAX package has and the port does not yet serve raise
     ``NotImplementedError`` naming their ROADMAP item.
     """
@@ -43,6 +54,7 @@ class TraceOptions:
     cluster_bounds: str = "box"
     cluster_partition: str = "kd"
     adaptive_tolerance: float = 0.0
+    adaptive_chunk_spp: int = 0
     sampler: str = "random"
     enable_debug: bool = False
 
@@ -53,15 +65,10 @@ class TraceOptions:
             raise ValueError(
                 f"cluster_group must be >= 1, got {self.cluster_group}"
             )
-        if self.adaptive_tolerance > 0.0:
-            raise NotImplementedError(
-                "adaptive sampling is not ported yet (ROADMAP: kernel "
-                "variant K1a)"
-            )
-        if self.sampler != "random":
-            raise NotImplementedError(
-                f"sampler {self.sampler!r} is not ported yet (ROADMAP: "
-                "kernel variant K1s)"
+        if self.sampler not in ("random", "stratified"):
+            raise ValueError(
+                f"sampler must be 'random' or 'stratified', got "
+                f"{self.sampler!r}"
             )
         if self.enable_debug:
             raise NotImplementedError(

@@ -1,7 +1,7 @@
 """Counter-based RNG and sampling primitives of the cluster walk, on
 tensors (counterpart of ``raytracer_tpu/render/pallas_kernel.py``
-``_lowbias32`` … ``_unit_vec``; the CUDA kernel carries the same
-functions in ``csrc/cluster_walk.cu``).
+``_lowbias32`` … ``_unit_vec`` and ``_r2_fixed``; the CUDA kernel carries
+the same functions in ``csrc/cluster_walk.cu``).
 
 Unsigned 32-bit values ride in int64 tensors holding [0, 2^32). Products
 are formed from 16-bit halves of the constant so no intermediate leaves
@@ -45,8 +45,16 @@ def kernel_seed(seed: int) -> int:
     return v - (1 << 32) if v >= (1 << 31) else v
 
 
-def hash32(pix: torch.Tensor, ctr: torch.Tensor, salt: int) -> torch.Tensor:
-    """hash(pixel ⊕ golden·(ctr + salt)), all mod 2^32."""
+#: counters of the stratified sampler's per-pixel rotations: −4 for the
+#: four camera dimensions, −8 for the three first-bounce dimensions; every
+#: per-sample counter block starts at a counter >= 0
+ROT_CAMERA = 0xFFFFFFFC
+ROT_BOUNCE0 = 0xFFFFFFF8
+
+
+def hash32(pix: torch.Tensor, ctr, salt: int) -> torch.Tensor:
+    """hash(pixel ⊕ golden·(ctr + salt)), all mod 2^32; ``ctr`` is a
+    tensor or a Python int in [0, 2^32)."""
     c = mul32((ctr + salt) & M32, GOLDEN)
     return lowbias32(pix ^ c)
 
@@ -58,6 +66,14 @@ def to_u01(h: torch.Tensor) -> torch.Tensor:
 
 def u01(pix, ctr, salt: int) -> torch.Tensor:
     return to_u01(hash32(pix, ctr, salt))
+
+
+def r2_fixed(pix: torch.Tensor, rot: int, d: int, s_u: torch.Tensor,
+             a_fix: int) -> torch.Tensor:
+    """The ``s_u``-th Kronecker point of dimension ``d`` in 32-bit fixed
+    point: the pixel's hash at counter ``rot`` + ``d`` is the rotation
+    and (rotation + s·alpha) wraps mod 2^32; top 24 bits → [0, 1)."""
+    return to_u01((hash32(pix, rot, d) + mul32(s_u, a_fix)) & M32)
 
 
 def dot3(ax, ay, az, bx, by, bz):

@@ -1,6 +1,7 @@
 """The spp launch schedule (counterpart of
 ``raytracer_tpu/render/pallas_kernel.py`` ``_pick_chunk_spp`` and
-``_chunk_schedule``, copied verbatim).
+``_chunk_schedule``, copied verbatim, and the adaptive constants and
+schedule rule of ``_render_pallas``).
 
 On a GPU the TPU's watchdog budget is gone, but the schedule fixes the
 per-pixel float32 summation order (sample order within a launch, then
@@ -10,6 +11,24 @@ partition's.
 """
 
 from __future__ import annotations
+
+import math
+
+#: samples a pixel must have before it may be declared converged
+ADAPTIVE_MIN_N = 64
+#: adaptive chunk cap when ``adaptive_chunk_spp`` is 0; the schedule it
+#: feeds emits sorted chunks of about twice this. A pixel cannot stop
+#: inside a chunk, so the chunk is the floor of its overshoot.
+ADAPTIVE_AUTO_CHUNK = 16
+#: absolute luminance floor added to the relative tolerance, so
+#: near-black pixels do not demand absurd precision
+ADAPTIVE_ABS_FLOOR = 0.02
+#: two-sided 97.5 % Student-t quantiles by CHUNK count n_c (dof n_c − 1):
+#: under 3 chunks no interval forms (inf); above 16 the last entry stays
+T975_BY_CHUNKS = (
+    math.inf, math.inf, math.inf, 4.303, 3.182, 2.776, 2.571, 2.447,
+    2.365, 2.306, 2.262, 2.228, 2.201, 2.179, 2.160, 2.145, 2.131,
+)
 
 
 def pick_chunk_spp(spp: int, p: int, s_count: int, max_depth: int,
@@ -41,3 +60,18 @@ def chunk_schedule(spp: int, chunk: int):
         sizes.append(c)
         off += c
     return sizes, False
+
+
+def adaptive_schedule(spp: int, chunk: int, adaptive_chunk_spp: int,
+                      sort_pixels: bool):
+    """Per-launch spp counts of an adaptive render, or ``None`` when the
+    render cannot gate later chunks and runs fixed spp instead: a single
+    chunk, unsorted pixels, or a schedule whose sorted chunks are not all
+    equal. ``chunk`` is the fixed render's chunk, which caps the adaptive
+    one."""
+    chunk_a = min(chunk, adaptive_chunk_spp if adaptive_chunk_spp > 0
+                  else ADAPTIVE_AUTO_CHUNK)
+    sizes, uniform = chunk_schedule(spp, chunk_a)
+    if spp <= chunk_a or not sort_pixels or not uniform:
+        return None
+    return sizes

@@ -27,9 +27,11 @@ def card():
     return torch.device("cuda")
 
 
-def walk_inputs(device, rr=5):
+def walk_inputs(device, rr=5, adaptive=False, stratified=False):
     scene, cam, *_ = presets.get_config("cover", W, H)
-    opts = TraceOptions(max_depth=12, russian_roulette_depth=rr)
+    opts = TraceOptions(max_depth=12, russian_roulette_depth=rr,
+                        adaptive_tolerance=0.2 if adaptive else 0.0,
+                        sampler="stratified" if stratified else "random")
     tabs = tables.walk_tables(tables.cluster_partition(scene, opts),
                               derive_camera(cam), device)
     return tabs, cw.identity_map(W, H, device), opts
@@ -50,6 +52,55 @@ def test_kernel_matches_plain_on_card(card, rr):
     assert float(d.mean()) <= 1e-4
     sk, sp = int(seg_k.sum()), int(seg_p.sum())
     assert abs(sk - sp) <= 1e-3 * sp
+
+
+@pytest.mark.parametrize("adaptive, stratified", [
+    (False, True), (True, False), (True, True),
+], ids=["stratified", "adaptive", "adaptive_stratified"])
+def test_variant_matches_plain_on_card(card, adaptive, stratified):
+    """The adaptive and stratified instantiations against the plain
+    version at a nonzero sample offset, the adaptive ones under a budget
+    that mixes 0 and the chunk's spp: the same bounds, the sample counts
+    equal, and a lane without budget all zeros."""
+    tabs, ident, opts = walk_inputs(card, 5, adaptive, stratified)
+    budget = None
+    if adaptive:
+        g = torch.Generator().manual_seed(2)
+        budget = (torch.where(torch.rand(W * H, generator=g) < 0.4, 0, SPP)
+                  .to(torch.int32).to(card))
+    args = (tabs, ident, 9, 6, SPP, W, H, opts, budget)
+    out_k, seg_k = cw.cluster_walk(*args)
+    out_p, seg_p = cw.cluster_walk_plain(*args)
+    assert out_k.shape == out_p.shape == (6 if adaptive else 4, W * H)
+    d = (out_k[:3] - out_p[:3]).abs().amax(0)
+    assert torch.isfinite(out_k).all()
+    assert float((d > 1e-3).float().mean()) <= 0.005
+    assert float(d.mean()) <= 1e-4
+    sk, sp = int(seg_k.sum()), int(seg_p.sum())
+    assert abs(sk - sp) <= 1e-3 * sp
+    if adaptive:
+        assert torch.equal(out_k[4], budget.float())
+        assert torch.equal(out_k[4], out_p[4])
+        assert not out_k[:, budget == 0].any()
+        assert not seg_k[budget == 0].any()
+
+
+def test_adaptive_render_runs_the_kernel(card):
+    """An adaptive stratified render on the card goes through that
+    instantiation, once per chunk, and reports its sample map."""
+    scene, cam, *_ = presets.get_config("cover", W, H)
+    opts = TraceOptions(max_depth=8, russian_roulette_depth=3,
+                        adaptive_tolerance=0.5, sampler="stratified",
+                        adaptive_chunk_spp=16)
+    cw.reset_launch_counts()
+    img, stats = api.render_image(scene, cam, W, H, 200, 0, opts,
+                                  return_stats=True)
+    assert img.device.type == "cuda" and torch.isfinite(img).all()
+    assert cw.cluster_walk.launches_by_variant == {
+        "cluster_walk_adaptive_stratified": cw.cluster_walk.launches}
+    assert cw.cluster_walk.launches > 2
+    assert stats["spp_map"].shape == (H, W)
+    assert 64 <= stats["mean_spp"] < 200
 
 
 def test_render_runs_the_kernel(card):

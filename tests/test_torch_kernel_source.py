@@ -11,8 +11,9 @@ import numpy as np
 import pytest
 
 from raytracer_tpu.render import pallas_kernel as pk
+from raytracer_tpu_torch.core import sampling
 from raytracer_tpu_torch.render import cluster_walk as cw
-from raytracer_tpu_torch.render import options, tables
+from raytracer_tpu_torch.render import options, rng, tables
 from raytracer_tpu_torch.utils import cuda_build
 
 SOURCE = (cuda_build.CSRC_DIR / "cluster_walk.cu").read_text()
@@ -52,6 +53,64 @@ def test_constant_is_float32_rounding(name):
 
 def test_every_float_constant_is_checked():
     assert set(kernel_constants()) == set(EXPECTED)
+
+
+#: kernel integer constant → the value it must hold
+EXPECTED_U32 = {
+    **{f"kA4Fix{d}": pk._A4_FIX[d] for d in range(4)},
+    **{f"kAB0Fix{d}": pk._AB0_FIX[d] for d in range(3)},
+    "kRotCamera": 0xFFFFFFFC,
+    "kRotBounce0": 0xFFFFFFF8,
+}
+
+
+def kernel_u32_constants() -> dict:
+    found = re.findall(r"constexpr uint32_t (k\w+) = 0x([0-9a-fA-F]{8})u;",
+                       SOURCE)
+    return {name: int(lit, 16) for name, lit in found}
+
+
+@pytest.mark.parametrize("name", sorted(EXPECTED_U32))
+def test_stratified_constant_is_the_reference_integer(name):
+    """The Kronecker alphas in 32-bit fixed point and the rotation
+    counters are those of the TPU kernel and of the port's Python side."""
+    assert kernel_u32_constants()[name] == EXPECTED_U32[name]
+
+
+def test_every_integer_constant_is_checked():
+    assert set(kernel_u32_constants()) == set(EXPECTED_U32)
+    assert sampling.A4_FIX == pk._A4_FIX and sampling.AB0_FIX == pk._AB0_FIX
+    assert (rng.ROT_CAMERA, rng.ROT_BOUNCE0) == (0xFFFFFFFC, 0xFFFFFFF8)
+
+
+def test_four_template_instantiations():
+    """Adaptive and stratified are compile-time template parameters: the
+    launcher picks among four instantiations, and the branches sit behind
+    the parameters, never behind a run-time argument."""
+    assert "template <bool kAdaptive, bool kStratified>" in SOURCE
+    for a in ("true", "false"):
+        for s in ("true", "false"):
+            assert f"launch<{a}, {s}>(p, blocks, smem, st)" in SOURCE
+    assert "int adaptive, int stratified" in SOURCE
+    assert not re.search(r"p\.(adaptive|stratified)\b", SOURCE)
+    # a lane without budget writes zeros to all six rows before it returns
+    assert ("for (int c = 0; c < 6; ++c) p.out[c * p.n + lane] = 0.0f;"
+            in SOURCE)
+    assert "p.segs[lane] = 0;" in SOURCE
+
+
+def test_adaptive_and_stratified_arithmetic_in_source():
+    """Operation order of the variants, as the plain version has it: the
+    luminance is (r + g + b)·float32(1/3), squared and added; the
+    Kronecker point wraps in native uint32; the first bounce's direction
+    is not normalised again."""
+    assert "const float lum = (con_r + con_g + con_b) * kOneThird;" in SOURCE
+    assert "acc_l2 = acc_l2 + lum * lum;" in SOURCE
+    assert ("lowbias32(pix ^ ((rot + d) * 0x9E3779B9u)) + s_u * a_fix"
+            in SOURCE)
+    first = SOURCE[SOURCE.index("if (kStratified && i == 0) {"):]
+    first = first[:first.index("} else {")]
+    assert "normalize3" not in first and "uvz = b_hx;" in first
 
 
 def test_fill_floor_clears_the_key_bits():

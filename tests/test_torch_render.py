@@ -161,8 +161,6 @@ def test_render_defaults_to_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("field, value, item", [
-    ("adaptive_tolerance", 0.2, "K1a"),
-    ("sampler", "stratified", "K1s"),
     ("enable_debug", True, "K3"),
     ("cluster_bounds", "sphere", "box"),
     ("cluster_partition", "grid", "kd"),
@@ -170,6 +168,23 @@ def test_render_defaults_to_cuda(monkeypatch):
 def test_unported_options_raise(field, value, item):
     with pytest.raises(NotImplementedError, match=item):
         TraceOptions(**{field: value})
+
+
+@pytest.mark.parametrize("sampler", ["halton", "", None])
+def test_unknown_sampler_raises(sampler):
+    with pytest.raises(ValueError, match="sampler must be"):
+        TraceOptions(sampler=sampler)
+
+
+def test_ported_options_construct():
+    """Adaptive sampling and the stratified sampler are served: the
+    options build, alone and together, and still refuse the overlay."""
+    opts = TraceOptions(adaptive_tolerance=0.2, sampler="stratified",
+                        adaptive_chunk_spp=24)
+    assert (opts.adaptive_tolerance, opts.sampler,
+            opts.adaptive_chunk_spp) == (0.2, "stratified", 24)
+    with pytest.raises(NotImplementedError, match="K3"):
+        dataclasses.replace(opts, enable_debug=True)
 
 
 @pytest.mark.parametrize("config", ["two_sphere", "demo", "big_only"])
@@ -185,6 +200,10 @@ def test_flat_scan_scenes_raise(config):
         scene, cam, *_ = presets.get_config(config, 16, 8)
     with pytest.raises(NotImplementedError, match="K2"):
         api.render_image(scene, cam, 16, 8, 1, 0, device="cpu")
+    with pytest.raises(NotImplementedError, match="K2"):
+        api.render_image(scene, cam, 16, 8, 40, 0,
+                         TraceOptions(adaptive_tolerance=0.2,
+                                      sampler="stratified"), device="cpu")
 
 
 def test_bad_arguments_raise():
