@@ -2,28 +2,45 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels of the port from ``raytracer_tpu_torch/csrc`` (the
-cluster walk and its adaptive, stratified and adaptive + stratified
-instantiations), holds each against its plain PyTorch version on the
-card, and drives the port's paths through ``render_image`` on the RTiOW
-cover (1200x800, 500 spp, depth 50):
+Builds the CUDA kernels of the port from ``raytracer_tpu_torch/csrc`` (one
+``nvcc`` per source, started together): the cluster walk with its
+adaptive, stratified and adaptive + stratified instantiations, and the
+flat scan with its eight (unsplit K2 and split K2s, each fixed or
+adaptive, random or stratified). Each instantiation is held against its
+plain PyTorch version on the card, on a crop and at the shapes, tables
+and depth of every path below that runs it. Then it drives the port's paths
+through ``render_image`` and the progressive step:
 
-- the fixed-spp render with Russian roulette from bounce 5, then without;
-- the same with the stratified sampler;
-- the adaptive render (tolerance 0.2) with the stratified sampler, and
-  with the random one.
+- the RTiOW cover (1200x800, 500 spp, depth 50) through the cluster walk:
+  fixed spp with Russian roulette from bounce 5, then without; the same
+  with the stratified sampler; the adaptive render (tolerance 0.2) with
+  the stratified sampler, and with the random one;
+- the demo at 1920x1080, 8 spp, through K2, K2s and the cluster walk,
+  which must agree bit for bit;
+- the cover through the flat scan (``cluster_scan=False``), split and
+  unsplit;
+- BASELINE configs 1-3 (two_sphere, three_sphere, dof) at ``bench.py``'s
+  sizes, rr5;
+- the realtime progressive step (demo, 1920x1080, 1 spp a frame, depth
+  8, 256 frames in batches of 32 with one sync per batch) without hints
+  (K2), with static hints (K2s), and with the stratified sampler, whose
+  frames must equal the offline renders at their sample offsets;
+- adaptive renders of the demo (tolerance 0.2) through the four adaptive
+  flat instantiations.
 
-Every image is checked against the committed golden
-(``tests/goldens/cover_jnp_rr0_500spp_f16.npz``); each kernel is timed at
-its path's shapes beside its operation bound; one JSON line carries the
-kernels' numbers. Any failed phase ends the run with a nonzero exit. The
-last line of output is ``{"ok": true, "device": {...}}``.
+Every image is checked (the cover against the committed golden
+``tests/goldens/cover_jnp_rr0_500spp_f16.npz``); each kernel is timed on
+its path beside its operation bound; one JSON line carries the kernels'
+numbers. Launch counts are set to 0 just before each path and read just
+after it. Any failed phase ends the run with a nonzero exit. The last
+line of output is ``{"ok": true, "device": {...}}``.
 
 Needs CUDA and one card; imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import re
@@ -35,7 +52,8 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, "tests", "goldens", "cover_jnp_rr0_500spp_f16.npz")
-SOURCE = "raytracer_tpu_torch/csrc/cluster_walk.cu"
+WALK_SOURCE = "raytracer_tpu_torch/csrc/cluster_walk.cu"
+FLAT_SOURCE = "raytracer_tpu_torch/csrc/flat_scan.cu"
 
 # kernel vs plain version on the card, same inputs (cover crop, 4 spp,
 # depth 12): both round every operation alike (-fmad=false, the same
@@ -87,20 +105,54 @@ OPS_BOUNCE_ADAPTIVE = 5
 # draws, exp, log, a root and a normalisation (62); counted for every
 # sample, so the bound errs low
 OPS_SAMPLE_STRATIFIED = 4 - 26
+# the flat scan (flat_scan.cu), per loop trip (one bounce): the ray's dot
+# products, reciprocal and counters; per slot with the near->far root
+# logic (two dot products, the quadratic, a root, both roots' selects,
+# the running minimum) and per near-root-only slot; K2s's self-test of
+# the last-hit slot. The tail and the camera ray are the walk's.
+OPS_FLAT_TRIP, OPS_SLOT_FULL, OPS_SLOT_NEAR, OPS_SELF_TEST = 23, 29, 26, 25
 FP32_PEAK = 67e12  # H100 SXM, FLOP/s outside the tensor cores
 HBM_RATE = 3.35e12  # bytes/s
 
+PALLAS = "raytracer_tpu/render/pallas_kernel.py"
 #: kernel name → (adaptive, stratified, file:line of the TPU kernel's branch)
 KERNELS = {
-    "cluster_walk": (False, False,
-                     "raytracer_tpu/render/pallas_kernel.py:216"),
-    "cluster_walk_adaptive": (True, False,
-                              "raytracer_tpu/render/pallas_kernel.py:1300"),
-    "cluster_walk_stratified": (False, True,
-                                "raytracer_tpu/render/pallas_kernel.py:366"),
-    "cluster_walk_adaptive_stratified": (
-        True, True, "raytracer_tpu/render/pallas_kernel.py:1316"),
+    "cluster_walk": (False, False, f"{PALLAS}:216"),
+    "cluster_walk_adaptive": (True, False, f"{PALLAS}:1300"),
+    "cluster_walk_stratified": (False, True, f"{PALLAS}:366"),
+    "cluster_walk_adaptive_stratified": (True, True, f"{PALLAS}:1316"),
 }
+#: flat-scan instantiation → (adaptive, stratified, split, file:line of the
+#: TPU kernel's flat scan (K2) or split scan (K2s))
+FLAT_KERNELS = {
+    "flat_scan" + ("_split" if sp else "") + ("_adaptive" if a else "")
+    + ("_stratified" if st else ""): (a, st, sp,
+                                      f"{PALLAS}:{950 if sp else 890}")
+    for sp in (False, True) for a in (False, True) for st in (False, True)
+}
+
+# the progressive step as bench.py drives it (BASELINE config 4)
+PROG_W, PROG_H, PROG_DEPTH = 1920, 1080, 8
+PROG_WARM, PROG_FRAMES, PROG_BATCH = 5, 256, 32
+# frames of the stratified session held against offline renders
+STRAT_CHECK_FRAMES = 8
+# K2, K2s and K1 on the demo (1920x1080, 8 spp, depth 8, rr0): the JAX
+# package asserts them equal; share of pixels allowed to differ
+CROSS_SPP = 8
+MAX_CROSS_SHARE = 1e-4
+# the accumulated random-sampler session (256 frames of 1 spp, each frame
+# gamma-encoded before the running average) against the offline 256-spp
+# render: the average of square roots sits below the square root of the
+# average, and the two use different streams. Measured with the plain
+# versions on the CPU (demo, 96x54): mean|delta| 8.26e-3 (signed
+# -7.4e-3), where two offline seeds differ by 3.85e-3. Limit: 1.45x.
+SESSION_MAX_MAD = 1.2e-2
+# adaptive demo renders (128 spp, depth 8, rr5, tolerance 0.2) against the
+# fixed render of the same options and seed: measured with the plain
+# versions on the CPU (96x54) 3.76e-3 (random), 2.75e-3 (stratified),
+# mean spp 68.6. Limit: 1.6x the random sampler's.
+FLAT_ADAPTIVE_SPP = 128
+FLAT_ADAPTIVE_MAX_MAD = 6e-3
 
 
 def fail(msg: str):
@@ -140,18 +192,27 @@ def phase_device():
 def phase_build():
     from raytracer_tpu_torch.utils import cuda_build
 
+    names = ("cluster_walk", "flat_scan")
     t0 = time.perf_counter()
-    cuda_build.build_all(["cluster_walk"])
-    print(f"[build] {time.perf_counter() - t0:.1f} s")
-    for line in cuda_build.build_log("cluster_walk").splitlines():
-        if "registers" in line or "spill" in line:
-            print("[ptxas]", line.strip())
-        elif "Compiling" in line:
-            # the mangled name carries the template arguments as Lb0E / Lb1E
-            m = re.search(r"Lb([01])ELb([01])E", line)
-            inst = (f" <adaptive={m.group(1)}, stratified={m.group(2)}>"
-                    if m else "")
-            print("[ptxas]", line.strip() + inst)
+    cuda_build.build_all(names)
+    print(f"[build] {' and '.join(names)} at once: "
+          f"{time.perf_counter() - t0:.1f} s")
+    for name in names:
+        for line in cuda_build.build_log(name).splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[ptxas {name}]", line.strip())
+            elif "Compiling" in line:
+                # the mangled name carries the template arguments as Lb0E
+                # / Lb1E: adaptive, stratified (and split)
+                m = re.search(r"(?:Lb([01])E)(?:Lb([01])E)(?:Lb([01])E)?",
+                              line)
+                inst = ""
+                if m:
+                    inst = (f" <adaptive={m.group(1)}, "
+                            f"stratified={m.group(2)}"
+                            + (f", split={m.group(3)}" if m.group(3) else "")
+                            + ">")
+                print(f"[ptxas {name}]", line.strip() + inst)
 
 
 def trace_options(rr: int, depth: int, adaptive=False, stratified=False):
@@ -177,13 +238,40 @@ def walk_inputs(rr: int, width: int | None, height: int | None, depth,
     return tabs, opts
 
 
-def compare(label: str, args) -> dict:
+def kernel_and_plain(flat: bool):
+    """The wrapper (which launches the kernel on CUDA tensors) and the
+    plain version of the cluster walk, or of the flat scan."""
+    from raytracer_tpu_torch.render import cluster_walk as cw
+    from raytracer_tpu_torch.render import flat_scan as fs
+
+    if flat:
+        return fs.flat_scan, fs.flat_scan_plain
+    return cw.cluster_walk, cw.cluster_walk_plain
+
+
+def reset_launch_counts():
+    from raytracer_tpu_torch.render import cluster_walk as cw
+    from raytracer_tpu_torch.render import flat_scan as fs
+
+    cw.reset_launch_counts()
+    fs.reset_launch_counts()
+
+
+def launch_counts() -> dict:
+    """Launches by kernel instantiation since the last reset."""
+    from raytracer_tpu_torch.render import cluster_walk as cw
+    from raytracer_tpu_torch.render import flat_scan as fs
+
+    return {**cw.cluster_walk.launches_by_variant,
+            **fs.flat_scan.launches_by_variant}
+
+
+def compare(label: str, args, flat: bool = False) -> dict:
     """The kernel and its plain version on the same inputs; fails above
     the bounds."""
-    from raytracer_tpu_torch.render import cluster_walk as cw
-
-    out_k, seg_k = cw.cluster_walk(*args)
-    out_p, seg_p = cw.cluster_walk_plain(*args)
+    kernel, plain = kernel_and_plain(flat)
+    out_k, seg_k = kernel(*args)
+    out_p, seg_p = plain(*args)
     torch.cuda.synchronize()
     d = (out_k[:3] - out_p[:3]).abs().amax(0)
     forked = float((d > 1e-3).float().mean())
@@ -202,7 +290,41 @@ def compare(label: str, args) -> dict:
             or abs(sk - sp) > MAX_SEG_REL * sp):
         fail(f"kernel disagrees with the plain version ({label})")
     return {"max_abs_err": float(d.max()), "out": out_k, "out_plain": out_p,
-            "seg_lanes": seg_k, "segs": sk}
+            "seg_lanes": seg_k, "segs": sk, "bitwise": bitwise}
+
+
+def budgeted_map(launch, ident, spp: int, seed: int):
+    """A sorted map and budget as the adaptive re-plans give them: lanes in
+    descending cost of a profile chunk launched through ``launch(map,
+    spp)``, 40 % of the pixels converged (budget 0, sorted last), the rest
+    at the chunk's spp."""
+    n = ident.shape[0]
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    converged = (torch.rand(n, generator=g) < 0.4).to(ident.device)
+    prof, _ = launch(ident, spp)
+    key = torch.where(converged, 3e38, -prof[3])
+    order = torch.argsort(key, stable=True)
+    budget = torch.where(converged, 0, spp)[order].to(torch.int32)
+    return ident[order].contiguous(), budget.contiguous()
+
+
+def check_budget(label: str, got: dict, budget) -> float:
+    """An adaptive comparison's budget handling: sample counts equal to
+    the budget in kernel and plain version, lanes without budget all
+    zeros. Returns the largest difference of the sum of lum^2."""
+    out, plain = got["out"], got["out_plain"]
+    dead = budget == 0
+    n_equal = (torch.equal(out[4], budget.float())
+               and torch.equal(out[4], plain[4]))
+    dead_zero = (not out[:, dead].any()
+                 and not got["seg_lanes"][dead].any())
+    l2 = float((out[5] - plain[5]).abs().max())
+    print(f"[{label}] n equal {n_equal}, lanes without budget "
+          f"{int(dead.sum())} all zero {dead_zero}, max|d| of sum lum^2 "
+          f"{l2:.3e}")
+    if not n_equal or not dead_zero or l2 > 1e-3:
+        fail(f"{label}: budget handling disagrees")
+    return l2
 
 
 def phase_kernel_vs_plain() -> dict:
@@ -210,9 +332,14 @@ def phase_kernel_vs_plain() -> dict:
     shuffled lane map against the identity), then at the main path's
     shapes (the full frame, depth 50, the cover's tables) with few
     samples, under the identity map of the profile chunk and the sorted
-    map of the later chunks."""
+    map of the later chunks; and on the demo's partition at 1920x1080,
+    depth 8, rr0, as the cross-kernel render runs it."""
     from raytracer_tpu_torch.render import cluster_walk as cw
-    from raytracer_tpu_torch.render.megakernel import plan_from_cost
+    from raytracer_tpu_torch.render.megakernel import (
+        choose_kernel,
+        plan_from_cost,
+    )
+    from raytracer_tpu_torch.render.options import TraceOptions
     from raytracer_tpu_torch.render.rng import kernel_seed
 
     seed = kernel_seed(7)
@@ -236,7 +363,7 @@ def phase_kernel_vs_plain() -> dict:
             print(f"[shuffled map vs identity] bitwise {same}")
             if not same:
                 fail("shuffled lane map changed the kernel's result")
-            result.update(crop_times(args))
+            result.update(crop_times(args, cw.variant_name(opts)))
     for rr in (5, 0):
         tabs, opts = walk_inputs(rr, FULL_W, FULL_H, FULL_DEPTH)
         ident = cw.identity_map(FULL_W, FULL_H, "cuda")
@@ -247,21 +374,30 @@ def phase_kernel_vs_plain() -> dict:
         args = (tabs, pmap, seed, FULL_SPP, FULL_SPP, FULL_W, FULL_H, opts)
         got = compare(f"full frame rr{rr} sorted map", args)
         result["max_abs_err"] = max(result["max_abs_err"], got["max_abs_err"])
+    # the demo's own partition (cluster_scan=True), as the cross-kernel
+    # render runs it
+    scene, _, dcam = demo_inputs(PROG_W, PROG_H)
+    opts = TraceOptions(max_depth=PROG_DEPTH, cluster_scan=True)
+    choice = choose_kernel(scene, dcam, opts, "cuda")
+    if choice.kernel != "cluster_walk":
+        fail(f"cluster_scan=True on the demo took {choice}")
+    args = (choice.tables, cw.identity_map(PROG_W, PROG_H, "cuda"), seed, 5,
+            1, PROG_W, PROG_H, opts)
+    got = compare(f"demo {PROG_W}x{PROG_H} d{PROG_DEPTH} rr0", args)
+    result["max_abs_err"] = max(result["max_abs_err"], got["max_abs_err"])
     return result
 
 
-def crop_times(args) -> dict:
+def crop_times(args, name: str, flat: bool = False) -> dict:
     """Kernel and plain version timed on the crop's inputs."""
-    from raytracer_tpu_torch.render import cluster_walk as cw
-
-    crop_ms = cuda_ms(lambda: cw.cluster_walk(*args), 3)
+    kernel, plain = kernel_and_plain(flat)
+    crop_ms = cuda_ms(lambda: kernel(*args), 3)
     t0 = time.perf_counter()
-    cw.cluster_walk_plain(*args)
+    plain(*args)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
-    print(f"[crop {CROP_W}x{CROP_H} x{CROP_SPP} spp d{CROP_DEPTH} "
-          f"{cw.variant_name(args[7])}] kernel {crop_ms:.3f} ms, plain "
-          f"{plain_ms:.1f} ms")
+    print(f"[crop {CROP_W}x{CROP_H} x{CROP_SPP} spp d{CROP_DEPTH} {name}] "
+          f"kernel {crop_ms:.3f} ms, plain {plain_ms:.1f} ms")
     return {"crop_ms": crop_ms, "plain_ms": plain_ms}
 
 
@@ -287,20 +423,15 @@ def phase_variants_vs_plain() -> dict:
         result = {"max_abs_err": 0.0}
         for shape, w, h, spp, depth, rrs in shapes:
             ident = cw.identity_map(w, h, "cuda")
-            g = torch.Generator(device="cpu").manual_seed(3)
-            converged = (torch.rand(w * h, generator=g) < 0.4).to("cuda")
             for rr in rrs:
                 tabs, opts = walk_inputs(rr, w, h, depth, adaptive,
                                          stratified)
                 pmap, budget = ident, None
                 if adaptive:
-                    prof, _ = cw.cluster_walk(tabs, ident, seed, 0, spp, w,
-                                              h, opts)
-                    key = torch.where(converged, 3e38, -prof[3])
-                    order = torch.argsort(key, stable=True)
-                    pmap = ident[order].contiguous()
-                    budget = torch.where(converged, 0, spp)[order].to(
-                        torch.int32).contiguous()
+                    pmap, budget = budgeted_map(
+                        lambda m, s: cw.cluster_walk(tabs, m, seed, 0, s, w,
+                                                     h, opts),
+                        ident, spp, 3)
                 args = (tabs, pmap, seed, CROP_OFFSET, spp, w, h, opts,
                         budget)
                 label = f"{name} {shape} rr{rr}"
@@ -308,21 +439,10 @@ def phase_variants_vs_plain() -> dict:
                 result["max_abs_err"] = max(result["max_abs_err"],
                                             got["max_abs_err"])
                 if adaptive:
-                    out, plain = got["out"], got["out_plain"]
-                    dead = budget == 0
-                    n_equal = (torch.equal(out[4], budget.float())
-                               and torch.equal(out[4], plain[4]))
-                    dead_zero = (not out[:, dead].any()
-                                 and not got["seg_lanes"][dead].any())
-                    l2 = float((out[5] - plain[5]).abs().max())
-                    print(f"[{label}] n equal {n_equal}, lanes without "
-                          f"budget {int(dead.sum())} all zero {dead_zero}, "
-                          f"max|d| of sum lum^2 {l2:.3e}")
-                    if not n_equal or not dead_zero or l2 > 1e-3:
-                        fail(f"{label}: budget handling disagrees")
-                    result["max_abs_err"] = max(result["max_abs_err"], l2)
+                    result["max_abs_err"] = max(
+                        result["max_abs_err"], check_budget(label, got, budget))
                 if shape == "crop" and rr == 5:
-                    result.update(crop_times(args))
+                    result.update(crop_times(args, name))
         results[name] = result
     return results
 
@@ -344,13 +464,12 @@ def drive_path(label: str, kernel: str, opts, smi: str, golden, timed_seeds,
     cover: launch counts set to 0 just before the first render and read
     just after it, then timed repeats; the last image is held against the
     golden."""
-    from raytracer_tpu_torch.render import cluster_walk as cw
     from raytracer_tpu_torch.scene import presets
 
     scene, cam, w, h, spp, _ = presets.get_config("cover")
-    cw.reset_launch_counts()
+    reset_launch_counts()
     first, first_stats, wall = render_once(scene, cam, w, h, spp, 0, opts)
-    launches = dict(cw.cluster_walk.launches_by_variant)
+    launches = launch_counts()
     print(f"[{label}] launches {launches} (first render, {wall:.3f} s)")
     if launches.get(kernel, 0) < 1 or set(launches) != {kernel}:
         fail(f"{label} did not run through {kernel} alone: {launches}")
@@ -376,12 +495,11 @@ def drive_path(label: str, kernel: str, opts, smi: str, golden, timed_seeds,
             "first_stats": first_stats, "image": img, "stats": stats}
 
 
-def phase_main_paths(smi: str) -> dict:
+def phase_main_paths(smi: str, golden) -> dict:
     """Every path of the port on the full cover, each through its own
     instantiation of the kernel."""
     from raytracer_tpu_torch.scene import presets
 
-    golden = np.load(GOLDEN)["image"].astype(np.float64)
     w, h, spp, depth = presets.get_config("cover")[2:]
     paths = {}
     paths["cluster_walk"] = drive_path(
@@ -448,8 +566,110 @@ def walk_bound(tabs, adaptive, stratified, n_lanes, iters, nsegs, samples):
     return ops / FP32_PEAK * 1e3, nbytes / HBM_RATE * 1e3
 
 
+def flat_bound(tabs, g_full, adaptive, stratified, n_lanes, nsegs, samples):
+    """The flat scan's least time, as (operations ms, bytes ms). Every loop
+    trip is one segment: it tests every slot (full root logic on the first
+    ``g_full``, the near root alone on the rest) and runs the tail; K2s's
+    self-test runs on every segment but a sample's first."""
+    slots = tabs.spheres.shape[0]
+    split = g_full is not None and g_full < slots
+    full = g_full if split else slots
+    ops = (nsegs * (OPS_FLAT_TRIP + OPS_SLOT_FULL * full
+                    + OPS_SLOT_NEAR * (slots - full) + OPS_BOUNCE
+                    + (OPS_BOUNCE_ADAPTIVE if adaptive else 0))
+           + (nsegs - samples) * (OPS_SELF_TEST if split else 0)
+           + samples * (OPS_SAMPLE
+                        + (OPS_SAMPLE_STRATIFIED if stratified else 0)))
+    rows = 6 if adaptive else 4
+    nbytes = ((tabs.camera.numel() + tabs.spheres.numel()) * 4
+              + n_lanes * 4 * (2 + (1 if adaptive else 0) + rows + 1))
+    return ops / FP32_PEAK * 1e3, nbytes / HBM_RATE * 1e3
+
+
 def bound_by(ops_ms: float, bytes_ms: float) -> str:
     return "operations" if ops_ms >= bytes_ms else "bytes"
+
+
+def event():
+    e = torch.cuda.Event(enable_timing=True)
+    e.record()
+    return e
+
+
+class LaunchTimer:
+    """CUDA events around every launch that ``render/megakernel.py`` makes
+    through ``attr`` ('cluster_walk' or 'flat_scan'), with each launch's
+    work (loop trips, segments, samples) summed on the device after its
+    span; read with :meth:`results` after the render."""
+
+    def __init__(self, attr: str):
+        from raytracer_tpu_torch.render import megakernel
+
+        self.module, self.attr = megakernel, attr
+        self.real = getattr(megakernel, attr)
+        self.records = []
+
+    def __enter__(self):
+        flat = self.attr == "flat_scan"
+
+        def timed(tabs, pixel_map, seed, offset, spp, width, height, opts,
+                  *rest):
+            start = event()
+            out, segs = self.real(tabs, pixel_map, seed, offset, spp, width,
+                                  height, opts, *rest)
+            end = event()
+            n = pixel_map.shape[0]
+            samples = (out[4].sum(dtype=torch.float64) if out.shape[0] == 6
+                       else n * spp)
+            self.records.append((start, end, tabs, rest[0] if flat else None,
+                                 opts, n, out[3].sum(dtype=torch.float64),
+                                 segs.sum(dtype=torch.int64), samples))
+            return out, segs
+
+        setattr(self.module, self.attr, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.attr, self.real)
+
+    def results(self) -> list:
+        """Per launch: ms, its (operations ms, bytes ms) bound, samples."""
+        torch.cuda.synchronize()
+        got = []
+        for start, end, tabs, g_full, opts, n, iters, nsegs, samples in (
+                self.records):
+            adaptive = opts.adaptive_tolerance > 0.0
+            stratified = opts.sampler == "stratified"
+            samples, nsegs = float(samples), int(nsegs)
+            if self.attr == "flat_scan":
+                pair = flat_bound(tabs, g_full, adaptive, stratified, n,
+                                  nsegs, samples)
+            else:
+                pair = walk_bound(tabs, adaptive, stratified, n,
+                                  float(iters), nsegs, samples)
+            got.append({"ms": start.elapsed_time(end), "bound": pair,
+                        "samples": samples, "segments": nsegs, "lanes": n,
+                        "kernel": f"{self.attr}_kernel<"})
+        return got
+
+
+def summarize_launches(recs: list, rows=()) -> dict:
+    """Mean kernel ms and mean bound per launch, what binds it, and the
+    share of the bound over all launches. The kernel's time is its device
+    time under the profiler where ``rows`` (of :func:`device_profile`)
+    have it: CUDA events around a launch also span the wrapper's host work
+    whenever the device is waiting for the host. Else it is the events'."""
+    n = len(recs)
+    events = sum(r["ms"] for r in recs)
+    profiled = sum(r[0] for r in rows if recs[0]["kernel"] in r[2])
+    total = profiled or events
+    bounds = [max(r["bound"]) for r in recs]
+    by = bound_by(sum(r["bound"][0] for r in recs),
+                  sum(r["bound"][1] for r in recs))
+    return {"ms": total / n, "events_ms": events / n,
+            "timed_by": "profiler" if profiled else "CUDA events",
+            "bound_ms": sum(bounds) / n, "bound_by": by,
+            "share": sum(bounds) / total, "sum_ms": total, "n": n}
 
 
 def phase_fixed_kernel_alone(smi: str, stratified: bool) -> dict:
@@ -502,23 +722,8 @@ def phase_adaptive_alone(smi: str, stratified: bool) -> dict:
     scene, cam, w, h, spp, depth = presets.get_config("cover")
     opts = trace_options(5, depth, True, stratified)
     name = cw.variant_name(opts)
-    launches, plans = [], []
-    real_walk, real_plan = megakernel.cluster_walk, megakernel.plan_adaptive
-
-    def event():
-        e = torch.cuda.Event(enable_timing=True)
-        e.record()
-        return e
-
-    def timed_walk(tabs, *args, **kw):
-        start = event()
-        out, segs = real_walk(tabs, *args, **kw)
-        end = event()
-        # the work this launch did, summed on the device after the span
-        launches.append((start, end, tabs, out[3].sum(dtype=torch.float64),
-                         segs.sum(dtype=torch.int64),
-                         out[4].sum(dtype=torch.float64)))
-        return out, segs
+    plans = []
+    real_plan = megakernel.plan_adaptive
 
     def timed_plan(*args, **kw):
         start = event()
@@ -526,51 +731,72 @@ def phase_adaptive_alone(smi: str, stratified: bool) -> dict:
         plans.append((start, event()))
         return got
 
-    megakernel.cluster_walk, megakernel.plan_adaptive = timed_walk, timed_plan
+    megakernel.plan_adaptive = timed_plan
     try:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        render_image(scene, cam, w, h, spp, 0, opts)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+        with LaunchTimer("cluster_walk") as timer:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            render_image(scene, cam, w, h, spp, 0, opts)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
     finally:
-        megakernel.cluster_walk = real_walk
         megakernel.plan_adaptive = real_plan
-    ms = [s.elapsed_time(e) for s, e, *_ in launches]
-    pairs = [walk_bound(tabs, True, stratified, w * h, float(iters),
-                        int(nsegs), float(samples))
-             for _, _, tabs, iters, nsegs, samples in launches]
-    bounds = [max(pair) for pair in pairs]
-    by = bound_by(sum(p[0] for p in pairs), sum(p[1] for p in pairs))
+    recs = timer.results()
+    ms = [r["ms"] for r in recs]
+    bounds = [max(r["bound"]) for r in recs]
+    summary = summarize_launches(recs)
     plan_ms = [s.elapsed_time(e) for s, e in plans]
-    samples = [float(x[5]) / (w * h) for x in launches]
-    bound_ms = sum(bounds) / len(bounds)
+    samples = [r["samples"] / (w * h) for r in recs]
     print(f"[kernel alone {name}] {len(ms)} launches of one adaptive "
           f"render, wall {wall_ms:.3f} ms with the events: kernel ms per "
           f"launch {' '.join(f'{x:.3f}' for x in ms)} (sum {sum(ms):.3f}, "
-          f"mean {sum(ms) / len(ms):.3f}; the three launches that every "
+          f"mean {summary['ms']:.3f}; the three launches that every "
           f"pixel takes {sum(ms[:3]):.3f} at "
           f"{sum(bounds[:3]) / sum(ms[:3]):.4f} of their bound, the rest "
           f"{sum(ms[3:]):.3f}); mean samples per pixel per launch "
           f"{' '.join(f'{x:.3f}' for x in samples)}; bound ms per "
           f"launch {' '.join(f'{b:.3f}' for b in bounds)} (mean "
-          f"{bound_ms:.4f}, by {by}); share of bound "
-          f"{sum(bounds) / sum(ms):.4f} [{smi}]")
+          f"{summary['bound_ms']:.4f}, by {summary['bound_by']}); share of "
+          f"bound {summary['share']:.4f} [{smi}]")
     print(f"[re-plan {name}] {len(plan_ms)} plans, device ms each "
           f"{' '.join(f'{x:.3f}' for x in plan_ms)} (sum "
           f"{sum(plan_ms):.3f} = {sum(plan_ms) / wall_ms:.4f} of the wall) "
           f"[{smi}]")
     if len(ms) != ADAPTIVE_LAUNCHES:
         fail(f"{name}: {len(ms)} launches in the timed render")
-    return {"ms": sum(ms) / len(ms), "bound_ms": bound_ms, "bound_by": by}
+    return summary
+
+
+def device_profile(fn):
+    """``fn()`` under torch.profiler: (its result, wall ms, device-busy ms,
+    rows of (device ms, count, name) in descending time, PyTorch operator
+    calls on the host). Rows are empty where the profiler saw no device
+    time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        got = fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows, host_ops = [], 0
+    for e in prof.key_averages():
+        host_ops += e.count if e.key.startswith("aten::") else 0
+        dev_us = getattr(e, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = e.self_cuda_time_total
+        if dev_us > 0:
+            rows.append((dev_us / 1e3, e.count, e.key))
+    rows.sort(reverse=True)
+    return got, wall_ms, sum(r[0] for r in rows), rows, host_ops
 
 
 def phase_where_time_goes(smi: str, label: str, opts):
     """One render under torch.profiler: device time by kernel, the
     device's busy share of the wall, and the host's partition + table
     build."""
-    from torch.profiler import ProfilerActivity, profile
-
     from raytracer_tpu_torch.camera.camera import derive_camera
     from raytracer_tpu_torch.render import tables
     from raytracer_tpu_torch.render.api import render_image
@@ -582,22 +808,8 @@ def phase_where_time_goes(smi: str, label: str, opts):
                        derive_camera(cam), "cuda")
     torch.cuda.synchronize()
     setup_ms = (time.perf_counter() - t0) * 1e3
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        render_image(scene, cam, w, h, spp, 0, opts)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = []
-    for e in prof.key_averages():
-        dev_us = getattr(e, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = e.self_cuda_time_total
-        if dev_us > 0:
-            rows.append((dev_us / 1e3, e.count, e.key))
-    rows.sort(reverse=True)
-    busy = sum(r[0] for r in rows)
+    _, wall_ms, busy, rows, _ = device_profile(
+        lambda: render_image(scene, cam, w, h, spp, 0, opts))
     walk = sum(r[0] for r in rows if "cluster_walk" in r[2])
     print(f"[where the time goes {label}] wall {wall_ms:.3f} ms under the "
           f"profiler; host partition + tables {setup_ms:.3f} ms; device "
@@ -610,12 +822,442 @@ def phase_where_time_goes(smi: str, label: str, opts):
         print(f"  {ms:10.3f} ms  x{count:<4d} {key[:90]}")
 
 
+def demo_inputs(width: int, height: int):
+    from raytracer_tpu_torch.camera.camera import derive_camera
+    from raytracer_tpu_torch.scene import presets
+
+    scene, cam, *_ = presets.get_config("demo", width, height)
+    return scene, cam, derive_camera(cam)
+
+
+def flat_choice(name: str, scene, cam, opts, split: bool):
+    """The kernel choice of ``render_image`` for ``scene``: fails unless it
+    is the flat scan, split or not as ``split`` says."""
+    from raytracer_tpu_torch.camera.camera import derive_camera
+    from raytracer_tpu_torch.render import flat_scan as fs
+    from raytracer_tpu_torch.render import megakernel
+
+    choice = megakernel.choose_kernel(scene, derive_camera(cam), opts, "cuda")
+    if (choice.kernel != "flat_scan"
+            or fs.is_split(choice.tables, choice.g_full) != split):
+        fail(f"{name}: the scene took {choice}")
+    return choice
+
+
+def compare_flat(result: dict, label: str, choice, pmap, budget, seed,
+                 offset, spp, w, h, opts):
+    """One flat-scan instantiation against its plain version, folded into
+    ``result`` (largest error, all bitwise); returns the arguments and
+    what :func:`compare` gives."""
+    args = (choice.tables, pmap, seed, offset, spp, w, h, opts,
+            choice.g_full, budget)
+    got = compare(label, args, flat=True)
+    result["max_abs_err"] = max(result["max_abs_err"], got["max_abs_err"])
+    result["bitwise"] = result.get("bitwise", True) and got["bitwise"]
+    if budget is not None:
+        result["max_abs_err"] = max(result["max_abs_err"],
+                                    check_budget(label, got, budget))
+    return args, got
+
+
+def phase_flat_vs_plain() -> dict:
+    """Each flat-scan instantiation against its plain version, at a
+    nonzero sample offset:
+
+    - on the demo crop (depth 12, rr5 and rr0; K2s on the demo's own
+      split, K2 with the split off; the adaptive ones under a sorted map
+      whose budget mixes 0 and the chunk's spp);
+    - all eight at the demo's 1920x1080, depth 8, 1 spp: rr0 for the fixed
+      ones (the progressive sessions and the cross-kernel renders), rr5
+      under a budgeted sorted map for the adaptive ones (the adaptive demo
+      renders);
+    - K2 and K2s on the cover's own tables (``cluster_scan=False``; K2s on
+      its split of 487 slots) at 1200x800, depth 50, rr5, 1 spp, under the
+      identity map of a profile chunk and the sorted map of the later ones;
+    - K2 on BASELINE configs 1-3 at their sizes and depths, rr5, 1 spp,
+      under the same two maps."""
+    from raytracer_tpu_torch.render import cluster_walk as cw
+    from raytracer_tpu_torch.render import flat_scan as fs
+    from raytracer_tpu_torch.render.megakernel import plan_from_cost
+    from raytracer_tpu_torch.render.options import TraceOptions
+    from raytracer_tpu_torch.render.rng import kernel_seed
+    from raytracer_tpu_torch.scene import presets
+
+    seed = kernel_seed(7)
+    shapes = (("crop", CROP_W, CROP_H, CROP_SPP, CROP_DEPTH, CROP_OFFSET),
+              ("demo 1080p", PROG_W, PROG_H, 1, PROG_DEPTH, 5))
+    results = {}
+    for name, (adaptive, stratified, split, _) in FLAT_KERNELS.items():
+        result = results[name] = {"max_abs_err": 0.0}
+        for shape, w, h, spp, depth, offset in shapes:
+            rrs = (5, 0) if shape == "crop" else (5,) if adaptive else (0,)
+            scene, cam, _ = demo_inputs(w, h)
+            ident = cw.identity_map(w, h, "cuda")
+            for rr in rrs:
+                opts = TraceOptions(
+                    max_depth=depth, russian_roulette_depth=rr,
+                    adaptive_tolerance=ADAPTIVE_TOL if adaptive else 0.0,
+                    sampler="stratified" if stratified else "random",
+                    split_scan=split)
+                choice = flat_choice(name, scene, cam, opts, split)
+                pmap, budget = ident, None
+                if adaptive:
+                    pmap, budget = budgeted_map(
+                        lambda m, s: fs.flat_scan(choice.tables, m, seed, 0,
+                                                  s, w, h, opts,
+                                                  choice.g_full),
+                        ident, spp, 3)
+                args, _ = compare_flat(result, f"{name} {shape} rr{rr}",
+                                       choice, pmap, budget, seed, offset,
+                                       spp, w, h, opts)
+                if shape == "crop" and rr == 5:
+                    result.update(crop_times(args, name, flat=True))
+
+    paths = (("cover", "flat_scan_split", dict(cluster_scan=False)),
+             ("cover", "flat_scan", dict(cluster_scan=False,
+                                         split_scan=False)),
+             ("two_sphere", "flat_scan", {}),
+             ("three_sphere", "flat_scan", {}),
+             ("dof", "flat_scan", {}))
+    for config, name, kw in paths:
+        scene, cam, w, h, _, depth = presets.get_config(config)
+        opts = TraceOptions(max_depth=depth, russian_roulette_depth=5, **kw)
+        choice = flat_choice(name, scene, cam, opts, FLAT_KERNELS[name][2])
+        label = (f"{name} {config} {w}x{h} d{opts.max_depth} rr5 "
+                 f"({choice.tables.spheres.shape[0]} slots, g_full "
+                 f"{choice.g_full})")
+        _, got = compare_flat(results[name], f"{label} identity map", choice,
+                              cw.identity_map(w, h, "cuda"), None, seed, 0,
+                              1, w, h, opts)
+        _, pmap = plan_from_cost(got["out"][3], w)
+        compare_flat(results[name], f"{label} sorted map", choice, pmap,
+                     None, seed, 1, 1, w, h, opts)
+        del got, pmap
+        torch.cuda.empty_cache()
+    return results
+
+
+def render_path(label: str, kernel: str, fn):
+    """``fn()`` with the launch counts set to 0 just before and read just
+    after; fails unless ``kernel`` alone ran."""
+    reset_launch_counts()
+    got = fn()
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    if launches.get(kernel, 0) < 1 or set(launches) != {kernel}:
+        fail(f"{label} did not run through {kernel} alone: {launches}")
+    return got, launches[kernel]
+
+
+def phase_cross_kernel(smi: str) -> dict:
+    """The demo at 1920x1080, 8 spp, depth 8, rr0 through K2 (split off),
+    K2s (its own split) and K1 (cluster_scan on): the same image and the
+    same exact segments, as the JAX package asserts of its kernels."""
+    from raytracer_tpu_torch.render.api import render_image
+    from raytracer_tpu_torch.render.options import TraceOptions
+
+    scene, cam, _ = demo_inputs(PROG_W, PROG_H)
+    base = TraceOptions(max_depth=PROG_DEPTH)
+    variants = (("flat_scan", TraceOptions(max_depth=PROG_DEPTH,
+                                           split_scan=False)),
+                ("flat_scan_split", base),
+                ("cluster_walk", TraceOptions(max_depth=PROG_DEPTH,
+                                              cluster_scan=True)))
+    renders, launches = {}, {}
+    for kernel, opts in variants:
+        renders[kernel], launches[kernel] = render_path(
+            f"cross-kernel {kernel}", kernel,
+            lambda: render_image(scene, cam, PROG_W, PROG_H, CROSS_SPP, 0,
+                                 opts, return_stats=True))
+    ref, ref_stats = renders["flat_scan"]
+    for kernel in ("flat_scan_split", "cluster_walk"):
+        img, stats = renders[kernel]
+        differ = float((img != ref).any(-1).float().mean())
+        segs, ref_segs = stats["segments_exact"], ref_stats["segments_exact"]
+        print(f"[cross-kernel demo {PROG_W}x{PROG_H} x{CROSS_SPP} spp "
+              f"d{PROG_DEPTH} rr0] {kernel} vs flat_scan: pixels that "
+              f"differ {differ:.7f}, max|d| {float((img - ref).abs().max()):.3e}"
+              f", segments {segs} vs {ref_segs} ({segs == ref_segs}), "
+              f"launches {launches[kernel]} [{smi}]")
+        if (differ > MAX_CROSS_SHARE or not torch.isfinite(img).all()
+                or abs(segs - ref_segs) > MAX_CROSS_SHARE * ref_segs):
+            fail(f"cross-kernel: {kernel} disagrees with flat_scan")
+    return launches
+
+
+def phase_cover_flat(smi: str, golden) -> dict:
+    """The cover through the flat scan (``cluster_scan=False``): its own
+    split (K2s, 184 full-logic slots of 487), and with the split off (K2).
+    Held against the golden; kernel time beside its operation bound."""
+    from raytracer_tpu_torch.render.options import TraceOptions
+    from raytracer_tpu_torch.scene import presets
+
+    depth = presets.get_config("cover")[5]
+    results = {}
+    for kernel, split in (("flat_scan_split", True), ("flat_scan", False)):
+        opts = TraceOptions(max_depth=depth, russian_roulette_depth=5,
+                            cluster_scan=False, split_scan=split)
+        label = f"cover through {kernel} rr5"
+        with LaunchTimer("flat_scan") as timer:
+            got = drive_path(label, kernel, opts, smi, golden, (),
+                             GOLDEN_MAX_MAD)
+        summary = summarize_launches(timer.results())
+        print(f"[{label}] kernel {summary['sum_ms']:.3f} ms over "
+              f"{summary['n']} launches = {summary['sum_ms'] / 1e3 / got['wall_s']:.4f}"
+              f" of the wall; bound {summary['bound_ms'] * summary['n']:.3f}"
+              f" ms by {summary['bound_by']}; share of bound "
+              f"{summary['share']:.4f} [{smi}]")
+        results[kernel] = {**got, **summary}
+    return results
+
+
+def phase_baseline_configs(smi: str) -> dict:
+    """BASELINE configs 1-3 at bench.py's sizes, spp and depth, rr5,
+    through ``render_image``: a first render with the launch counts, then
+    two timed repeats (seeds 1 and 2, best wall)."""
+    from raytracer_tpu_torch.render import schedule
+    from raytracer_tpu_torch.render.options import TraceOptions
+    from raytracer_tpu_torch.scene import presets
+
+    results = {}
+    for config in ("two_sphere", "three_sphere", "dof"):
+        scene, cam, w, h, spp, depth = presets.get_config(config)
+        opts = TraceOptions(max_depth=depth, russian_roulette_depth=5)
+        (img, stats, wall), launches = render_path(
+            config, "flat_scan",
+            lambda: render_once(scene, cam, w, h, spp, 0, opts))
+        chunks = len(schedule.chunk_schedule(spp, schedule.pick_chunk_spp(
+            spp, w * h, scene.count, depth, 5))[0])
+        walls = []
+        for seed in (1, 2):
+            img, stats, wall = render_once(scene, cam, w, h, spp, seed, opts)
+            walls.append(wall)
+        best = min(walls)
+        segs = stats["segments_exact"]
+        nan = int(torch.isnan(img).any(-1).sum())
+        print(f"[config {config}] {w}x{h} {spp} spp d{depth} rr5 through "
+              f"flat_scan: launches {launches} (chunks {chunks}), wall "
+              f"{' '.join(f'{x:.4f}' for x in walls)} s (best {best:.4f}), "
+              f"segments {segs}, Mrays/s {segs / best / 1e6:.2f}, "
+              f"nan_pixels {nan} [{smi}]")
+        if (img.shape != (h, w, 3) or nan or not torch.isfinite(img).all()
+                or launches != chunks or segs < w * h * spp):
+            fail(f"config {config}: bad render")
+        results[config] = {"wall_s": best, "segments": segs,
+                           "launches": launches}
+    return results
+
+
+def run_batches(step, state, scene, cam, frames: int):
+    """``frames`` steps in batches of PROG_BATCH, one sync per batch
+    (reading the batch's last segment count, as bench.py does). Returns
+    the state, the per-frame ms of each batch and the segments of each
+    batch's last frame."""
+    ms, segs = [], []
+    done = 0
+    while done < frames:
+        n = min(PROG_BATCH, frames - done)
+        t0 = time.perf_counter()
+        for _ in range(n):
+            state, aux = step(state, scene, cam)
+        segs.append(int(aux["segments"]))
+        ms.append((time.perf_counter() - t0) * 1e3 / n)
+        done += n
+    return state, ms, segs
+
+
+def drive_session(label: str, kernel: str, opts, smi: str, hints: bool):
+    """One progressive session as bench.py drives it: PROG_WARM warm-up
+    frames on a throwaway state, then PROG_FRAMES frames of a fresh one
+    (session key 0) in batches, with the launch counts set to 0 just before
+    them and read just after. Then one more batch with CUDA events around
+    every launch, and one under the profiler, on the throwaway state."""
+    from raytracer_tpu_torch import init_render_state, make_step_fn
+
+    scene, cam, _ = demo_inputs(PROG_W, PROG_H)
+    kw = dict(static_scene=scene, static_camera=cam) if hints else {}
+    step = make_step_fn(PROG_W, PROG_H, 1, opts, **kw)
+    spare, _, _ = run_batches(step, init_render_state(PROG_W, PROG_H, 1),
+                              scene, cam, PROG_WARM)
+    (state, ms, segs), launches = render_path(
+        label, kernel, lambda: run_batches(
+            step, init_render_state(PROG_W, PROG_H, 0), scene, cam,
+            PROG_FRAMES))
+    if launches != PROG_FRAMES or state.frame != PROG_FRAMES:
+        fail(f"{label}: {launches} launches for {PROG_FRAMES} frames")
+    # host time to issue one step: the device may still be busy after
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    spare, _ = step(spare, scene, cam)
+    issue_ms = (time.perf_counter() - t0) * 1e3
+    with LaunchTimer("flat_scan") as timer:
+        _, wall_ms, busy, rows, host_ops = device_profile(
+            lambda: run_batches(step, spare, scene, cam, PROG_BATCH))
+    kern = summarize_launches(timer.results(), rows)
+    best = min(ms)
+    print(f"[{label}] {PROG_W}x{PROG_H} 1 spp/frame d{opts.max_depth}, "
+          f"{PROG_FRAMES} frames in batches of {PROG_BATCH}: fps "
+          f"{1e3 / best:.2f} (best batch {best:.4f} ms/frame; batches "
+          f"{' '.join(f'{x:.3f}' for x in ms)}), segments per frame "
+          f"{segs[-1]}, launches {launches}; kernel {kern['ms']:.4f} "
+          f"ms/frame by {kern['timed_by']} (CUDA events "
+          f"{kern['events_ms']:.4f}; bound {kern['bound_ms']:.4f} ms by "
+          f"{kern['bound_by']}, share {kern['share']:.4f}); host issue of "
+          f"one step {issue_ms:.3f} ms [{smi}]")
+    print(f"[{label} where the time goes] one batch of {PROG_BATCH} under "
+          f"the profiler: wall {wall_ms / PROG_BATCH:.4f} ms/frame, "
+          f"{host_ops / PROG_BATCH:.1f} PyTorch operator calls a frame on "
+          f"the host (nested ones too); device "
+          + (f"busy {busy / PROG_BATCH:.4f} ms/frame = {busy / wall_ms:.4f} "
+             f"of the wall, idle {1 - busy / wall_ms:.4f}; flat scan "
+             f"{kern['sum_ms'] / PROG_BATCH:.4f} ms/frame, everything else "
+             f"on the device (lane map, accumulation, finalize, running "
+             f"average, table upload, segment sum) "
+             f"{(busy - kern['sum_ms']) / PROG_BATCH:.4f} ms/frame"
+             if rows else "time not measured by the profiler")
+          + f" [{smi}]")
+    for dev_ms, count, key in rows[:6]:
+        print(f"  {dev_ms:10.3f} ms  x{count:<4d} {key[:90]}")
+    if not torch.isfinite(state.accum).all():
+        fail(f"{label}: the running average is not finite")
+    return {"state": state, "fps": 1e3 / best, "ms_per_frame": best,
+            "segments_per_frame": segs[-1], "launches": launches, **kern}
+
+
+def phase_progressive(smi: str) -> dict:
+    """This slice's main path, the realtime progressive step (demo,
+    1920x1080, 1 spp a frame, depth 8): without hints (K2), with static
+    hints (K2s), with the stratified sampler (K2); the hinted and hint-less
+    sessions bitwise alike, the random session's average against the
+    offline 256-spp render; then a hinted stratified session without
+    averaging whose frames must equal the offline renders at their sample
+    offsets (K2s)."""
+    from raytracer_tpu_torch import (
+        init_render_state,
+        make_step_fn,
+        render_image,
+    )
+    from raytracer_tpu_torch.render.options import TraceOptions
+
+    random_opts = TraceOptions(max_depth=PROG_DEPTH)
+    strat_opts = TraceOptions(max_depth=PROG_DEPTH, sampler="stratified")
+    sessions = {
+        "flat_scan": drive_session("progressive K2 (no hints)", "flat_scan",
+                                   random_opts, smi, False),
+        "flat_scan_split": drive_session(
+            "progressive K2s (static hints)", "flat_scan_split", random_opts,
+            smi, True),
+        "flat_scan_stratified": drive_session(
+            "progressive stratified K2 (no hints)", "flat_scan_stratified",
+            strat_opts, smi, False),
+    }
+    plain_acc = sessions["flat_scan"]["state"].accum
+    hinted_acc = sessions["flat_scan_split"]["state"].accum
+    differ = float((plain_acc != hinted_acc).any(-1).float().mean())
+    print(f"[progressive hinted vs hint-less] pixels that differ after "
+          f"{PROG_FRAMES} frames {differ:.7f}")
+    if differ > MAX_CROSS_SHARE:
+        fail("progressive: the hinted session differs from the hint-less one")
+
+    scene, cam, _ = demo_inputs(PROG_W, PROG_H)
+    (offline, _), _ = render_path(
+        "offline demo", "flat_scan_split",
+        lambda: render_image(scene, cam, PROG_W, PROG_H, PROG_FRAMES, 0,
+                             random_opts, return_stats=True))
+    mad = float((plain_acc - offline).abs().mean())
+    signed = float((plain_acc - offline).mean())
+    print(f"[progressive random session vs offline {PROG_FRAMES} spp] "
+          f"mean|d| {mad:.4e} (signed {signed:.4e}), limit "
+          f"{SESSION_MAX_MAD} [{smi}]")
+    if mad > SESSION_MAX_MAD or not torch.isfinite(offline).all():
+        fail("progressive: the session's average is off the offline render")
+
+    step = make_step_fn(PROG_W, PROG_H, 1, strat_opts, should_average=False,
+                        static_scene=scene, static_camera=cam)
+    kernel = "flat_scan_split_stratified"
+
+    def frames_and_offline():
+        state, equal = init_render_state(PROG_W, PROG_H, 0), []
+        for i in range(STRAT_CHECK_FRAMES):
+            state, _ = step(state, scene, cam)
+            ref = render_image(scene, cam, PROG_W, PROG_H, 1, 0, strat_opts,
+                               sample_offset=i)
+            equal.append(torch.equal(state.accum, ref))
+        return equal
+
+    with LaunchTimer("flat_scan") as timer:
+        (equal, launches), _, _, rows, _ = device_profile(
+            lambda: render_path("stratified frames", kernel,
+                                frames_and_offline))
+    kern = summarize_launches(timer.results(), rows)
+    print(f"[progressive stratified frames vs offline renders at "
+          f"sample_offset i] {STRAT_CHECK_FRAMES} frames with static hints, "
+          f"bitwise {equal}; launches {launches}; kernel "
+          f"{kern['ms']:.4f} ms per launch by {kern['timed_by']} (events "
+          f"{kern['events_ms']:.4f}; bound {kern['bound_ms']:.4f} ms, share "
+          f"{kern['share']:.4f}) [{smi}]")
+    if not all(equal):
+        fail("progressive: a stratified frame differs from its offline "
+             "render")
+    sessions[kernel] = {"launches": launches, **kern}
+    return sessions
+
+
+def phase_flat_adaptive(smi: str) -> dict:
+    """Adaptive renders of the demo (1920x1080, 128 spp, depth 8, rr5,
+    tolerance 0.2) through the four adaptive flat instantiations, each
+    held against the fixed render of the same options and seed."""
+    from raytracer_tpu_torch.render.api import render_image
+    from raytracer_tpu_torch.render.options import TraceOptions
+
+    scene, cam, _ = demo_inputs(PROG_W, PROG_H)
+    results = {}
+    for name, (adaptive, stratified, split, _) in FLAT_KERNELS.items():
+        if not adaptive:
+            continue
+        fixed = TraceOptions(max_depth=PROG_DEPTH, russian_roulette_depth=5,
+                             sampler="stratified" if stratified else "random",
+                             split_scan=split)
+        opts = dataclasses.replace(fixed, adaptive_tolerance=ADAPTIVE_TOL)
+        (img, stats, wall), launches = render_path(
+            name, name, lambda: render_once(
+                scene, cam, PROG_W, PROG_H, FLAT_ADAPTIVE_SPP, 0, opts))
+        # the same render again, timed launch by launch
+        with LaunchTimer("flat_scan") as timer:
+            _, _, _, rows, _ = device_profile(lambda: render_image(
+                scene, cam, PROG_W, PROG_H, FLAT_ADAPTIVE_SPP, 0, opts))
+        kern = summarize_launches(timer.results(), rows)
+        ref = render_image(scene, cam, PROG_W, PROG_H, FLAT_ADAPTIVE_SPP, 0,
+                           fixed)
+        mad = float((img - ref).abs().mean())
+        spp_map = stats["spp_map"]
+        print(f"[adaptive demo {name}] {PROG_W}x{PROG_H} up to "
+              f"{FLAT_ADAPTIVE_SPP} spp d{PROG_DEPTH} rr5 tol {ADAPTIVE_TOL}:"
+              f" wall {wall:.4f} s, launches {launches}, mean_spp "
+              f"{stats['mean_spp']:.4f}, spp_map min "
+              f"{float(spp_map.min()):.0f} max {float(spp_map.max()):.0f}, "
+              f"segments {stats['segments_exact']}, mean|d| vs the fixed "
+              f"render {mad:.4e} (limit {FLAT_ADAPTIVE_MAX_MAD}); kernel ms "
+              f"per launch {kern['ms']:.4f} by {kern['timed_by']} (events "
+              f"{kern['events_ms']:.4f}; sum {kern['sum_ms']:.3f}; bound "
+              f"{kern['bound_ms']:.4f} by {kern['bound_by']}, share "
+              f"{kern['share']:.4f}) [{smi}]")
+        if (mad > FLAT_ADAPTIVE_MAX_MAD or not torch.isfinite(img).all()
+                or not 64 <= stats["mean_spp"] < FLAT_ADAPTIVE_SPP
+                or float(spp_map.min()) < 64):
+            fail(f"adaptive demo {name}: bad render")
+        results[name] = {"launches": launches, **kern}
+    return results
+
+
 def main():
     smi = phase_device()
     phase_build()
     crops = {"cluster_walk": phase_kernel_vs_plain()}
     crops.update(phase_variants_vs_plain())
-    paths = phase_main_paths(smi)
+    crops.update(phase_flat_vs_plain())
+    golden = np.load(GOLDEN)["image"].astype(np.float64)
+    paths = phase_main_paths(smi, golden)
     alone = {
         "cluster_walk": phase_fixed_kernel_alone(smi, False),
         "cluster_walk_stratified": phase_fixed_kernel_alone(smi, True),
@@ -626,10 +1268,19 @@ def main():
     phase_where_time_goes(smi, "rr5", trace_options(5, depth))
     phase_where_time_goes(smi, "adaptive companion",
                           trace_options(5, depth, True, True))
+    phase_cross_kernel(smi)
+    phase_cover_flat(smi, golden)
+    phase_baseline_configs(smi)
+    flat_paths = phase_progressive(smi)
+    flat_paths.update(phase_flat_adaptive(smi))
+    for name, got in flat_paths.items():
+        paths[name] = alone[name] = got
+    sources = {**{n: (WALK_SOURCE, KERNELS[n][2]) for n in KERNELS},
+               **{n: (FLAT_SOURCE, FLAT_KERNELS[n][3]) for n in FLAT_KERNELS}}
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",
-        "source": SOURCE,
+        "source": source,
         "replaces": replaces,
         "launches": paths[name]["launches"],
         "max_abs_err": crops[name]["max_abs_err"],
@@ -640,7 +1291,7 @@ def main():
         "library_ms": None,
         "crop_ms": crops[name]["crop_ms"],
         "plain_shape": f"{CROP_W}x{CROP_H}x{CROP_SPP}spp d{CROP_DEPTH}",
-    } for name, (_, _, replaces) in KERNELS.items()]}))
+    } for name, (source, replaces) in sources.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

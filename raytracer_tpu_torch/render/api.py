@@ -11,8 +11,9 @@ from raytracer_tpu_torch.camera.camera import (
     DerivedCamera,
     derive_camera,
 )
-from raytracer_tpu_torch.render.megakernel import render_image_cluster
+from raytracer_tpu_torch.render.megakernel import render, segment_stats
 from raytracer_tpu_torch.render.options import TraceOptions
+from raytracer_tpu_torch.render.rng import key_data
 from raytracer_tpu_torch.scene.spheres import Scene
 
 
@@ -28,30 +29,50 @@ def resolve_device(device=None) -> torch.device:
         )
     if device.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device}")
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
     return device
 
 
+def to_derived(camera) -> DerivedCamera:
+    """``camera`` as a :class:`DerivedCamera` (derived from a
+    :class:`CameraConfig`)."""
+    if isinstance(camera, CameraConfig):
+        return derive_camera(camera)
+    if not isinstance(camera, DerivedCamera):
+        raise TypeError(f"camera must be a CameraConfig or DerivedCamera, "
+                        f"got {type(camera).__name__}")
+    return camera
+
+
 def render_image(scene: Scene, camera, width: int, height: int, spp: int,
-                 seed: int, opts: TraceOptions | None = None,
-                 return_stats: bool = False, device=None):
+                 seed, opts: TraceOptions | None = None,
+                 return_stats: bool = False, device=None,
+                 sample_offset: int = 0):
     """Render ``spp`` samples per pixel. ``camera`` is a
     :class:`CameraConfig` or an already derived :class:`DerivedCamera`.
-    ``seed`` drives the same hash streams as ``jax.random.PRNGKey(seed)``
-    in the JAX package. Returns an (H, W, 3) float32 image in [0, 1] on
-    ``device``, row 0 at the image bottom, and with ``return_stats`` a
-    dict of segment totals (``segments``, ``segments_exact``); an adaptive
-    render adds ``mean_spp`` (float, mean samples per pixel) and
-    ``spp_map`` ((H, W) tensor of per-pixel sample counts)."""
+    ``seed`` is an int, which drives the same hash streams as
+    ``jax.random.PRNGKey(seed)`` in the JAX package, or a JAX key's data
+    (a ``(2,)`` uint32 pair, such as ``jax.random.fold_in``'s). Samples
+    are numbered from ``sample_offset`` on (a stratified progressive
+    session renders its frame i at i·spp); an adaptive render needs 0.
+    Scenes go through the cluster walk or the flat scan as the JAX
+    package's Pallas backend chooses. Returns an (H, W, 3) float32 image
+    in [0, 1] on ``device``, row 0 at the image bottom, and with
+    ``return_stats`` a dict of segment totals (``segments``,
+    ``segments_exact``); an adaptive render adds ``mean_spp`` (float,
+    mean samples per pixel) and ``spp_map`` ((H, W) tensor of per-pixel
+    sample counts)."""
     if spp < 1:
         raise ValueError(f"spp must be >= 1, got {spp}")
     if width < 1 or height < 1:
         raise ValueError(f"bad image size {width}x{height}")
     device = resolve_device(device)
     opts = opts or TraceOptions()
-    if isinstance(camera, CameraConfig):
-        camera = derive_camera(camera)
-    elif not isinstance(camera, DerivedCamera):
-        raise TypeError(f"camera must be a CameraConfig or DerivedCamera, "
-                        f"got {type(camera).__name__}")
-    return render_image_cluster(scene, camera, width, height, spp, seed,
-                                opts, device, return_stats=return_stats)
+    image, segments, extra = render(
+        scene, to_derived(camera), width, height, spp, key_data(seed), opts,
+        device, sample_offset=sample_offset,
+    )
+    if not return_stats:
+        return image
+    return image, segment_stats(segments, extra)

@@ -36,6 +36,7 @@ Kronecker sequence; every other draw stays counter-hashed.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import numpy as np
 import torch
@@ -76,13 +77,8 @@ def variant_name(opts: TraceOptions) -> str:
 
 def _check(tables: WalkTables, pixel_map: torch.Tensor, width: int,
            height: int, spp: int, opts: TraceOptions, budget):
-    dev = pixel_map.device
-    for name in ("camera", "globals", "bounds", "members", "winner"):
-        t = getattr(tables, name)
-        if t.device != dev:
-            raise ValueError(f"tables.{name} is on {t.device}, map on {dev}")
-        if t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(f"tables.{name} must be contiguous float32")
+    check_tables(tables, ("camera", "globals", "bounds", "members", "winner"),
+                 pixel_map.device)
     k, group = tables.members.shape[:2]
     n_global = tables.globals.shape[0]
     if (tables.camera.shape != (19,) or tables.globals.shape[1:] != (4,)
@@ -92,6 +88,24 @@ def _check(tables: WalkTables, pixel_map: torch.Tensor, width: int,
         raise ValueError("inconsistent walk table shapes")
     if not 1 <= k <= MAX_CLUSTERS:
         raise ValueError(f"cluster count {k} outside [1, {MAX_CLUSTERS}]")
+    check_chunk_args(pixel_map, width, height, spp, opts, budget)
+
+
+def check_tables(tables, names, device):
+    """Each named table of ``tables`` is contiguous float32 on
+    ``device``."""
+    for name in names:
+        t = getattr(tables, name)
+        if t.device != device:
+            raise ValueError(f"tables.{name} is on {t.device}, map on {device}")
+        if t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"tables.{name} must be contiguous float32")
+
+
+def check_chunk_args(pixel_map: torch.Tensor, width: int, height: int,
+                     spp: int, opts: TraceOptions, budget):
+    """The checks both kernels' wrappers make of a chunk's lane map, image
+    size, spp and budget."""
     if (pixel_map.dtype != torch.int32 or pixel_map.ndim != 2
             or pixel_map.shape[1] != 2 or not pixel_map.is_contiguous()):
         raise ValueError("pixel_map must be a contiguous (n, 2) int32 tensor")
@@ -100,7 +114,7 @@ def _check(tables: WalkTables, pixel_map: torch.Tensor, width: int,
     if budget is not None:
         if not opts.adaptive_tolerance > 0.0:
             raise ValueError("a budget needs opts.adaptive_tolerance > 0")
-        if (budget.dtype != torch.int32 or budget.device != dev
+        if (budget.dtype != torch.int32 or budget.device != pixel_map.device
                 or budget.shape != pixel_map.shape[:1]
                 or not budget.is_contiguous()):
             raise ValueError(
@@ -219,17 +233,24 @@ def _gen_ray(cam, s_abs, px, py, pix, inv_w, inv_h, dps, stratified):
     return ox, oy, oz, dx, dy, dz
 
 
-def _exact_q(cx, cy, cz, k1, ox, oy, oz, dx, dy, dz, a, o_dot_d, o_dot_o,
-             min_t_a):
-    """Nearest root q = t·|d|² of the sphere quadratic with t >= MIN_T
-    (near root, else far root), FILLQ when there is none. A negative
-    discriminant poisons the root to -3e38, never NaN."""
+def roots(cx, cy, cz, k1, ox, oy, oz, dx, dy, dz, a, o_dot_d, o_dot_o):
+    """(nb, sq) of the sphere quadratic in q-space (q = t·|d|², roots
+    nb ∓ sq), as the kernels form them: sq is poisoned to -3e38 where the
+    discriminant is negative, never NaN."""
     cdd = cx * dx + cy * dy + cz * dz
     cdo = cx * ox + cy * oy + cz * oz
     nb = cdd - o_dot_d
     cc = o_dot_o - 2.0 * cdo + k1
     ds = nb * nb - a * cc
-    sq = torch.where(ds >= 0.0, torch.sqrt(torch.abs(ds)), NEG_BIG)
+    return nb, torch.where(ds >= 0.0, torch.sqrt(torch.abs(ds)), NEG_BIG)
+
+
+def _exact_q(cx, cy, cz, k1, ox, oy, oz, dx, dy, dz, a, o_dot_d, o_dot_o,
+             min_t_a):
+    """Nearest root q = t·|d|² of the sphere quadratic with t >= MIN_T
+    (near root, else far root), FILLQ when there is none."""
+    nb, sq = roots(cx, cy, cz, k1, ox, oy, oz, dx, dy, dz, a, o_dot_d,
+                   o_dot_o)
     qn = nb - sq
     q = torch.where(qn >= min_t_a, qn, nb + sq)
     return torch.where(q >= min_t_a, q, FILLQ)
@@ -258,6 +279,247 @@ def _key_floor(key: torch.Tensor) -> torch.Tensor:
     return (key.view(torch.int32) & -128).view(torch.float32)
 
 
+@dataclasses.dataclass
+class Lanes:
+    """What the plain versions' lanes keep for the whole chunk: camera
+    uniforms, pixel coordinates and hash, sample limits and options."""
+
+    cam: list  # the 19 camera uniforms, 0-d tensors
+    px: torch.Tensor
+    py: torch.Tensor
+    pix: torch.Tensor  # the pixel's hash, int64 in [0, 2^32)
+    limit: object  # the chunk's spp, or the (n,) int64 budgets
+    sample_offset: int
+    dps: int  # draws per sample
+    inv_w: float
+    inv_h: float
+    opts: TraceOptions
+
+    @property
+    def stratified(self) -> bool:
+        return self.opts.sampler == "stratified"
+
+    @property
+    def adaptive(self) -> bool:
+        return self.opts.adaptive_tolerance > 0.0
+
+
+@dataclasses.dataclass
+class PathState:
+    """Per-lane path state of the plain versions' regeneration loop."""
+
+    ox: torch.Tensor
+    oy: torch.Tensor
+    oz: torch.Tensor
+    dx: torch.Tensor
+    dy: torch.Tensor
+    dz: torch.Tensor
+    cr: torch.Tensor
+    cg: torch.Tensor
+    cb: torch.Tensor
+    s: torch.Tensor  # int64 sample counter
+    i: torch.Tensor  # int64 bounce counter
+    alive: torch.Tensor
+    out: torch.Tensor  # (4, n), or (6, n) adaptive
+    segs: torch.Tensor  # (n,) int32
+
+    def ctr(self, lanes: Lanes) -> torch.Tensor:
+        """The draw counter of each lane's current bounce."""
+        ctr0 = ((lanes.sample_offset + self.s) * lanes.dps) & rng.M32
+        return (ctr0 + 4 + self.i * DRAWS_PER_BOUNCE) & rng.M32
+
+
+def lane_setup(camera: torch.Tensor, pixel_map: torch.Tensor, seed: int,
+               sample_offset: int, spp: int, width: int, height: int,
+               opts: TraceOptions, budget):
+    """``(lanes, state)`` at the start of a chunk: each lane's first
+    camera ray; a lane without budget is dead at launch."""
+    dev = pixel_map.device
+    f32 = torch.float32
+    n = pixel_map.shape[0]
+    pxi = pixel_map[:, 0].to(torch.int64)
+    pyi = pixel_map[:, 1].to(torch.int64)
+    gid = (pyi * padded_width(width) + pxi) & rng.M32
+    lanes = Lanes(
+        cam=list(camera.unbind(0)), px=pxi.to(f32), py=pyi.to(f32),
+        pix=rng.lowbias32(gid ^ (int(seed) & rng.M32)),
+        limit=spp if budget is None else budget.to(torch.int64),
+        sample_offset=sample_offset,
+        dps=4 + opts.max_depth * DRAWS_PER_BOUNCE,
+        inv_w=1.0 / width, inv_h=1.0 / height, opts=opts,
+    )
+    s = torch.zeros(n, dtype=torch.int64, device=dev)
+    ray = _gen_ray(lanes.cam, s + sample_offset, lanes.px, lanes.py,
+                   lanes.pix, lanes.inv_w, lanes.inv_h, lanes.dps,
+                   lanes.stratified)
+    one = torch.ones(n, dtype=f32, device=dev)
+    state = PathState(
+        *ray, one, one, one, s=s, i=torch.zeros_like(s),
+        alive=s < lanes.limit,
+        out=torch.zeros((6 if lanes.adaptive else 4, n), dtype=f32,
+                        device=dev),
+        segs=torch.zeros(n, dtype=torch.int32, device=dev),
+    )
+    return lanes, state
+
+
+def bounce_tail(st: PathState, lanes: Lanes, win, bq: torch.Tensor,
+                inv_a: torch.Tensor, ab: torch.Tensor) -> torch.Tensor:
+    """The bounce tail for the lanes ``ab`` whose closest hit is known:
+    best q ``bq`` (FILLQ on a miss) and the winner's parameters ``win`` =
+    (center xyz, 1/r, mat, albedo rgb, fuzz, ior). Front-face normal;
+    diffuse, metal or glass scatter; sky on a miss; Russian roulette;
+    depth exhaustion; the contribution into ``st.out``; then the path goes
+    on from the hit point, or the lane starts its next sample, or it has
+    taken its samples and is done. Updates ``st`` and returns the lanes
+    whose path goes on. The arithmetic and its order are the CUDA tail's
+    (``csrc/common.cuh`` ``bounce_tail``)."""
+    opts = lanes.opts
+    pix = lanes.pix
+    ctr = st.ctr(lanes)
+    ox, oy, oz, dx, dy, dz = st.ox, st.oy, st.oz, st.dx, st.dy, st.dz
+    cr, cg, cb = st.cr, st.cg, st.cb
+    zero = torch.zeros_like(ox)
+    scx, scy, scz, inv_r, mat, al_r, al_g, al_b, fuzz, refr = win
+    best_t = bq * inv_a
+    hit = best_t < 1e20
+    best_t = torch.where(hit, best_t, MAX_T)
+    hpx = ox + best_t * dx
+    hpy = oy + best_t * dy
+    hpz = oz + best_t * dz
+    nx = (hpx - scx) * inv_r
+    ny = (hpy - scy) * inv_r
+    nz = (hpz - scz) * inv_r
+    front = rng.dot3(dx, dy, dz, nx, ny, nz) < 0.0
+    sgn = torch.where(front, 1.0, -1.0)
+    nx, ny, nz = nx * sgn, ny * sgn, nz * sgn
+
+    uvx, uvy, uvz = rng.unit_vec(pix, ctr, 0)
+    usx, usy, usz = rng.unit_sphere(pix, ctr, 3)
+    glass_u = rng.u01(pix, ctr, 6)
+    if lanes.stratified:
+        # a sample's first bounce: direction from (hx, phi) on the
+        # unit sphere, not normalised again, and the glass roll
+        s_u = (lanes.sample_offset + st.s) & rng.M32
+        b0, b1, b2 = (
+            rng.r2_fixed(pix, rng.ROT_BOUNCE0, d, s_u, AB0_FIX[d])
+            for d in range(3)
+        )
+        b_hx = b0 * 2.0 - 1.0
+        b_phi = b1 * rng.TWO_PI
+        b_s = torch.sqrt(torch.clamp_min(1.0 - b_hx * b_hx, 0.0))
+        first = st.i == 0
+        uvx = torch.where(first, b_s * torch.sin(b_phi), uvx)
+        uvy = torch.where(first, b_s * torch.cos(b_phi), uvy)
+        uvz = torch.where(first, b_hx, uvz)
+        glass_u = torch.where(first, b2, glass_u)
+
+    ddx, ddy, ddz = nx + uvx, ny + uvy, nz + uvz
+    if opts.near_zero_guard:
+        nzm = ((torch.abs(ddx) < 1e-8) & (torch.abs(ddy) < 1e-8)
+               & (torch.abs(ddz) < 1e-8))
+        ddx = torch.where(nzm, nx, ddx)
+        ddy = torch.where(nzm, ny, ddy)
+        ddz = torch.where(nzm, nz, ddz)
+
+    d_dot_n = rng.dot3(dx, dy, dz, nx, ny, nz)
+    mdx = dx - 2.0 * d_dot_n * nx + fuzz * usx
+    mdy = dy - 2.0 * d_dot_n * ny + fuzz * usy
+    mdz = dz - 2.0 * d_dot_n * nz + fuzz * usz
+    metal_ok = rng.dot3(nx, ny, nz, mdx, mdy, mdz) > 0.0
+
+    ratio = torch.where(front, 1.0 / refr, refr)
+    udx, udy, udz = rng.normalize3(dx, dy, dz)
+    cos_t = torch.clamp_max(-rng.dot3(udx, udy, udz, nx, ny, nz), 1.0)
+    sin_t = torch.sqrt(torch.clamp_min(1.0 - cos_t * cos_t, 0.0))
+    cannot = ratio * sin_t > 1.0
+    r0 = (1.0 - ratio) / (1.0 + ratio)
+    r0 = r0 * r0
+    one_m = 1.0 - cos_t
+    one_m2 = one_m * one_m
+    schlick = r0 + (1.0 - r0) * one_m2 * one_m2 * one_m
+    reflects = cannot | (schlick > glass_u)
+    rpx = ratio * (udx + cos_t * nx)
+    rpy = ratio * (udy + cos_t * ny)
+    rpz = ratio * (udz + cos_t * nz)
+    kk = torch.clamp_min(1.0 - (rpx * rpx + rpy * rpy + rpz * rpz), 0.0)
+    sk = torch.sqrt(kk)
+    ud_dot_n = rng.dot3(udx, udy, udz, nx, ny, nz)
+    gdx = torch.where(reflects, udx - 2.0 * ud_dot_n * nx, rpx - sk * nx)
+    gdy = torch.where(reflects, udy - 2.0 * ud_dot_n * ny, rpy - sk * ny)
+    gdz = torch.where(reflects, udz - 2.0 * ud_dot_n * nz, rpz - sk * nz)
+
+    is_diffuse = mat < 0.5
+    is_metal = (mat >= 0.5) & (mat < 1.5)
+    is_glass = (mat >= 1.5) & (mat < 2.5)
+    ndx = torch.where(is_diffuse, ddx, torch.where(is_metal, mdx, gdx))
+    ndy = torch.where(is_diffuse, ddy, torch.where(is_metal, mdy, gdy))
+    ndz = torch.where(is_diffuse, ddz, torch.where(is_metal, mdz, gdz))
+    did_scatter = is_diffuse | (is_metal & metal_ok) | is_glass
+
+    miss = ab & ~hit
+    scat = ab & hit & did_scatter
+    sky_t = 0.5 * (udy + 1.0)
+    con_r = torch.where(miss, cr * (1.0 - 0.5 * sky_t), zero)
+    con_g = torch.where(miss, cg * (1.0 - 0.3 * sky_t), zero)
+    con_b = torch.where(miss, cb, zero)
+
+    cr = torch.where(scat, cr * al_r, cr)
+    cg = torch.where(scat, cg * al_g, cg)
+    cb = torch.where(scat, cb * al_b, cb)
+    rr = opts.russian_roulette_depth
+    if rr > 0:
+        p_surv = torch.clamp(
+            torch.maximum(cr, torch.maximum(cg, cb)), 0.05, 1.0
+        )
+        survive = (st.i < rr) | (rng.u01(pix, ctr, 7) < p_surv)
+        boost = torch.where((st.i >= rr) & survive & scat, 1.0 / p_surv,
+                            1.0)
+        cr, cg, cb = cr * boost, cg * boost, cb * boost
+        scat = scat & survive
+
+    exhausted = scat & (st.i >= opts.max_depth - 1)
+    if not opts.exhaust_black:
+        con_r = torch.where(exhausted, cr, con_r)
+        con_g = torch.where(exhausted, cg, con_g)
+        con_b = torch.where(exhausted, cb, con_b)
+    scat_cont = scat & ~exhausted
+    out = st.out
+    out[0] += con_r
+    out[1] += con_g
+    out[2] += con_b
+
+    # regeneration: an ended path starts the lane's next sample
+    done = ab & ~scat_cont
+    if lanes.adaptive:
+        # the sample's luminance is its contribution's mean, zero for
+        # an absorbed or roulette-killed path
+        lum = (con_r + con_g + con_b) * (1.0 / 3.0)
+        out[4] += done.to(torch.float32)
+        out[5] += lum * lum
+    s = st.s + done.to(torch.int64)
+    regen = done & (s < lanes.limit)
+    nox, noy, noz, ndx2, ndy2, ndz2 = _gen_ray(
+        lanes.cam, s + lanes.sample_offset, lanes.px, lanes.py, pix,
+        lanes.inv_w, lanes.inv_h, lanes.dps, lanes.stratified
+    )
+    one = torch.ones_like(ox)
+    st.ox = torch.where(regen, nox, torch.where(scat_cont, hpx, ox))
+    st.oy = torch.where(regen, noy, torch.where(scat_cont, hpy, oy))
+    st.oz = torch.where(regen, noz, torch.where(scat_cont, hpz, oz))
+    st.dx = torch.where(regen, ndx2, torch.where(scat_cont, ndx, dx))
+    st.dy = torch.where(regen, ndy2, torch.where(scat_cont, ndy, dy))
+    st.dz = torch.where(regen, ndz2, torch.where(scat_cont, ndz, dz))
+    st.cr = torch.where(regen, one, cr)
+    st.cg = torch.where(regen, one, cg)
+    st.cb = torch.where(regen, one, cb)
+    st.i = torch.where(regen, 0, torch.where(scat_cont, st.i + 1, st.i))
+    st.s = s
+    # a lane whose bounce did not complete (mid-walk) stays alive
+    st.alive = scat_cont | regen | (st.alive & ~ab)
+    return scat_cont
+
+
 def cluster_walk_plain(tables: WalkTables, pixel_map: torch.Tensor,
                        seed: int, sample_offset: int, spp: int, width: int,
                        height: int, opts: TraceOptions,
@@ -270,44 +532,20 @@ def cluster_walk_plain(tables: WalkTables, pixel_map: torch.Tensor,
     n = pixel_map.shape[0]
     n_global = tables.globals.shape[0]
     k, group = tables.members.shape[:2]
-    cam = list(tables.camera.unbind(0))
     glob = [list(g.unbind(0)) for g in tables.globals]
     bnd = [tables.bounds[:, j] for j in range(6)]
-    dps = 4 + opts.max_depth * DRAWS_PER_BOUNCE
-    inv_w, inv_h = 1.0 / width, 1.0 / height
-    rr = opts.russian_roulette_depth
-    adaptive = opts.adaptive_tolerance > 0.0
-    stratified = opts.sampler == "stratified"
-    # samples a lane takes: its own budget, else the chunk's spp
-    limit = spp if budget is None else budget.to(torch.int64)
-
-    pxi = pixel_map[:, 0].to(torch.int64)
-    pyi = pixel_map[:, 1].to(torch.int64)
-    px, py = pxi.to(f32), pyi.to(f32)
-    gid = (pyi * padded_width(width) + pxi) & rng.M32
-    pix = rng.lowbias32(gid ^ (int(seed) & rng.M32))
+    lanes, st = lane_setup(tables.camera, pixel_map, seed, sample_offset,
+                           spp, width, height, opts, budget)
     idx_k = torch.arange(k, device=dev, dtype=torch.int32)
 
-    zero = torch.zeros(n, dtype=f32, device=dev)
-    one = torch.ones(n, dtype=f32, device=dev)
-    s = torch.zeros(n, dtype=torch.int64, device=dev)
-    i = torch.zeros(n, dtype=torch.int64, device=dev)
-    ox, oy, oz, dx, dy, dz = _gen_ray(cam, s + sample_offset, px, py, pix,
-                                      inv_w, inv_h, dps, stratified)
-    cr, cg, cb = one, one, one
-    # a lane without budget is dead at launch
-    alive = s < limit
     bq = torch.full((n,), FILLQ, dtype=f32, device=dev)
     bs = torch.zeros(n, dtype=torch.int64, device=dev)
     kl = torch.full((n,), NEG_BIG, dtype=f32, device=dev)
-    out = torch.zeros((6 if adaptive else 4, n), dtype=f32, device=dev)
-    segs = torch.zeros(n, dtype=torch.int32, device=dev)
 
-    while bool(alive.any()):
-        out[3] += alive.to(f32)
-        ctr0 = ((sample_offset + s) * dps) & rng.M32
-        ctr = (ctr0 + 4 + i * DRAWS_PER_BOUNCE) & rng.M32
-
+    while bool(st.alive.any()):
+        alive = st.alive
+        st.out[3] += alive.to(f32)
+        ox, oy, oz, dx, dy, dz = st.ox, st.oy, st.oz, st.dx, st.dy, st.dz
         a = rng.dot3(dx, dy, dz, dx, dy, dz)
         inv_a = 1.0 / a
         o_dot_d = rng.dot3(ox, oy, oz, dx, dy, dz)
@@ -363,145 +601,12 @@ def cluster_walk_plain(tables: WalkTables, pixel_map: torch.Tensor,
         new_done = u_live & ((_key_floor(m1) >= bq) | (m1 >= FILL_FLOOR))
         bdone = imm_done | new_done
         ab = alive & bdone
-        segs += ab.to(torch.int32)
+        st.segs += ab.to(torch.int32)
 
-        # --- shared tail: runs for lanes whose bounce completed ---
+        # the shared tail, for lanes whose bounce completed
         w = tables.winner[bs]
-        scx, scy, scz, inv_r, mat = (w[:, j] for j in range(5))
-        al_r, al_g, al_b, fuzz, refr = (w[:, j] for j in range(5, 10))
-        best_t = bq * inv_a
-        hit = best_t < 1e20
-        best_t = torch.where(hit, best_t, MAX_T)
-        hpx = ox + best_t * dx
-        hpy = oy + best_t * dy
-        hpz = oz + best_t * dz
-        nx = (hpx - scx) * inv_r
-        ny = (hpy - scy) * inv_r
-        nz = (hpz - scz) * inv_r
-        front = rng.dot3(dx, dy, dz, nx, ny, nz) < 0.0
-        sgn = torch.where(front, 1.0, -1.0)
-        nx, ny, nz = nx * sgn, ny * sgn, nz * sgn
-
-        uvx, uvy, uvz = rng.unit_vec(pix, ctr, 0)
-        usx, usy, usz = rng.unit_sphere(pix, ctr, 3)
-        glass_u = rng.u01(pix, ctr, 6)
-        if stratified:
-            # a sample's first bounce: direction from (hx, phi) on the
-            # unit sphere, not normalised again, and the glass roll
-            s_u = (sample_offset + s) & rng.M32
-            b0, b1, b2 = (
-                rng.r2_fixed(pix, rng.ROT_BOUNCE0, d, s_u, AB0_FIX[d])
-                for d in range(3)
-            )
-            b_hx = b0 * 2.0 - 1.0
-            b_phi = b1 * rng.TWO_PI
-            b_s = torch.sqrt(torch.clamp_min(1.0 - b_hx * b_hx, 0.0))
-            first = i == 0
-            uvx = torch.where(first, b_s * torch.sin(b_phi), uvx)
-            uvy = torch.where(first, b_s * torch.cos(b_phi), uvy)
-            uvz = torch.where(first, b_hx, uvz)
-            glass_u = torch.where(first, b2, glass_u)
-
-        ddx, ddy, ddz = nx + uvx, ny + uvy, nz + uvz
-        if opts.near_zero_guard:
-            nzm = ((torch.abs(ddx) < 1e-8) & (torch.abs(ddy) < 1e-8)
-                   & (torch.abs(ddz) < 1e-8))
-            ddx = torch.where(nzm, nx, ddx)
-            ddy = torch.where(nzm, ny, ddy)
-            ddz = torch.where(nzm, nz, ddz)
-
-        d_dot_n = rng.dot3(dx, dy, dz, nx, ny, nz)
-        mdx = dx - 2.0 * d_dot_n * nx + fuzz * usx
-        mdy = dy - 2.0 * d_dot_n * ny + fuzz * usy
-        mdz = dz - 2.0 * d_dot_n * nz + fuzz * usz
-        metal_ok = rng.dot3(nx, ny, nz, mdx, mdy, mdz) > 0.0
-
-        ratio = torch.where(front, 1.0 / refr, refr)
-        udx, udy, udz = rng.normalize3(dx, dy, dz)
-        cos_t = torch.clamp_max(-rng.dot3(udx, udy, udz, nx, ny, nz), 1.0)
-        sin_t = torch.sqrt(torch.clamp_min(1.0 - cos_t * cos_t, 0.0))
-        cannot = ratio * sin_t > 1.0
-        r0 = (1.0 - ratio) / (1.0 + ratio)
-        r0 = r0 * r0
-        one_m = 1.0 - cos_t
-        one_m2 = one_m * one_m
-        schlick = r0 + (1.0 - r0) * one_m2 * one_m2 * one_m
-        reflects = cannot | (schlick > glass_u)
-        rpx = ratio * (udx + cos_t * nx)
-        rpy = ratio * (udy + cos_t * ny)
-        rpz = ratio * (udz + cos_t * nz)
-        kk = torch.clamp_min(1.0 - (rpx * rpx + rpy * rpy + rpz * rpz), 0.0)
-        sk = torch.sqrt(kk)
-        ud_dot_n = rng.dot3(udx, udy, udz, nx, ny, nz)
-        gdx = torch.where(reflects, udx - 2.0 * ud_dot_n * nx, rpx - sk * nx)
-        gdy = torch.where(reflects, udy - 2.0 * ud_dot_n * ny, rpy - sk * ny)
-        gdz = torch.where(reflects, udz - 2.0 * ud_dot_n * nz, rpz - sk * nz)
-
-        is_diffuse = mat < 0.5
-        is_metal = (mat >= 0.5) & (mat < 1.5)
-        is_glass = (mat >= 1.5) & (mat < 2.5)
-        ndx = torch.where(is_diffuse, ddx, torch.where(is_metal, mdx, gdx))
-        ndy = torch.where(is_diffuse, ddy, torch.where(is_metal, mdy, gdy))
-        ndz = torch.where(is_diffuse, ddz, torch.where(is_metal, mdz, gdz))
-        did_scatter = is_diffuse | (is_metal & metal_ok) | is_glass
-
-        miss = ab & ~hit
-        scat = ab & hit & did_scatter
-        sky_t = 0.5 * (udy + 1.0)
-        con_r = torch.where(miss, cr * (1.0 - 0.5 * sky_t), zero)
-        con_g = torch.where(miss, cg * (1.0 - 0.3 * sky_t), zero)
-        con_b = torch.where(miss, cb, zero)
-
-        cr = torch.where(scat, cr * al_r, cr)
-        cg = torch.where(scat, cg * al_g, cg)
-        cb = torch.where(scat, cb * al_b, cb)
-        if rr > 0:
-            p_surv = torch.clamp(
-                torch.maximum(cr, torch.maximum(cg, cb)), 0.05, 1.0
-            )
-            survive = (i < rr) | (rng.u01(pix, ctr, 7) < p_surv)
-            boost = torch.where((i >= rr) & survive & scat, 1.0 / p_surv,
-                                1.0)
-            cr, cg, cb = cr * boost, cg * boost, cb * boost
-            scat = scat & survive
-
-        exhausted = scat & (i >= opts.max_depth - 1)
-        if not opts.exhaust_black:
-            con_r = torch.where(exhausted, cr, con_r)
-            con_g = torch.where(exhausted, cg, con_g)
-            con_b = torch.where(exhausted, cb, con_b)
-        scat_cont = scat & ~exhausted
-        out[0] += con_r
-        out[1] += con_g
-        out[2] += con_b
-
-        # regeneration: an ended path starts the lane's next sample
-        done = ab & ~scat_cont
-        if adaptive:
-            # the sample's luminance is its contribution's mean, zero for
-            # an absorbed or roulette-killed path
-            lum = (con_r + con_g + con_b) * (1.0 / 3.0)
-            out[4] += done.to(f32)
-            out[5] += lum * lum
-        s = s + done.to(torch.int64)
-        regen = done & (s < limit)
-        nox, noy, noz, ndx2, ndy2, ndz2 = _gen_ray(
-            cam, s + sample_offset, px, py, pix, inv_w, inv_h, dps,
-            stratified
-        )
-        ox = torch.where(regen, nox, torch.where(scat_cont, hpx, ox))
-        oy = torch.where(regen, noy, torch.where(scat_cont, hpy, oy))
-        oz = torch.where(regen, noz, torch.where(scat_cont, hpz, oz))
-        dx = torch.where(regen, ndx2, torch.where(scat_cont, ndx, dx))
-        dy = torch.where(regen, ndy2, torch.where(scat_cont, ndy, dy))
-        dz = torch.where(regen, ndz2, torch.where(scat_cont, ndz, dz))
-        cr = torch.where(regen, one, cr)
-        cg = torch.where(regen, one, cg)
-        cb = torch.where(regen, one, cb)
-        i = torch.where(regen, 0, torch.where(scat_cont, i + 1, i))
-
-        alive = scat_cont | regen | (alive & ~bdone)
+        bounce_tail(st, lanes, [w[:, j] for j in range(10)], bq, inv_a, ab)
         bq = torch.where(ab, FILLQ, bq)
         bs = torch.where(ab, 0, bs)
         kl = torch.where(ab, NEG_BIG, kl)
-    return out, segs
+    return st.out, st.segs

@@ -1,0 +1,223 @@
+"""The flat closest-hit scan: one spp chunk for every lane of a
+lane→pixel map, every bounce testing every sphere (counterpart of the
+flat-scan variants of ``raytracer_tpu/render/pallas_kernel.py``
+``_make_kernel(...).kernel``, ``cdims=None``, launched by
+``_render_chunk_impl``).
+
+:func:`flat_scan` launches the CUDA kernel ``csrc/flat_scan.cu`` on CUDA
+tensors and counts its launches in ``flat_scan.launches`` (and by kernel
+variant in ``flat_scan.launches_by_variant``); on CPU tensors it runs
+:func:`flat_scan_plain`, the same function written as masked tensor code.
+Both return what the cluster walk returns (``render/cluster_walk.py``):
+``out`` (4, n) float32 in lane order [rgb sums, bounces], with two more
+rows when adaptive, and ``segs`` (n,) int32 completed bounces.
+
+K2 (``g_full`` None, or not below the slot count) takes the near root,
+else the far root, of every slot. K2s (``0 <= g_full`` < slots) does so
+for slots [0, g_full) and takes the near root alone for the rest, whose
+spheres cannot contain a ray origin (``render/split.py``); an exact
+far-root self-test of the sphere the lane last bounced off covers a path
+re-entering it. Of equal candidates the lowest slot wins (strict <),
+where the TPU kernel's one-hot gather summed the tied slots' parameters.
+The bounce tail and its adaptive and stratified switches are the cluster
+walk's (``bounce_tail``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from raytracer_tpu_torch.render import rng
+from raytracer_tpu_torch.render.cluster_walk import (
+    FILLQ,
+    _first_min,
+    bounce_tail,
+    check_chunk_args,
+    check_tables,
+    lane_setup,
+    padded_width,
+    roots,
+)
+from raytracer_tpu_torch.render.options import MIN_T, TraceOptions
+from raytracer_tpu_torch.render.tables import FlatTables
+
+#: floats per sphere row (see ``tables.sphere_table``)
+ROW = 12
+#: shared memory a block may take without opting in to more; the scan's
+#: whole table (20 + 12 floats a slot) must fit: at most 1022 slots
+MAX_SMEM_BYTES = 48 * 1024
+
+
+def smem_bytes(slots: int) -> int:
+    """Shared memory of one block of the kernel, in bytes."""
+    return 4 * (20 + ROW * slots)
+
+
+def variant_name(opts: TraceOptions, split: bool) -> str:
+    """The kernel instantiation that serves ``opts`` (K2s when
+    ``split``)."""
+    return "flat_scan" + ("_split" if split else "") + (
+        "_adaptive" if opts.adaptive_tolerance > 0.0 else ""
+    ) + ("_stratified" if opts.sampler == "stratified" else "")
+
+
+def is_split(tables: FlatTables, g_full) -> bool:
+    return g_full is not None and g_full < tables.spheres.shape[0]
+
+
+def _check(tables: FlatTables, pixel_map: torch.Tensor, width: int,
+           height: int, spp: int, opts: TraceOptions, g_full, budget):
+    check_tables(tables, ("camera", "spheres"), pixel_map.device)
+    slots = tables.spheres.shape[0]
+    if (tables.camera.shape != (19,) or tables.spheres.ndim != 2
+            or tables.spheres.shape[1] != ROW or slots < 1):
+        raise ValueError("inconsistent flat-scan table shapes")
+    if smem_bytes(slots) > MAX_SMEM_BYTES:
+        raise ValueError(
+            f"the flat scan's table of {slots} slots needs "
+            f"{smem_bytes(slots)} bytes of shared memory per block, over "
+            f"the {MAX_SMEM_BYTES} a block has by default; render such a "
+            "scene with the cluster walk (cluster_scan=True)"
+        )
+    if g_full is not None and not 0 <= g_full:
+        raise ValueError(f"g_full must be >= 0, got {g_full}")
+    check_chunk_args(pixel_map, width, height, spp, opts, budget)
+
+
+def flat_scan(tables: FlatTables, pixel_map: torch.Tensor, seed: int,
+              sample_offset: int, spp: int, width: int, height: int,
+              opts: TraceOptions, g_full: int | None = None,
+              budget: torch.Tensor | None = None):
+    """One chunk of ``spp`` samples for every lane of ``pixel_map``
+    through K2, or K2s with ``g_full`` full-logic slots; with ``budget``
+    (adaptive only), lane j takes ``budget[j]`` samples instead."""
+    _check(tables, pixel_map, width, height, spp, opts, g_full, budget)
+    dev = pixel_map.device
+    if dev.type == "cpu":
+        return flat_scan_plain(tables, pixel_map, seed, sample_offset, spp,
+                               width, height, opts, g_full, budget)
+    if dev.type != "cuda":
+        raise ValueError(f"no flat scan for device {dev}")
+    return _launch(tables, pixel_map, seed, sample_offset, spp, width,
+                   height, opts, g_full, budget)
+
+
+flat_scan.launches = 0
+flat_scan.launches_by_variant = {}
+
+
+def reset_launch_counts():
+    flat_scan.launches = 0
+    flat_scan.launches_by_variant = {}
+
+
+def _lib():
+    from raytracer_tpu_torch.utils import cuda_build
+
+    lib = cuda_build.load("flat_scan")
+    fn = lib.flat_scan_launch
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 14
+                       + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch(tables, pixel_map, seed, sample_offset, spp, width, height,
+            opts, g_full, budget):
+    n = pixel_map.shape[0]
+    dev = pixel_map.device
+    adaptive = opts.adaptive_tolerance > 0.0
+    split = is_split(tables, g_full)
+    slots = tables.spheres.shape[0]
+    # the kernel writes every element, zeros for a lane without budget
+    out = torch.empty((6 if adaptive else 4, n), dtype=torch.float32,
+                      device=dev)
+    segs = torch.empty((n,), dtype=torch.int32, device=dev)
+    if n == 0:
+        return out, segs
+    fn = _lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(
+            tables.camera.data_ptr(), tables.spheres.data_ptr(),
+            pixel_map.data_ptr(),
+            None if budget is None else budget.data_ptr(),
+            out.data_ptr(), segs.data_ptr(),
+            int(adaptive), int(opts.sampler == "stratified"), int(split),
+            n, slots, g_full if split else slots, padded_width(width),
+            int(seed), int(sample_offset), int(spp),
+            opts.max_depth, opts.russian_roulette_depth,
+            int(opts.exhaust_black), int(opts.near_zero_guard),
+            float(np.float32(1.0 / width)), float(np.float32(1.0 / height)),
+            stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"flat_scan kernel launch failed: CUDA error {err}")
+    flat_scan.launches += 1
+    name = variant_name(opts, split)
+    by_variant = flat_scan.launches_by_variant
+    by_variant[name] = by_variant.get(name, 0) + 1
+    return out, segs
+
+
+def flat_scan_plain(tables: FlatTables, pixel_map: torch.Tensor, seed: int,
+                    sample_offset: int, spp: int, width: int, height: int,
+                    opts: TraceOptions, g_full: int | None = None,
+                    budget: torch.Tensor | None = None):
+    """The flat scan as masked tensor code: every lane runs the same
+    regeneration loop, one bounce per pass, ``while`` any lane is alive.
+    The arithmetic and its order are the kernel's."""
+    f32 = torch.float32
+    sph = tables.spheres
+    slots = sph.shape[0]
+    split = is_split(tables, g_full)
+    lanes, st = lane_setup(tables.camera, pixel_map, seed, sample_offset,
+                           spp, width, height, opts, budget)
+    cols = [sph[:, j][None, :] for j in range(4)]
+    full_slot = (torch.arange(slots, device=sph.device)
+                 < (g_full if split else slots))[None, :]
+    last = torch.zeros_like(st.s)  # K2s: the slot last bounced off
+
+    while bool(st.alive.any()):
+        alive = st.alive
+        st.out[3] += alive.to(f32)
+        st.segs += alive.to(torch.int32)
+        ox, oy, oz, dx, dy, dz = st.ox, st.oy, st.oz, st.dx, st.dy, st.dz
+        a = rng.dot3(dx, dy, dz, dx, dy, dz)
+        inv_a = 1.0 / a
+        o_dot_d = rng.dot3(ox, oy, oz, dx, dy, dz)
+        o_dot_o = rng.dot3(ox, oy, oz, ox, oy, oz)
+        min_t_a = MIN_T * a
+
+        # (n, slots) candidates: near root, else far root on full-logic
+        # slots; near root alone on the rest
+        col = [t[:, None] for t in (ox, oy, oz, dx, dy, dz, a, o_dot_d,
+                                    o_dot_o)]
+        nb, sq = roots(*cols, *col)
+        qn = nb - sq
+        q = torch.where(qn >= min_t_a[:, None], qn, nb + sq)
+        full = torch.where(q >= min_t_a[:, None], q, FILLQ)
+        near = torch.where(qn >= min_t_a[:, None], qn, FILLQ)
+        cand = torch.where(full_slot, full, near)
+        bq, bs = _first_min(cand)
+        if split:
+            # the far root of the sphere the origin sits on, mid-path
+            # only; strict <: a tie keeps the scan's winner
+            own = sph[last]
+            s_nb, s_sq = roots(*own[:, :4].unbind(1), ox, oy, oz, dx, dy,
+                               dz, a, o_dot_d, o_dot_o)
+            s_qf = s_nb + s_sq
+            ok = (st.i >= 1) & (s_qf >= min_t_a) & (s_qf < bq)
+            bq = torch.where(ok, s_qf, bq)
+            bs = torch.where(ok, last, bs)
+
+        w = sph[bs]
+        win = [w[:, j] for j in (0, 1, 2, 4, 5, 6, 7, 8, 9, 10)]
+        goes_on = bounce_tail(st, lanes, win, bq, inv_a, alive)
+        if split:
+            last = torch.where(goes_on, bs, last)
+    return st.out, st.segs

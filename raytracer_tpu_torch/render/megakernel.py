@@ -1,9 +1,17 @@
-"""Chunked cluster-walk render (counterpart of the host orchestration in
-``raytracer_tpu/render/pallas_kernel.py``: ``render_image_pallas``,
-``_render_pallas``, ``_plan_from_cost``, ``_plan_adaptive``,
-``_accumulate_sorted``, ``_render_adaptive_profiled``,
+"""Chunked render through the port's kernels (counterpart of the host
+orchestration in ``raytracer_tpu/render/pallas_kernel.py``:
+``render_image_pallas``, ``_render_pallas``, ``_plan_from_cost``,
+``_plan_adaptive``, ``_accumulate_sorted``, ``_render_adaptive_profiled``,
 ``_render_adaptive_scan``, ``_finalize_flat``, ``_finalize_adaptive``
 and ``_finalize``).
+
+:func:`choose_kernel` picks the kernel as the JAX package does: the
+cluster walk (K1) on a progressive session's static-cluster hint, or
+where ``cluster_scan`` is enabled and a partition can be built; else the
+flat scan, split (K2s) on a static-split hint or on this scene's own
+containable split, unsplit (K2) otherwise. A caller that stands for a
+scene the JAX package would see traced (the progressive step) turns the
+scene analysis off, and only its hints choose.
 
 The spp run is cut by the shared schedule. With ``sort_pixels`` and more
 than one chunk, the first chunk renders in the identity lane order and
@@ -42,9 +50,21 @@ from raytracer_tpu_torch.render.cluster_walk import (
     identity_map,
     padded_width,
 )
-from raytracer_tpu_torch.render.options import TraceOptions
-from raytracer_tpu_torch.render.rng import kernel_seed
-from raytracer_tpu_torch.render.tables import cluster_partition, walk_tables
+from raytracer_tpu_torch.render.flat_scan import flat_scan
+from raytracer_tpu_torch.render.options import (
+    TraceOptions,
+    cluster_scan_enabled,
+)
+from raytracer_tpu_torch.render.rng import kernel_seed_from_key
+from raytracer_tpu_torch.render.split import containable_split
+from raytracer_tpu_torch.render.tables import (
+    cluster_partition,
+    cluster_reorder,
+    flat_tables,
+    upload,
+    walk_tables,
+)
+from raytracer_tpu_torch.scene.accel import ClusteredScene
 from raytracer_tpu_torch.scene.spheres import Scene
 
 
@@ -171,15 +191,80 @@ def adaptive_state_from_numpy(acc, width: int, height: int,
     return crop(acc), None if chunk_stats is None else crop(chunk_stats)
 
 
-def _render_adaptive(tables, kseed, sizes, width, height, opts, device):
+@dataclasses.dataclass(frozen=True)
+class KernelChoice:
+    """The kernel that renders a scene and the tables it reads:
+    ``kernel`` is ``'cluster_walk'`` (K1) or ``'flat_scan'`` (K2, or K2s
+    when ``g_full`` is set)."""
+
+    kernel: str
+    tables: object
+    g_full: int | None = None
+
+    def launcher(self, kseed: int, width: int, height: int,
+                 opts: TraceOptions):
+        """``launch(pixel_map, sample_offset, spp, budget=None) -> (out,
+        segs)``: one chunk through the chosen kernel."""
+        if self.kernel == "cluster_walk":
+            def launch(pixel_map, offset, cs, budget=None):
+                return cluster_walk(self.tables, pixel_map, kseed, offset, cs,
+                                    width, height, opts, budget)
+        else:
+            def launch(pixel_map, offset, cs, budget=None):
+                return flat_scan(self.tables, pixel_map, kseed, offset, cs,
+                                 width, height, opts, self.g_full, budget)
+        return launch
+
+
+def permute_scene(scene: Scene, perm) -> Scene:
+    """The scene's slots in the order of ``perm`` (numpy indices)."""
+    idx = upload(torch.as_tensor(np.asarray(perm, np.int64)),
+                 scene.center.device)
+    return Scene(**{f.name: getattr(scene, f.name)[idx]
+                    for f in dataclasses.fields(scene)})
+
+
+def choose_kernel(scene: Scene, dcam: DerivedCamera, opts: TraceOptions,
+                  device, static_split=None, static_cluster=None,
+                  analyse: bool = True) -> KernelChoice:
+    """The kernel and tables for ``scene``, as ``render_image_pallas``
+    and ``_render_pallas`` choose. ``static_cluster`` = (boxes, uuid,
+    n_global) of a partition built once from a concrete hint: the scene
+    is gathered into its slot layout (K1). ``static_split`` = (perm,
+    g_full) from a hint (K2s). With ``analyse`` off the scene is not read
+    on the host: no partition and no split of its own."""
+    if static_cluster is not None:
+        boxes, uuid, n_global = static_cluster
+        uuid = upload(torch.as_tensor(uuid), scene.center.device)
+        part = ClusteredScene(scene=cluster_reorder(scene, uuid), boxes=boxes,
+                              n_global=n_global, group=opts.cluster_group,
+                              uuid=uuid)
+        return KernelChoice("cluster_walk", walk_tables(part, dcam, device))
+    if analyse and cluster_scan_enabled(opts, scene.count):
+        part = cluster_partition(scene, opts)
+        if part is not None:
+            return KernelChoice("cluster_walk",
+                                walk_tables(part, dcam, device))
+    split = static_split
+    if split is None and analyse:
+        split = containable_split(scene, dcam, opts)
+    g_full = None
+    if split is not None:
+        perm, g_full = split
+        if perm is not None:
+            scene = permute_scene(scene, perm)
+    return KernelChoice("flat_scan", flat_tables(scene, dcam, device),
+                        g_full)
+
+
+def _render_adaptive(launch, sizes, width, height, opts, device):
     """The adaptive host loop: an identity-order profile chunk at full
     budget, then equal sorted chunks, each followed by accumulation and a
     new convergence decision. Returns the (6, H·W) accumulator and the
     int64 segment total, both on the device."""
     tol = opts.adaptive_tolerance
     track_chunks = opts.sampler == "stratified"
-    acc, segs = cluster_walk(tables, identity_map(width, height, device),
-                             kseed, 0, sizes[0], width, height, opts)
+    acc, segs = launch(identity_map(width, height, device), 0, sizes[0])
     segments = segs.sum(dtype=torch.int64)
     inv, pixel_map, budget = plan_adaptive(acc, width, sizes[1], tol)
     # between-chunk statistics start after the profile chunk, whose size
@@ -191,8 +276,7 @@ def _render_adaptive(tables, kseed, sizes, width, height, opts, device):
     for cs in sizes[1:]:
         if track_chunks:
             lsum_prev, n_prev = acc[0] + acc[1] + acc[2], acc[4]
-        out, segs = cluster_walk(tables, pixel_map, kseed, offset, cs, width,
-                                 height, opts, budget=budget)
+        out, segs = launch(pixel_map, offset, cs, budget)
         acc, segments = accumulate_sorted(out, segs, acc, segments, inv)
         if track_chunks:
             cstats = chunk_mean_stats(cstats, acc, lsum_prev, n_prev)
@@ -203,16 +287,19 @@ def _render_adaptive(tables, kseed, sizes, width, height, opts, device):
     return acc, segments
 
 
-def render_image_cluster(scene: Scene, dcam: DerivedCamera, width: int,
-                         height: int, spp: int, seed: int,
-                         opts: TraceOptions, device,
-                         return_stats: bool = False):
-    """Render ``spp`` samples per pixel of ``scene`` through the cluster
-    walk on ``device``."""
+def render(scene: Scene, dcam: DerivedCamera, width: int, height: int,
+           spp: int, key, opts: TraceOptions, device, sample_offset: int = 0,
+           static_split=None, static_cluster=None, analyse: bool = True):
+    """Render ``spp`` samples per pixel of ``scene`` on ``device``, with
+    key data ``key`` (see ``rng.key_data``), starting at absolute sample
+    ``sample_offset``. Returns ``(image, segments, extra)``: the (H, W, 3)
+    image, the exact int64 segment total as a 0-d device tensor (read it
+    when you need it: that waits for the device), and for an adaptive
+    render ``{'spp_map': (H, W) sample counts}``, else ``{}``."""
     device = torch.device(device)
-    part = cluster_partition(scene, opts)
-    tables = walk_tables(part, dcam, device)
-    kseed = kernel_seed(seed)
+    choice = choose_kernel(scene, dcam, opts, device, static_split,
+                           static_cluster, analyse)
+    launch = choice.launcher(kernel_seed_from_key(key), width, height, opts)
     # the ORIGINAL slot count: the schedule must not see the padding
     chunk = schedule.pick_chunk_spp(
         spp, width * height, scene.count, opts.max_depth,
@@ -220,6 +307,13 @@ def render_image_cluster(scene: Scene, dcam: DerivedCamera, width: int,
     )
     adaptive_sizes = None
     if opts.adaptive_tolerance > 0.0:
+        if sample_offset != 0:
+            # pixels stop at different sample counts, so no uniform base
+            # offset describes where a later render would resume
+            raise ValueError(
+                "adaptive_tolerance requires sample_offset == 0 "
+                "(per-pixel stop counts cannot resume from a uniform base)"
+            )
         adaptive_sizes = schedule.adaptive_schedule(
             spp, chunk, opts.adaptive_chunk_spp, opts.sort_pixels
         )
@@ -227,41 +321,42 @@ def render_image_cluster(scene: Scene, dcam: DerivedCamera, width: int,
             # nothing could gate a later chunk: render fixed spp through
             # the four-row kernels
             opts = dataclasses.replace(opts, adaptive_tolerance=0.0)
+            launch = choice.launcher(kernel_seed_from_key(key), width,
+                                     height, opts)
     if adaptive_sizes is not None:
-        acc, segments = _render_adaptive(tables, kseed, adaptive_sizes,
-                                         width, height, opts, device)
+        acc, segments = _render_adaptive(launch, adaptive_sizes, width,
+                                         height, opts, device)
         image, spp_map = finalize_adaptive(acc, width, height, opts.gamma)
-        if not return_stats:
-            return image
-        stats = _segment_stats(segments)
-        stats["mean_spp"] = float(spp_map.mean(dtype=torch.float64))
-        stats["spp_map"] = spp_map
-        return image, stats
+        return image, segments, {"spp_map": spp_map}
     sizes, _ = schedule.chunk_schedule(spp, chunk)
     n = width * height
-    identity = identity_map(width, height, device)
     acc = torch.zeros((4, n), dtype=torch.float32, device=device)
     segments = torch.zeros((), dtype=torch.int64, device=device)
     sort = opts.sort_pixels and len(sizes) > 1
-    pixel_map, inv = identity, None
-    offset = 0
+    pixel_map, inv = identity_map(width, height, device), None
+    offset = sample_offset
     for cs in sizes:
-        out, segs = cluster_walk(tables, pixel_map, kseed, offset, cs,
-                                 width, height, opts)
+        out, segs = launch(pixel_map, offset, cs)
         if inv is None:
             acc = acc + out
             segments = segments + segs.sum(dtype=torch.int64)
         else:
             acc, segments = accumulate_sorted(out, segs, acc, segments, inv)
         offset += cs
-        if sort and offset < spp:
+        if sort and offset < sample_offset + spp:
             inv, pixel_map = plan_from_cost(acc[3], width)
     image = finalize_flat(acc[:3], width, height, spp, opts.gamma)
-    if not return_stats:
-        return image
-    return image, _segment_stats(segments)
+    return image, segments, {}
 
 
-def _segment_stats(segments: torch.Tensor) -> dict:
+def segment_stats(segments: torch.Tensor, extra: dict) -> dict:
+    """The render's stats: segments rounded once to float32 (as the JAX
+    package reports them) and exactly; an adaptive render's mean spp and
+    sample map."""
     total = int(segments)
-    return {"segments": float(np.float32(total)), "segments_exact": total}
+    stats = {"segments": float(np.float32(total)), "segments_exact": total}
+    if "spp_map" in extra:
+        spp_map = extra["spp_map"]
+        stats["mean_spp"] = float(spp_map.mean(dtype=torch.float64))
+        stats["spp_map"] = spp_map
+    return stats

@@ -1,9 +1,9 @@
 """Trace options of the port (counterpart of
-``raytracer_tpu/render/options.py``), limited to what the cover render's
-paths (fixed spp, adaptive, stratified) read. The production cluster-walk
-configuration of the JAX package (one cluster per walk step, packed visit
-key, fused bounce-done test) is the only walk the port has, so it carries
-no knobs for it."""
+``raytracer_tpu/render/options.py``), limited to what the ported paths
+(cluster walk, flat and split scan; fixed spp, adaptive, stratified)
+read. The production cluster-walk configuration of the JAX package (one
+cluster per walk step, packed visit key, fused bounce-done test) is the
+only walk the port has, so it carries no knobs for it."""
 
 from __future__ import annotations
 
@@ -13,8 +13,20 @@ import dataclasses
 MIN_T = 0.001
 MAX_T = 1e5
 
-#: scenes below this slot count take the flat scan in the JAX package
+#: scenes below this slot count take the flat scan under
+#: ``cluster_scan='auto'``
 CLUSTER_AUTO_MIN_SPHERES = 64
+
+
+def cluster_scan_enabled(opts: "TraceOptions", scene_count: int) -> bool:
+    """Resolve ``opts.cluster_scan`` ('auto' | bool) for a scene of
+    ``scene_count`` slots: 'auto' is on from CLUSTER_AUTO_MIN_SPHERES
+    slots unless ``scan_mxu`` was asked for. A True resolution still
+    takes the flat scan where no partition can be built."""
+    if opts.cluster_scan == "auto":
+        return (not opts.scan_mxu
+                and scene_count >= CLUSTER_AUTO_MIN_SPHERES)
+    return bool(opts.cluster_scan)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,6 +51,13 @@ class TraceOptions:
     the first bounce's diffuse direction and glass roll come from a
     per-pixel rotated Kronecker sequence; marginals are unchanged).
 
+    ``cluster_scan`` ('auto', True or False) chooses the cluster walk
+    over the flat scan (see :func:`cluster_scan_enabled`). ``split_scan``
+    lets a concrete scene's flat scan skip the far root of spheres that
+    cannot contain a ray origin (``render/split.py``). ``scan_mxu`` (the
+    JAX package's MXU offload of the flat scan, a TPU workaround) is
+    accepted and served by the flat scan in exact float32.
+
     Options the JAX package has and the port does not yet serve raise
     ``NotImplementedError`` naming their ROADMAP item.
     """
@@ -56,6 +75,9 @@ class TraceOptions:
     adaptive_tolerance: float = 0.0
     adaptive_chunk_spp: int = 0
     sampler: str = "random"
+    split_scan: bool = True
+    scan_mxu: bool = False
+    cluster_scan: bool | str = "auto"
     enable_debug: bool = False
 
     def __post_init__(self):
@@ -69,6 +91,16 @@ class TraceOptions:
             raise ValueError(
                 f"sampler must be 'random' or 'stratified', got "
                 f"{self.sampler!r}"
+            )
+        if self.cluster_scan not in (True, False, "auto"):
+            raise ValueError(
+                f"cluster_scan must be True, False or 'auto', got "
+                f"{self.cluster_scan!r}"
+            )
+        if self.cluster_scan is True and self.scan_mxu:
+            raise ValueError(
+                "cluster_scan and scan_mxu are alternative scan "
+                "implementations — enable at most one"
             )
         if self.enable_debug:
             raise NotImplementedError(

@@ -12,6 +12,7 @@ as JAX's weakly typed scalars are.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 M32 = 0xFFFFFFFF
@@ -35,14 +36,63 @@ def lowbias32(x: torch.Tensor) -> torch.Tensor:
     return x ^ (x >> 16)
 
 
-def kernel_seed(seed: int) -> int:
-    """The int32 kernel seed of integer ``seed``, as the JAX package
-    derives it from ``jax.random.PRNGKey(seed)``: kernel seed =
-    int32(kd0 ^ lowbias32(kd1)) of the key data [kd0, kd1]. Without
-    64-bit mode, which the package never enables, the key data are
-    [0, seed mod 2^32]."""
-    v = int(lowbias32(torch.tensor(int(seed) & M32, dtype=torch.int64)))
+def key_data(seed) -> tuple:
+    """Key data ``(kd0, kd1)`` as host ints: an integer seed gives those
+    of ``jax.random.PRNGKey(seed)``, which without 64-bit mode (never
+    enabled by the package) are (0, seed mod 2^32); a pair (a JAX key's
+    ``key_data``, or a ``(2,)`` uint32 array) is taken as it is."""
+    if isinstance(seed, (int, np.integer)):
+        return 0, int(seed) & M32
+    kd = np.asarray(seed).reshape(-1)
+    if kd.shape != (2,):
+        raise ValueError(f"key data must be 2 values, got shape {kd.shape}")
+    return int(kd[0]) & M32, int(kd[1]) & M32
+
+
+def kernel_seed_from_key(kd) -> int:
+    """The int32 kernel seed of key data [kd0, kd1], as the JAX package
+    derives it: int32(kd0 ^ lowbias32(kd1))."""
+    h = int(lowbias32(torch.tensor(int(kd[1]) & M32, dtype=torch.int64)))
+    v = (int(kd[0]) ^ h) & M32
     return v - (1 << 32) if v >= (1 << 31) else v
+
+
+def kernel_seed(seed: int) -> int:
+    """The int32 kernel seed of ``jax.random.PRNGKey(seed)``."""
+    return kernel_seed_from_key(key_data(seed))
+
+
+_THREEFRY_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def threefry2x32(k0, k1, x0, x1):
+    """The Threefry-2x32 block cipher (20 rounds) on uint32 numpy values,
+    as ``jax.random`` runs it: key (k0, k1), counter words (x0, x1)."""
+    with np.errstate(over="ignore"):
+        k0, k1, x0, x1 = (np.asarray(v, np.uint32) for v in (k0, k1, x0, x1))
+        ks = (k0, k1, k0 ^ k1 ^ np.uint32(0x1BD11BDA))
+        x0, x1 = x0 + ks[0], x1 + ks[1]
+        for j in range(5):
+            for r in _THREEFRY_ROTATIONS[j % 2]:
+                x0 = x0 + x1
+                x1 = (x1 << np.uint32(r)) | (x1 >> np.uint32(32 - r))
+                x1 = x0 ^ x1
+            x0 = x0 + ks[(j + 1) % 3]
+            x1 = x1 + ks[(j + 2) % 3] + np.uint32(j + 1)
+    return x0, x1
+
+
+def fold_in(kd, data):
+    """``jax.random.fold_in`` of key data ``kd`` with 32-bit ``data``
+    (an int or a numpy array of them): Threefry-2x32 of the key over the
+    counter words (0, data). Returns the new key data (host ints for an
+    int ``data``, uint32 arrays otherwise)."""
+    k0, k1 = (np.asarray(v, np.uint32) for v in kd)
+    d = np.asarray(np.asarray(data, np.int64) & M32, np.uint32)
+    y0, y1 = threefry2x32(k0, k1, np.zeros_like(d), d)
+    if y0.ndim == 0:
+        return int(y0), int(y1)
+    return y0, y1
 
 
 #: counters of the stratified sampler's per-pixel rotations: −4 for the

@@ -3,8 +3,10 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared library
 with a plain C interface, loaded with ``ctypes``. The build happens on
 first use, into ``build/kernels/`` beside the package (listed in
-``.gitignore``); the library's name carries a hash of its source and
-flags, so an edited source is rebuilt and an unchanged one is reused.
+``.gitignore``); the library's name carries a hash of its source, of
+every header of ``csrc/`` it includes (``#include "..."``, followed
+recursively) and of the flags, so an edited source or header is rebuilt
+and an unchanged one is reused.
 ``nvcc -Xptxas -v`` prints each kernel's registers, shared memory and
 spills; its output is kept beside the library as ``<library>.log``.
 
@@ -17,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -49,10 +52,29 @@ def nvcc_path() -> str:
     )
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def sources(name: str) -> list:
+    """``csrc/<name>.cu`` and every header of ``csrc/`` it includes,
+    directly or through another header, in first-include order."""
+    found, todo = [], [CSRC_DIR / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in found:
+            continue
+        found.append(path)
+        todo.extend(CSRC_DIR / inc.decode()
+                    for inc in _INCLUDE.findall(path.read_bytes()))
+    return found
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{tag}.so"
+    h = hashlib.sha1()
+    for path in sources(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(name: str) -> Path:

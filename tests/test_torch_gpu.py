@@ -10,8 +10,11 @@ import pytest
 import torch
 
 from raytracer_tpu_torch.camera.camera import derive_camera
-from raytracer_tpu_torch.render import api, tables
+from raytracer_tpu_torch.progressive import state as pstate
+from raytracer_tpu_torch.progressive import step as pstep
+from raytracer_tpu_torch.render import api, megakernel, tables
 from raytracer_tpu_torch.render import cluster_walk as cw
+from raytracer_tpu_torch.render import flat_scan as fs
 from raytracer_tpu_torch.render.options import TraceOptions
 from raytracer_tpu_torch.scene import presets
 
@@ -121,3 +124,109 @@ def test_kernel_rejects_tables_on_another_device(card):
     tabs, ident, opts = walk_inputs(card)
     with pytest.raises(ValueError, match="is on"):
         cw.cluster_walk(tabs.to("cpu"), ident, 1, 0, 1, W, H, opts)
+
+
+FLAT_VARIANTS = [(a, st, sp) for sp in (False, True) for a in (False, True)
+                 for st in (False, True)]
+
+
+@pytest.mark.parametrize("adaptive, stratified, split", FLAT_VARIANTS,
+                         ids=[fs.variant_name(TraceOptions(
+                             adaptive_tolerance=0.2 if a else 0.0,
+                             sampler="stratified" if st else "random"), sp)
+                             for a, st, sp in FLAT_VARIANTS])
+def test_flat_kernel_matches_plain_on_card(card, adaptive, stratified, split):
+    """Each of the flat scan's eight instantiations against the plain
+    version on the demo (K2s on its own split), at a nonzero sample
+    offset, the adaptive ones under a budget that mixes 0 and the chunk's
+    spp: the walk's bounds, the sample counts equal, a lane without
+    budget all zeros."""
+    scene, cam, *_ = presets.get_config("demo", W, H)
+    opts = TraceOptions(max_depth=12, russian_roulette_depth=5,
+                        adaptive_tolerance=0.2 if adaptive else 0.0,
+                        sampler="stratified" if stratified else "random",
+                        split_scan=split)
+    choice = megakernel.choose_kernel(scene, derive_camera(cam), opts, card)
+    assert choice.kernel == "flat_scan"
+    assert fs.is_split(choice.tables, choice.g_full) == split
+    budget = None
+    if adaptive:
+        g = torch.Generator().manual_seed(2)
+        budget = (torch.where(torch.rand(W * H, generator=g) < 0.4, 0, SPP)
+                  .to(torch.int32).to(card))
+    args = (choice.tables, cw.identity_map(W, H, card), 9, 6, SPP, W, H,
+            opts, choice.g_full, budget)
+    before = dict(fs.flat_scan.launches_by_variant)
+    out_k, seg_k = fs.flat_scan(*args)
+    out_p, seg_p = fs.flat_scan_plain(*args)
+    name = fs.variant_name(opts, split)
+    assert fs.flat_scan.launches_by_variant[name] == before.get(name, 0) + 1
+    assert out_k.shape == out_p.shape == (6 if adaptive else 4, W * H)
+    d = (out_k[:3] - out_p[:3]).abs().amax(0)
+    assert torch.isfinite(out_k).all()
+    assert float((d > 1e-3).float().mean()) <= 0.005
+    assert float(d.mean()) <= 1e-4
+    sk, sp = int(seg_k.sum()), int(seg_p.sum())
+    assert abs(sk - sp) <= 1e-3 * sp
+    if adaptive:
+        assert torch.equal(out_k[4], budget.float())
+        assert torch.equal(out_k[4], out_p[4])
+        assert not out_k[:, budget == 0].any()
+        assert not seg_k[budget == 0].any()
+
+
+@pytest.mark.parametrize("config", ["two_sphere", "three_sphere", "dof",
+                                    "demo"])
+def test_flat_render_runs_the_kernel(card, config):
+    """A scene under 64 slots renders on the card through the flat scan
+    (the demo through its split), one launch per chunk."""
+    scene, cam, *_ = presets.get_config(config, W, H)
+    fs.reset_launch_counts()
+    img, stats = api.render_image(scene, cam, W, H, 8, 0,
+                                  TraceOptions(max_depth=8),
+                                  return_stats=True)
+    assert img.device.type == "cuda" and img.shape == (H, W, 3)
+    assert torch.isfinite(img).all()
+    want = "flat_scan_split" if config == "demo" else "flat_scan"
+    assert fs.flat_scan.launches_by_variant == {want: 1}
+    assert stats["segments_exact"] >= W * H * 8
+
+
+def test_progressive_step_waits_for_nothing(card):
+    """Steps of the progressive demo session on the card, with the sync
+    debug mode raising on any call that waits for the device: none does;
+    the session equals the same session on the CPU's plain versions
+    within the walk's bounds."""
+    scene, cam, *_ = presets.get_config("demo", W, H)
+    opts = TraceOptions(max_depth=8)
+    step = pstep.make_step_fn(W, H, 1, opts)
+    state = pstate.init_render_state(W, H, 0)
+    state, _ = step(state, scene, cam)  # builds the kernels
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            state, aux = step(state, scene, cam)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert state.frame == 4 and state.render_count == 4
+    cpu_step = pstep.make_step_fn(W, H, 1, opts, device="cpu")
+    ref, _ = pstep.run_frames(cpu_step,
+                              pstate.init_render_state(W, H, 0, "cpu"),
+                              scene, cam, 4)
+    d = (state.accum.cpu() - ref.accum).abs().amax(-1)
+    assert float((d > 1e-3).float().mean()) <= 0.005
+    assert float(d.mean()) <= 1e-4
+
+
+def test_accumulate_on_card_equals_cpu(card):
+    """The running average divides by a 0-d device tensor, so the card
+    rounds it as the CPU does: bitwise equal (a host scalar divisor would
+    become a product with its reciprocal)."""
+    g = torch.Generator().manual_seed(4)
+    prev = torch.rand((27, 48, 3), generator=g)
+    new = torch.rand((27, 48, 3), generator=g)
+    for rc, w in ((1, 1.0), (7, 1.0), (7, 0.7), (100_000, 1.0)):
+        cpu = pstep.accumulate(prev, new, rc, w)
+        got = pstep.accumulate(prev.to(card), new.to(card), rc, w)
+        assert torch.equal(got.cpu(), cpu), (rc, w)

@@ -1,11 +1,14 @@
-"""Checks of the CUDA kernel's source and build flags that hold without a
-card: the constants the kernel bakes in are the float32 roundings of the
-JAX package's Python doubles, the cube root stays exp(log(u)/3), and
-nothing fuses or approximates an operation that the plain PyTorch version
-(and the TPU kernel) rounds separately. The kernel itself runs only on the
-card (``tests/test_torch_gpu.py``, ``chip_smoke.py``)."""
+"""Checks of the CUDA kernels' sources and build flags that hold without a
+card: the constants the kernels bake in (``csrc/common.cuh``) are the
+float32 roundings of the JAX package's Python doubles, the cube root stays
+exp(log(u)/3), nothing fuses or approximates an operation that the plain
+PyTorch versions (and the TPU kernel) round separately, the template
+instantiations are all there, and the build cache keys on the headers a
+source includes. The kernels themselves run only on the card
+(``tests/test_torch_gpu.py``, ``chip_smoke.py``)."""
 
 import re
+import shutil
 
 import numpy as np
 import pytest
@@ -16,7 +19,10 @@ from raytracer_tpu_torch.render import cluster_walk as cw
 from raytracer_tpu_torch.render import options, rng, tables
 from raytracer_tpu_torch.utils import cuda_build
 
-SOURCE = (cuda_build.CSRC_DIR / "cluster_walk.cu").read_text()
+WALK = (cuda_build.CSRC_DIR / "cluster_walk.cu").read_text()
+COMMON = (cuda_build.CSRC_DIR / "common.cuh").read_text()
+FLAT = (cuda_build.CSRC_DIR / "flat_scan.cu").read_text()
+SOURCE = "\n".join((COMMON, WALK, FLAT))
 
 #: kernel constant → the Python double it must round from
 EXPECTED = {
@@ -85,18 +91,70 @@ def test_every_integer_constant_is_checked():
 
 def test_four_template_instantiations():
     """Adaptive and stratified are compile-time template parameters: the
-    launcher picks among four instantiations, and the branches sit behind
-    the parameters, never behind a run-time argument."""
-    assert "template <bool kAdaptive, bool kStratified>" in SOURCE
+    walk's launcher picks among four instantiations, and the branches sit
+    behind the parameters, never behind a run-time argument."""
+    assert "template <bool kAdaptive, bool kStratified>" in WALK
     for a in ("true", "false"):
         for s in ("true", "false"):
-            assert f"launch<{a}, {s}>(p, blocks, smem, st)" in SOURCE
-    assert "int adaptive, int stratified" in SOURCE
-    assert not re.search(r"p\.(adaptive|stratified)\b", SOURCE)
+            assert f"launch<{a}, {s}>(p, blocks, smem, st)" in WALK
+    assert "int adaptive, int stratified" in WALK
+    assert not re.search(r"p\.(adaptive|stratified|split)\b", SOURCE)
     # a lane without budget writes zeros to all six rows before it returns
-    assert ("for (int c = 0; c < 6; ++c) p.out[c * p.n + lane] = 0.0f;"
-            in SOURCE)
-    assert "p.segs[lane] = 0;" in SOURCE
+    assert ("for (int c = 0; c < 6; ++c) out[c * n + lane] = 0.0f;"
+            in COMMON)
+    assert "segs[lane] = 0;" in COMMON
+    # both kernels run the one shared tail
+    for src in (WALK, FLAT):
+        assert '#include "common.cuh"' in src
+        assert "bounce_tail<kAdaptive, kStratified>(" in src
+        assert "lane_setup<kAdaptive>(" in src
+
+
+def test_eight_flat_instantiations():
+    """The flat scan's switches (adaptive, stratified, split) are
+    template parameters too: eight instantiations behind one launcher."""
+    assert "template <bool kAdaptive, bool kStratified, bool kSplit>" in FLAT
+    for a in ("true", "false"):
+        for s in ("true", "false"):
+            assert (f"launch_split<{a}, {s}>(p, split, blocks, smem, st)"
+                    in FLAT)
+    for sp in ("true", "false"):
+        assert f"launch<kAdaptive, kStratified, {sp}>(p, blocks, smem, st)" \
+            in FLAT
+    assert "int adaptive, int stratified,\n    int split" in FLAT
+
+
+def test_flat_candidate_rule_in_source():
+    """The scan keeps the lowest slot of equal candidates (strict <), the
+    near-only suffix starts at g_full, and the self-test of the last-hit
+    slot runs mid-path only and wins only when strictly nearer."""
+    assert FLAT.count("if (q < bq) {") == 2
+    assert "for (int j = g_full; j < p.slots; ++j) {" in FLAT
+    assert "if (path.i >= 1) {" in FLAT
+    assert "if (qf >= min_t_a && qf < bq) {" in FLAT
+    assert "if (kSplit && r == kPathGoesOn) last = bs;" in FLAT
+    assert "return qn >= min_t_a ? qn : kFillQ;" in FLAT
+    assert "return nb + sq;" in FLAT
+    # the tail reads [1/r, mat, albedo rgb, fuzz, ior] at row + 4
+    assert "row, row + 4, bq" in FLAT and "w, w + 3, bq" in WALK
+
+
+def test_build_key_follows_the_headers(tmp_path, monkeypatch):
+    """A library's name hashes its source and every csrc header it
+    includes: editing common.cuh rebuilds both kernels."""
+    assert [p.name for p in cuda_build.sources("flat_scan")] == [
+        "flat_scan.cu", "common.cuh"]
+    assert [p.name for p in cuda_build.sources("cluster_walk")] == [
+        "cluster_walk.cu", "common.cuh"]
+    csrc = tmp_path / "csrc"
+    shutil.copytree(cuda_build.CSRC_DIR, csrc)
+    monkeypatch.setattr(cuda_build, "CSRC_DIR", csrc)
+    before = {n: cuda_build.library_path(n)
+              for n in ("flat_scan", "cluster_walk")}
+    with open(csrc / "common.cuh", "a") as f:
+        f.write("\n// edited\n")
+    for name, path in before.items():
+        assert cuda_build.library_path(name) != path, name
 
 
 def test_adaptive_and_stratified_arithmetic_in_source():
@@ -105,10 +163,10 @@ def test_adaptive_and_stratified_arithmetic_in_source():
     Kronecker point wraps in native uint32; the first bounce's direction
     is not normalised again."""
     assert "const float lum = (con_r + con_g + con_b) * kOneThird;" in SOURCE
-    assert "acc_l2 = acc_l2 + lum * lum;" in SOURCE
+    assert "sums.l2 = sums.l2 + lum * lum;" in SOURCE
     assert ("lowbias32(pix ^ ((rot + d) * 0x9E3779B9u)) + s_u * a_fix"
             in SOURCE)
-    first = SOURCE[SOURCE.index("if (kStratified && i == 0) {"):]
+    first = SOURCE[SOURCE.index("if (kStratified && path.i == 0) {"):]
     first = first[:first.index("} else {")]
     assert "normalize3" not in first and "uvz = b_hx;" in first
 

@@ -1,7 +1,8 @@
 """The port's whole cover render against ``pk.render_image_pallas`` in
 interpret mode, its own sorted/unsorted invariance, and the guards of
-the port: no JAX imports, CUDA by default, and a clear error for every
-option and scene the port does not serve yet."""
+the port: no JAX imports, CUDA by default, a clear error for every
+option the port does not serve yet, and the flat scan for the scenes the
+JAX package renders flat."""
 
 import ast
 import dataclasses
@@ -15,9 +16,14 @@ import torch
 from raytracer_tpu.camera.camera import derive_camera as jax_derive_camera
 from raytracer_tpu.render import pallas_kernel as pk
 from raytracer_tpu.render.options import TraceOptions as JaxOptions
+from raytracer_tpu.render.options import (
+    cluster_scan_enabled as jax_cluster_scan_enabled,
+)
 from raytracer_tpu.scene import presets as jax_presets
+from raytracer_tpu.scene.materials import Material as JaxMaterial
+from raytracer_tpu.scene.spheres import make_scene as jax_make_scene
 from raytracer_tpu_torch.camera.camera import camera_from_numpy
-from raytracer_tpu_torch.render import api, schedule
+from raytracer_tpu_torch.render import api, megakernel, schedule
 from raytracer_tpu_torch.render.options import TraceOptions
 from raytracer_tpu_torch.scene import presets
 from raytracer_tpu_torch.scene.materials import Material
@@ -188,22 +194,40 @@ def test_ported_options_construct():
 
 
 @pytest.mark.parametrize("config", ["two_sphere", "demo", "big_only"])
-def test_flat_scan_scenes_raise(config):
+def test_flat_scan_scenes_render(config):
     """Scenes the JAX package renders with the flat scan (under 64 slots,
-    or no small-sphere clusters) are not served by the walk."""
+    or no small-sphere clusters: ``big_only``'s partition is empty) render
+    on the CPU through the flat scan, fixed and adaptive, to a finite
+    image; the kernel chosen is the one the JAX package chooses."""
     if config == "big_only":
-        scene = make_scene([((3.0 * i, 0.0, 0.0), 1.0,
-                             Material.diffuse((0.5, 0.5, 0.5)))
-                            for i in range(70)])
+        spheres = [((3.0 * i, 0.0, 0.0), 1.0, (0.5, 0.5, 0.5))
+                   for i in range(70)]
+        scene = make_scene([(c, r, Material.diffuse(a))
+                            for c, r, a in spheres])
+        j_scene = jax_make_scene([(c, r, JaxMaterial.diffuse(a))
+                                  for c, r, a in spheres])
         cam = presets.simple_camera(16, 8)
+        j_cam = jax_presets.simple_camera(16, 8)
     else:
         scene, cam, *_ = presets.get_config(config, 16, 8)
-    with pytest.raises(NotImplementedError, match="K2"):
-        api.render_image(scene, cam, 16, 8, 1, 0, device="cpu")
-    with pytest.raises(NotImplementedError, match="K2"):
-        api.render_image(scene, cam, 16, 8, 40, 0,
-                         TraceOptions(adaptive_tolerance=0.2,
-                                      sampler="stratified"), device="cpu")
+        j_scene, j_cam, *_ = jax_presets.get_config(config, 16, 8)
+    j_opts = JaxOptions()
+    jax_flat = not (
+        jax_cluster_scan_enabled(j_opts, j_scene.count)
+        and pk._cluster_partition(j_scene, j_opts) is not None
+    )
+    choice = megakernel.choose_kernel(scene, api.to_derived(cam),
+                                      TraceOptions(), "cpu")
+    assert jax_flat and choice.kernel == "flat_scan"
+    split = pk._containable_split(j_scene, jax_derive_camera(j_cam), j_opts)
+    assert choice.g_full == (None if split is None else split[1])
+    img = api.render_image(scene, cam, 16, 8, 1, 0, device="cpu")
+    assert img.shape == (8, 16, 3) and torch.isfinite(img).all()
+    img, stats = api.render_image(
+        scene, cam, 16, 8, 40, 0,
+        TraceOptions(adaptive_tolerance=0.2, sampler="stratified"),
+        return_stats=True, device="cpu")
+    assert torch.isfinite(img).all() and stats["spp_map"].shape == (8, 16)
 
 
 def test_bad_arguments_raise():
