@@ -4,12 +4,15 @@
 
 Builds the CUDA kernels of the port from ``raytracer_tpu_torch/csrc`` (one
 ``nvcc`` per source, started together): the cluster walk with its
-adaptive, stratified and adaptive + stratified instantiations, and the
-flat scan with its eight (unsplit K2 and split K2s, each fixed or
-adaptive, random or stratified). Each instantiation is held against its
+adaptive, stratified and adaptive + stratified instantiations and its two
+debug-overlay ones (random, stratified), and the flat scan with its eight
+(unsplit K2 and split K2s, each fixed or adaptive, random or stratified)
+and its two debug ones: sixteen. Each instantiation is held against its
 plain PyTorch version on the card, on a crop and at the shapes, tables
-and depth of every path below that runs it. Then it drives the port's paths
-through ``render_image`` and the progressive step:
+and depth of every path below that runs it (the debug ones bitwise, and
+bitwise equal to their non-debug twins where the overlay cannot fire).
+Then it drives the port's paths through ``render_image``, the progressive
+step and the interactive engine:
 
 - the RTiOW cover (1200x800, 500 spp, depth 50) through the cluster walk:
   fixed spp with Russian roulette from bounce 5, then without; the same
@@ -26,7 +29,17 @@ through ``render_image`` and the progressive step:
   (K2), with static hints (K2s), and with the stratified sampler, whose
   frames must equal the offline renders at their sample offsets;
 - adaptive renders of the demo (tolerance 0.2) through the four adaptive
-  flat instantiations.
+  flat instantiations;
+- the interactive engine at the reference app's canvas cap (1280x720, 1
+  spp a frame, depth 8) with the debug overlay on: the cover through the
+  cluster walk and the demo through the flat scan, each with the random
+  and the stratified sampler. Unpause, overlay on, a mouse move that picks
+  the sphere at the centre, 128 frames in batches of 32 (the centre pixel
+  exactly marker blue after each, an outline on the selected sphere's
+  silhouette, no NaN), a paused 25-spp still saved to a PNG and decoded;
+  the overlay off restarts the average and its next frame is the plain
+  step's; fps with and without the overlay, ms per pick;
+- the four AOV views at 1280x720 on the card against the port on the CPU.
 
 Every image is checked (the cover against the committed golden
 ``tests/goldens/cover_jnp_rr0_500spp_f16.npz``); each kernel is timed on
@@ -111,6 +124,12 @@ OPS_SAMPLE_STRATIFIED = 4 - 26
 # the running minimum) and per near-root-only slot; K2s's self-test of
 # the last-hit slot. The tail and the camera ray are the walk's.
 OPS_FLAT_TRIP, OPS_SLOT_FULL, OPS_SLOT_NEAR, OPS_SELF_TEST = 23, 29, 26, 25
+# the debug overlay (K3) adds, per completed bounce that hit, the cursor
+# distance (3 differences, 3 products, 2 sums, a compare), the outline
+# test (a dot product, two compares, the uuid compare) and the colour
+# selects. A sample ends at most once on a miss, so it is charged to
+# segments less samples: the bound errs low
+OPS_BOUNCE_DEBUG = 22
 FP32_PEAK = 67e12  # H100 SXM, FLOP/s outside the tensor cores
 HBM_RATE = 3.35e12  # bytes/s
 
@@ -134,6 +153,25 @@ FLAT_KERNELS = {
 # the progressive step as bench.py drives it (BASELINE config 4)
 PROG_W, PROG_H, PROG_DEPTH = 1920, 1080, 8
 PROG_WARM, PROG_FRAMES, PROG_BATCH = 5, 256, 32
+#: the debug overlay's instantiations → (flat, stratified); they replace
+#: the overlay branch of the TPU kernel
+DEBUG_KERNELS = {
+    "cluster_walk_debug": (False, False),
+    "cluster_walk_stratified_debug": (False, True),
+    "flat_scan_debug": (True, False),
+    "flat_scan_stratified_debug": (True, True),
+}
+DEBUG_REPLACES = f"{PALLAS}:1094"
+# the interactive engine at the reference app's canvas cap
+ENGINE_W, ENGINE_H, ENGINE_DEPTH = 1280, 720, 8
+ENGINE_FRAMES = 128
+#: the scene and kernel of each engine session
+ENGINE_SCENES = {"cover": "cluster_walk", "demo": "flat_scan"}
+# AOV views on the card against the port on the CPU (the CPU test's
+# bounds against the JAX package; the same code on both devices)
+AOV_MIN_EQUAL = 0.999  # uuid and front maps
+AOV_MAX_DEPTH = 1e-5
+AOV_NORMAL_SHARE, AOV_NORMAL_MAX = 0.70, 1e-2
 # frames of the stratified session held against offline renders
 STRAT_CHECK_FRAMES = 8
 # K2, K2s and K1 on the demo (1920x1080, 8 spp, depth 8, rr0): the JAX
@@ -203,15 +241,14 @@ def phase_build():
                 print(f"[ptxas {name}]", line.strip())
             elif "Compiling" in line:
                 # the mangled name carries the template arguments as Lb0E
-                # / Lb1E: adaptive, stratified (and split)
-                m = re.search(r"(?:Lb([01])E)(?:Lb([01])E)(?:Lb([01])E)?",
-                              line)
-                inst = ""
-                if m:
-                    inst = (f" <adaptive={m.group(1)}, "
-                            f"stratified={m.group(2)}"
-                            + (f", split={m.group(3)}" if m.group(3) else "")
-                            + ">")
+                # / Lb1E: adaptive, stratified, (split,) debug
+                bits = re.findall(r"Lb([01])E", line)
+                keys = (("adaptive", "stratified", "debug")
+                        if name == "cluster_walk" else
+                        ("adaptive", "stratified", "split", "debug"))
+                inst = (" <" + ", ".join(f"{k}={b}" for k, b in
+                                        zip(keys, bits)) + ">"
+                        if len(bits) == len(keys) else "")
                 print(f"[ptxas {name}]", line.strip() + inst)
 
 
@@ -545,7 +582,8 @@ def phase_main_paths(smi: str, golden) -> dict:
     return paths
 
 
-def walk_bound(tabs, adaptive, stratified, n_lanes, iters, nsegs, samples):
+def walk_bound(tabs, adaptive, stratified, n_lanes, iters, nsegs, samples,
+               debug=False):
     """Least time for the work these inputs needed, as (operations ms,
     bytes ms): the bound is the larger. Operations from the measured walk
     iterations, segments and samples; bytes from the tables, map, budget
@@ -556,6 +594,7 @@ def walk_bound(tabs, adaptive, stratified, n_lanes, iters, nsegs, samples):
            + (iters - nsegs) * OPS_MEMBER * group
            + nsegs * (OPS_BOUNCE + OPS_GLOBAL * n_global
                       + (OPS_BOUNCE_ADAPTIVE if adaptive else 0))
+           + (nsegs - samples) * (OPS_BOUNCE_DEBUG if debug else 0)
            + samples * (OPS_SAMPLE
                         + (OPS_SAMPLE_STRATIFIED if stratified else 0)))
     rows = 6 if adaptive else 4
@@ -566,7 +605,8 @@ def walk_bound(tabs, adaptive, stratified, n_lanes, iters, nsegs, samples):
     return ops / FP32_PEAK * 1e3, nbytes / HBM_RATE * 1e3
 
 
-def flat_bound(tabs, g_full, adaptive, stratified, n_lanes, nsegs, samples):
+def flat_bound(tabs, g_full, adaptive, stratified, n_lanes, nsegs, samples,
+               debug=False):
     """The flat scan's least time, as (operations ms, bytes ms). Every loop
     trip is one segment: it tests every slot (full root logic on the first
     ``g_full``, the near root alone on the rest) and runs the tail; K2s's
@@ -577,7 +617,8 @@ def flat_bound(tabs, g_full, adaptive, stratified, n_lanes, nsegs, samples):
     ops = (nsegs * (OPS_FLAT_TRIP + OPS_SLOT_FULL * full
                     + OPS_SLOT_NEAR * (slots - full) + OPS_BOUNCE
                     + (OPS_BOUNCE_ADAPTIVE if adaptive else 0))
-           + (nsegs - samples) * (OPS_SELF_TEST if split else 0)
+           + (nsegs - samples) * ((OPS_SELF_TEST if split else 0)
+                                  + (OPS_BOUNCE_DEBUG if debug else 0))
            + samples * (OPS_SAMPLE
                         + (OPS_SAMPLE_STRATIFIED if stratified else 0)))
     rows = 6 if adaptive else 4
@@ -643,10 +684,11 @@ class LaunchTimer:
             samples, nsegs = float(samples), int(nsegs)
             if self.attr == "flat_scan":
                 pair = flat_bound(tabs, g_full, adaptive, stratified, n,
-                                  nsegs, samples)
+                                  nsegs, samples, opts.enable_debug)
             else:
                 pair = walk_bound(tabs, adaptive, stratified, n,
-                                  float(iters), nsegs, samples)
+                                  float(iters), nsegs, samples,
+                                  opts.enable_debug)
             got.append({"ms": start.elapsed_time(end), "bound": pair,
                         "samples": samples, "segments": nsegs, "lanes": n,
                         "kernel": f"{self.attr}_kernel<"})
@@ -1250,6 +1292,369 @@ def phase_flat_adaptive(smi: str) -> dict:
     return results
 
 
+def centre_pick(scene, cam):
+    """The engine's pick at the centre of the view, on the card: the
+    overlay's cursor on that surface and that sphere selected."""
+    from raytracer_tpu_torch.interact.picking import update_cursor_state
+    from raytracer_tpu_torch.render.options import DebugParams
+
+    _, point, sel = update_cursor_state(scene.to("cuda"), cam)
+    if sel == 1000:
+        fail("the centre of the view hits nothing")
+    return DebugParams(point, sel)
+
+
+def marked_pixels(out, spp: int):
+    """(marker pixels, outline-dominated pixels) of a chunk's lane sums:
+    blue (0, 0, 1) in every sample, or red above green and blue by 0.2."""
+    r, g, b = out[0] / spp, out[1] / spp, out[2] / spp
+    blue = int(((b == 1.0) & (r == 0.0) & (g == 0.0)).sum())
+    red = int(((r - torch.maximum(g, b)) > 0.2).sum())
+    return blue, red
+
+
+def phase_debug_vs_plain() -> dict:
+    """The four debug instantiations against their plain versions,
+    BITWISE, with the cursor on the sphere at the centre of the view and
+    that sphere selected (the outline fires): on the crop (256x128, 4 spp,
+    depth 12, rr5 and rr0; the cover's tables for the walk, the demo's for
+    the flat scan) and at the engine's shapes (1280x720, 1 spp, depth 8,
+    rr0). On the crop, with the cursor away and nothing selected, each is
+    bitwise its non-debug twin."""
+    from raytracer_tpu_torch.camera.camera import derive_camera
+    from raytracer_tpu_torch.render import cluster_walk as cw
+    from raytracer_tpu_torch.render import flat_scan as fs
+    from raytracer_tpu_torch.render import megakernel
+    from raytracer_tpu_torch.render.options import DebugParams, TraceOptions
+    from raytracer_tpu_torch.render.rng import kernel_seed
+    from raytracer_tpu_torch.scene import presets
+
+    seed = kernel_seed(7)
+    shapes = (("crop", CROP_W, CROP_H, CROP_SPP, CROP_DEPTH, CROP_OFFSET,
+               (5, 0)),
+              ("engine", ENGINE_W, ENGINE_H, 1, ENGINE_DEPTH, 5, (0,)))
+    away = DebugParams((1e4, 1e4, 1e4), 1000)
+    results = {}
+    for name, (flat, stratified) in DEBUG_KERNELS.items():
+        result = results[name] = {"max_abs_err": 0.0}
+        kernel = fs.flat_scan if flat else cw.cluster_walk
+        for shape, w, h, spp, depth, offset, rrs in shapes:
+            scene, cam, *_ = presets.get_config("demo" if flat else "cover",
+                                                w, h)
+            debug = centre_pick(scene, cam)
+            for rr in rrs:
+                opts = TraceOptions(
+                    max_depth=depth, russian_roulette_depth=rr,
+                    sampler="stratified" if stratified else "random",
+                    enable_debug=True)
+                choice = megakernel.choose_kernel(scene, derive_camera(cam),
+                                                  opts, "cuda")
+                got_name = (fs.variant_name(opts, choice.g_full is not None)
+                            if flat else cw.variant_name(opts))
+                if got_name != name or choice.kernel != (
+                        "flat_scan" if flat else "cluster_walk"):
+                    fail(f"{name}: the {shape} took {got_name}")
+                head = (choice.tables, cw.identity_map(w, h, "cuda"), seed,
+                        offset, spp, w, h)
+                tail = (choice.g_full, None) if flat else (None,)
+                label = f"{name} {shape} rr{rr}"
+                got = compare(label, (*head, opts, *tail, debug), flat)
+                blue, red = marked_pixels(got["out"], spp)
+                print(f"[{label}] cursor {debug.cursor_point} selected "
+                      f"{debug.selected_object}: marker pixels {blue}, "
+                      f"outline-dominated pixels {red}")
+                if not got["bitwise"]:
+                    fail(f"{label}: not bitwise equal to the plain version")
+                result["marked"] = [result.get("marked", [0, 0])[0] + blue,
+                                    result.get("marked", [0, 0])[1] + red]
+                result["max_abs_err"] = max(result["max_abs_err"],
+                                            got["max_abs_err"])
+                if shape != "crop" or rr != 5:
+                    continue
+                result.update(crop_times((*head, opts, *tail, debug), name,
+                                         flat))
+                plain = dataclasses.replace(opts, enable_debug=False)
+                a = kernel(*head, opts, *tail, away)
+                b = kernel(*head, plain, *tail)
+                same = torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+                print(f"[{label}] cursor away, nothing selected: bitwise "
+                      f"the non-debug instantiation {same}")
+                if not same:
+                    fail(f"{label}: the overlay changed a frame it cannot "
+                         "mark")
+            del scene
+        torch.cuda.empty_cache()
+        if min(result["marked"]) == 0:
+            fail(f"{name}: the overlay drew no marker or no outline "
+                 f"(pixels {result['marked']})")
+    return results
+
+
+def uuid_map(scene, cam, w: int, h: int):
+    """(H, W) sphere index at each pixel centre (-1 on a miss), on the
+    card."""
+    from raytracer_tpu_torch.camera.camera import (
+        derive_camera,
+        generate_rays,
+        pixel_st_grid,
+    )
+    from raytracer_tpu_torch.render.tracer import hit_world
+
+    ray = generate_rays(derive_camera(cam),
+                        pixel_st_grid(w, h, "cuda").reshape(-1, 2))
+    return hit_world(ray.origin, ray.direction,
+                     scene.to("cuda")).uuid.reshape(h, w)
+
+
+def silhouette_red(fb, sel_mask) -> tuple:
+    """(red-dominant pixels, those within 2 pixels of the selected
+    sphere's silhouette)."""
+    f = torch.nn.functional
+    m = sel_mask.float()[None, None]
+    grown = f.max_pool2d(m, 5, stride=1, padding=2)[0, 0] > 0
+    shrunk = -f.max_pool2d(-m, 5, stride=1, padding=2)[0, 0] > 0
+    red = (fb[..., 0] - torch.maximum(fb[..., 1], fb[..., 2])) > 0.2
+    return int(red.sum()), int((red & grown & ~shrunk).sum())
+
+
+def engine_batches(eng, now, frames: int, check=None):
+    """``frames`` ticks in batches of PROG_BATCH, each timed to a sync;
+    ``check(batch)`` after each. Returns the ms per frame of each batch.
+    The ticks run with the sync debug mode raising on any call that waits
+    for the device."""
+    ms = []
+    done = 0
+    while done < frames:
+        n = min(PROG_BATCH, frames - done)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for _ in range(n):
+                now[0] += 16.0
+                if not eng.tick(now[0]):
+                    fail("the engine skipped a frame")
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3 / n)
+        done += n
+        if check is not None:
+            check(len(ms))
+    return ms
+
+
+def profiled_batch(eng, now, attr: str):
+    """One more batch of PROG_BATCH ticks under the profiler, with CUDA
+    events around every launch: the kernel's time per frame."""
+    with LaunchTimer(attr) as timer:
+        _, wall_ms, busy, rows, host_ops = device_profile(
+            lambda: engine_batches(eng, now, PROG_BATCH))
+    return (summarize_launches(timer.results(), rows), wall_ms, busy, rows,
+            host_ops)
+
+
+def engine_session(smi: str, scene_name: str, kernel: str,
+                   stratified: bool) -> dict:
+    """One interactive session at 1280x720 with the overlay: see
+    :func:`phase_engine`."""
+    from raytracer_tpu_torch import Engine, init_render_state, make_step_fn
+    from raytracer_tpu_torch.app import io
+    from raytracer_tpu_torch.render.options import TraceOptions
+    from raytracer_tpu_torch.scene import presets
+
+    w, h = ENGINE_W, ENGINE_H
+    name = kernel + ("_stratified" if stratified else "") + "_debug"
+    plain_name = kernel + ("_stratified" if stratified else "")
+    label = f"engine {scene_name} {w}x{h} d{ENGINE_DEPTH} " + (
+        "stratified" if stratified else "random")
+    scene, cam, *_ = presets.get_config(scene_name, w, h)
+    sampler = "stratified" if stratified else "random"
+    eng = Engine(scene, cam, w, h, max_depth=ENGINE_DEPTH, sampler=sampler)
+    now = [0.0]
+    eng.set_paused(False)
+    eng.set_debugging(True)
+    # a mouse move, and back: the pick lands on the sphere at the centre
+    eng.handle_mouse_move(4.0, -3.0)
+    eng.handle_mouse_move(-4.0, 3.0)
+    sel = eng.app.selected_object
+    if sel == 1000:
+        fail(f"{label}: the pick hit nothing")
+    now[0] += 16.0
+    eng.tick(now[0])  # builds the step
+    eng.set_debugging(False)
+    eng.set_debugging(True)  # a fresh average for the counted frames
+    # the pixel whose samples (jittered forward of its centre) cover the
+    # centre of the view: every one hits within 0.1 of the cursor
+    centre = (h // 2 - 1, w // 2 - 1)
+    blue = torch.tensor([0.0, 0.0, 1.0], device="cuda")
+
+    def centre_is_blue(batch):
+        c = eng.render_state.accum[centre]
+        if not bool((c == blue).all()):
+            fail(f"{label}: centre pixel {c.tolist()} after batch {batch}, "
+                 "not the marker's (0, 0, 1)")
+
+    reset_launch_counts()
+    ms = engine_batches(eng, now, ENGINE_FRAMES, centre_is_blue)
+    launches = launch_counts()
+    if launches != {name: ENGINE_FRAMES}:
+        fail(f"{label}: launches {launches}, not {ENGINE_FRAMES} of {name}")
+    fb = eng.render_state.accum
+    total, on_edge = silhouette_red(fb, uuid_map(eng.scene, eng.camera, w, h)
+                                    == sel)
+    finite = bool(torch.isfinite(fb).all())
+    print(f"[{label}] overlay on, cursor {eng.app.cursor_point} selected "
+          f"{sel}: {ENGINE_FRAMES} frames, fps {1e3 / min(ms):.2f} (best "
+          f"batch {min(ms):.4f} ms/frame; batches "
+          f"{' '.join(f'{x:.3f}' for x in ms)}), launches {launches}; "
+          f"centre pixel (0, 0, 1) after every batch; red-dominant pixels "
+          f"{total}, on the selection's silhouette {on_edge}; finite "
+          f"{finite}; no device sync inside a frame [{smi}]")
+    if not finite or on_edge == 0:
+        fail(f"{label}: bad overlay frame (finite {finite}, outline pixels "
+             f"{on_edge})")
+    kern_dbg, wall_ms, busy, rows, host_ops = profiled_batch(eng, now,
+                                                             kernel)
+
+    # picks: a one-pixel mouse move each, its read of the pick included
+    pick_ms = []
+    for i in range(16):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.handle_mouse_move(1.0 if i % 2 == 0 else -1.0, 0.0)
+        pick_ms.append((time.perf_counter() - t0) * 1e3)
+    if eng.app.selected_object != sel:
+        fail(f"{label}: the pick moved off sphere {sel}")
+
+    # the paused 25-spp still, saved and decoded
+    path = os.path.join(ROOT, "build", f"engine_{scene_name}_{sampler}.png")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    eng.set_paused(True)
+    eng.request_save(path)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    now[0] += 16.0
+    if not eng.tick(now[0]):
+        fail(f"{label}: the paused still did not render")
+    torch.cuda.synchronize()
+    still_s = time.perf_counter() - t0
+    # the save's own share of that tick: the same save once more, alone
+    t0 = time.perf_counter()
+    eng.save_image(path)
+    save_s = time.perf_counter() - t0
+    with open(path, "rb") as f:
+        png = io.decode_png(f.read())
+    want = io.tonemap_u8(eng.framebuffer())
+    if png.shape != (h, w, 3) or not (png == want).all():
+        fail(f"{label}: the saved still does not decode to the framebuffer")
+    c = eng.render_state.accum[centre]
+    if not bool((c == blue).all()):
+        fail(f"{label}: the still's centre pixel {c.tolist()} is not the "
+             f"marker's (cursor {eng.app.cursor_point})")
+
+    # overlay off: the average restarts; the next frame is the plain step's
+    eng.set_debugging(False)
+    eng.set_paused(False)
+    if eng.render_state.render_count != 0 or eng.app.render_count != 0:
+        fail(f"{label}: turning the overlay off kept the average")
+    frame = eng.render_state.frame
+    now[0] += 16.0
+    eng.tick(now[0])
+    opts = TraceOptions(max_depth=ENGINE_DEPTH, sampler=sampler)
+    step = make_step_fn(w, h, 1, opts, static_scene=eng.scene)
+    state = dataclasses.replace(init_render_state(w, h, 0), frame=frame)
+    state, _ = step(state, eng.scene, eng.camera)
+    same = torch.equal(state.accum, eng.render_state.accum)
+    reset_launch_counts()
+    ms_off = engine_batches(eng, now, ENGINE_FRAMES)
+    launches_off = launch_counts()
+    kern_off = profiled_batch(eng, now, kernel)[0]
+    print(f"[{label}] overlay off: next frame bitwise the plain step's "
+          f"{same}; {ENGINE_FRAMES} frames, fps {1e3 / min(ms_off):.2f} "
+          f"(best batch {min(ms_off):.4f} ms/frame), launches "
+          f"{launches_off} [{smi}]")
+    if not same or launches_off != {plain_name: ENGINE_FRAMES}:
+        fail(f"{label}: the frame after the overlay is off is not the plain "
+             "step's")
+    print(f"[{label} kernels] {name} {kern_dbg['ms']:.4f} ms/frame by "
+          f"{kern_dbg['timed_by']} (events {kern_dbg['events_ms']:.4f}; "
+          f"bound {kern_dbg['bound_ms']:.4f} ms by {kern_dbg['bound_by']}, "
+          f"share {kern_dbg['share']:.4f}); {plain_name} "
+          f"{kern_off['ms']:.4f} ms/frame (bound {kern_off['bound_ms']:.4f})"
+          f"; overlay cost {kern_dbg['ms'] / kern_off['ms']:.4f}x the "
+          f"kernel; ms per pick with its sync {np.mean(pick_ms):.3f} (min "
+          f"{min(pick_ms):.3f}); paused 25-spp still {still_s:.4f} s with its "
+          f"PNG save, the save alone {save_s:.4f} s; one "
+          f"profiled batch {wall_ms / PROG_BATCH:.4f} ms/frame of wall, "
+          + (f"device busy {busy / PROG_BATCH:.4f} ms/frame = "
+             f"{busy / wall_ms:.4f} of the wall, the kernel "
+             f"{kern_dbg['sum_ms'] / PROG_BATCH:.4f}, everything else on "
+             f"the device {(busy - kern_dbg['sum_ms']) / PROG_BATCH:.4f}"
+             if rows else "device time not measured by the profiler")
+          + f"; {host_ops / PROG_BATCH:.1f} PyTorch operator calls a frame "
+          f"on the host [{smi}]")
+    for dev_ms, count, key in rows[:6]:
+        print(f"  {dev_ms:10.3f} ms  x{count:<4d} {key[:90]}")
+    return {"launches": ENGINE_FRAMES, **kern_dbg,
+            "fps": 1e3 / min(ms), "fps_off": 1e3 / min(ms_off),
+            "pick_ms": float(np.mean(pick_ms)), "still_s": still_s,
+            "save_s": save_s}
+
+
+def phase_engine(smi: str) -> dict:
+    """The interactive engine at 1280x720, 1 spp a frame, depth 8, with
+    the overlay on: the cover (its static scene gets a cluster partition:
+    K1 + debug) and the demo (9 spheres: K2 + debug, unsplit), each with
+    the random and the stratified sampler. Unpause, overlay on, a mouse
+    move that picks the sphere at the centre; 128 frames in batches of 32,
+    no sync inside a frame, the centre pixel exactly (0, 0, 1) after each
+    batch; red-dominant pixels on the selected sphere's silhouette; 16
+    picks timed with their sync; a paused 25-spp still saved to a PNG and
+    decoded; the overlay off restarts the average, the next frame is the
+    plain step's bitwise, and 128 more frames give the fps without it."""
+    results = {}
+    for scene_name, kernel in ENGINE_SCENES.items():
+        for stratified in (False, True):
+            got = engine_session(smi, scene_name, kernel, stratified)
+            name = kernel + ("_stratified" if stratified else "") + "_debug"
+            results[name] = got
+    return results
+
+
+def phase_aov(smi: str):
+    """The four AOV views at 1280x720 on the card against the port on the
+    CPU: the demo in every mode, the cover's uuid map (the CPU takes about
+    25 s a view of the cover). The bounds of the CPU tests against the JAX
+    package."""
+    from raytracer_tpu_torch.render.debug import AOV_MODES, render_aov
+    from raytracer_tpu_torch.scene import presets
+
+    w, h = ENGINE_W, ENGINE_H
+    for scene_name, modes in (("demo", AOV_MODES), ("cover", ("uuid",))):
+        scene, cam, *_ = presets.get_config(scene_name, w, h)
+        for mode in modes:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            card = render_aov(scene, cam, w, h, mode)
+            torch.cuda.synchronize()
+            card_ms = (time.perf_counter() - t0) * 1e3
+            cpu = render_aov(scene, cam, w, h, mode, device="cpu")
+            d = (card.cpu() - cpu).abs().amax(-1)
+            equal = float((d == 0).float().mean())
+            close = float((d <= 1e-5).float().mean())
+            print(f"[aov {scene_name} {mode} {w}x{h}] card {card_ms:.2f} ms; "
+                  f"against the CPU: max|d| {float(d.max()):.3e}, equal "
+                  f"{equal:.6f}, within 1e-5 {close:.6f} [{smi}]")
+            ok = (equal >= AOV_MIN_EQUAL if mode in ("uuid", "front") else
+                  float(d.max()) <= AOV_MAX_DEPTH if mode == "depth" else
+                  close >= AOV_NORMAL_SHARE
+                  and float(d.max()) <= AOV_NORMAL_MAX)
+            if not ok or card.shape != (h, w, 3):
+                fail(f"aov {scene_name} {mode}: the card and the CPU "
+                     "disagree")
+
+
 def main():
     smi = phase_device()
     phase_build()
@@ -1273,10 +1678,15 @@ def main():
     phase_baseline_configs(smi)
     flat_paths = phase_progressive(smi)
     flat_paths.update(phase_flat_adaptive(smi))
+    crops.update(phase_debug_vs_plain())
+    flat_paths.update(phase_engine(smi))
+    phase_aov(smi)
     for name, got in flat_paths.items():
         paths[name] = alone[name] = got
     sources = {**{n: (WALK_SOURCE, KERNELS[n][2]) for n in KERNELS},
-               **{n: (FLAT_SOURCE, FLAT_KERNELS[n][3]) for n in FLAT_KERNELS}}
+               **{n: (FLAT_SOURCE, FLAT_KERNELS[n][3]) for n in FLAT_KERNELS},
+               **{n: (FLAT_SOURCE if DEBUG_KERNELS[n][0] else WALK_SOURCE,
+                      DEBUG_REPLACES) for n in DEBUG_KERNELS}}
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",

@@ -4,22 +4,40 @@ Offline renders (kd cluster partition and gathered cluster walk for
 scenes of 64 slots and more, the flat or split closest-hit scan below
 that; pixels sorted by profiled cost; exact segment totals), at fixed spp
 or with adaptive per-pixel stopping, with the random or the stratified
-sampler, and the progressive step's running average, run on an NVIDIA
-Hopper card through hand-written CUDA kernels (``csrc/cluster_walk.cu``,
-four instantiations; ``csrc/flat_scan.cu``, eight). The package imports
-torch and numpy only.
+sampler, with or without the debug overlay (cursor marker and selection
+outline, drawn in the kernel), the progressive step's running average and
+the interactive engine, run on an NVIDIA Hopper card through hand-written
+CUDA kernels: ``csrc/cluster_walk.cu`` (six instantiations of
+``<adaptive, stratified, debug>``: the four without debug, and
+``<0,0,1>``, ``<0,1,1>``) and ``csrc/flat_scan.cu`` (ten of ``<adaptive,
+stratified, split, debug>``: the eight without debug, and ``<0,0,0,1>``,
+``<0,1,0,1>``), sixteen in all. Picking and the AOV views read a
+closest-hit scan in plain PyTorch. The package imports torch and numpy
+only; every entry runs on CUDA unless the caller names the CPU.
 
-Public entries: :func:`raytracer_tpu_torch.render.api.render_image`;
+Public entries: :func:`raytracer_tpu_torch.render.api.render_image`
+(``debug=`` a :class:`DebugParams`);
 :func:`~raytracer_tpu_torch.progressive.step.make_step_fn`,
 :func:`~raytracer_tpu_torch.progressive.state.init_render_state` and
-:func:`~raytracer_tpu_torch.progressive.step.run_frames`.
+:func:`~raytracer_tpu_torch.progressive.step.run_frames`;
+:class:`~raytracer_tpu_torch.app.engine.Engine`, the interactive session
+(``set_debugging(True)`` turns the overlay on);
+:func:`~raytracer_tpu_torch.interact.picking.center_hit` and
+:func:`~raytracer_tpu_torch.interact.picking.update_cursor_state`
+(picking and autofocus); :func:`~raytracer_tpu_torch.render.debug.render_aov`
+(normal, depth, uuid and front views).
 """
 
+from raytracer_tpu_torch.app.engine import Engine
 from raytracer_tpu_torch.camera.camera import (
     CameraConfig,
     DerivedCamera,
     camera_from_numpy,
     derive_camera,
+)
+from raytracer_tpu_torch.interact.picking import (
+    center_hit,
+    update_cursor_state,
 )
 from raytracer_tpu_torch.progressive.state import (
     RenderState,
@@ -35,28 +53,39 @@ from raytracer_tpu_torch.progressive.step import (
     run_frames,
 )
 from raytracer_tpu_torch.render.api import render_image
+from raytracer_tpu_torch.render.debug import render_aov
 from raytracer_tpu_torch.render.megakernel import adaptive_state_from_numpy
-from raytracer_tpu_torch.render.options import TraceOptions
+from raytracer_tpu_torch.render.options import (
+    DebugParams,
+    TraceOptions,
+    debug_from_numpy,
+)
 from raytracer_tpu_torch.scene.spheres import Scene, make_scene, scene_from_numpy
 
 __all__ = [
     "CameraConfig",
+    "DebugParams",
     "DerivedCamera",
+    "Engine",
     "RenderState",
     "Scene",
     "TraceOptions",
     "accumulate",
     "adaptive_state_from_numpy",
     "camera_from_numpy",
+    "center_hit",
+    "debug_from_numpy",
     "derive_camera",
     "init_render_state",
     "load_render_state",
     "make_scene",
     "make_step_fn",
+    "render_aov",
     "render_image",
     "render_state_from_numpy",
     "reset_accumulation",
     "run_frames",
     "save_render_state",
     "scene_from_numpy",
+    "update_cursor_state",
 ]

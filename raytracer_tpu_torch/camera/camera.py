@@ -3,18 +3,32 @@
 
 ``CameraConfig`` holds what the user controls (origin, yaw and pitch in
 degrees, fov in radians, aperture, focus distance, aspect ratio);
-:func:`derive_camera` turns it into the basis the kernel reads.
+:func:`derive_camera` turns it into the basis the kernel reads. The
+kernels generate their own jittered thin-lens rays; :func:`generate_rays`
+is the pinhole form without jitter that the AOV views read, and
+:func:`center_ray` the ray that picking casts.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from raytracer_tpu_torch.core import vec
+
+# the controller's clamps (the reference's src/state.rs:349-358)
+FOV_MIN = 0.0001
+FOV_MAX = math.pi * 0.75
+PITCH_LIMIT_DEG = 89.0
+
+
+class Ray(NamedTuple):
+    origin: torch.Tensor  # (..., 3)
+    direction: torch.Tensor  # (..., 3), not normalised
 
 
 def _f32(v) -> torch.Tensor:
@@ -102,3 +116,36 @@ def camera_from_numpy(fields: dict):
     if unknown:
         raise ValueError(f"unknown {cls.__name__} fields: {sorted(unknown)}")
     return cls(**{k: _f32(v) for k, v in fields.items()})
+
+
+def pixel_st_grid(width: int, height: int, device="cpu") -> torch.Tensor:
+    """Pixel-centre viewport coordinates st in (0, 1)², (H, W, 2) float32;
+    row 0 is the bottom of the image (GL order)."""
+    f32 = torch.float32
+    xs = ((torch.arange(width, dtype=f32, device=device) + 0.5)
+          / torch.tensor(float(width), dtype=f32, device=device))
+    ys = ((torch.arange(height, dtype=f32, device=device) + 0.5)
+          / torch.tensor(float(height), dtype=f32, device=device))
+    t, s = torch.meshgrid(ys, xs, indexing="ij")
+    return torch.stack([s, t], dim=-1)
+
+
+def generate_rays(dcam: DerivedCamera, st: torch.Tensor) -> Ray:
+    """Pinhole rays through the viewport points ``st`` (..., 2), without
+    jitter or lens offset: the JAX package's ``generate_rays(...,
+    jitter=False)`` with the lens radius zeroed, as its AOV views call it.
+    The camera's tensors go to ``st``'s device."""
+    dev = st.device
+    llc, hor, ver, org = (t.to(dev) for t in (
+        dcam.lower_left_corner, dcam.horizontal, dcam.vertical,
+        dcam.origin))
+    direction = llc + st[..., 0:1] * hor + st[..., 1:2] * ver - org
+    return Ray(origin=org.expand(direction.shape), direction=direction)
+
+
+def center_ray(dcam: DerivedCamera) -> Ray:
+    """The ray through the viewport centre, without lens offset: what
+    picking and autofocus cast."""
+    direction = (dcam.lower_left_corner + dcam.horizontal / 2.0
+                 + dcam.vertical / 2.0 - dcam.origin)
+    return Ray(origin=dcam.origin, direction=direction)

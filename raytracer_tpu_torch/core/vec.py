@@ -1,5 +1,6 @@
-"""The vec3 helpers the camera needs, over ``(..., 3)`` float32 tensors
-(counterpart of ``raytracer_tpu/core/vec.py``)."""
+"""The vec3 helpers the camera, picking and the AOVs need, over
+``(..., 3)`` float32 tensors (counterpart of ``raytracer_tpu/core/vec.py``).
+Sums over the last axis run (x + y) + z."""
 
 from __future__ import annotations
 
@@ -8,10 +9,23 @@ import math
 import torch
 
 
+def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Dot product over the last axis."""
+    p = a * b
+    return p[..., 0] + p[..., 1] + p[..., 2]
+
+
+def length_squared(v: torch.Tensor) -> torch.Tensor:
+    return dot(v, v)
+
+
+def length(v: torch.Tensor) -> torch.Tensor:
+    return torch.sqrt(length_squared(v))
+
+
 def normalize(v: torch.Tensor) -> torch.Tensor:
-    """v / |v| with |v|² summed as (x·x + y·y) + z·z."""
-    sq = v * v
-    return v / torch.sqrt(sq[..., 0] + sq[..., 1] + sq[..., 2])[..., None]
+    """v / |v|."""
+    return v / length(v)[..., None]
 
 
 def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

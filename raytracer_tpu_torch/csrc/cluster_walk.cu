@@ -5,7 +5,7 @@
 // raytracer_tpu/render/pallas_kernel.py `_make_kernel(...).kernel`
 // (launched by `_render_chunk_impl`) in its production configuration:
 // kd partition with box bounds, one cluster per walk step, packed visit
-// key, fused bounce-done test. Two template parameters give its four
+// key, fused bounce-done test. Three template parameters give its six
 // instantiations:
 //   kAdaptive   (the TPU kernel's `adaptive=True`): a lane samples up to
 //               its own budget (0 = its pixel has converged: the lane does
@@ -17,8 +17,13 @@
 //               roll, are the (sample_offset + s)-th point of a Kronecker
 //               sequence in 32-bit fixed point under the pixel's hashed
 //               rotation. Every other draw stays counter-hashed.
-// Both sit in the loop every lane runs, so they are compile-time: the
-// <false, false> instantiation carries no trace of either.
+//   kDebug      (`enable_debug`): the overlay of the shared tail (cursor
+//               marker, selection outline); the winner's uuid is column
+//               10 of its row, the scene index before the partition's
+//               reorder (-1 for padding). Debug renders strip the
+//               adaptive tolerance, so only <false, s, true> exist.
+// All sit in the loop every lane runs, so they are compile-time: the
+// <false, false, false> instantiation carries no trace of any.
 //
 // Design. One thread per lane, one lane per pixel of the chunk's map.
 // Each thread runs the TPU kernel's path-regeneration state machine
@@ -66,6 +71,7 @@ struct Params {
                          // (6, n) with sample count and sum of lum^2
   int* segs;             // (n,) completed bounces
   int n, n_global, k, group, slots;
+  DebugUniforms dbg;     // kDebug: cursor point and selection
 };
 
 __device__ __forceinline__ float key_floor(float key) {
@@ -82,7 +88,7 @@ __host__ __device__ constexpr int smem_floats(int n_global, int k, int group,
   return 20 + 4 * n_global + 6 * k + 4 * k * group + 11 * slots;
 }
 
-template <bool kAdaptive, bool kStratified>
+template <bool kAdaptive, bool kStratified, bool kDebug>
 __global__ void __launch_bounds__(kThreads) cluster_walk_kernel(Params p) {
   extern __shared__ float smem[];
   float* s_cam = smem;                       // 19, padded to 20
@@ -204,9 +210,9 @@ __global__ void __launch_bounds__(kThreads) cluster_walk_kernel(Params p) {
 
     // --- bounce complete: the shared tail ---
     const float* w = s_win + 11 * bs;
-    if (bounce_tail<kAdaptive, kStratified>(p.path, s_cam, w, w + 3, bq,
-                                            inv_a, pix, dps, ctr, px, py,
-                                            limit, path, sums) == kLaneDone)
+    if (bounce_tail<kAdaptive, kStratified, kDebug>(
+            p.path, s_cam, w, w + 3, bq, inv_a, pix, dps, ctr, px, py, limit,
+            kDebug ? w[10] : 0.0f, p.dbg, path, sums) == kLaneDone)
       break;
     bq = kFillQ;
     bs = 0;
@@ -216,30 +222,33 @@ __global__ void __launch_bounds__(kThreads) cluster_walk_kernel(Params p) {
   write_lane<kAdaptive>(p.out, p.segs, p.n, lane, sums, cost, path, segs);
 }
 
-template <bool kAdaptive, bool kStratified>
+template <bool kAdaptive, bool kStratified, bool kDebug>
 cudaError_t launch(const Params& p, int blocks, size_t smem,
                    cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      cluster_walk_kernel<kAdaptive, kStratified>,
+      cluster_walk_kernel<kAdaptive, kStratified, kDebug>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  cluster_walk_kernel<kAdaptive, kStratified>
+  cluster_walk_kernel<kAdaptive, kStratified, kDebug>
       <<<blocks, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Launches the walk's <adaptive, stratified> instantiation on `stream`;
-// returns the launch's cudaError_t (0 on success). Tables, map and budget
-// (null without one) are device pointers; the caller checks shapes.
+// Launches the walk's <adaptive, stratified, debug> instantiation on
+// `stream`; returns the launch's cudaError_t (0 on success), and
+// cudaErrorInvalidValue for debug with adaptive, which has none. Tables,
+// map and budget (null without one) are device pointers; the caller
+// checks shapes. The cursor and the selection are read with debug only.
 extern "C" int cluster_walk_launch(
     const float* camera, const float* globals, const float* bounds,
     const float* members, const float* winner, const int* pixel_map,
     const int* budget, float* out, int* segs, int adaptive, int stratified,
-    int n, int n_global, int k, int group, int wp,
+    int debug, int n, int n_global, int k, int group, int wp,
     int seed, int sample_offset, int spp, int max_depth, int rr_depth,
     int exhaust_black, int near_zero_guard, float inv_w, float inv_h,
+    float cursor_x, float cursor_y, float cursor_z, float selected,
     void* stream) {
   if (n <= 0) return 0;
   Params p;
@@ -259,13 +268,19 @@ extern "C" int cluster_walk_launch(
   p.k = k;
   p.group = group;
   p.slots = n_global + k * group;
+  p.dbg = {cursor_x, cursor_y, cursor_z, selected};
   const size_t smem =
       sizeof(float) * (size_t)smem_floats(n_global, k, group, p.slots);
   const int blocks = (n + kThreads - 1) / kThreads;
   cudaStream_t st = (cudaStream_t)stream;
+  if (debug) {
+    if (adaptive) return (int)cudaErrorInvalidValue;
+    return (int)(stratified ? launch<false, true, true>(p, blocks, smem, st)
+                            : launch<false, false, true>(p, blocks, smem, st));
+  }
   if (adaptive)
-    return (int)(stratified ? launch<true, true>(p, blocks, smem, st)
-                            : launch<true, false>(p, blocks, smem, st));
-  return (int)(stratified ? launch<false, true>(p, blocks, smem, st)
-                          : launch<false, false>(p, blocks, smem, st));
+    return (int)(stratified ? launch<true, true, false>(p, blocks, smem, st)
+                            : launch<true, false, false>(p, blocks, smem, st));
+  return (int)(stratified ? launch<false, true, false>(p, blocks, smem, st)
+                          : launch<false, false, false>(p, blocks, smem, st));
 }

@@ -36,6 +36,13 @@ constexpr float kQCut = 0x1.5af1d8p+66f;         // 1e20
 constexpr float kSkyG = 0x1.333334p-2f;          // 0.3
 constexpr float kRRMin = 0x1.99999ap-5f;         // 0.05
 constexpr float kNearZero = 0x1.5798eep-27f;     // 1e-8
+// debug overlay: a hit within 0.1 of the cursor (squared distance below
+// 0.01) is the marker; the selection outline is where d.n > -0.05
+constexpr float kCursorR2 = 0x1.47ae14p-7f;      // 0.01
+constexpr float kGrazing = -0x1.99999ap-5f;      // -0.05
+// the material code of a lane the overlay marked: like any code past
+// glass, it absorbs (no scatter)
+constexpr float kMarked = 0x1.8p+1f;             // 3.0
 // stratified sampler: alphas as round(alpha * 2^32), and the counters of
 // the per-pixel rotations (-4 camera, -8 first bounce)
 constexpr uint32_t kA4Fix0 = 0xC13FA9A9u;   // 1/g, g^3 = g + 1: jitter u
@@ -58,6 +65,13 @@ struct PathParams {
   int sample_offset, spp, max_depth, rr_depth;
   int exhaust_black, near_zero_guard;
   float inv_w, inv_h;    // float32(1/W), float32(1/H), rounded on the host
+};
+
+// The debug overlay's uniforms, by value (the TPU kernel's slots 19-22):
+// the cursor point and the selected sphere's id as float32.
+struct DebugUniforms {
+  float cx, cy, cz;
+  float sel;
 };
 
 // One lane's path: ray, throughput, sample and bounce counters.
@@ -196,11 +210,19 @@ __device__ __forceinline__ void gen_ray(const float* cam, const PathParams& p,
 // exhaustion; the contribution into `sums`; then either the path goes on
 // from the hit point, or the lane starts its next sample, or it has
 // taken `limit` samples and is done.
-template <bool kAdaptive, bool kStratified>
+//
+// kDebug (the TPU kernel's `enable_debug`): a hit within 0.1 of the
+// cursor paints the marker, blue (0, 0, 1); else a hit on the selected
+// sphere (`uuid` == dbg.sel) at grazing incidence (raw direction dot
+// front-corrected normal above -0.05) paints the outline, red (1, 0, 0).
+// A marked lane takes that fixed colour, unscaled by throughput, and
+// does not scatter: its path ends and its next sample starts.
+template <bool kAdaptive, bool kStratified, bool kDebug>
 __device__ __forceinline__ int bounce_tail(
     const PathParams& p, const float* cam, const float* wc, const float* wm,
     float bq, float inv_a, uint32_t pix, uint32_t dps, uint32_t ctr,
-    float px, float py, int limit, Path& path, Sums& sums) {
+    float px, float py, int limit, float uuid, const DebugUniforms& dbg,
+    Path& path, Sums& sums) {
   float best_t = bq * inv_a;
   const bool hit = best_t < kQCut;
   float udx = path.dx, udy = path.dy, udz = path.dz;
@@ -228,7 +250,19 @@ __device__ __forceinline__ int bounce_tail(
     nx = nx * sgn;
     ny = ny * sgn;
     nz = nz * sgn;
-    const float mat = wm[1];
+    bool marked = false;
+    if (kDebug) {
+      const float dcx = hpx - dbg.cx, dcy = hpy - dbg.cy, dcz = hpz - dbg.cz;
+      const bool cursor_hit = dcx * dcx + dcy * dcy + dcz * dcz < kCursorR2;
+      const bool outline = !cursor_hit && uuid == dbg.sel &&
+                           dot3(dx, dy, dz, nx, ny, nz) > kGrazing;
+      if (cursor_hit || outline) {
+        con_r = outline ? 1.0f : 0.0f;
+        con_b = cursor_hit ? 1.0f : 0.0f;
+        marked = true;
+      }
+    }
+    const float mat = (kDebug && marked) ? kMarked : wm[1];
     if (mat < 0.5f) {  // diffuse
       float uvx, uvy, uvz;
       if (kStratified && path.i == 0) {

@@ -7,12 +7,17 @@
 // near->far root fallback on every slot (`g_full >= s_pad`), and K2s, the
 // split scan (`g_full < s_pad`): full logic on slots [0, g_full), the
 // near root alone on the rest, and an exact far-root self-test of the
-// sphere the lane last bounced off. Three template parameters give eight
+// sphere the lane last bounced off. Four template parameters give ten
 // instantiations:
 //   kAdaptive, kStratified  as in cluster_walk.cu (per-lane budget and two
 //                           more output rows; Kronecker camera and
 //                           first-bounce draws);
-//   kSplit                  K2s.
+//   kSplit                  K2s;
+//   kDebug                  the overlay of the shared tail (K3); the
+//                           winner's uuid is its slot. Debug renders keep
+//                           the scene's own slot order (no split) and
+//                           strip the adaptive tolerance, so only
+//                           <false, s, false, true> exist.
 // The JAX package's `scan_mxu` variant (K2m, an MXU offload of the scan's
 // dot products in bf16) computes K2's function and is served by K2 in
 // exact float32.
@@ -56,6 +61,7 @@ struct Params {
   int* segs;             // (n,) completed bounces
   int n, slots;
   int g_full;            // slots [0, g_full) take the full root logic
+  DebugUniforms dbg;     // kDebug: cursor point and selection
 };
 
 // the near root alone: q_near if q_near >= min_t_a, else kFillQ
@@ -79,7 +85,7 @@ __device__ __forceinline__ float far_q(const float* c, float ox, float oy,
   return nb + sq;
 }
 
-template <bool kAdaptive, bool kStratified, bool kSplit>
+template <bool kAdaptive, bool kStratified, bool kSplit, bool kDebug>
 __global__ void __launch_bounds__(kThreads) flat_scan_kernel(Params p) {
   extern __shared__ float smem[];
   float* s_cam = smem;       // 19, padded to 20
@@ -159,9 +165,9 @@ __global__ void __launch_bounds__(kThreads) flat_scan_kernel(Params p) {
     }
 
     const float* row = s_tab + kRow * bs;
-    const int r = bounce_tail<kAdaptive, kStratified>(
+    const int r = bounce_tail<kAdaptive, kStratified, kDebug>(
         p.path, s_cam, row, row + 4, bq, inv_a, pix, dps, ctr, px, py, limit,
-        path, sums);
+        kDebug ? (float)bs : 0.0f, p.dbg, path, sums);
     if (r == kLaneDone) break;
     if (kSplit && r == kPathGoesOn) last = bs;
   }
@@ -169,10 +175,10 @@ __global__ void __launch_bounds__(kThreads) flat_scan_kernel(Params p) {
   write_lane<kAdaptive>(p.out, p.segs, p.n, lane, sums, cost, path, segs);
 }
 
-template <bool kAdaptive, bool kStratified, bool kSplit>
+template <bool kAdaptive, bool kStratified, bool kSplit, bool kDebug>
 cudaError_t launch(const Params& p, int blocks, size_t smem,
                    cudaStream_t stream) {
-  flat_scan_kernel<kAdaptive, kStratified, kSplit>
+  flat_scan_kernel<kAdaptive, kStratified, kSplit, kDebug>
       <<<blocks, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
@@ -180,8 +186,10 @@ cudaError_t launch(const Params& p, int blocks, size_t smem,
 template <bool kAdaptive, bool kStratified>
 cudaError_t launch_split(const Params& p, int split, int blocks, size_t smem,
                          cudaStream_t st) {
-  return split ? launch<kAdaptive, kStratified, true>(p, blocks, smem, st)
-               : launch<kAdaptive, kStratified, false>(p, blocks, smem, st);
+  return split
+             ? launch<kAdaptive, kStratified, true, false>(p, blocks, smem, st)
+             : launch<kAdaptive, kStratified, false, false>(p, blocks, smem,
+                                                             st);
 }
 
 // shared memory of one block for a table of `slots` rows, in bytes (the
@@ -190,16 +198,19 @@ size_t smem_bytes(int slots) { return sizeof(float) * (20 + kRow * slots); }
 
 }  // namespace
 
-// Launches the scan's <adaptive, stratified, split> instantiation on
-// `stream`; returns the launch's cudaError_t (0 on success). Tables, map
-// and budget (null without one) are device pointers; the caller checks
-// shapes and the shared-memory size.
+// Launches the scan's <adaptive, stratified, split, debug> instantiation
+// on `stream`; returns the launch's cudaError_t (0 on success), and
+// cudaErrorInvalidValue for debug with adaptive or split, which have
+// none. Tables, map and budget (null without one) are device pointers;
+// the caller checks shapes and the shared-memory size. The cursor and
+// the selection are read with debug only.
 extern "C" int flat_scan_launch(
     const float* camera, const float* spheres, const int* pixel_map,
     const int* budget, float* out, int* segs, int adaptive, int stratified,
-    int split, int n, int slots, int g_full, int wp, int seed,
+    int split, int debug, int n, int slots, int g_full, int wp, int seed,
     int sample_offset, int spp, int max_depth, int rr_depth,
     int exhaust_black, int near_zero_guard, float inv_w, float inv_h,
+    float cursor_x, float cursor_y, float cursor_z, float selected,
     void* stream) {
   if (n <= 0) return 0;
   Params p;
@@ -214,9 +225,16 @@ extern "C" int flat_scan_launch(
   p.n = n;
   p.slots = slots;
   p.g_full = g_full < slots ? g_full : slots;
+  p.dbg = {cursor_x, cursor_y, cursor_z, selected};
   const size_t smem = smem_bytes(slots);
   const int blocks = (n + kThreads - 1) / kThreads;
   cudaStream_t st = (cudaStream_t)stream;
+  if (debug) {
+    if (adaptive || split) return (int)cudaErrorInvalidValue;
+    return (int)(stratified
+                     ? launch<false, true, false, true>(p, blocks, smem, st)
+                     : launch<false, false, false, true>(p, blocks, smem, st));
+  }
   if (adaptive)
     return (int)(stratified ? launch_split<true, true>(p, split, blocks, smem, st)
                             : launch_split<true, false>(p, split, blocks, smem, st));

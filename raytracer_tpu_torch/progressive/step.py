@@ -7,8 +7,9 @@ read on the host per frame, so the flat scan serves it with full root
 logic (K2) unless the factory was given concrete hints, from which it
 builds a static cluster partition (K1) or a static split (K2s) once. The
 running average is updated in place on the device, the counterpart of
-JAX's buffer donation; counters and key data are host ints, so nothing in
-a step waits for the device.
+JAX's buffer donation; counters and key data are host ints, and the debug
+overlay's cursor and selection are host values that the kernels take by
+value, so nothing in a step waits for the device.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from raytracer_tpu_torch.progressive.state import RenderState
 from raytracer_tpu_torch.render.api import resolve_device, to_derived
 from raytracer_tpu_torch.render.megakernel import render
 from raytracer_tpu_torch.render.options import (
+    DebugParams,
     TraceOptions,
     cluster_scan_enabled,
 )
@@ -65,14 +67,17 @@ def make_step_fn(width: int, height: int, spp: int = 1,
                  max_render_count: int = DEFAULT_MAX_RENDER_COUNT,
                  static_scene: Scene | None = None,
                  static_camera: CameraConfig | None = None, device=None):
-    """Build ``step(state, scene, camera) -> (state', aux)``.
+    """Build ``step(state, scene, camera, debug=None) -> (state', aux)``.
 
     ``aux['segments']`` is the frame's exact segment count as a 0-d
-    device tensor. ``static_scene`` / ``static_camera``: concrete copies
+    device tensor. ``debug`` (a :class:`DebugParams`) is the overlay's
+    cursor and selection under ``opts.enable_debug``; ``none()`` when
+    omitted. ``static_scene`` / ``static_camera``: concrete copies
     of what every call will receive, for fixed-scene sessions. A scene of
     at least 64 slots gets a cluster partition built once (the camera may
     still move); otherwise scene and camera together give the split
-    scan's analysis. Interactive sessions that edit the scene or fly the
+    scan's analysis, except under ``enable_debug``, whose frames keep the
+    scene's slot order. Interactive sessions that edit the scene or fly the
     camera omit them. An adaptive tolerance is stripped: adaptive
     sampling is an offline mode, and the running average would weight
     per-pixel means over unequal sample counts as if equal.
@@ -90,14 +95,16 @@ def make_step_fn(width: int, height: int, spp: int = 1,
             if part is not None:
                 static_cluster = (part.boxes, torch.as_tensor(part.uuid),
                                   part.n_global)
-        if static_cluster is None and static_camera is not None:
+        if (static_cluster is None and static_camera is not None
+                and not opts.enable_debug):
             static_split = containable_split(
                 static_scene, to_derived(static_camera), opts
             )
     opts = dataclasses.replace(opts, adaptive_tolerance=0.0)
     stratified = opts.sampler == "stratified"
 
-    def step(state: RenderState, scene: Scene, camera):
+    def step(state: RenderState, scene: Scene, camera,
+             debug: DebugParams | None = None):
         if state.accum.device != device:
             raise ValueError(
                 f"state.accum is on {state.accum.device}, the step renders "
@@ -112,7 +119,7 @@ def make_step_fn(width: int, height: int, spp: int = 1,
         color, segments, _ = render(
             scene, to_derived(camera), width, height, spp, key, opts, device,
             sample_offset=offset, static_split=static_split,
-            static_cluster=static_cluster, analyse=False,
+            static_cluster=static_cluster, analyse=False, debug=debug,
         )
         render_count = min(state.render_count + 1, max_render_count)
         if should_average:
@@ -130,12 +137,13 @@ def make_step_fn(width: int, height: int, spp: int = 1,
 
 
 def run_frames(step_fn, state: RenderState, scene: Scene, camera,
-               n_frames: int):
-    """Drive ``n_frames`` steps; segments are summed on the device and
-    read once at the end. Returns the final state and the exact segment
+               n_frames: int, debug: DebugParams | None = None):
+    """Drive ``n_frames`` steps (with the overlay of ``debug`` where the
+    step's options enable it); segments are summed on the device and read
+    once at the end. Returns the final state and the exact segment
     total."""
     total = None
     for _ in range(n_frames):
-        state, aux = step_fn(state, scene, camera)
+        state, aux = step_fn(state, scene, camera, debug)
         total = aux["segments"] if total is None else total + aux["segments"]
     return state, 0 if total is None else int(total)

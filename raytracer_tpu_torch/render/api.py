@@ -12,7 +12,7 @@ from raytracer_tpu_torch.camera.camera import (
     derive_camera,
 )
 from raytracer_tpu_torch.render.megakernel import render, segment_stats
-from raytracer_tpu_torch.render.options import TraceOptions
+from raytracer_tpu_torch.render.options import DebugParams, TraceOptions
 from raytracer_tpu_torch.render.rng import key_data
 from raytracer_tpu_torch.scene.spheres import Scene
 
@@ -48,7 +48,7 @@ def to_derived(camera) -> DerivedCamera:
 def render_image(scene: Scene, camera, width: int, height: int, spp: int,
                  seed, opts: TraceOptions | None = None,
                  return_stats: bool = False, device=None,
-                 sample_offset: int = 0):
+                 sample_offset: int = 0, debug: DebugParams | None = None):
     """Render ``spp`` samples per pixel. ``camera`` is a
     :class:`CameraConfig` or an already derived :class:`DerivedCamera`.
     ``seed`` is an int, which drives the same hash streams as
@@ -57,7 +57,9 @@ def render_image(scene: Scene, camera, width: int, height: int, spp: int,
     are numbered from ``sample_offset`` on (a stratified progressive
     session renders its frame i at i·spp); an adaptive render needs 0.
     Scenes go through the cluster walk or the flat scan as the JAX
-    package's Pallas backend chooses. Returns an (H, W, 3) float32 image
+    package's Pallas backend chooses. With ``opts.enable_debug`` the
+    kernel draws the overlay of ``debug`` (a :class:`DebugParams`;
+    ``DebugParams.none()`` when omitted). Returns an (H, W, 3) float32 image
     in [0, 1] on ``device``, row 0 at the image bottom, and with
     ``return_stats`` a dict of segment totals (``segments``,
     ``segments_exact``); an adaptive render adds ``mean_spp`` (float,
@@ -71,7 +73,7 @@ def render_image(scene: Scene, camera, width: int, height: int, spp: int,
     opts = opts or TraceOptions()
     image, segments, extra = render(
         scene, to_derived(camera), width, height, spp, key_data(seed), opts,
-        device, sample_offset=sample_offset,
+        device, sample_offset=sample_offset, debug=debug,
     )
     if not return_stats:
         return image

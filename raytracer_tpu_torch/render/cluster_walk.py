@@ -24,13 +24,17 @@ the second, and on bounce completion the shared tail: winner lookup,
 front-face normal, diffuse / metal / glass scatter, Russian roulette,
 depth exhaustion, accumulation and path regeneration.
 
-Two compile-time switches of the kernel follow ``opts``. Adaptive
+Three compile-time switches of the kernel follow ``opts``. Adaptive
 (``adaptive_tolerance`` > 0): a lane samples up to its own ``budget``
 (the chunk's ``spp`` where no budget is given) and a lane whose budget is
 0 does nothing. Stratified (``sampler='stratified'``): the four camera
 draws, and on a sample's first bounce the diffuse direction and the
 glass roll, are the (sample_offset + s)-th point of the pixel's rotated
-Kronecker sequence; every other draw stays counter-hashed.
+Kronecker sequence; every other draw stays counter-hashed. Debug
+(``enable_debug``, K3): the overlay of the shared tail with the cursor
+and selection of ``debug`` (a :class:`DebugParams`, ``none()`` when
+omitted); the winner's uuid is column 10 of its winner row. It has no
+adaptive instantiation: the wrappers refuse debug with adaptive.
 """
 
 from __future__ import annotations
@@ -43,13 +47,26 @@ import torch
 
 from raytracer_tpu_torch.core.sampling import A4_FIX, AB0_FIX
 from raytracer_tpu_torch.render import rng
-from raytracer_tpu_torch.render.options import MAX_T, MIN_T, TraceOptions
-from raytracer_tpu_torch.render.tables import MAX_CLUSTERS, WalkTables
+from raytracer_tpu_torch.render.options import (
+    MAX_T,
+    MIN_T,
+    DebugParams,
+    TraceOptions,
+)
+from raytracer_tpu_torch.render.tables import (
+    MAX_CLUSTERS,
+    WalkTables,
+    debug_uniforms,
+)
 
 LANES_TPU = 128  # the RNG's pixel id keeps the TPU's padded row width
 DRAWS_PER_BOUNCE = 8
 FILLQ = 3e38
 NEG_BIG = -3e38
+#: the overlay's marker: a hit whose squared distance to the cursor is
+#: below this; the outline: the selected sphere where d·n > GRAZING
+CURSOR_R2 = 0.01
+GRAZING = -0.05
 #: float32 3e38 with the 7 key bits cleared: a selection at or above it is
 #: a miss or an exhausted list
 FILL_FLOOR = float(
@@ -68,11 +85,17 @@ def identity_map(width: int, height: int, device) -> torch.Tensor:
     return torch.stack([lane % width, lane // width], 1).to(torch.int32)
 
 
+def variant_suffix(opts: TraceOptions) -> str:
+    """The adaptive, stratified and debug parts of an instantiation's
+    name."""
+    return (("_adaptive" if opts.adaptive_tolerance > 0.0 else "")
+            + ("_stratified" if opts.sampler == "stratified" else "")
+            + ("_debug" if opts.enable_debug else ""))
+
+
 def variant_name(opts: TraceOptions) -> str:
     """The kernel instantiation that serves ``opts``."""
-    return "cluster_walk" + (
-        "_adaptive" if opts.adaptive_tolerance > 0.0 else ""
-    ) + ("_stratified" if opts.sampler == "stratified" else "")
+    return "cluster_walk" + variant_suffix(opts)
 
 
 def _check(tables: WalkTables, pixel_map: torch.Tensor, width: int,
@@ -111,6 +134,11 @@ def check_chunk_args(pixel_map: torch.Tensor, width: int, height: int,
         raise ValueError("pixel_map must be a contiguous (n, 2) int32 tensor")
     if width < 1 or height < 1 or spp < 1:
         raise ValueError("width, height and spp must be >= 1")
+    if opts.enable_debug and opts.adaptive_tolerance > 0.0:
+        raise ValueError(
+            "the debug overlay has no adaptive instantiation: strip "
+            "adaptive_tolerance (render_image does)"
+        )
     if budget is not None:
         if not opts.adaptive_tolerance > 0.0:
             raise ValueError("a budget needs opts.adaptive_tolerance > 0")
@@ -123,21 +151,30 @@ def check_chunk_args(pixel_map: torch.Tensor, width: int, height: int,
             )
 
 
+def overlay(opts: TraceOptions, debug: DebugParams | None):
+    """The four overlay uniforms that ``opts`` asks for (``debug``, or
+    ``DebugParams.none()``), or None without ``enable_debug``."""
+    if not opts.enable_debug:
+        return None
+    return debug_uniforms(debug or DebugParams.none())
+
+
 def cluster_walk(tables: WalkTables, pixel_map: torch.Tensor, seed: int,
                  sample_offset: int, spp: int, width: int, height: int,
-                 opts: TraceOptions, budget: torch.Tensor | None = None):
+                 opts: TraceOptions, budget: torch.Tensor | None = None,
+                 debug: DebugParams | None = None):
     """One chunk of ``spp`` samples for every lane of ``pixel_map``;
     with ``budget`` (adaptive only), lane j takes ``budget[j]`` samples
-    instead."""
+    instead; with ``opts.enable_debug``, the overlay of ``debug``."""
     _check(tables, pixel_map, width, height, spp, opts, budget)
     dev = pixel_map.device
     if dev.type == "cpu":
         return cluster_walk_plain(tables, pixel_map, seed, sample_offset,
-                                  spp, width, height, opts, budget)
+                                  spp, width, height, opts, budget, debug)
     if dev.type != "cuda":
         raise ValueError(f"no cluster walk for device {dev}")
     return _launch(tables, pixel_map, seed, sample_offset, spp, width,
-                   height, opts, budget)
+                   height, opts, budget, overlay(opts, debug))
 
 
 cluster_walk.launches = 0
@@ -155,14 +192,14 @@ def _lib():
     lib = cuda_build.load("cluster_walk")
     fn = lib.cluster_walk_launch
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 14
-                       + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 15
+                       + [ctypes.c_float] * 6 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
 
 def _launch(tables, pixel_map, seed, sample_offset, spp, width, height,
-            opts, budget):
+            opts, budget, uniforms):
     n = pixel_map.shape[0]
     k, group = tables.members.shape[:2]
     dev = pixel_map.device
@@ -183,12 +220,13 @@ def _launch(tables, pixel_map, seed, sample_offset, spp, width, height,
             None if budget is None else budget.data_ptr(),
             out.data_ptr(), segs.data_ptr(),
             int(adaptive), int(opts.sampler == "stratified"),
+            int(uniforms is not None),
             n, tables.globals.shape[0], k, group, padded_width(width),
             int(seed), int(sample_offset), int(spp),
             opts.max_depth, opts.russian_roulette_depth,
             int(opts.exhaust_black), int(opts.near_zero_guard),
             float(np.float32(1.0 / width)), float(np.float32(1.0 / height)),
-            stream,
+            *(uniforms or (0.0,) * 4), stream,
         )
     if err != 0:
         raise RuntimeError(f"cluster_walk kernel launch failed: CUDA error {err}")
@@ -294,6 +332,8 @@ class Lanes:
     inv_w: float
     inv_h: float
     opts: TraceOptions
+    #: the overlay's (cursor x, y, z, selection) with ``enable_debug``
+    debug: tuple | None = None
 
     @property
     def stratified(self) -> bool:
@@ -331,7 +371,7 @@ class PathState:
 
 def lane_setup(camera: torch.Tensor, pixel_map: torch.Tensor, seed: int,
                sample_offset: int, spp: int, width: int, height: int,
-               opts: TraceOptions, budget):
+               opts: TraceOptions, budget, debug=None):
     """``(lanes, state)`` at the start of a chunk: each lane's first
     camera ray; a lane without budget is dead at launch."""
     dev = pixel_map.device
@@ -347,6 +387,7 @@ def lane_setup(camera: torch.Tensor, pixel_map: torch.Tensor, seed: int,
         sample_offset=sample_offset,
         dps=4 + opts.max_depth * DRAWS_PER_BOUNCE,
         inv_w=1.0 / width, inv_h=1.0 / height, opts=opts,
+        debug=overlay(opts, debug),
     )
     s = torch.zeros(n, dtype=torch.int64, device=dev)
     ray = _gen_ray(lanes.cam, s + sample_offset, lanes.px, lanes.py,
@@ -364,16 +405,20 @@ def lane_setup(camera: torch.Tensor, pixel_map: torch.Tensor, seed: int,
 
 
 def bounce_tail(st: PathState, lanes: Lanes, win, bq: torch.Tensor,
-                inv_a: torch.Tensor, ab: torch.Tensor) -> torch.Tensor:
+                inv_a: torch.Tensor, ab: torch.Tensor,
+                uuid: torch.Tensor | None = None) -> torch.Tensor:
     """The bounce tail for the lanes ``ab`` whose closest hit is known:
     best q ``bq`` (FILLQ on a miss) and the winner's parameters ``win`` =
     (center xyz, 1/r, mat, albedo rgb, fuzz, ior). Front-face normal;
     diffuse, metal or glass scatter; sky on a miss; Russian roulette;
     depth exhaustion; the contribution into ``st.out``; then the path goes
     on from the hit point, or the lane starts its next sample, or it has
-    taken its samples and is done. Updates ``st`` and returns the lanes
-    whose path goes on. The arithmetic and its order are the CUDA tail's
-    (``csrc/common.cuh`` ``bounce_tail``)."""
+    taken its samples and is done. With ``lanes.debug``, the overlay
+    (cursor marker, then the outline of the sphere whose float32 ``uuid``
+    is the selection) ends a marked lane's path with its fixed colour.
+    Updates ``st`` and returns the lanes whose path goes on. The
+    arithmetic and its order are the CUDA tail's (``csrc/common.cuh``
+    ``bounce_tail``)."""
     opts = lanes.opts
     pix = lanes.pix
     ctr = st.ctr(lanes)
@@ -463,6 +508,18 @@ def bounce_tail(st: PathState, lanes: Lanes, win, bq: torch.Tensor,
     con_r = torch.where(miss, cr * (1.0 - 0.5 * sky_t), zero)
     con_g = torch.where(miss, cg * (1.0 - 0.3 * sky_t), zero)
     con_b = torch.where(miss, cb, zero)
+    if lanes.debug is not None:
+        # the overlay: blue (0, 0, 1) within 0.1 of the cursor, else red
+        # (1, 0, 0) on the selected sphere at grazing incidence; a marked
+        # lane does not scatter
+        cx, cy, cz, sel = lanes.debug
+        dcx, dcy, dcz = hpx - cx, hpy - cy, hpz - cz
+        cursor = ab & hit & (dcx * dcx + dcy * dcy + dcz * dcz < CURSOR_R2)
+        outline = (ab & hit & ~cursor & (uuid == sel)
+                   & (rng.dot3(dx, dy, dz, nx, ny, nz) > GRAZING))
+        scat = scat & ~cursor & ~outline
+        con_r = torch.where(outline, 1.0, con_r)
+        con_b = torch.where(cursor, 1.0, con_b)
 
     cr = torch.where(scat, cr * al_r, cr)
     cg = torch.where(scat, cg * al_g, cg)
@@ -523,7 +580,8 @@ def bounce_tail(st: PathState, lanes: Lanes, win, bq: torch.Tensor,
 def cluster_walk_plain(tables: WalkTables, pixel_map: torch.Tensor,
                        seed: int, sample_offset: int, spp: int, width: int,
                        height: int, opts: TraceOptions,
-                       budget: torch.Tensor | None = None):
+                       budget: torch.Tensor | None = None,
+                       debug: DebugParams | None = None):
     """The cluster walk as masked tensor code: every lane runs the same
     regeneration loop, one walk iteration per pass, ``while`` any lane is
     alive. The arithmetic and its order are the kernel's."""
@@ -535,7 +593,7 @@ def cluster_walk_plain(tables: WalkTables, pixel_map: torch.Tensor,
     glob = [list(g.unbind(0)) for g in tables.globals]
     bnd = [tables.bounds[:, j] for j in range(6)]
     lanes, st = lane_setup(tables.camera, pixel_map, seed, sample_offset,
-                           spp, width, height, opts, budget)
+                           spp, width, height, opts, budget, debug)
     idx_k = torch.arange(k, device=dev, dtype=torch.int32)
 
     bq = torch.full((n,), FILLQ, dtype=f32, device=dev)
@@ -605,7 +663,8 @@ def cluster_walk_plain(tables: WalkTables, pixel_map: torch.Tensor,
 
         # the shared tail, for lanes whose bounce completed
         w = tables.winner[bs]
-        bounce_tail(st, lanes, [w[:, j] for j in range(10)], bq, inv_a, ab)
+        bounce_tail(st, lanes, [w[:, j] for j in range(10)], bq, inv_a, ab,
+                    w[:, 10])
         bq = torch.where(ab, FILLQ, bq)
         bs = torch.where(ab, 0, bs)
         kl = torch.where(ab, NEG_BIG, kl)

@@ -19,8 +19,10 @@ spheres cannot contain a ray origin (``render/split.py``); an exact
 far-root self-test of the sphere the lane last bounced off covers a path
 re-entering it. Of equal candidates the lowest slot wins (strict <),
 where the TPU kernel's one-hot gather summed the tied slots' parameters.
-The bounce tail and its adaptive and stratified switches are the cluster
-walk's (``bounce_tail``).
+The bounce tail and its adaptive, stratified and debug switches are the
+cluster walk's (``bounce_tail``); under debug (K3) the winner's uuid is
+its slot, which is the scene's own index because a debug render keeps the
+scene's order: the wrapper refuses debug with a split or with adaptive.
 """
 
 from __future__ import annotations
@@ -38,10 +40,16 @@ from raytracer_tpu_torch.render.cluster_walk import (
     check_chunk_args,
     check_tables,
     lane_setup,
+    overlay,
     padded_width,
     roots,
+    variant_suffix,
 )
-from raytracer_tpu_torch.render.options import MIN_T, TraceOptions
+from raytracer_tpu_torch.render.options import (
+    MIN_T,
+    DebugParams,
+    TraceOptions,
+)
 from raytracer_tpu_torch.render.tables import FlatTables
 
 #: floats per sphere row (see ``tables.sphere_table``)
@@ -59,9 +67,7 @@ def smem_bytes(slots: int) -> int:
 def variant_name(opts: TraceOptions, split: bool) -> str:
     """The kernel instantiation that serves ``opts`` (K2s when
     ``split``)."""
-    return "flat_scan" + ("_split" if split else "") + (
-        "_adaptive" if opts.adaptive_tolerance > 0.0 else ""
-    ) + ("_stratified" if opts.sampler == "stratified" else "")
+    return "flat_scan" + ("_split" if split else "") + variant_suffix(opts)
 
 
 def is_split(tables: FlatTables, g_full) -> bool:
@@ -84,25 +90,32 @@ def _check(tables: FlatTables, pixel_map: torch.Tensor, width: int,
         )
     if g_full is not None and not 0 <= g_full:
         raise ValueError(f"g_full must be >= 0, got {g_full}")
+    if opts.enable_debug and is_split(tables, g_full):
+        raise ValueError(
+            "the debug overlay has no split instantiation: its outline "
+            "reads the winner's slot as the scene index"
+        )
     check_chunk_args(pixel_map, width, height, spp, opts, budget)
 
 
 def flat_scan(tables: FlatTables, pixel_map: torch.Tensor, seed: int,
               sample_offset: int, spp: int, width: int, height: int,
               opts: TraceOptions, g_full: int | None = None,
-              budget: torch.Tensor | None = None):
+              budget: torch.Tensor | None = None,
+              debug: DebugParams | None = None):
     """One chunk of ``spp`` samples for every lane of ``pixel_map``
     through K2, or K2s with ``g_full`` full-logic slots; with ``budget``
-    (adaptive only), lane j takes ``budget[j]`` samples instead."""
+    (adaptive only), lane j takes ``budget[j]`` samples instead; with
+    ``opts.enable_debug``, the overlay of ``debug``."""
     _check(tables, pixel_map, width, height, spp, opts, g_full, budget)
     dev = pixel_map.device
     if dev.type == "cpu":
         return flat_scan_plain(tables, pixel_map, seed, sample_offset, spp,
-                               width, height, opts, g_full, budget)
+                               width, height, opts, g_full, budget, debug)
     if dev.type != "cuda":
         raise ValueError(f"no flat scan for device {dev}")
     return _launch(tables, pixel_map, seed, sample_offset, spp, width,
-                   height, opts, g_full, budget)
+                   height, opts, g_full, budget, overlay(opts, debug))
 
 
 flat_scan.launches = 0
@@ -120,14 +133,14 @@ def _lib():
     lib = cuda_build.load("flat_scan")
     fn = lib.flat_scan_launch
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 14
-                       + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 15
+                       + [ctypes.c_float] * 6 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
 
 def _launch(tables, pixel_map, seed, sample_offset, spp, width, height,
-            opts, g_full, budget):
+            opts, g_full, budget, uniforms):
     n = pixel_map.shape[0]
     dev = pixel_map.device
     adaptive = opts.adaptive_tolerance > 0.0
@@ -148,12 +161,13 @@ def _launch(tables, pixel_map, seed, sample_offset, spp, width, height,
             None if budget is None else budget.data_ptr(),
             out.data_ptr(), segs.data_ptr(),
             int(adaptive), int(opts.sampler == "stratified"), int(split),
+            int(uniforms is not None),
             n, slots, g_full if split else slots, padded_width(width),
             int(seed), int(sample_offset), int(spp),
             opts.max_depth, opts.russian_roulette_depth,
             int(opts.exhaust_black), int(opts.near_zero_guard),
             float(np.float32(1.0 / width)), float(np.float32(1.0 / height)),
-            stream,
+            *(uniforms or (0.0,) * 4), stream,
         )
     if err != 0:
         raise RuntimeError(f"flat_scan kernel launch failed: CUDA error {err}")
@@ -167,7 +181,8 @@ def _launch(tables, pixel_map, seed, sample_offset, spp, width, height,
 def flat_scan_plain(tables: FlatTables, pixel_map: torch.Tensor, seed: int,
                     sample_offset: int, spp: int, width: int, height: int,
                     opts: TraceOptions, g_full: int | None = None,
-                    budget: torch.Tensor | None = None):
+                    budget: torch.Tensor | None = None,
+                    debug: DebugParams | None = None):
     """The flat scan as masked tensor code: every lane runs the same
     regeneration loop, one bounce per pass, ``while`` any lane is alive.
     The arithmetic and its order are the kernel's."""
@@ -176,7 +191,7 @@ def flat_scan_plain(tables: FlatTables, pixel_map: torch.Tensor, seed: int,
     slots = sph.shape[0]
     split = is_split(tables, g_full)
     lanes, st = lane_setup(tables.camera, pixel_map, seed, sample_offset,
-                           spp, width, height, opts, budget)
+                           spp, width, height, opts, budget, debug)
     cols = [sph[:, j][None, :] for j in range(4)]
     full_slot = (torch.arange(slots, device=sph.device)
                  < (g_full if split else slots))[None, :]
@@ -217,7 +232,8 @@ def flat_scan_plain(tables: FlatTables, pixel_map: torch.Tensor, seed: int,
 
         w = sph[bs]
         win = [w[:, j] for j in (0, 1, 2, 4, 5, 6, 7, 8, 9, 10)]
-        goes_on = bounce_tail(st, lanes, win, bq, inv_a, alive)
+        goes_on = bounce_tail(st, lanes, win, bq, inv_a, alive,
+                              bs.to(torch.float32))
         if split:
             last = torch.where(goes_on, bs, last)
     return st.out, st.segs

@@ -11,7 +11,10 @@ where ``cluster_scan`` is enabled and a partition can be built; else the
 flat scan, split (K2s) on a static-split hint or on this scene's own
 containable split, unsplit (K2) otherwise. A caller that stands for a
 scene the JAX package would see traced (the progressive step) turns the
-scene analysis off, and only its hints choose.
+scene analysis off, and only its hints choose. A debug render (K3) never
+splits: the flat scan's outline reads the winner's slot as the scene
+index, so the slots keep the scene's order; it also renders fixed spp
+(the overlay has no adaptive instantiation).
 
 The spp run is cut by the shared schedule. With ``sort_pixels`` and more
 than one chunk, the first chunk renders in the identity lane order and
@@ -52,6 +55,7 @@ from raytracer_tpu_torch.render.cluster_walk import (
 )
 from raytracer_tpu_torch.render.flat_scan import flat_scan
 from raytracer_tpu_torch.render.options import (
+    DebugParams,
     TraceOptions,
     cluster_scan_enabled,
 )
@@ -202,17 +206,19 @@ class KernelChoice:
     g_full: int | None = None
 
     def launcher(self, kseed: int, width: int, height: int,
-                 opts: TraceOptions):
+                 opts: TraceOptions, debug: DebugParams | None = None):
         """``launch(pixel_map, sample_offset, spp, budget=None) -> (out,
-        segs)``: one chunk through the chosen kernel."""
+        segs)``: one chunk through the chosen kernel (with the overlay of
+        ``debug`` under ``opts.enable_debug``)."""
         if self.kernel == "cluster_walk":
             def launch(pixel_map, offset, cs, budget=None):
                 return cluster_walk(self.tables, pixel_map, kseed, offset, cs,
-                                    width, height, opts, budget)
+                                    width, height, opts, budget, debug)
         else:
             def launch(pixel_map, offset, cs, budget=None):
                 return flat_scan(self.tables, pixel_map, kseed, offset, cs,
-                                 width, height, opts, self.g_full, budget)
+                                 width, height, opts, self.g_full, budget,
+                                 debug)
         return launch
 
 
@@ -232,7 +238,8 @@ def choose_kernel(scene: Scene, dcam: DerivedCamera, opts: TraceOptions,
     n_global) of a partition built once from a concrete hint: the scene
     is gathered into its slot layout (K1). ``static_split`` = (perm,
     g_full) from a hint (K2s). With ``analyse`` off the scene is not read
-    on the host: no partition and no split of its own."""
+    on the host: no partition and no split of its own. With
+    ``enable_debug`` no split at all."""
     if static_cluster is not None:
         boxes, uuid, n_global = static_cluster
         uuid = upload(torch.as_tensor(uuid), scene.center.device)
@@ -245,9 +252,11 @@ def choose_kernel(scene: Scene, dcam: DerivedCamera, opts: TraceOptions,
         if part is not None:
             return KernelChoice("cluster_walk",
                                 walk_tables(part, dcam, device))
-    split = static_split
-    if split is None and analyse:
-        split = containable_split(scene, dcam, opts)
+    split = None
+    if not opts.enable_debug:
+        split = static_split
+        if split is None and analyse:
+            split = containable_split(scene, dcam, opts)
     g_full = None
     if split is not None:
         perm, g_full = split
@@ -289,17 +298,21 @@ def _render_adaptive(launch, sizes, width, height, opts, device):
 
 def render(scene: Scene, dcam: DerivedCamera, width: int, height: int,
            spp: int, key, opts: TraceOptions, device, sample_offset: int = 0,
-           static_split=None, static_cluster=None, analyse: bool = True):
+           static_split=None, static_cluster=None, analyse: bool = True,
+           debug: DebugParams | None = None):
     """Render ``spp`` samples per pixel of ``scene`` on ``device``, with
     key data ``key`` (see ``rng.key_data``), starting at absolute sample
-    ``sample_offset``. Returns ``(image, segments, extra)``: the (H, W, 3)
-    image, the exact int64 segment total as a 0-d device tensor (read it
-    when you need it: that waits for the device), and for an adaptive
-    render ``{'spp_map': (H, W) sample counts}``, else ``{}``."""
+    ``sample_offset``; with ``opts.enable_debug``, the overlay of
+    ``debug`` (``DebugParams.none()`` when omitted). Returns ``(image,
+    segments, extra)``: the (H, W, 3) image, the exact int64 segment total
+    as a 0-d device tensor (read it when you need it: that waits for the
+    device), and for an adaptive render ``{'spp_map': (H, W) sample
+    counts}``, else ``{}``."""
     device = torch.device(device)
     choice = choose_kernel(scene, dcam, opts, device, static_split,
                            static_cluster, analyse)
-    launch = choice.launcher(kernel_seed_from_key(key), width, height, opts)
+    launch = choice.launcher(kernel_seed_from_key(key), width, height, opts,
+                             debug)
     # the ORIGINAL slot count: the schedule must not see the padding
     chunk = schedule.pick_chunk_spp(
         spp, width * height, scene.count, opts.max_depth,
@@ -317,12 +330,14 @@ def render(scene: Scene, dcam: DerivedCamera, width: int, height: int,
         adaptive_sizes = schedule.adaptive_schedule(
             spp, chunk, opts.adaptive_chunk_spp, opts.sort_pixels
         )
-        if adaptive_sizes is None:
-            # nothing could gate a later chunk: render fixed spp through
-            # the four-row kernels
+        if adaptive_sizes is None or opts.enable_debug:
+            # nothing could gate a later chunk, or the overlay is on: it
+            # has no adaptive instantiation. Render fixed spp through the
+            # four-row kernels
+            adaptive_sizes = None
             opts = dataclasses.replace(opts, adaptive_tolerance=0.0)
             launch = choice.launcher(kernel_seed_from_key(key), width,
-                                     height, opts)
+                                     height, opts, debug)
     if adaptive_sizes is not None:
         acc, segments = _render_adaptive(launch, adaptive_sizes, width,
                                          height, opts, device)

@@ -1,13 +1,18 @@
 """Trace options of the port (counterpart of
 ``raytracer_tpu/render/options.py``), limited to what the ported paths
-(cluster walk, flat and split scan; fixed spp, adaptive, stratified)
-read. The production cluster-walk configuration of the JAX package (one
-cluster per walk step, packed visit key, fused bounce-done test) is the
-only walk the port has, so it carries no knobs for it."""
+(cluster walk, flat and split scan; fixed spp, adaptive, stratified; the
+debug overlay) read. The production cluster-walk configuration of the
+JAX package (one cluster per walk step, packed visit key, fused
+bounce-done test) is the only walk the port has, so it carries no knobs
+for it."""
 
 from __future__ import annotations
 
 import dataclasses
+
+import numpy as np
+
+from raytracer_tpu_torch.scene.spheres import NO_SELECTED_OBJECT_ID
 
 # Kernel constants (the reference shader's t range).
 MIN_T = 0.001
@@ -50,6 +55,11 @@ class TraceOptions:
     (independent hashed draws) or ``'stratified'`` (the camera draws and
     the first bounce's diffuse direction and glass roll come from a
     per-pixel rotated Kronecker sequence; marginals are unchanged).
+
+    ``enable_debug`` draws the overlay in the kernel: the cursor marker
+    and the selection outline (see :class:`DebugParams`). A debug render
+    keeps the scene's slot order (no split) and strips an adaptive
+    tolerance, as the JAX package does.
 
     ``cluster_scan`` ('auto', True or False) chooses the cluster walk
     over the flat scan (see :func:`cluster_scan_enabled`). ``split_scan``
@@ -102,11 +112,6 @@ class TraceOptions:
                 "cluster_scan and scan_mxu are alternative scan "
                 "implementations — enable at most one"
             )
-        if self.enable_debug:
-            raise NotImplementedError(
-                "the debug overlay is not ported yet (ROADMAP: kernel "
-                "variant K3)"
-            )
         if self.cluster_bounds != "box":
             raise NotImplementedError(
                 f"cluster_bounds {self.cluster_bounds!r}: only 'box' is "
@@ -117,3 +122,42 @@ class TraceOptions:
                 f"cluster_partition {self.cluster_partition!r}: only 'kd' "
                 "is ported"
             )
+
+
+def _f32(v) -> float:
+    return float(np.float32(v))
+
+
+@dataclasses.dataclass(frozen=True)
+class DebugParams:
+    """The debug overlay's inputs as host values (the reference's
+    u_cursor_point / u_selected_object uniforms): a float32 cursor point
+    and the selected sphere's id. The kernels take them by value, so a
+    frame uploads nothing for them and waits for nothing."""
+
+    cursor_point: tuple = (0.0, 0.0, 0.0)
+    selected_object: int = NO_SELECTED_OBJECT_ID
+
+    def __post_init__(self):
+        point = tuple(_f32(v) for v in self.cursor_point)
+        if len(point) != 3:
+            raise ValueError(f"cursor_point needs 3 values, got {point}")
+        object.__setattr__(self, "cursor_point", point)
+        object.__setattr__(self, "selected_object",
+                           int(self.selected_object))
+
+    @classmethod
+    def none(cls) -> "DebugParams":
+        """Cursor at the world origin, nothing selected. Not "nothing
+        drawn": a surface within 0.1 of the origin shows the marker, as in
+        the JAX package."""
+        return cls()
+
+
+def debug_from_numpy(cursor_point, selected_object) -> DebugParams:
+    """:class:`DebugParams` from the JAX ``DebugParams`` fields as
+    arrays."""
+    return DebugParams(
+        tuple(np.asarray(cursor_point, np.float32).reshape(3).tolist()),
+        int(np.asarray(selected_object)),
+    )

@@ -2,7 +2,7 @@
 (counterpart of ``raytracer_tpu/render/pallas_kernel.py``
 ``_slot_encoding``, ``_sphere_table``, ``_pad_spheres``,
 ``_cluster_partition``, ``_cluster_reorder``, ``_cluster_tables`` and
-``_camera_uniforms``).
+``_camera_uniforms``, whose debug slots 19-22 are :func:`debug_uniforms`).
 
 The TPU layouts (sublane pre-broadcast, 128-lane winner banks, the
 bf16-split parameter table, padding to 128 lanes and to 8 rows) are
@@ -19,7 +19,11 @@ import numpy as np
 import torch
 
 from raytracer_tpu_torch.camera.camera import DerivedCamera
-from raytracer_tpu_torch.render.options import MAX_T, TraceOptions
+from raytracer_tpu_torch.render.options import (
+    MAX_T,
+    DebugParams,
+    TraceOptions,
+)
 from raytracer_tpu_torch.scene.accel import ClusteredScene, build_grid_clustered
 from raytracer_tpu_torch.scene.spheres import Scene
 
@@ -165,6 +169,14 @@ def camera_uniforms(dcam: DerivedCamera) -> torch.Tensor:
         dcam.origin, dcam.lower_left_corner, dcam.horizontal, dcam.vertical,
         dcam.u, dcam.v, dcam.lens_radius.reshape(1),
     ]).to(torch.float32)
+
+
+def debug_uniforms(debug: DebugParams) -> tuple:
+    """The overlay's four uniforms (the TPU kernel's camera slots 19-22):
+    cursor xyz and float32(selected_object), as Python floats that the
+    kernels take by value. The selection compares as float32 with the
+    winner's uuid, exact below 2^24."""
+    return (*debug.cursor_point, float(np.float32(debug.selected_object)))
 
 
 def flat_tables(scene: Scene, dcam: DerivedCamera, device) -> FlatTables:

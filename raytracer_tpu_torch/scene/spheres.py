@@ -15,6 +15,10 @@ import torch
 
 from raytracer_tpu_torch.scene.materials import Material
 
+#: the selection id of "nothing selected" (the reference's
+#: NO_SELECTED_OBJECT_ID)
+NO_SELECTED_OBJECT_ID = 1000
+
 
 @dataclasses.dataclass(frozen=True)
 class Scene:
@@ -30,6 +34,11 @@ class Scene:
     def count(self) -> int:
         """Slot count, padding included."""
         return self.center.shape[0]
+
+    def to(self, device) -> "Scene":
+        """The scene with every field on ``device``."""
+        return Scene(**{f.name: getattr(self, f.name).to(device)
+                        for f in dataclasses.fields(self)})
 
     def numpy(self) -> dict:
         """The fields as host numpy arrays."""

@@ -15,7 +15,7 @@ from raytracer_tpu_torch.progressive import step as pstep
 from raytracer_tpu_torch.render import api, megakernel, tables
 from raytracer_tpu_torch.render import cluster_walk as cw
 from raytracer_tpu_torch.render import flat_scan as fs
-from raytracer_tpu_torch.render.options import TraceOptions
+from raytracer_tpu_torch.render.options import DebugParams, TraceOptions
 from raytracer_tpu_torch.scene import presets
 
 pytestmark = pytest.mark.gpu
@@ -230,3 +230,83 @@ def test_accumulate_on_card_equals_cpu(card):
         cpu = pstep.accumulate(prev, new, rc, w)
         got = pstep.accumulate(prev.to(card), new.to(card), rc, w)
         assert torch.equal(got.cpu(), cpu), (rc, w)
+
+
+DEBUG_VARIANTS = [(flat, st) for flat in (False, True) for st in (False, True)]
+
+
+@pytest.mark.parametrize("flat, stratified", DEBUG_VARIANTS,
+                         ids=["cluster_walk_debug",
+                              "cluster_walk_stratified_debug",
+                              "flat_scan_debug", "flat_scan_stratified_debug"])
+def test_debug_kernel_matches_plain_on_card(card, flat, stratified):
+    """Each debug instantiation (the cover's tables for the walk, the
+    demo's for the flat scan) against its plain version, with the cursor
+    on the sphere at the centre of the view and that sphere selected:
+    bitwise, the outline drawn (and the demo's marker); with the cursor
+    away and nothing selected, bitwise its non-debug twin."""
+    from raytracer_tpu_torch.interact.picking import update_cursor_state
+
+    scene, cam, *_ = presets.get_config("demo" if flat else "cover", W, H)
+    _, point, sel = update_cursor_state(scene.to(card), cam)
+    opts = TraceOptions(max_depth=8, russian_roulette_depth=5,
+                        sampler="stratified" if stratified else "random",
+                        enable_debug=True)
+    choice = megakernel.choose_kernel(scene, derive_camera(cam), opts, card)
+    assert choice.g_full is None
+    kernel, plain = ((fs.flat_scan, fs.flat_scan_plain) if flat
+                     else (cw.cluster_walk, cw.cluster_walk_plain))
+    head = (choice.tables, cw.identity_map(W, H, card), 9, 6, SPP, W, H)
+    tail = (choice.g_full, None) if flat else (None,)
+    debug = DebugParams(point, sel)
+    out_k, seg_k = kernel(*head, opts, *tail, debug)
+    out_p, seg_p = plain(*head, opts, *tail, debug)
+    assert torch.equal(out_k, out_p) and torch.equal(seg_k, seg_p)
+    r, g, b = (out_k[:3] / SPP).unbind(0)
+    # the outline always shows; the cover's picked sphere is seen at a
+    # grazing angle, so at this size its marker fills no whole pixel
+    assert int(((r - torch.maximum(g, b)) > 0.2).sum()) > 0
+    if flat:
+        assert int(((b == 1) & (r == 0) & (g == 0)).sum()) > 0
+    off = TraceOptions(max_depth=8, russian_roulette_depth=5,
+                       sampler=opts.sampler)
+    a = kernel(*head, opts, *tail, DebugParams((1e4, 1e4, 1e4), 1000))
+    b_ = kernel(*head, off, *tail)
+    assert torch.equal(a[0], b_[0]) and torch.equal(a[1], b_[1])
+
+
+def test_engine_frames_wait_for_nothing(card):
+    """Engine ticks with the overlay on the card, with the sync debug mode
+    raising on any call that waits for the device: none does (a pick,
+    which reads its result, comes before); the pixel at the centre of the
+    view is the marker's blue."""
+    from raytracer_tpu_torch import Engine
+
+    scene, cam, *_ = presets.get_config("demo", W, H)
+    eng = Engine(scene, cam, W, H, enable_debugging=True)
+    eng.set_paused(False)
+    eng.handle_mouse_move(0.0, 0.0)
+    assert eng.app.selected_object == 1
+    eng.tick(16.0)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for i in range(70):  # past a drain of the segment total
+            assert eng.tick(32.0 + 16.0 * i)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    # the pixel whose jittered samples cover the centre of the view
+    c = eng.render_state.accum[H // 2 - 1, W // 2 - 1]
+    assert torch.equal(c, torch.tensor([0.0, 0.0, 1.0], device=card))
+    assert eng.total_segments > 70 * W * H
+
+
+def test_aov_on_card_equals_cpu(card):
+    from raytracer_tpu_torch.render.debug import AOV_MODES, render_aov
+
+    scene, cam, *_ = presets.get_config("demo", W, H)
+    for mode in AOV_MODES:
+        got = render_aov(scene, cam, W, H, mode)
+        assert got.device.type == "cuda"
+        ref = render_aov(scene, cam, W, H, mode, device="cpu")
+        assert float((got.cpu() - ref).abs().max()) <= 1e-5, mode

@@ -3,20 +3,26 @@ card: the constants the kernels bake in (``csrc/common.cuh``) are the
 float32 roundings of the JAX package's Python doubles, the cube root stays
 exp(log(u)/3), nothing fuses or approximates an operation that the plain
 PyTorch versions (and the TPU kernel) round separately, the template
-instantiations are all there, and the build cache keys on the headers a
-source includes. The kernels themselves run only on the card
+instantiations are all there (and the debug overlay's only where the JAX
+package can reach them), the overlay's constants and order match the
+plain twin's, and the build cache keys on the headers a source includes. The kernels themselves run only on the card
 (``tests/test_torch_gpu.py``, ``chip_smoke.py``)."""
 
+import inspect
 import re
 import shutil
 
 import numpy as np
 import pytest
+import torch
 
 from raytracer_tpu.render import pallas_kernel as pk
+from raytracer_tpu_torch.camera.camera import derive_camera
 from raytracer_tpu_torch.core import sampling
 from raytracer_tpu_torch.render import cluster_walk as cw
+from raytracer_tpu_torch.render import flat_scan as fs
 from raytracer_tpu_torch.render import options, rng, tables
+from raytracer_tpu_torch.scene import presets
 from raytracer_tpu_torch.utils import cuda_build
 
 WALK = (cuda_build.CSRC_DIR / "cluster_walk.cu").read_text()
@@ -40,6 +46,9 @@ EXPECTED = {
     "kSkyG": 0.3,
     "kRRMin": 0.05,
     "kNearZero": 1e-8,
+    "kCursorR2": 0.01,
+    "kGrazing": -0.05,
+    "kMarked": 3.0,
 }
 
 
@@ -93,11 +102,11 @@ def test_four_template_instantiations():
     """Adaptive and stratified are compile-time template parameters: the
     walk's launcher picks among four instantiations, and the branches sit
     behind the parameters, never behind a run-time argument."""
-    assert "template <bool kAdaptive, bool kStratified>" in WALK
+    assert "template <bool kAdaptive, bool kStratified, bool kDebug>" in WALK
     for a in ("true", "false"):
         for s in ("true", "false"):
-            assert f"launch<{a}, {s}>(p, blocks, smem, st)" in WALK
-    assert "int adaptive, int stratified" in WALK
+            assert f"launch<{a}, {s}, false>(p, blocks, smem, st)" in WALK
+    assert "int adaptive, int stratified,\n    int debug" in WALK
     assert not re.search(r"p\.(adaptive|stratified|split)\b", SOURCE)
     # a lane without budget writes zeros to all six rows before it returns
     assert ("for (int c = 0; c < 6; ++c) out[c * n + lane] = 0.0f;"
@@ -106,22 +115,23 @@ def test_four_template_instantiations():
     # both kernels run the one shared tail
     for src in (WALK, FLAT):
         assert '#include "common.cuh"' in src
-        assert "bounce_tail<kAdaptive, kStratified>(" in src
+        assert "bounce_tail<kAdaptive, kStratified, kDebug>(" in src
         assert "lane_setup<kAdaptive>(" in src
 
 
 def test_eight_flat_instantiations():
     """The flat scan's switches (adaptive, stratified, split) are
     template parameters too: eight instantiations behind one launcher."""
-    assert "template <bool kAdaptive, bool kStratified, bool kSplit>" in FLAT
+    assert ("template <bool kAdaptive, bool kStratified, bool kSplit, "
+            "bool kDebug>") in FLAT
     for a in ("true", "false"):
         for s in ("true", "false"):
             assert (f"launch_split<{a}, {s}>(p, split, blocks, smem, st)"
                     in FLAT)
     for sp in ("true", "false"):
-        assert f"launch<kAdaptive, kStratified, {sp}>(p, blocks, smem, st)" \
-            in FLAT
-    assert "int adaptive, int stratified,\n    int split" in FLAT
+        assert re.search(rf"launch<kAdaptive, kStratified, {sp}, false>\(p, "
+                         r"blocks, smem,\s+st\)", FLAT)
+    assert "int adaptive, int stratified,\n    int split, int debug" in FLAT
 
 
 def test_flat_candidate_rule_in_source():
@@ -204,3 +214,80 @@ def test_winner_slot_and_key_layout_in_source():
     assert "(__float_as_int(qe) & ~127) | c" in SOURCE
     assert "__float_as_int(m0) & 127" in SOURCE
     assert tables.MAX_CLUSTERS == 128
+
+
+def test_debug_overlay_in_source_and_plain_twin():
+    """The overlay (K3) of the shared tail and of its plain twin: the
+    cursor's squared distance summed left to right against 0.01, the
+    outline on the raw direction and the front-corrected normal against
+    -0.05, the fixed colours (blue marker, red outline), and a marked lane
+    that skips the scatter (its material reads as absorbing). The same
+    constants stand in the TPU kernel."""
+    assert (cw.CURSOR_R2, cw.GRAZING) == (0.01, -0.05)
+    assert ("dcx * dcx + dcy * dcy + dcz * dcz < kCursorR2;" in COMMON)
+    assert ("!cursor_hit && uuid == dbg.sel &&\n"
+            "                           dot3(dx, dy, dz, nx, ny, nz) > "
+            "kGrazing;") in COMMON
+    assert "con_r = outline ? 1.0f : 0.0f;" in COMMON
+    assert "con_b = cursor_hit ? 1.0f : 0.0f;" in COMMON
+    assert "const float mat = (kDebug && marked) ? kMarked : wm[1];" in COMMON
+    # the overlay comes after the front-face correction of the normal
+    assert COMMON.index("nz = nz * sgn;") < COMMON.index("if (kDebug) {")
+    plain = inspect.getsource(cw.bounce_tail)
+    assert "dcx * dcx + dcy * dcy + dcz * dcz < CURSOR_R2" in plain
+    assert "rng.dot3(dx, dy, dz, nx, ny, nz) > GRAZING" in plain
+    assert "scat = scat & ~cursor & ~outline" in plain
+    assert "torch.where(outline, 1.0, con_r)" in plain
+    assert "torch.where(cursor, 1.0, con_b)" in plain
+    assert plain.index("nx, ny, nz = nx * sgn") < plain.index("cursor = ")
+    tpu = inspect.getsource(pk)
+    assert "< jnp.float32(0.01))" in tpu and "> jnp.float32(-0.05))" in tpu
+    # the uuids: column 10 of the walk's winner row, the flat scan's slot
+    assert "kDebug ? w[10] : 0.0f" in WALK and "kDebug ? (float)bs : 0.0f" \
+        in FLAT
+
+
+def test_only_the_reachable_debug_instantiations():
+    """Debug strips the adaptive tolerance and turns the split off in the
+    JAX package, so exactly four debug instantiations exist: the walk's
+    <0,0,1> and <0,1,1>, the flat scan's <0,0,0,1> and <0,1,0,1>; the
+    launchers refuse the rest."""
+    walk = re.findall(r"launch<(\w+), (\w+), true>\(p, blocks, smem, st\)",
+                      WALK)
+    assert sorted(walk) == [("false", "false"), ("false", "true")]
+    flat = re.findall(r"launch<(\w+), (\w+), (\w+), true>\(p, blocks, "
+                      r"smem, st\)", FLAT)
+    assert sorted(flat) == [("false", "false", "false"),
+                            ("false", "true", "false")]
+    assert "if (adaptive) return (int)cudaErrorInvalidValue;" in WALK
+    assert "if (adaptive || split) return (int)cudaErrorInvalidValue;" in FLAT
+    names = {cw.variant_name(options.TraceOptions(
+        sampler=s, enable_debug=True)) for s in ("random", "stratified")}
+    names |= {fs.variant_name(options.TraceOptions(
+        sampler=s, enable_debug=True), False)
+        for s in ("random", "stratified")}
+    assert names == {"cluster_walk_debug", "cluster_walk_stratified_debug",
+                     "flat_scan_debug", "flat_scan_stratified_debug"}
+
+
+def test_debug_with_split_or_adaptive_is_refused():
+    """The wrappers raise on the combinations without an instantiation:
+    debug with adaptive (both kernels) and debug with a split."""
+    scene, cam, *_ = presets.get_config("demo", 16, 8)
+    dcam = derive_camera(cam)
+    ident = cw.identity_map(16, 8, "cpu")
+    debug = options.TraceOptions(max_depth=2, enable_debug=True)
+    both = options.TraceOptions(max_depth=2, enable_debug=True,
+                                adaptive_tolerance=0.2)
+    ft = tables.flat_tables(scene, dcam, "cpu")
+    with pytest.raises(ValueError, match="no split instantiation"):
+        fs.flat_scan(ft, ident, 1, 0, 1, 16, 8, debug, g_full=4)
+    with pytest.raises(ValueError, match="no adaptive instantiation"):
+        fs.flat_scan(ft, ident, 1, 0, 1, 16, 8, both)
+    big, bcam, *_ = presets.get_config("cover", 16, 8)
+    wt = tables.walk_tables(tables.cluster_partition(big, debug),
+                            derive_camera(bcam), "cpu")
+    with pytest.raises(ValueError, match="no adaptive instantiation"):
+        cw.cluster_walk(wt, ident, 1, 0, 1, 16, 8, both)
+    out, segs = fs.flat_scan(ft, ident, 1, 0, 1, 16, 8, debug)
+    assert out.shape == (4, 128) and torch.isfinite(out).all()

@@ -167,7 +167,6 @@ def test_render_defaults_to_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("field, value, item", [
-    ("enable_debug", True, "K3"),
     ("cluster_bounds", "sphere", "box"),
     ("cluster_partition", "grid", "kd"),
 ])
@@ -183,14 +182,14 @@ def test_unknown_sampler_raises(sampler):
 
 
 def test_ported_options_construct():
-    """Adaptive sampling and the stratified sampler are served: the
-    options build, alone and together, and still refuse the overlay."""
+    """Adaptive sampling, the stratified sampler and the debug overlay are
+    served: the options build, alone and together (a render with the
+    overlay strips the adaptive tolerance)."""
     opts = TraceOptions(adaptive_tolerance=0.2, sampler="stratified",
                         adaptive_chunk_spp=24)
     assert (opts.adaptive_tolerance, opts.sampler,
             opts.adaptive_chunk_spp) == (0.2, "stratified", 24)
-    with pytest.raises(NotImplementedError, match="K3"):
-        dataclasses.replace(opts, enable_debug=True)
+    assert dataclasses.replace(opts, enable_debug=True).enable_debug
 
 
 @pytest.mark.parametrize("config", ["two_sphere", "demo", "big_only"])
