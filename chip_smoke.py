@@ -7,9 +7,10 @@ Builds the CUDA kernels of the port from ``raytracer_tpu_torch/csrc`` (one
 adaptive, stratified and adaptive + stratified instantiations and its two
 debug-overlay ones (random, stratified), and the flat scan with its eight
 (unsplit K2 and split K2s, each fixed or adaptive, random or stratified)
-and its two debug ones: sixteen. Each instantiation is held against its
-plain PyTorch version on the card, on a crop and at the shapes, tables
-and depth of every path below that runs it (the debug ones bitwise, and
+and its two debug ones: sixteen; and the three probes' nine. Each
+instantiation is held against its plain PyTorch version on the card, on
+a crop and at the shapes, tables and depth of every path below that runs
+it (the debug ones bitwise, and
 bitwise equal to their non-debug twins where the overlay cannot fire).
 Then it drives the port's paths through ``render_image``, the progressive
 step and the interactive engine:
@@ -39,12 +40,21 @@ step and the interactive engine:
   silhouette, no NaN), a paused 25-spp still saved to a PNG and decoded;
   the overlay off restarts the average and its next frame is the plain
   step's; fps with and without the overlay, ms per pick;
-- the four AOV views at 1280x720 on the card against the port on the CPU.
+- the four AOV views at 1280x720 on the card against the port on the CPU;
+- the card probes (``raytracer_tpu_torch/scripts/``, built from
+  ``csrc/probe_chain.cu``, ``probe_gather.cu`` and ``probe_scan.cu``: two
+  chains, three gather modes, four scan blocks), each instantiation first
+  held bitwise against its plain version at the TPU's shape and at a
+  card-filling one, then each probe's entry point at its script's trips,
+  and the roofline: its float32 chain against the issue line (SMs x 128
+  x the highest SM clock, which fails the run unless the chain comes
+  within 10 % of it) and the cover through the flat scan against both.
 
 Every image is checked (the cover against the committed golden
 ``tests/goldens/cover_jnp_rr0_500spp_f16.npz``); each kernel is timed on
-its path beside its operation bound; one JSON line carries the kernels'
-numbers. Launch counts are set to 0 just before each path and read just
+its path beside its operation bound (at the data sheet's float32 rate,
+``bound_ms``, and at the issue line, ``issue_bound_ms``); one JSON line
+carries the kernels' numbers. Launch counts are set to 0 just before each path and read just
 after it. Any failed phase ends the run with a nonzero exit. The last
 line of output is ``{"ok": true, "device": {...}}``.
 
@@ -62,6 +72,15 @@ import time
 
 import numpy as np
 import torch
+
+from raytracer_tpu_torch.utils.profiling import (
+    bound_by,
+    bound_pair,
+    card_lines,
+    flat_bound,
+    issue_bound_ms,
+    walk_bound,
+)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, "tests", "goldens", "cover_jnp_rr0_500spp_f16.npz")
@@ -97,41 +116,6 @@ GOLDEN_MAX_MAD = 6e-3
 ADAPTIVE_TOL = 0.2
 ADAPTIVE_GOLDEN_MAX_MAD = {"stratified": 1.5e-2, "random": 2.0e-2}
 ADAPTIVE_LAUNCHES = 17  # the cover's adaptive schedule: [4] + [31] * 16
-
-# operations the kernel source does per unit of work, transcendentals
-# counted as one: per walk iteration (ray dot products, direction
-# reciprocals, done tests), per cluster box per iteration (slab test,
-# key packing, two-key extraction), per member sphere tested (exact
-# quadratic and update), per completed bounce besides the globals
-# (winner lookup, normal, scatter draws and arithmetic, roulette,
-# accumulation), per global sphere tested at a bounce's start, and per
-# sample (camera ray)
-OPS_ITER, OPS_BOX, OPS_MEMBER, OPS_BOUNCE, OPS_GLOBAL, OPS_SAMPLE = (
-    40, 37, 30, 150, 30, 90)
-# the adaptive instantiation adds, per completed bounce, the luminance
-# (two sums, a product), its square and the sum of squares
-OPS_BOUNCE_ADAPTIVE = 5
-# the stratified instantiation: each of the four camera draws forms
-# index·alpha + rotation hash where the hashed draw forms a counter sum
-# (+1 each), and the first bounce's diffuse direction takes 2 Kronecker
-# draws, a root, a sine and a cosine (36) where the hashed one takes 3
-# draws, exp, log, a root and a normalisation (62); counted for every
-# sample, so the bound errs low
-OPS_SAMPLE_STRATIFIED = 4 - 26
-# the flat scan (flat_scan.cu), per loop trip (one bounce): the ray's dot
-# products, reciprocal and counters; per slot with the near->far root
-# logic (two dot products, the quadratic, a root, both roots' selects,
-# the running minimum) and per near-root-only slot; K2s's self-test of
-# the last-hit slot. The tail and the camera ray are the walk's.
-OPS_FLAT_TRIP, OPS_SLOT_FULL, OPS_SLOT_NEAR, OPS_SELF_TEST = 23, 29, 26, 25
-# the debug overlay (K3) adds, per completed bounce that hit, the cursor
-# distance (3 differences, 3 products, 2 sums, a compare), the outline
-# test (a dot product, two compares, the uuid compare) and the colour
-# selects. A sample ends at most once on a miss, so it is charged to
-# segments less samples: the bound errs low
-OPS_BOUNCE_DEBUG = 22
-FP32_PEAK = 67e12  # H100 SXM, FLOP/s outside the tensor cores
-HBM_RATE = 3.35e12  # bytes/s
 
 PALLAS = "raytracer_tpu/render/pallas_kernel.py"
 #: kernel name → (adaptive, stratified, file:line of the TPU kernel's branch)
@@ -230,14 +214,14 @@ def phase_device():
 def phase_build():
     from raytracer_tpu_torch.utils import cuda_build
 
-    names = ("cluster_walk", "flat_scan")
+    names = ("cluster_walk", "flat_scan", *PROBE_SOURCES)
     t0 = time.perf_counter()
     cuda_build.build_all(names)
-    print(f"[build] {' and '.join(names)} at once: "
+    print(f"[build] {', '.join(names)} at once: "
           f"{time.perf_counter() - t0:.1f} s")
     for name in names:
         for line in cuda_build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "nvcc took" in line:
                 print(f"[ptxas {name}]", line.strip())
             elif "Compiling" in line:
                 # the mangled name carries the template arguments as Lb0E
@@ -582,55 +566,6 @@ def phase_main_paths(smi: str, golden) -> dict:
     return paths
 
 
-def walk_bound(tabs, adaptive, stratified, n_lanes, iters, nsegs, samples,
-               debug=False):
-    """Least time for the work these inputs needed, as (operations ms,
-    bytes ms): the bound is the larger. Operations from the measured walk
-    iterations, segments and samples; bytes from the tables, map, budget
-    and outputs."""
-    k, group = tabs.members.shape[:2]
-    n_global = tabs.globals.shape[0]
-    ops = (iters * (OPS_ITER + OPS_BOX * k)
-           + (iters - nsegs) * OPS_MEMBER * group
-           + nsegs * (OPS_BOUNCE + OPS_GLOBAL * n_global
-                      + (OPS_BOUNCE_ADAPTIVE if adaptive else 0))
-           + (nsegs - samples) * (OPS_BOUNCE_DEBUG if debug else 0)
-           + samples * (OPS_SAMPLE
-                        + (OPS_SAMPLE_STRATIFIED if stratified else 0)))
-    rows = 6 if adaptive else 4
-    nbytes = (sum(t.numel() * 4 for t in (tabs.camera, tabs.globals,
-                                          tabs.bounds, tabs.members,
-                                          tabs.winner))
-              + n_lanes * 4 * (2 + (1 if adaptive else 0) + rows + 1))
-    return ops / FP32_PEAK * 1e3, nbytes / HBM_RATE * 1e3
-
-
-def flat_bound(tabs, g_full, adaptive, stratified, n_lanes, nsegs, samples,
-               debug=False):
-    """The flat scan's least time, as (operations ms, bytes ms). Every loop
-    trip is one segment: it tests every slot (full root logic on the first
-    ``g_full``, the near root alone on the rest) and runs the tail; K2s's
-    self-test runs on every segment but a sample's first."""
-    slots = tabs.spheres.shape[0]
-    split = g_full is not None and g_full < slots
-    full = g_full if split else slots
-    ops = (nsegs * (OPS_FLAT_TRIP + OPS_SLOT_FULL * full
-                    + OPS_SLOT_NEAR * (slots - full) + OPS_BOUNCE
-                    + (OPS_BOUNCE_ADAPTIVE if adaptive else 0))
-           + (nsegs - samples) * ((OPS_SELF_TEST if split else 0)
-                                  + (OPS_BOUNCE_DEBUG if debug else 0))
-           + samples * (OPS_SAMPLE
-                        + (OPS_SAMPLE_STRATIFIED if stratified else 0)))
-    rows = 6 if adaptive else 4
-    nbytes = ((tabs.camera.numel() + tabs.spheres.numel()) * 4
-              + n_lanes * 4 * (2 + (1 if adaptive else 0) + rows + 1))
-    return ops / FP32_PEAK * 1e3, nbytes / HBM_RATE * 1e3
-
-
-def bound_by(ops_ms: float, bytes_ms: float) -> str:
-    return "operations" if ops_ms >= bytes_ms else "bytes"
-
-
 def event():
     e = torch.cuda.Event(enable_timing=True)
     e.record()
@@ -706,12 +641,15 @@ def summarize_launches(recs: list, rows=()) -> dict:
     profiled = sum(r[0] for r in rows if recs[0]["kernel"] in r[2])
     total = profiled or events
     bounds = [max(r["bound"]) for r in recs]
+    issue = [issue_bound_ms(r["bound"], card_lines()["fp32"]) for r in recs]
     by = bound_by(sum(r["bound"][0] for r in recs),
                   sum(r["bound"][1] for r in recs))
     return {"ms": total / n, "events_ms": events / n,
             "timed_by": "profiler" if profiled else "CUDA events",
             "bound_ms": sum(bounds) / n, "bound_by": by,
-            "share": sum(bounds) / total, "sum_ms": total, "n": n}
+            "share": sum(bounds) / total, "sum_ms": total, "n": n,
+            "issue_bound_ms": sum(issue) / n,
+            "issue_share": sum(issue) / total}
 
 
 def phase_fixed_kernel_alone(smi: str, stratified: bool) -> dict:
@@ -742,12 +680,14 @@ def phase_fixed_kernel_alone(smi: str, stratified: bool) -> dict:
     ops_ms, bytes_ms = walk_bound(tabs, False, stratified, w * h, iters,
                                   nsegs, w * h * sizes[1])
     bound_ms = max(ops_ms, bytes_ms)
+    issue_ms = issue_bound_ms((ops_ms, bytes_ms), card_lines()["fp32"])
     print(f"[kernel alone {cw.variant_name(opts)}] {w}x{h} x{sizes[1]} spp "
           f"sorted chunk (schedule {sizes}): {ms:.3f} ms; walk iterations "
           f"{iters:.0f}, segments {nsegs}; bound {bound_ms:.4f} ms by "
           f"{bound_by(ops_ms, bytes_ms)} (bytes {bytes_ms:.4f} ms); share "
-          f"of bound {bound_ms / ms:.4f} [{smi}]")
-    return {"ms": ms, "bound_ms": bound_ms,
+          f"of bound {bound_ms / ms:.4f}; at the issue line {issue_ms:.4f} "
+          f"ms, share {issue_ms / ms:.4f} [{smi}]")
+    return {"ms": ms, "bound_ms": bound_ms, "issue_bound_ms": issue_ms,
             "bound_by": bound_by(ops_ms, bytes_ms)}
 
 
@@ -1048,7 +988,9 @@ def phase_cover_flat(smi: str, golden) -> dict:
               f"{summary['n']} launches = {summary['sum_ms'] / 1e3 / got['wall_s']:.4f}"
               f" of the wall; bound {summary['bound_ms'] * summary['n']:.3f}"
               f" ms by {summary['bound_by']}; share of bound "
-              f"{summary['share']:.4f} [{smi}]")
+              f"{summary['share']:.4f}; at the issue line "
+              f"{summary['issue_bound_ms'] * summary['n']:.3f} ms, share "
+              f"{summary['issue_share']:.4f} [{smi}]")
         results[kernel] = {**got, **summary}
     return results
 
@@ -1655,6 +1597,317 @@ def phase_aov(smi: str):
                      "disagree")
 
 
+#: probe source → its file in the repo
+PROBE_SOURCES = {name: f"raytracer_tpu_torch/csrc/{name}.cu"
+                 for name in ("probe_chain", "probe_gather", "probe_scan")}
+#: probe instantiation → (source, file:line of the TPU kernel's
+#: pallas_call). The float chain serves two: the issue-rate probe (P3) and
+#: the roofline's ceiling (P2), each counted on its own path; the axis-0
+#: gather also serves P1b's axis-0 forms.
+PROBE_KERNELS = {
+    "probe_chain_f32": ("probe_chain", "scripts/bench_bf16_vpu.py:61"),
+    "probe_chain_bf16": ("probe_chain", "scripts/bench_bf16_vpu.py:61"),
+    "probe_chain_f32_roofline": ("probe_chain", "scripts/roofline.py:81"),
+    "probe_gather_axis0": ("probe_gather",
+                           "scripts/probe_mosaic_gather.py:89"),
+    "probe_gather_onehot": ("probe_gather",
+                            "scripts/probe_mosaic_gather.py:89"),
+    "probe_gather_axis1": ("probe_gather",
+                           "scripts/probe_mosaic_gather.py:133"),
+    **{f"probe_scan_{b}": ("probe_scan", "scripts/bench_scan_layout.py:119")
+       for b in (512, 64, 32, 8)},
+}
+#: the case of probe_gather.CASES each gather row reports
+GATHER_ROW_CASE = {"axis0": "take_along_axis", "onehot": "onehot_matmul",
+                   "axis1": "dynamic_gather(8, 128) axis=1"}
+# kernel vs plain version on the card: the chains at few trips (a plain
+# trip is 32 operator calls), the gathers at the script's 5000, the scans
+# at few trips (a plain trip of the card-filling rays is 25 calls on
+# 69M-element tensors). All bitwise: the same operations, each rounded on
+# its own; sqrtf and torch.sqrt are both correctly rounded on the card.
+PROBE_CHAIN_CHECK_ITERS = 40
+PROBE_SCAN_CHECK_ITERS = {"tpu": 50, "fill": 5}
+# the issue line the bounds are restated at (utils/profiling.py
+# card_lines: SMs x 128 x the highest clock) holds when the card-filling
+# float32 chain comes within this share of it; else the run fails
+INSTR_LINE_TOLERANCE = 0.10
+
+
+def held(label: str, got: torch.Tensor, want: torch.Tensor):
+    """Fails unless the kernel's output equals the plain version's bit for
+    bit."""
+    if got.shape != want.shape or not torch.equal(got, want):
+        err = (float((got.float() - want.float()).abs().max())
+               if got.shape == want.shape else float("inf"))
+        fail(f"{label}: the kernel differs from its plain version (max "
+             f"|delta| {err})")
+
+
+def phase_probes_vs_plain() -> dict:
+    """Every probe instantiation against its plain version on the card, at
+    the TPU's shape and at the card-filling one: the chains (float32 and
+    bf16), the gathers (every case of probe_mosaic_gather.py, one replica
+    and the card-filling count) and the scans (every block), bitwise. The
+    plain version's ms at the TPU's shape."""
+    from raytracer_tpu_torch.scripts import bench_bf16_chain as bc
+    from raytracer_tpu_torch.scripts import bench_scan_layout as bs
+    from raytracer_tpu_torch.scripts import probe_gather as pg
+
+    results = {}
+    it = PROBE_CHAIN_CHECK_ITERS
+    for dtype, name in bc.VARIANTS.items():
+        for rows in (bc.TPU_ROWS, bc.FILL_ROWS):
+            x = bc.chain_input(rows, dtype, "cuda")
+            held(f"{name} ({rows},128) x{it}", bc.chain(x, it),
+                 bc.chain_plain(x, it))
+        x = bc.chain_input(bc.TPU_ROWS, dtype, "cuda")
+        results[name] = {
+            "max_abs_err": 0.0,
+            "plain_ms": cuda_ms(lambda: bc.chain_plain(x, it), 3),
+            "plain_shape": f"({bc.TPU_ROWS},128) x{it}"}
+        print(f"[probe vs plain] {name}: bitwise at ({bc.TPU_ROWS},128) and "
+              f"({bc.FILL_ROWS},128), {it} trips; plain "
+              f"{results[name]['plain_ms']:.3f} ms")
+    results["probe_chain_f32_roofline"] = results["probe_chain_f32"]
+    for label, mode, shape, rows in pg.CASES:
+        tbl = pg.gather_table(shape).cuda()
+        reps = pg.fill_reps(mode, rows, shape[1])
+        for r in (1, reps):
+            held(f"{label} x{r}", pg.gather_probe(tbl, mode, rows, pg.ITERS,
+                                                  r),
+                 pg.gather_probe_plain(tbl, mode, rows, pg.ITERS, r))
+        print(f"[probe vs plain] {label} ({pg.variant_name(mode)}): bitwise "
+              f"at x1 and x{reps}, {pg.ITERS} trips")
+        if GATHER_ROW_CASE[mode] == label:
+            results[pg.variant_name(mode)] = {
+                "max_abs_err": 0.0,
+                "plain_ms": cuda_ms(lambda: pg.gather_probe_plain(
+                    tbl, mode, rows, pg.ITERS), 1),
+                "plain_shape": f"{shape} -> ({rows},{shape[1]}) x{pg.ITERS}"}
+    sph = bs.scan_table().cuda()
+    for block in bs.BLOCKS:
+        name = bs.variant_name(block)
+        for shape, rows in (("tpu", bs.R_SUB), ("fill", bs.FILL_ROWS)):
+            n = PROBE_SCAN_CHECK_ITERS[shape]
+            held(f"{name} ({rows},128) x{n}", bs.scan_probe(sph, block, rows,
+                                                            n),
+                 bs.scan_probe_plain(sph, block, rows, n))
+        n = PROBE_SCAN_CHECK_ITERS["tpu"]
+        results[name] = {
+            "max_abs_err": 0.0,
+            "plain_ms": cuda_ms(lambda: bs.scan_probe_plain(sph, block,
+                                                            bs.R_SUB, n), 3),
+            "plain_shape": f"({bs.R_SUB},128) x{n}"}
+        print(f"[probe vs plain] {name}: bitwise at ({bs.R_SUB},128) x"
+              f"{PROBE_SCAN_CHECK_ITERS['tpu']} and ({bs.FILL_ROWS},128) x"
+              f"{PROBE_SCAN_CHECK_ITERS['fill']}; plain "
+              f"{results[name]['plain_ms']:.3f} ms")
+    return results
+
+
+def probe_bound(ops: float, nbytes: float, flop_peak: float, line: float,
+                smem_words: float = 0.0) -> dict:
+    """The bound of a probe launch: at the data sheet's rate
+    (``bound_ms``, operations or device-memory bytes) and at the card's
+    lines (``issue_bound_ms``, the largest of the operations at the
+    instruction ``line``, the bytes and the shared-memory words at 32 an
+    SM a clock; ``issue_bound_by`` names it, and the first and the last
+    stand in ``issue_ops_ms`` and ``smem_bound_ms``)."""
+    ops_ms, bytes_ms = bound_pair(ops, nbytes, flop_peak)
+    terms = {"operations": ops / line * 1e3, "bytes": bytes_ms,
+             "smem": smem_words / card_lines()["smem_words"] * 1e3}
+    by = max(terms, key=terms.get)
+    return {"bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": bound_by(ops_ms, bytes_ms),
+            "issue_bound_ms": terms[by], "issue_bound_by": by,
+            "issue_ops_ms": terms["operations"],
+            "smem_bound_ms": terms["smem"]}
+
+
+def torch_gather_ns(tbl, mode: str, rows: int, iters: int) -> dict:
+    """The reference the gather probe exists to give: ``torch.gather`` of
+    the same (rows, W) shape, ns per call, and ns per (rows, W) gather of
+    ``iters`` of them in one call."""
+    s, w = tbl.shape
+    dev = tbl.device
+    if mode == "axis1":
+        src, dim = tbl, 1
+        base = torch.arange(rows, device=dev)[:, None].expand(rows, w)
+        mod = w
+    else:
+        src = tbl if mode == "axis0" else tbl[:, :1].expand(s, w)
+        dim = 0
+        base = torch.arange(w, device=dev)[None, :].expand(rows, w)
+        mod = s
+    idx = (base % mod).contiguous()
+    call_ms = cuda_ms(lambda: torch.gather(src, dim, idx), 200)
+    trips = torch.arange(iters, device=dev)[:, None, None]
+    idx_all = ((base[None] + trips) % mod).contiguous()
+    src_all = src.unsqueeze(0).expand(iters, s, w)
+    batched_ms = cuda_ms(lambda: torch.gather(src_all, dim + 1, idx_all), 5)
+    return {"call_ns": call_ms * 1e6, "batched_ns": batched_ms * 1e6 / iters}
+
+
+def phase_probe_paths(smi: str) -> dict:
+    """The probes' entry points as a user runs them, each with the launch
+    counts set to 0 just before it and read just after: the chain
+    (float32 and bf16 at 16 and 2112 rows), the gathers (the script's six
+    cases, then card-filling replicas), the scans (every block at 8 rows
+    and at 1056) and the roofline (its ceiling chain and the cover through
+    the flat scan). The outputs are checked; per instantiation its
+    launches, card-filling and TPU-shape times and its bounds."""
+    from raytracer_tpu_torch.scripts import bench_bf16_chain as bc
+    from raytracer_tpu_torch.scripts import bench_scan_layout as bs
+    from raytracer_tpu_torch.scripts import probe_gather as pg
+    from raytracer_tpu_torch.scripts import roofline
+    from raytracer_tpu_torch.utils import profiling as pf
+
+    rows = {}
+    launches = {}
+    bc.reset_launch_counts()
+    chain = bc.main()
+    launches.update(bc.chain.launches_by_variant)
+    outs = [chain["rows"][r][t]["out"] for r in (bc.TPU_ROWS, bc.FILL_ROWS)
+            for t in ("float32", "bfloat16")]
+    if not all(torch.isfinite(o.float()).all() for o in outs):
+        fail("chain: a non-finite output")
+    f32, bf16 = outs[0], outs[1]
+    if not (bool((f32 == f32[0, 0]).all())
+            and bool((outs[2] == f32[0, 0]).all())):
+        fail("chain: float32 elements differ, though every input is equal")
+    if not (bool((bf16.float() == 2048.0).all())
+            and bool((outs[3].float() == 2048.0).all())):
+        fail("chain: a bf16 chain did not stop at 256 (sum 2048)")
+    for dtype, name in bc.VARIANTS.items():
+        key = str(dtype).removeprefix("torch.")
+        fill, tpu = (chain["rows"][r][key] for r in (bc.FILL_ROWS,
+                                                      bc.TPU_ROWS))
+        n = bc.FILL_ROWS * bc.LANES
+        elt = 4 if dtype == torch.float32 else 2
+        peak, line = ((pf.FP32_FLOP_PEAK, card_lines()["fp32"])
+                      if dtype == torch.float32 else
+                      (pf.BF16_FLOP_PEAK, card_lines()["bf16"]))
+        rows[name] = {
+            "ms": fill["seconds"] * 1e3, "tpu_shape_ms": tpu["seconds"] * 1e3,
+            "rate_telops": fill["rate"] / 1e12,
+            "tpu_shape_rate_telops": tpu["rate"] / 1e12,
+            "shape": f"({bc.FILL_ROWS},128) x{bc.ITERS}",
+            **probe_bound(bc.chain_ops(bc.FILL_ROWS, bc.ITERS),
+                          (bc.CHAINS + 1) * n * elt, peak, line)}
+    print(f"[probe chain] bf16/float32 at ({bc.FILL_ROWS},128): "
+          f"{chain['rows'][bc.FILL_ROWS]['ratio']:.4f} [{smi}]")
+
+    pg.reset_launch_counts()
+    gather = pg.main()
+    launches.update(pg.gather_probe.launches_by_variant)
+    for label, mode, shape, r in pg.CASES:
+        case = gather["cases"][label]
+        tbl = pg.gather_table(shape)
+        want = pg.gather_probe_plain(tbl, mode, r, pg.ITERS)[0]
+        for kind in ("tpu", "fill"):
+            if not torch.equal(case[kind]["out"], want):
+                fail(f"gather {label} ({kind}): the main path's output "
+                     "differs from the plain version")
+        ref = torch_gather_ns(tbl.cuda(), mode, r, pg.ITERS)
+        case["torch_gather"] = ref
+        print(f"[probe gather] {label}: kernel "
+              f"{case['tpu']['ns_per_gather']:.1f} ns per gather alone, "
+              f"{case['fill']['ns_per_gather']:.3f} ns with "
+              f"{case['fill']['reps']} replicas; torch.gather of the same "
+              f"shape {ref['call_ns']:.1f} ns a call, {ref['batched_ns']:.3f}"
+              f" ns each with {pg.ITERS} in one call [{smi}]")
+        if GATHER_ROW_CASE[mode] != label:
+            continue
+        fill, reps = case["fill"], case["fill"]["reps"]
+        elements = reps * r * shape[1]
+        nbytes = 4 * (shape[0] * shape[1] + elements)
+        # every mode reads one shared-memory word a lane and trip, or one
+        # broadcast a warp; the one-hot row is bounded by the gather of
+        # column 0 it reproduces, its own scan's bound (a broadcast per
+        # table row) beside it
+        func = "axis0" if mode == "onehot" else mode
+        bound = probe_bound(
+            pg.probe_ops(func, shape[0], r, shape[1], pg.ITERS, reps),
+            nbytes, pf.FP32_FLOP_PEAK, card_lines()["fp32"],
+            elements * pg.ITERS)
+        if mode == "onehot":
+            bound["scan_issue_bound_ms"] = probe_bound(
+                pg.probe_ops(mode, shape[0], r, shape[1], pg.ITERS, reps),
+                nbytes, pf.FP32_FLOP_PEAK, card_lines()["fp32"],
+                elements * pg.ITERS * shape[0])["issue_bound_ms"]
+        print(f"[probe gather] {pg.variant_name(mode)} x{reps}: "
+              f"{fill['seconds'] * 1e3:.3f} ms, bound "
+              f"{bound['issue_bound_ms']:.3f} ms by "
+              f"{bound['issue_bound_by']} (operations "
+              f"{bound['issue_ops_ms']:.3f} ms, smem "
+              f"{bound['smem_bound_ms']:.3f} ms), share "
+              f"{bound['issue_bound_ms'] / (fill['seconds'] * 1e3):.4f}"
+              + (f"; its own scan's bound {bound['scan_issue_bound_ms']:.3f}"
+                 " ms" if mode == "onehot" else "") + f" [{smi}]")
+        rows[pg.variant_name(mode)] = {
+            "ms": fill["seconds"] * 1e3,
+            "tpu_shape_ms": case["tpu"]["seconds"] * 1e3,
+            "ns_per_gather": case["tpu"]["ns_per_gather"],
+            "fill_ns_per_gather": fill["ns_per_gather"],
+            "torch_gather_call_ns": ref["call_ns"],
+            "torch_gather_batched_ns": ref["batched_ns"],
+            "shape": f"{shape} -> {reps}x({r},{shape[1]}) x{pg.ITERS}",
+            **bound}
+
+    bs.reset_launch_counts()
+    scan = bs.main()
+    launches.update(bs.scan_probe.launches_by_variant)
+    for kind in ("tpu", "fill"):
+        got = [b[kind]["out"] for b in scan["blocks"].values()]
+        if not all(torch.isfinite(o).all() for o in got):
+            fail(f"scan ({kind}): a non-finite output")
+        if not all(torch.equal(got[0], o) for o in got[1:]):
+            fail(f"scan ({kind}): the blocks disagree")
+    for label, b in scan["blocks"].items():
+        fill_rows, fill_iters = bs.FILL_ROWS, bs.FILL_ITERS
+        rows[bs.variant_name(b["block"])] = {
+            "ms": b["fill"]["seconds"] * 1e3,
+            "tpu_shape_ms": b["tpu"]["seconds"] * 1e3,
+            "ns_per_strip_iter": b["tpu"]["ns_per_strip_iter"],
+            "slot_tests_per_s": b["fill"]["slot_tests"],
+            "shape": f"({fill_rows},128) x{fill_iters}, {bs.S} slots",
+            # a slot is one broadcast a warp: a lane's word of the SM's 32
+            **probe_bound(bs.probe_ops(bs.S, fill_rows, fill_iters),
+                          bs.S * 16 + fill_rows * bs.LANES * 4,
+                          pf.FP32_FLOP_PEAK, card_lines()["fp32"],
+                          bs.S * fill_rows * bs.LANES * fill_iters)}
+
+    bc.reset_launch_counts()
+    roof = roofline.main()
+    launches["probe_chain_f32_roofline"] = bc.chain.launches_by_variant.get(
+        "probe_chain_f32", 0)
+    chain_ms = (bc.elem_ops(bc.FILL_ROWS, bc.ITERS)
+                / (roof["chain_telops"] * 1e12) * 1e3)
+    rows["probe_chain_f32_roofline"] = {
+        **rows["probe_chain_f32"], "ms": chain_ms,
+        "rate_telops": roof["chain_telops"], "tpu_shape_ms": None,
+        "tpu_shape_rate_telops": None}
+    near = abs(roof["chain_telops"] / roof["issue_line_telops"] - 1.0)
+    print(f"[roofline] the float32 chain at {roof['chain_telops']:.4f} "
+          f"Telem-ops/s is {roof['chain_telops'] / roof['issue_line_telops']:.4f}"
+          f" of the issue line ({roof['issue_line_telops']:.4f} T) and "
+          f"{roof['chain_telops'] / roof['fp32_flop_peak_telops']:.4f} of "
+          f"67e12; the cover-flat render at "
+          f"{roof['share_of_issue_line']:.4f} of the issue line, "
+          f"{roof['share_of_chain']:.4f} of the chain [{smi}]")
+    if near > INSTR_LINE_TOLERANCE:
+        fail(f"roofline: the float32 chain is {near:.1%} off the issue line "
+             f"the bounds are restated at (at most "
+             f"{INSTR_LINE_TOLERANCE:.0%})")
+    if not (np.isfinite(roof["cover_mrays"]) and roof["segments"] > 0):
+        fail("roofline: no cover render")
+    for name in PROBE_KERNELS:
+        rows[name]["launches"] = launches.get(name, 0)
+        if rows[name]["launches"] < 1:
+            fail(f"{name}: no launch on the probes' paths")
+    return rows
+
+
 def main():
     smi = phase_device()
     phase_build()
@@ -1681,13 +1934,15 @@ def main():
     crops.update(phase_debug_vs_plain())
     flat_paths.update(phase_engine(smi))
     phase_aov(smi)
+    crops.update(phase_probes_vs_plain())
+    probes = phase_probe_paths(smi)
     for name, got in flat_paths.items():
         paths[name] = alone[name] = got
     sources = {**{n: (WALK_SOURCE, KERNELS[n][2]) for n in KERNELS},
                **{n: (FLAT_SOURCE, FLAT_KERNELS[n][3]) for n in FLAT_KERNELS},
                **{n: (FLAT_SOURCE if DEBUG_KERNELS[n][0] else WALK_SOURCE,
                       DEBUG_REPLACES) for n in DEBUG_KERNELS}}
-    print(json.dumps({"kernels": [{
+    renderer = [{
         "name": name,
         "route": "cuda",
         "source": source,
@@ -1699,9 +1954,31 @@ def main():
         "bound_ms": alone[name]["bound_ms"],
         "bound_by": alone[name]["bound_by"],
         "library_ms": None,
+        "issue_bound_ms": alone[name]["issue_bound_ms"],
         "crop_ms": crops[name]["crop_ms"],
         "plain_shape": f"{CROP_W}x{CROP_H}x{CROP_SPP}spp d{CROP_DEPTH}",
-    } for name, (source, replaces) in sources.items()]}))
+    } for name, (source, replaces) in sources.items()]
+    # the order for the renderer's kernel redesigns: the time each path
+    # spends above the issue-line bound, launches x (ms - bound)
+    for row in sorted(renderer, key=lambda r: -r["launches"] * (
+            r["ms"] - r["issue_bound_ms"])):
+        print(f"[redesign order] {row['name']}: {row['launches']} launches x "
+              f"({row['ms']:.4f} - {row['issue_bound_ms']:.4f}) ms = "
+              f"{row['launches'] * (row['ms'] - row['issue_bound_ms']):.3f} "
+              f"ms; share of the issue-line bound "
+              f"{row['issue_bound_ms'] / row['ms']:.4f} (of 67e12: "
+              f"{row['bound_ms'] / row['ms']:.4f}) [{smi}]")
+    print(json.dumps({"kernels": renderer + [{
+        "name": name,
+        "route": "cuda",
+        "source": PROBE_SOURCES[source],
+        "replaces": replaces,
+        "max_abs_err": crops[name]["max_abs_err"],
+        "plain_ms": crops[name]["plain_ms"],
+        "library_ms": None,
+        "plain_shape": crops[name]["plain_shape"],
+        **probes[name],
+    } for name, (source, replaces) in PROBE_KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -12,8 +12,11 @@ CUDA kernels: ``csrc/cluster_walk.cu`` (six instantiations of
 ``<0,0,1>``, ``<0,1,1>``) and ``csrc/flat_scan.cu`` (ten of ``<adaptive,
 stratified, split, debug>``: the eight without debug, and ``<0,0,0,1>``,
 ``<0,1,0,1>``), sixteen in all. Picking and the AOV views read a
-closest-hit scan in plain PyTorch. The package imports torch and numpy
-only; every entry runs on CUDA unless the caller names the CPU.
+closest-hit scan in plain PyTorch. The card probes and the roofline
+(:mod:`raytracer_tpu_torch.scripts`) have three kernels of their own:
+``csrc/probe_chain.cu``, ``probe_gather.cu`` and ``probe_scan.cu``. The
+package imports torch and numpy only; every entry runs on CUDA unless the
+caller names the CPU.
 
 Public entries: :func:`raytracer_tpu_torch.render.api.render_image`
 (``debug=`` a :class:`DebugParams`);

@@ -1,0 +1,233 @@
+"""What does a per-lane gather from a table in shared memory cost, set
+against reconstructing the value by a one-hot scan? P1 and P1b on the
+card: the counterpart of ``scripts/probe_mosaic_gather.py``.
+
+    python -m raytracer_tpu_torch.scripts.probe_gather [--device cpu]
+        [--iters N]
+
+Each case sums ``ITERS`` gathers of a table of ``RandomState(0)``
+uniforms, the index recomputed from the trip counter i every trip:
+
+- ``take_along_axis`` (P1, table (256, 128), 8 output rows) and the
+  same-shape axis-0 forms (P1b): out[r, l] = Σ_i tbl[(l + i) mod S, l];
+- the same-shape axis-1 forms (P1b): out[r, l] = Σ_i tbl[r, (r + i) mod W];
+- ``onehot_matmul`` (P1): out[r, l] = Σ_i Σ_s tbl[s, 0]·[s = (l + i) mod
+  S], the TPU kernel's one-hot product over column 0 only, so its output
+  differs from ``take_along_axis`` wherever l ≠ 0.
+
+Each case runs at the TPU's shape, warm then best of 3, and prints the
+script's line with ns per gather of that shape; then at a card-filling
+count of replicas of the same output (``FILL_ELEMENTS``).
+
+:func:`gather_probe` launches ``csrc/probe_gather.cu`` on CUDA tensors
+and counts its launches in ``gather_probe.launches`` (by mode in
+``gather_probe.launches_by_variant``); on CPU tensors it runs
+:func:`gather_probe_plain`, the same sums in the same order.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+
+import numpy as np
+import torch
+
+from raytracer_tpu_torch.render.api import resolve_device
+from raytracer_tpu_torch.utils import cuda_build
+from raytracer_tpu_torch.utils.profiling import best_seconds, device_name
+
+S = 256
+ITERS = 5000
+MODES = ("axis0", "axis1", "onehot")
+#: (label, mode, table shape, output rows) of the script's six runs
+CASES = (
+    ("take_along_axis", "axis0", (S, 128), 8),
+    ("onehot_matmul", "onehot", (S, 128), 8),
+    ("dynamic_gather(8, 128) axis=1", "axis1", (8, 128), 8),
+    ("dynamic_gather(8, 128) axis=0", "axis0", (8, 128), 8),
+    ("dynamic_gather(8, 512) axis=1", "axis1", (8, 512), 8),
+    ("dynamic_gather(32, 128) axis=0", "axis0", (32, 128), 32),
+)
+#: the opt-in shared memory of an H100 block (227 KiB); the launcher also
+#: checks the device's own limit
+MAX_SMEM_BYTES = 232448
+#: output elements of a card-filling launch: about 10-40 ms at ITERS
+FILL_ELEMENTS = {"axis0": 1 << 24, "axis1": 1 << 24, "onehot": 1 << 18}
+MAX_REPS = 65535
+#: operations per output element and trip: the index sum, its mask and
+#: the accumulation (a gather is a load, no operation); the one-hot scan
+#: adds a compare, a select, a product and a sum per table row
+OPS_TRIP, OPS_ONEHOT_ROW = 3, 4
+
+
+def gather_table(shape) -> torch.Tensor:
+    """The script's table: ``RandomState(0).uniform(size=shape)``, float32."""
+    return torch.from_numpy(
+        np.random.RandomState(0).uniform(size=shape).astype(np.float32))
+
+
+def variant_name(mode: str) -> str:
+    return f"probe_gather_{mode}"
+
+
+def probe_ops(mode: str, table_rows: int, rows: int, width: int,
+              iters: int, reps: int = 1) -> int:
+    """Operations of one launch."""
+    per_trip = OPS_TRIP + (OPS_ONEHOT_ROW * table_rows
+                           if mode == "onehot" else 0)
+    return per_trip * iters * rows * width * reps
+
+
+def _check(tbl: torch.Tensor, mode: str, rows: int, iters: int, reps: int):
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+    if tbl.dim() != 2 or tbl.dtype != torch.float32 or not tbl.is_contiguous():
+        raise ValueError("the table must be a contiguous 2-D float32 tensor")
+    s, w = tbl.shape
+    if s < 1 or w < 1 or s & (s - 1) or w & (w - 1):
+        raise ValueError(f"the table's sides must be powers of two, got "
+                         f"{tuple(tbl.shape)}")
+    if 4 * s * w > MAX_SMEM_BYTES:
+        raise ValueError(
+            f"a table of {tuple(tbl.shape)} needs {4 * s * w} bytes of "
+            f"shared memory per block, over the {MAX_SMEM_BYTES} a block "
+            "can hold")
+    if not 1 <= rows or (mode == "axis1" and rows > s):
+        raise ValueError(f"bad output rows {rows} for mode {mode} and a "
+                         f"table of {s} rows")
+    if not 1 <= reps <= MAX_REPS:
+        raise ValueError(f"reps must be in [1, {MAX_REPS}], got {reps}")
+    if not 0 <= iters <= 2**31 - 1 - max(s, w):
+        raise ValueError(f"bad iters {iters}")
+
+
+def gather_probe(tbl: torch.Tensor, mode: str, rows: int, iters: int,
+                 reps: int = 1) -> torch.Tensor:
+    """(reps, rows, W) sums of ``iters`` gathers of ``mode`` from ``tbl``
+    (S, W); every replica is the same."""
+    _check(tbl, mode, rows, iters, reps)
+    if tbl.device.type == "cpu":
+        return gather_probe_plain(tbl, mode, rows, iters, reps)
+    if tbl.device.type != "cuda":
+        raise ValueError(f"no gather probe for device {tbl.device}")
+    return _launch(tbl, mode, rows, iters, reps)
+
+
+gather_probe.launches = 0
+gather_probe.launches_by_variant = {}
+
+
+def reset_launch_counts():
+    gather_probe.launches = 0
+    gather_probe.launches_by_variant = {}
+
+
+def gather_probe_plain(tbl: torch.Tensor, mode: str, rows: int, iters: int,
+                       reps: int = 1) -> torch.Tensor:
+    """The kernel's sums as tensor code. Axis 0 and the one-hot scan give
+    every row the same values, axis 1 every lane of a row: the distinct
+    values are summed once, trip by trip, and broadcast (a view)."""
+    _check(tbl, mode, rows, iters, reps)
+    s, w = tbl.shape
+    dev = tbl.device
+    if mode == "axis1":
+        r = torch.arange(rows, device=dev)
+        acc = torch.zeros(rows, dtype=torch.float32, device=dev)
+        for i in range(iters):
+            acc = acc + tbl[r, (r + i) % w]
+        block = acc[:, None].expand(rows, w)
+    else:
+        lane = torch.arange(w, device=dev)
+        slot = torch.arange(s, device=dev)[:, None]
+        col0 = tbl[:, 0:1]
+        acc = torch.zeros(w, dtype=torch.float32, device=dev)
+        for i in range(iters):
+            idx = (lane + i) % s
+            if mode == "axis0":
+                g = tbl[idx, lane]
+            else:
+                g = (col0 * (slot == idx).to(torch.float32)).sum(0)
+            acc = acc + g
+        block = acc[None, :].expand(rows, w)
+    return block.expand(reps, rows, w)
+
+
+def _lib():
+    fn = cuda_build.load("probe_gather").probe_gather_launch
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 6
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch(tbl, mode, rows, iters, reps):
+    cuda_build.check_cuda(tbl)
+    s, w = tbl.shape
+    out = torch.empty((reps, rows, w), dtype=torch.float32, device=tbl.device)
+    fn = _lib()
+    with torch.cuda.device(tbl.device):
+        stream = torch.cuda.current_stream(tbl.device).cuda_stream
+        err = fn(tbl.data_ptr(), out.data_ptr(), MODES.index(mode), s, w,
+                 rows, reps, iters, stream)
+    if err != 0:
+        raise RuntimeError(f"probe_gather kernel launch failed: CUDA error "
+                           f"{err}")
+    gather_probe.launches += 1
+    name = variant_name(mode)
+    by = gather_probe.launches_by_variant
+    by[name] = by.get(name, 0) + 1
+    return out
+
+
+def fill_reps(mode: str, rows: int, width: int) -> int:
+    """Replicas of a card-filling launch."""
+    return max(1, min(MAX_REPS, FILL_ELEMENTS[mode] // (rows * width)))
+
+
+def run(label: str, mode: str, shape, rows: int, iters: int, device,
+        reps: int = 1) -> dict:
+    """One case: warm, best of 3; prints the script's line. Returns the
+    first replica's output (on the CPU), seconds, ns per gather of the
+    (rows, W) shape and per element."""
+    tbl = gather_table(shape).to(device)
+    best, out = best_seconds(
+        lambda: gather_probe(tbl, mode, rows, iters, reps), device)
+    per_gather = best / max(iters, 1) / reps
+    elements = rows * shape[1]
+    tag = f" x{reps}" if reps > 1 else ""
+    print(f"{label}{tag}: {best * 1e3:.2f} ms total, {per_gather * 1e9:.1f}"
+          f" ns per ({rows},{shape[1]})-gather, "
+          f"{per_gather / elements * 1e12:.2f} ps per element")
+    return {"out": out[0].cpu(), "seconds": best, "reps": reps,
+            "ns_per_gather": per_gather * 1e9,
+            "ps_per_element": per_gather / elements * 1e12}
+
+
+def main(device=None, iters: int = ITERS, fill: bool = True):
+    """The script's six cases at its shapes, then (with ``fill``) at a
+    card-filling count of replicas; returns the device's name and, per
+    case label, ``tpu`` (and ``fill``) :func:`run` results."""
+    device = resolve_device(device)
+    got = {}
+    for label, mode, shape, rows in CASES:
+        got[label] = {"mode": mode, "shape": shape, "rows": rows,
+                      "tpu": run(label, mode, shape, rows, iters, device)}
+    if fill:
+        for label, mode, shape, rows in CASES:
+            got[label]["fill"] = run(label, mode, shape, rows, iters, device,
+                                     fill_reps(mode, rows, shape[1]))
+    return {"device": device_name(device), "iters": iters, "cases": got}
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--device", default=None,
+                   help="cuda (the default) or cpu for the plain version")
+    p.add_argument("--iters", type=int, default=ITERS)
+    return p.parse_args(argv)
+
+
+if __name__ == "__main__":
+    main(**vars(parse_args()))

@@ -8,7 +8,8 @@ every header of ``csrc/`` it includes (``#include "..."``, followed
 recursively) and of the flags, so an edited source or header is rebuilt
 and an unchanged one is reused.
 ``nvcc -Xptxas -v`` prints each kernel's registers, shared memory and
-spills; its output is kept beside the library as ``<library>.log``.
+spills; its output, and the seconds nvcc took, is kept beside the
+library as ``<library>.log``.
 
 Flags: ``sm_90a``, no ``--use_fast_math`` and ``-fmad=false``, so the
 kernels round every operation as the plain PyTorch versions do.
@@ -23,6 +24,7 @@ import re
 import shutil
 import subprocess
 import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -87,11 +89,13 @@ def build(name: str) -> Path:
     tmp = lib.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
     cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
            str(CSRC_DIR / f"{name}.cu")]
+    t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     log = proc.stdout + proc.stderr
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+    log += f"nvcc took {time.perf_counter() - t0:.1f} s\n"
     Path(str(lib) + ".log").write_text(log)
     os.replace(tmp, lib)
     return lib
@@ -108,6 +112,15 @@ def build_all(names) -> dict:
 def build_log(name: str) -> str:
     """nvcc's ``-Xptxas -v`` report of the built library."""
     return Path(str(library_path(name)) + ".log").read_text()
+
+
+def check_cuda(*tensors) -> None:
+    """Raises unless every tensor lies on a CUDA device: a kernel reads
+    device pointers only."""
+    for t in tensors:
+        if t.device.type != "cuda":
+            raise ValueError(f"the kernel takes CUDA tensors, got one on "
+                             f"{t.device}")
 
 
 def load(name: str) -> ctypes.CDLL:

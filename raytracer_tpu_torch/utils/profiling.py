@@ -1,0 +1,271 @@
+"""Performance telemetry of the port (counterpart of
+``raytracer_tpu/utils/profiling.py``): Mrays/s accounting, a
+``torch.profiler`` trace, best-of-n timing, and the operation account that
+every kernel's bound reads.
+
+A "ray" is one live ray-bounce segment, counted exactly by the kernels'
+segment totals (W·H·spp·mean depth).
+
+The account counts, per unit of work, the operations each kernel source
+does, a product and a sum as one each (the kernels are built with
+``-fmad=false``, so none is fused) and a transcendental as one. A bound
+is the larger of operations over a rate and bytes over ``HBM_RATE``; two
+rates divide the operations:
+
+- ``FP32_FLOP_PEAK``, NVIDIA's data-sheet float32 rate outside the tensor
+  cores (H100 SXM), which counts a fused multiply-add as two operations;
+- the card's instruction line (:func:`card_lines`), one float32
+  instruction per lane per clock: its SMs × 128 lanes × its highest SM
+  clock, read from the card. An unfused product or sum is one
+  instruction, so this is the most a kernel built without FMAs can reach;
+  the independent-chain probe
+  (:mod:`raytracer_tpu_torch.scripts.bench_bf16_chain`) reaches it.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import functools
+import os
+import subprocess
+import time
+
+import torch
+
+# operations the kernel source does per unit of work, transcendentals
+# counted as one: per walk iteration (ray dot products, direction
+# reciprocals, done tests), per cluster box per iteration (slab test,
+# key packing, two-key extraction), per member sphere tested (exact
+# quadratic and update), per completed bounce besides the globals
+# (winner lookup, normal, scatter draws and arithmetic, roulette,
+# accumulation), per global sphere tested at a bounce's start, and per
+# sample (camera ray)
+OPS_ITER, OPS_BOX, OPS_MEMBER, OPS_BOUNCE, OPS_GLOBAL, OPS_SAMPLE = (
+    40, 37, 30, 150, 30, 90)
+# the adaptive instantiation adds, per completed bounce, the luminance
+# (two sums, a product), its square and the sum of squares
+OPS_BOUNCE_ADAPTIVE = 5
+# the stratified instantiation: each of the four camera draws forms
+# index·alpha + rotation hash where the hashed draw forms a counter sum
+# (+1 each), and the first bounce's diffuse direction takes 2 Kronecker
+# draws, a root, a sine and a cosine (36) where the hashed one takes 3
+# draws, exp, log, a root and a normalisation (62); counted for every
+# sample, so the bound errs low
+OPS_SAMPLE_STRATIFIED = 4 - 26
+# the flat scan (flat_scan.cu), per loop trip (one bounce): the ray's dot
+# products, reciprocal and counters; per slot with the near->far root
+# logic (two dot products, the quadratic, a root, both roots' selects,
+# the running minimum) and per near-root-only slot; K2s's self-test of
+# the last-hit slot. The tail and the camera ray are the walk's.
+OPS_FLAT_TRIP, OPS_SLOT_FULL, OPS_SLOT_NEAR, OPS_SELF_TEST = 23, 29, 26, 25
+# the debug overlay (K3) adds, per completed bounce that hit, the cursor
+# distance (3 differences, 3 products, 2 sums, a compare), the outline
+# test (a dot product, two compares, the uuid compare) and the colour
+# selects. A sample ends at most once on a miss, so it is charged to
+# segments less samples: the bound errs low
+OPS_BOUNCE_DEBUG = 22
+
+#: H100 SXM data sheet, float32 outside the tensor cores, an FMA as two
+FP32_FLOP_PEAK = 67e12
+#: bf16 outside the tensor cores: two elements per instruction (the
+#: Hopper architecture white paper's 133.8 TFLOP/s for the SXM part)
+BF16_FLOP_PEAK = 2 * FP32_FLOP_PEAK
+#: float32 lanes of a Hopper SM, and the 4-byte shared-memory words it
+#: serves a clock (32 banks: one warp-wide load without conflict, or one
+#: broadcast)
+FP32_LANES, SMEM_WORDS = 128, 32
+HBM_RATE = 3.35e12  # bytes/s, H100 SXM
+
+
+def mrays_per_sec(segments: float, seconds: float) -> float:
+    return segments / seconds / 1e6 if seconds > 0 else 0.0
+
+
+class MraysMeter:
+    """Accumulates (segments, wall-clock) across render calls."""
+
+    def __init__(self):
+        self.segments = 0.0
+        self.seconds = 0.0
+
+    @contextlib.contextmanager
+    def time(self):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            # count the elapsed time even when the block raises, or
+            # Mrays/s would be overstated
+            self.seconds += time.perf_counter() - t0
+
+    def add_segments(self, n: float) -> None:
+        self.segments += float(n)
+
+    @property
+    def mrays(self) -> float:
+        return mrays_per_sec(self.segments, self.seconds)
+
+
+@contextlib.contextmanager
+def device_trace(log_dir: str | None):
+    """Optional ``torch.profiler`` trace around a block, written to
+    ``log_dir/trace.json`` (Chrome trace format; CUDA activity where a
+    card is present). No-op when ``log_dir`` is None."""
+    if log_dir is None:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+def device_name(device: torch.device) -> str:
+    """The name a result carries of the device it ran on."""
+    if device.type == "cuda":
+        return torch.cuda.get_device_name(device)
+    return device.type
+
+
+@functools.lru_cache(maxsize=None)
+def card_lines(index: int = 0) -> dict:
+    """The card's SMs, its highest SM clock (MHz, ``nvidia-smi
+    --query-gpu=clocks.max.sm``) and the rates they give a second: float32
+    instructions (``fp32``, one per lane per clock), bf16 element operations
+    (``bf16``, two per lane) and shared-memory words (``smem_words``)."""
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits", "-i", str(index)],
+        capture_output=True, text=True, check=True,
+    ).stdout.split()[0])
+    fp32 = sms * FP32_LANES * mhz * 1e6
+    return {"sms": sms, "sm_clock_mhz": mhz, "fp32": fp32, "bf16": 2 * fp32,
+            "smem_words": sms * SMEM_WORDS * mhz * 1e6}
+
+
+#: a timed run on a card lasts at least this long
+MIN_WINDOW_S = 0.01
+
+
+def best_seconds(fn, device: torch.device, repeats: int = 3, warm=None):
+    """Best of ``repeats`` runs of ``fn()`` in seconds, after one run of
+    ``warm`` (``fn`` when None), and the last run's result: timed by CUDA
+    events on a card, by the host clock on the CPU. On a card a run is a
+    window of back-to-back calls at least ``MIN_WINDOW_S`` long (as many
+    as one timed call says), so a short launch's host work overlaps the
+    card's and the time per call is the card's."""
+    (warm or fn)()
+    best, got, calls = None, None, 1
+    if device.type == "cuda":
+        calls = min(1000, int(MIN_WINDOW_S / _events_seconds(
+            fn, 1, device)[0]) + 1)
+    for _ in range(repeats):
+        if device.type == "cuda":
+            dt, got = _events_seconds(fn, calls, device)
+        else:
+            t0 = time.perf_counter()
+            got = fn()
+            dt = time.perf_counter() - t0
+        best = dt if best is None else min(best, dt)
+    return best, got
+
+
+def _events_seconds(fn, calls: int, device: torch.device):
+    """Seconds per call of ``calls`` back-to-back calls of ``fn()`` between
+    two CUDA events, and the last call's result."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize(device)
+    start.record()
+    for _ in range(calls):
+        got = fn()
+    end.record()
+    torch.cuda.synchronize(device)
+    return start.elapsed_time(end) / 1e3 / calls, got
+
+
+def walk_ops(tabs, adaptive, stratified, iters, nsegs, samples,
+             debug=False) -> float:
+    """Operations of one cluster-walk launch (K1 and its variants) from
+    its measured walk iterations, segments and samples."""
+    k, group = tabs.members.shape[:2]
+    n_global = tabs.globals.shape[0]
+    return (iters * (OPS_ITER + OPS_BOX * k)
+            + (iters - nsegs) * OPS_MEMBER * group
+            + nsegs * (OPS_BOUNCE + OPS_GLOBAL * n_global
+                       + (OPS_BOUNCE_ADAPTIVE if adaptive else 0))
+            + (nsegs - samples) * (OPS_BOUNCE_DEBUG if debug else 0)
+            + samples * (OPS_SAMPLE
+                         + (OPS_SAMPLE_STRATIFIED if stratified else 0)))
+
+
+def flat_scan_ops(slots, g_full) -> int:
+    """The flat scan's operations per segment (one loop trip): the trip's
+    own and the slots' (full root logic on the first ``g_full``, the near
+    root alone on the rest; every slot full when ``g_full`` is None or not
+    below ``slots``)."""
+    full = g_full if g_full is not None and g_full < slots else slots
+    return (OPS_FLAT_TRIP + OPS_SLOT_FULL * full
+            + OPS_SLOT_NEAR * (slots - full))
+
+
+def flat_ops(slots, g_full, adaptive, stratified, nsegs, samples,
+             debug=False) -> float:
+    """Operations of flat-scan launches (K2, K2s and their variants):
+    every loop trip is one segment, which tests every slot and runs the
+    tail; K2s's self-test runs on every segment but a sample's first."""
+    split = g_full is not None and g_full < slots
+    return (nsegs * (flat_scan_ops(slots, g_full) + OPS_BOUNCE
+                     + (OPS_BOUNCE_ADAPTIVE if adaptive else 0))
+            + (nsegs - samples) * ((OPS_SELF_TEST if split else 0)
+                                   + (OPS_BOUNCE_DEBUG if debug else 0))
+            + samples * (OPS_SAMPLE
+                         + (OPS_SAMPLE_STRATIFIED if stratified else 0)))
+
+
+def bound_pair(ops: float, nbytes: float, rate: float = FP32_FLOP_PEAK):
+    """(operations ms, bytes ms) of the least time: the bound is the
+    larger."""
+    return ops / rate * 1e3, nbytes / HBM_RATE * 1e3
+
+
+def walk_bound(tabs, adaptive, stratified, n_lanes, iters, nsegs, samples,
+               debug=False):
+    """Least time for the work these inputs needed, as (operations ms,
+    bytes ms) at ``FP32_FLOP_PEAK``: the bound is the larger. Operations
+    from the measured walk iterations, segments and samples; bytes from
+    the tables, map, budget and outputs."""
+    rows = 6 if adaptive else 4
+    nbytes = (sum(t.numel() * 4 for t in (tabs.camera, tabs.globals,
+                                          tabs.bounds, tabs.members,
+                                          tabs.winner))
+              + n_lanes * 4 * (2 + (1 if adaptive else 0) + rows + 1))
+    return bound_pair(walk_ops(tabs, adaptive, stratified, iters, nsegs,
+                               samples, debug), nbytes)
+
+
+def flat_bound(tabs, g_full, adaptive, stratified, n_lanes, nsegs, samples,
+               debug=False):
+    """The flat scan's least time, as (operations ms, bytes ms) at
+    ``FP32_FLOP_PEAK``."""
+    rows = 6 if adaptive else 4
+    nbytes = ((tabs.camera.numel() + tabs.spheres.numel()) * 4
+              + n_lanes * 4 * (2 + (1 if adaptive else 0) + rows + 1))
+    return bound_pair(flat_ops(tabs.spheres.shape[0], g_full, adaptive,
+                               stratified, nsegs, samples, debug), nbytes)
+
+
+def bound_by(ops_ms: float, bytes_ms: float) -> str:
+    return "operations" if ops_ms >= bytes_ms else "bytes"
+
+
+def issue_bound_ms(pair, line: float) -> float:
+    """The bound of an (operations ms, bytes ms) pair at
+    ``FP32_FLOP_PEAK`` restated at an instruction ``line`` (a second)."""
+    return max(pair[0] * FP32_FLOP_PEAK / line, pair[1])

@@ -17,6 +17,9 @@ from raytracer_tpu_torch.render import cluster_walk as cw
 from raytracer_tpu_torch.render import flat_scan as fs
 from raytracer_tpu_torch.render.options import DebugParams, TraceOptions
 from raytracer_tpu_torch.scene import presets
+from raytracer_tpu_torch.scripts import bench_bf16_chain as bc
+from raytracer_tpu_torch.scripts import bench_scan_layout as bs
+from raytracer_tpu_torch.scripts import probe_gather as pg
 
 pytestmark = pytest.mark.gpu
 
@@ -310,3 +313,39 @@ def test_aov_on_card_equals_cpu(card):
         assert got.device.type == "cuda"
         ref = render_aov(scene, cam, W, H, mode, device="cpu")
         assert float((got.cpu() - ref).abs().max()) <= 1e-5, mode
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_chain_kernel_matches_plain_on_card(card, dtype):
+    """The chain probe's two instantiations, at the TPU's rows and at
+    more: bitwise (every product and sum rounded on its own)."""
+    for rows in (bc.TPU_ROWS, 264):
+        x = bc.chain_input(rows, dtype, card)
+        before = bc.chain.launches
+        got = bc.chain(x, 40)
+        assert bc.chain.launches == before + 1
+        assert torch.equal(got, bc.chain_plain(x, 40))
+
+
+@pytest.mark.parametrize("mode", pg.MODES)
+def test_gather_kernel_matches_plain_on_card(card, mode):
+    """Every case of a gather mode, one replica and five: bitwise."""
+    for _, m, shape, rows in pg.CASES:
+        if m != mode:
+            continue
+        tbl = pg.gather_table(shape).to(card)
+        for reps in (1, 5):
+            got = pg.gather_probe(tbl, mode, rows, 300, reps)
+            assert torch.equal(got, pg.gather_probe_plain(tbl, mode, rows,
+                                                          300, reps))
+
+
+@pytest.mark.parametrize("block", list(bs.BLOCKS))
+def test_scan_kernel_matches_plain_on_card(card, block):
+    """Each scan block against the plain version: bitwise (sqrtf and the
+    card's torch.sqrt are both correctly rounded)."""
+    sph = bs.scan_table().to(card)
+    for rows in (bs.R_SUB, 64):
+        got = bs.scan_probe(sph, block, rows, 20)
+        assert torch.equal(got, bs.scan_probe_plain(sph, block, rows, 20))

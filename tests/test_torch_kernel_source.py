@@ -291,3 +291,57 @@ def test_debug_with_split_or_adaptive_is_refused():
         cw.cluster_walk(wt, ident, 1, 0, 1, 16, 8, both)
     out, segs = fs.flat_scan(ft, ident, 1, 0, 1, 16, 8, debug)
     assert out.shape == (4, 128) and torch.isfinite(out).all()
+
+
+PROBES = {name: (cuda_build.CSRC_DIR / f"{name}.cu").read_text()
+          for name in ("probe_chain", "probe_gather", "probe_scan")}
+
+
+@pytest.mark.parametrize("banned", [
+    "cbrtf", "fmaf", "__fmaf", "__expf", "__logf", "__sinf", "__cosf",
+    "__fdividef", "__frsqrt_rn", "__saturatef", "__hfma", "__hfma2",
+    "__fsqrt_rn",
+])
+def test_probe_sources_round_every_operation(banned):
+    """The probes' products and sums round on their own, as the TPU kernels
+    and the plain versions round them: no fused or approximate call."""
+    for name, src in PROBES.items():
+        assert not re.search(rf"\b{re.escape(banned)}\s*\(", src), name
+
+
+def test_probe_instantiations():
+    """Two chains (float32, bf16 pairs), three gather modes, four scan
+    blocks, each behind one C launcher that refuses the rest."""
+    chain, gather, scan = (PROBES[n] for n in ("probe_chain", "probe_gather",
+                                               "probe_scan"))
+    assert re.findall(r"launch<([\w ]+)>\(x, out", chain) == [
+        "__nv_bfloat162", "float"]
+    assert "__hmul2(a, b)" in chain and "__hadd2(a, b)" in chain
+    assert "v = add(mul(v, xs[c]), xs[(c + k + 1) % kChains]);" in chain
+    assert re.findall(r"launch<(k\w+)>\(tbl, out", gather) == [
+        "kAxis0", "kAxis1", "kOneHot"]
+    assert "cudaFuncAttributeMaxDynamicSharedMemorySize" in gather
+    assert "cudaDevAttrMaxSharedMemoryPerBlockOptin" in gather
+    assert "g = g + smem[s * W] * (s == idx ? 1.0f : 0.0f);" in gather
+    assert sorted(int(b) for b in re.findall(
+        r"case (\d+): return \(int\)launch<\1>\(s, out", scan)) == [
+            8, 32, 64, 512]
+    assert "template <int kBlock>" in scan
+    for src in PROBES.values():
+        assert src.count("return (int)cudaErrorInvalidValue;") >= 1
+        assert "return cudaGetLastError();" in src
+
+
+def test_probes_build_with_the_kernels_flags():
+    """Each probe is one source without headers of csrc/, built by the
+    same helper and flags (sm_90a, -fmad=false, no fast math) into its own
+    library."""
+    paths = set()
+    for name in PROBES:
+        assert [p.name for p in cuda_build.sources(name)] == [f"{name}.cu"]
+        path = cuda_build.library_path(name)
+        assert path.parent == cuda_build.BUILD_DIR
+        assert path.name.startswith(f"lib{name}-")
+        paths.add(path)
+    assert len(paths) == 3
+    test_nvcc_flags_keep_rounding()
