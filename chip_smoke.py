@@ -50,6 +50,14 @@ step and the interactive engine:
   x the highest SM clock, which fails the run unless the chain comes
   within 10 % of it) and the cover through the flat scan against both.
 
+The walk A/B (``raytracer_tpu_torch/scripts/walk_ab.py``): the cluster
+walk's six instantiations and the flat scan's ten, each built from the
+base revision's sources (the commit the tree is held against, unpacked
+with ``git archive`` where the checkout has its history) and from this
+one, held bitwise old against new at their paths' shapes and timed in
+turns; the walk's ``-Xptxas -v``, its SASS loops and its counter build
+(SIMT efficiency, slab tests a bounce).
+
 Every image is checked (the cover against the committed golden
 ``tests/goldens/cover_jnp_rr0_500spp_f16.npz``); each kernel is timed on
 its path beside its operation bound (at the data sheet's float32 rate,
@@ -212,22 +220,31 @@ def phase_device():
 
 
 def phase_build():
+    """Every kernel source, and the walk A/B's builds (the base
+    revision's walk and flat scan, where the checkout has them, and the
+    walk's counter build), one nvcc each, all at once."""
+    from raytracer_tpu_torch.scripts import walk_ab
     from raytracer_tpu_torch.utils import cuda_build
 
     names = ("cluster_walk", "flat_scan", *PROBE_SOURCES)
+    specs = [(name, None, ()) for name in names] + walk_ab.extra_builds(
+        walk_ab.parent_csrc())
     t0 = time.perf_counter()
-    cuda_build.build_all(names)
-    print(f"[build] {', '.join(names)} at once: "
-          f"{time.perf_counter() - t0:.1f} s")
+    cuda_build.build_all(specs)
+    extra = [f"{name} counter build" if d else f"{name} base revision"
+             for name, _, d in specs[len(names):]]
+    print(f"[build] {', '.join(names)} and the A/B's {', '.join(extra)} "
+          f"at once: {time.perf_counter() - t0:.1f} s")
     for name in names:
         for line in cuda_build.build_log(name).splitlines():
             if "registers" in line or "spill" in line or "nvcc took" in line:
                 print(f"[ptxas {name}]", line.strip())
             elif "Compiling" in line:
                 # the mangled name carries the template arguments as Lb0E
-                # / Lb1E: adaptive, stratified, (split,) debug
-                bits = re.findall(r"Lb([01])E", line)
-                keys = (("adaptive", "stratified", "debug")
+                # / Lb1E / Li4E: adaptive, stratified, (split,) debug,
+                # (the walk's box-mask words)
+                bits = re.findall(r"L[bi](\d+)E", line)
+                keys = (("adaptive", "stratified", "debug", "mask words")
                         if name == "cluster_walk" else
                         ("adaptive", "stratified", "split", "debug"))
                 inst = (" <" + ", ".join(f"{k}={b}" for k, b in
@@ -247,13 +264,14 @@ def trace_options(rr: int, depth: int, adaptive=False, stratified=False):
 
 
 def walk_inputs(rr: int, width: int | None, height: int | None, depth,
-                adaptive=False, stratified=False):
+                adaptive=False, stratified=False, group: int = 16):
     from raytracer_tpu_torch.camera.camera import derive_camera
     from raytracer_tpu_torch.render import tables
     from raytracer_tpu_torch.scene import presets
 
     scene, cam, *_ = presets.get_config("cover", width, height)
-    opts = trace_options(rr, depth, adaptive, stratified)
+    opts = dataclasses.replace(trace_options(rr, depth, adaptive, stratified),
+                               cluster_group=group)
     tabs = tables.walk_tables(tables.cluster_partition(scene, opts),
                               derive_camera(cam), "cuda")
     return tabs, opts
@@ -349,8 +367,9 @@ def check_budget(label: str, got: dict, budget) -> float:
 
 
 def phase_kernel_vs_plain() -> dict:
-    """The kernel against its plain version: on the crop (rr5, rr0, and a
-    shuffled lane map against the identity), then at the main path's
+    """The kernel against its plain version: on the crop (rr5, rr0, a
+    shuffled lane map against the identity, and the cover in clusters of
+    8 and 4, past the one-word box mask), then at the main path's
     shapes (the full frame, depth 50, the cover's tables) with few
     samples, under the identity map of the profile chunk and the sorted
     map of the later chunks; and on the demo's partition at 1920x1080,
@@ -385,6 +404,13 @@ def phase_kernel_vs_plain() -> dict:
             if not same:
                 fail("shuffled lane map changed the kernel's result")
             result.update(crop_times(args, cw.variant_name(opts)))
+    # past 32 clusters the walk takes its four-word box mask: the cover
+    # in clusters of 8 and of 4
+    for group in (8, 4):
+        tabs, opts = walk_inputs(5, CROP_W, CROP_H, CROP_DEPTH, group=group)
+        got = compare(f"crop rr5, {tabs.bounds.shape[0]} clusters",
+                      (tabs, ident, seed, 0, CROP_SPP, CROP_W, CROP_H, opts))
+        result["max_abs_err"] = max(result["max_abs_err"], got["max_abs_err"])
     for rr in (5, 0):
         tabs, opts = walk_inputs(rr, FULL_W, FULL_H, FULL_DEPTH)
         ident = cw.identity_map(FULL_W, FULL_H, "cuda")
@@ -689,6 +715,42 @@ def phase_fixed_kernel_alone(smi: str, stratified: bool) -> dict:
           f"ms, share {issue_ms / ms:.4f} [{smi}]")
     return {"ms": ms, "bound_ms": bound_ms, "issue_bound_ms": issue_ms,
             "bound_by": bound_by(ops_ms, bytes_ms)}
+
+
+def phase_walk_ab(smi: str) -> dict:
+    """The walk against its base revision (``scripts/walk_ab.py``): the
+    six instantiations at their paths' shapes (the adaptive ones on a
+    launch of the cover's adaptive render where every lane has budget and
+    on one of its tail), every output row and the segments bitwise equal,
+    timed in turns; ``-Xptxas -v``, the SASS's loops, and the counter
+    build's SIMT efficiency and slab tests. Then the flat scan's ten
+    instantiations, which share the walk's tail, the same way. Without
+    the base revision's sources (a checkout without history, and nothing
+    unpacked under ``build/walk_parent``) the old builds are left out."""
+    from raytracer_tpu_torch.scripts import walk_ab
+
+    old = walk_ab.parent_csrc()
+    if old is None:
+        print("[walk A/B] the base revision's sources are not in this "
+              "checkout: the new kernel alone, and its counters")
+    else:
+        print(f"[walk A/B] base revision {old.parent.parent.name}")
+    got = walk_ab.run(old, WALK_AB_REPEATS, smi)
+    got["flat"] = walk_ab.flat_ab(old, WALK_AB_REPEATS, smi)
+    bad = [k for k, ok in {**got["bitwise"], **got["flat"]["bitwise"]}.items()
+           if not ok]
+    if bad:
+        fail(f"a kernel disagrees with its base revision: {bad}")
+    for name, c in got["counters"].items():
+        if not (c["cost_row_equal"] and c["segs_equal"]):
+            fail(f"{name}: the counter build's trips or tails disagree "
+                 f"with its cost row or segments")
+    for name, t in got["times"].items():
+        if "old" in t:
+            print(f"[walk A/B {name}] old {min(t['old']):.3f} ms, new "
+                  f"{min(t['new']):.3f} ms (best of {len(t['new'])} in "
+                  f"turns), x{min(t['old']) / min(t['new']):.3f} [{smi}]")
+    return got
 
 
 def phase_adaptive_alone(smi: str, stratified: bool) -> dict:
@@ -1631,6 +1693,9 @@ PROBE_SCAN_CHECK_ITERS = {"tpu": 50, "fill": 5}
 # card_lines: SMs x 128 x the highest clock) holds when the card-filling
 # float32 chain comes within this share of it; else the run fails
 INSTR_LINE_TOLERANCE = 0.10
+#: launches of each walk build per instantiation in the walk A/B, taken
+#: in turns (old, new, new, old, ...)
+WALK_AB_REPEATS = 6
 
 
 def held(label: str, got: torch.Tensor, want: torch.Tensor):
@@ -1922,6 +1987,7 @@ def main():
         "cluster_walk_adaptive_stratified": phase_adaptive_alone(smi, True),
         "cluster_walk_adaptive": phase_adaptive_alone(smi, False),
     }
+    phase_walk_ab(smi)
     depth = paths["cluster_walk"]["depth"]
     phase_where_time_goes(smi, "rr5", trace_options(5, depth))
     phase_where_time_goes(smi, "adaptive companion",

@@ -6,7 +6,7 @@
 // (launched by `_render_chunk_impl`) in its production configuration:
 // kd partition with box bounds, one cluster per walk step, packed visit
 // key, fused bounce-done test. Three template parameters give its six
-// instantiations:
+// instantiations (each built at two box-mask widths, below):
 //   kAdaptive   (the TPU kernel's `adaptive=True`): a lane samples up to
 //               its own budget (0 = its pixel has converged: the lane does
 //               nothing), and two more output rows carry the lane's
@@ -25,25 +25,51 @@
 // All sit in the loop every lane runs, so they are compile-time: the
 // <false, false, false> instantiation carries no trace of any.
 //
-// Design. One thread per lane, one lane per pixel of the chunk's map.
-// Each thread runs the TPU kernel's path-regeneration state machine
-// alone: counters s (sample) and i (bounce), walk state (bq, bs, kl) and
-// throughput, one walk iteration per loop trip. The TPU's K-slot virtual
+// Design. Each thread runs the TPU kernel's path-regeneration state
+// machine for one lane at a time: counters s (sample) and i (bounce),
+// walk state (bq, bs, kl) and throughput. The TPU's K-slot virtual
 // tiles, r_sub row tiling and 128-lane tile grid existed to balance
-// 1024-lane vector tiles and are gone; a warp waits only for its slowest
-// of 32 lanes, and each lane's 100+ samples average its path lengths.
-// The scene tables (box bounds, cluster members, winner parameters,
-// globals) and the camera are copied into shared memory once per block
-// and read with direct indexed loads, where the TPU needed one-hot and
-// banked lane gathers.
+// 1024-lane vector tiles and are gone.
 //
-// What bounds it on this card: FP32 issue rate and branch divergence.
-// The work is arithmetic on registers (about 36 operations per cluster
-// box per walk iteration, 30 per member sphere, a few hundred per
-// completed bounce); device memory sees only the tables and one write
-// per lane and channel. Lanes of a warp diverge between walk iterations
-// (mid-walk) and bounce tails (completed); the design keeps the tail
-// behind one branch so a warp runs at most two paths per trip.
+// What bounds it on this card: issue (the slab tests' min/max, compare
+// and select instructions above all) and lanes idle in their warp. What
+// the design does about it, each element kept on an A/B on the card
+// (PERF.md):
+//   - The box test runs once per bounce, and only on the boxes the ray
+//     can enter. A bounce's first walk iteration tests one level of
+//     parent boxes (each the float32 min/max of kParentFanout
+//     consecutive kd leaves) and then only the children of the parents
+//     it enters; the boxes it hits go into a bitmask. Later iterations
+//     of the bounce re-test only the masked boxes not yet visited: the
+//     ray is the same, so their keys are bit-identical. Dropping a missed
+//     box changes nothing: its key (>= kFillFloor) could only end the
+//     bounce, as the empty selection (INFINITY) does. A missed parent
+//     means every child misses: slab bounds round monotonically, so a
+//     parent's entry is at most and its exit at least its child's, and
+//     the child's three hit conditions imply the parent's.
+//   - A lane walks its bounce to the end before the warp runs the tail
+//     (Aila and Laine's while-while), so the warp runs the tail once a
+//     bounce with its lanes together; the tail (common.cuh) draws the
+//     diffuse and metal vectors in one place for the same reason.
+//   - One block of 1024 threads an SM, so one copy of the tables an SM,
+//     loaded once; the grid is persistent (as many blocks as fit at
+//     once), and a thread whose lane has taken its samples takes the
+//     next lane of the map (a warp-aggregated atomic on a counter): lanes
+//     stay busy until the map runs out, in the map's cost-descending
+//     order. The grid's first lanes go out a warp's 32 at a time to the
+//     blocks in turn, so every SM starts on the map's head: its costliest
+//     lanes, and after an adaptive re-plan the only lanes with budget.
+//   - Boxes are 8 floats and members have an odd stride of float4 rows
+//     between clusters (render/tables.py `walk_layout`): two 16-byte
+//     loads a box, one a member, and lanes of a warp that visit
+//     different clusters read different banks.
+//   - Registers, capped at 64 by the block size, spill: the box mask
+//     takes one word up to 32 clusters (a template parameter the
+//     launcher picks), and what only the tail reads is formed after the
+//     walk.
+// The walk-iteration count (the cost row), the segments and every sum
+// are bit for bit those of the flat walk that tests every box every
+// iteration, one iteration a loop trip.
 //
 // The RNG, ray generation and the bounce tail live in common.cuh, shared
 // with the flat scan (flat_scan.cu). Numerics follow the plain PyTorch
@@ -52,27 +78,71 @@
 // Constants are the float32 roundings of the JAX package's Python
 // doubles, as hex literals.
 
+#include <cooperative_groups.h>
+
 #include "common.cuh"
 
 namespace {
 
 using namespace rt;
+namespace cg = cooperative_groups;
+
+// one block of 1024 threads an SM: one copy of the tables an SM, and
+// ptxas keeps the kernel within 64 registers a thread (32 warps an SM)
+constexpr int kWalkThreads = 1024;
+constexpr int kParentFanout = 4;  // kd leaves per parent box
+constexpr int kBoxFloats = 8;     // [lo xyz, 0, hi xyz, 0]
+constexpr int kMaxWords = 4;      // MAX_CLUSTERS = 128 bits of box mask
 
 struct Params {
   PathParams path;
-  const float* camera;   // (19,) origin, llc, horizontal, vertical, u, v, lens
-  const float* globals;  // (n_global, 4) [cx, cy, cz, k1]
-  const float* bounds;   // (k, 6) [lo xyz, hi xyz]
-  const float* members;  // (k, group, 4) [cx, cy, cz, k1]
-  const float* winner;   // (slots, 11) [c xyz, 1/r, mat, albedo rgb, fuzz, ior, uuid]
+  // the tables as shared memory holds them (render/tables.py
+  // `pack_walk`), n_floats, offsets in floats: camera (19) at 0, globals
+  // (n_global, 4), parents (n_parents, 8), boxes (k, 8), members (k,
+  // mstride, 4), winner (slots, 11) [c xyz, 1/r, mat, albedo rgb, fuzz,
+  // ior, uuid]
+  const float* tables;
   const int* pixel_map;  // (n, 2) [px, py]
   const int* budget;     // (n,) samples per lane, or null: spp for every lane
   float* out;            // (4, n) rgb sums and walk iterations, lane order;
                          // (6, n) with sample count and sum of lum^2
   int* segs;             // (n,) completed bounces
-  int n, n_global, k, group, slots;
+  int* next_lane;        // lanes taken past the grid's own, zeroed by the
+                         // launch on its stream
+  int n, n_global, k, group, n_parents, mstride;
+  int off_glob, off_par, off_box, off_mem, off_win, n_floats;
   DebugUniforms dbg;     // kDebug: cursor point and selection
 };
+
+// Counters of the walk's structure, compiled in only with
+// -DRT_WALK_COUNTERS (raytracer_tpu_torch/scripts/walk_ab.py builds it;
+// the main path's build never does). Where a warp's active lanes pass,
+// the lowest counts the warp; every lane counts itself.
+enum WalkCounter {
+  kWarpTrips,      // walk iterations of a warp
+  kLaneTrips,      // walk iterations of a lane (the cost row's sum)
+  kWarpFresh,      // warp iterations where some lane starts a bounce
+  kLaneFresh,      // lane iterations that start a bounce
+  kWarpVisit,      // warp iterations that run the member loop
+  kLaneVisit,      // lane iterations that visit a cluster
+  kWarpTail,       // warp runs of the bounce tail
+  kLaneTail,       // lane runs of the bounce tail (completed bounces)
+  kSlabTests,      // boxes slab-tested, parents included
+  kNumCounters
+};
+
+#ifdef RT_WALK_COUNTERS
+__device__ unsigned long long g_counters[kNumCounters];
+#define RT_COUNT(c, v) (cnt[c] += (v))
+#define RT_WARP_COUNT(c, pred)                                         \
+  do {                                                                 \
+    const unsigned any_ = __ballot_sync(act_, (pred));                 \
+    cnt[c] += (leader_ && any_ != 0u) ? 1u : 0u;                       \
+  } while (0)
+#else
+#define RT_COUNT(c, v) ((void)0)
+#define RT_WARP_COUNT(c, pred) ((void)0)
+#endif
 
 __device__ __forceinline__ float key_floor(float key) {
   return __int_as_float(__float_as_int(key) & ~127);
@@ -83,42 +153,108 @@ __device__ __forceinline__ float inv_dir(float d) {
   return 1.0f / (d >= 0.0f ? fmaxf(d, kUEps) : fminf(d, -kUEps));
 }
 
-__host__ __device__ constexpr int smem_floats(int n_global, int k, int group,
-                                              int slots) {
-  return 20 + 4 * n_global + 6 * k + 4 * k * group + 11 * slots;
+// Slab test of the box [lo xyz, 0, hi xyz, 0] at `b` in q-space: the
+// entry q where the ray enters it, kFillQ where it misses.
+__device__ __forceinline__ float box_entry(const float* b, float ox,
+                                           float oy, float oz, float ivx,
+                                           float ivy, float ivz, float a,
+                                           float min_t_a) {
+  const float4 lo = *reinterpret_cast<const float4*>(b);
+  const float4 hi = *reinterpret_cast<const float4*>(b + 4);
+  float t1 = (lo.x - ox) * ivx, t2 = (hi.x - ox) * ivx;
+  float tn = fminf(t1, t2), tf = fmaxf(t1, t2);
+  t1 = (lo.y - oy) * ivy;
+  t2 = (hi.y - oy) * ivy;
+  tn = fmaxf(tn, fminf(t1, t2));
+  tf = fminf(tf, fmaxf(t1, t2));
+  t1 = (lo.z - oz) * ivz;
+  t2 = (hi.z - oz) * ivz;
+  tn = fmaxf(tn, fminf(t1, t2));
+  tf = fminf(tf, fmaxf(t1, t2));
+  const float qn = fmaxf(tn * a, min_t_a);
+  const bool hitb = (tf >= tn) & (tf * a >= min_t_a) & (qn < kQCut);
+  return hitb ? qn : kFillQ;
 }
 
-template <bool kAdaptive, bool kStratified, bool kDebug>
-__global__ void __launch_bounds__(kThreads) cluster_walk_kernel(Params p) {
-  extern __shared__ float smem[];
-  float* s_cam = smem;                       // 19, padded to 20
-  float* s_glob = s_cam + 20;                // n_global * 4
-  float* s_bnd = s_glob + 4 * p.n_global;    // k * 6
-  float* s_mem = s_bnd + 6 * p.k;            // k * group * 4
-  float* s_win = s_mem + 4 * p.k * p.group;  // slots * 11
-  for (int j = threadIdx.x; j < 19; j += blockDim.x) s_cam[j] = p.camera[j];
-  for (int j = threadIdx.x; j < 4 * p.n_global; j += blockDim.x)
-    s_glob[j] = p.globals[j];
-  for (int j = threadIdx.x; j < 6 * p.k; j += blockDim.x)
-    s_bnd[j] = p.bounds[j];
-  for (int j = threadIdx.x; j < 4 * p.k * p.group; j += blockDim.x)
-    s_mem[j] = p.members[j];
-  for (int j = threadIdx.x; j < 11 * p.slots; j += blockDim.x)
-    s_win[j] = p.winner[j];
+// A set of boxes, one bit a box, in kWords registers: every word is
+// named by a constant after unrolling, so none goes to local memory.
+// Partitions of at most 32 clusters take one word (the launcher picks),
+// which keeps six registers free under the 64-register cap.
+template <int kWords>
+struct BoxMask {
+  uint32_t w[kWords];
+};
+
+template <int kWords>
+__device__ __forceinline__ void mask_or(BoxMask<kWords>& m, int word,
+                                        uint32_t bits) {
+#pragma unroll
+  for (int j = 0; j < kWords; ++j)
+    if (j == word) m.w[j] |= bits;
+}
+
+template <int kWords>
+__device__ __forceinline__ void mask_clear(BoxMask<kWords>& m, int c) {
+#pragma unroll
+  for (int j = 0; j < kWords; ++j)
+    if (j == (c >> 5)) m.w[j] &= ~(1u << (c & 31));
+}
+
+// The grid's threads start on lanes 0 .. grid - 1, warp w of block b on
+// the 32 lanes from 32 (w gridDim + b): the map's head spreads over every
+// block, its consecutive lanes stay in one warp.
+__device__ __forceinline__ int first_lane() {
+  const int warp = (int)(threadIdx.x >> 5);
+  return 32 * (warp * (int)gridDim.x + (int)blockIdx.x) +
+         (int)(threadIdx.x & 31);
+}
+
+// A thread whose lane is done takes the next untaken lane of the map. One
+// atomic a warp for the lanes of the warp that ask together.
+__device__ __forceinline__ int next_lane(const Params& p) {
+  cg::coalesced_group g = cg::coalesced_threads();
+  int base = 0;
+  if (g.thread_rank() == 0) base = atomicAdd(p.next_lane, (int)g.size());
+  base = g.shfl(base, 0);
+  return (int)(gridDim.x * blockDim.x) + base + (int)g.thread_rank();
+}
+
+// Copy the packed tables into shared memory, once per block.
+__device__ __forceinline__ void load_tables(float* smem, const float* src,
+                                            int n_floats) {
+  const float4* s4 = reinterpret_cast<const float4*>(src);
+  float4* d4 = reinterpret_cast<float4*>(smem);
+  for (int j = threadIdx.x; j < n_floats / 4; j += blockDim.x) d4[j] = s4[j];
   __syncthreads();
+}
 
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= p.n) return;
-
-  float px, py;
-  uint32_t pix;
-  int limit;  // samples this lane takes
-  if (!lane_setup<kAdaptive>(p.path, p.pixel_map, p.budget, p.out, p.segs,
-                             p.n, lane, px, py, pix, limit))
-    return;
+template <bool kAdaptive, bool kStratified, bool kDebug, int kWords>
+__global__ void __launch_bounds__(kWalkThreads, 1)
+    cluster_walk_kernel(Params p) {
+  extern __shared__ __align__(16) float smem[];
+  load_tables(smem, p.tables, p.n_floats);
+  const float* s_cam = smem;
+  const float* s_glob = smem + p.off_glob;
+  const float* s_par = smem + p.off_par;
+  const float* s_box = smem + p.off_box;
+  const float* s_mem = smem + p.off_mem;
+  const float* s_win = smem + p.off_win;
   const uint32_t dps = 4u + (uint32_t)p.path.max_depth * kDrawsPerBounce;
 
+  // the lane's pixel, its hash and its sample limit; a lane without
+  // budget writes its zeros and the thread takes the next
+  int lane = first_lane();
+  float px, py;
+  uint32_t pix;
+  int limit;
   Path path;
+  for (;;) {
+    if (lane >= p.n) return;
+    if (lane_setup<kAdaptive>(p.path, p.pixel_map, p.budget, p.out, p.segs,
+                              p.n, lane, px, py, pix, limit))
+      break;
+    lane = next_lane(p);
+  }
   path.s = 0;
   path.i = 0;
   gen_ray<kStratified>(s_cam, p.path, (uint32_t)p.path.sample_offset, dps, px,
@@ -126,152 +262,257 @@ __global__ void __launch_bounds__(kThreads) cluster_walk_kernel(Params p) {
   path.cr = path.cg = path.cb = 1.0f;
   float bq = kFillQ, kl = kNegBig;  // best q, visited cursor (packed key)
   int bs = 0;                       // winner slot
+  BoxMask<kWords> hits = {};        // boxes the bounce's ray hits, unvisited
   Sums sums = {0.0f, 0.0f, 0.0f, 0.0f};
   float cost = 0.0f;
   int segs = 0;
+#ifdef RT_WALK_COUNTERS
+  unsigned long long cnt[kNumCounters] = {};
+#endif
 
   for (;;) {
-    cost += 1.0f;
     const float ox = path.ox, oy = path.oy, oz = path.oz;
     const float dx = path.dx, dy = path.dy, dz = path.dz;
-    const uint32_t ctr = (uint32_t)(p.path.sample_offset + path.s) * dps +
-                         4u + (uint32_t)path.i * kDrawsPerBounce;
     const float a = dot3(dx, dy, dz, dx, dy, dz);
-    const float inv_a = 1.0f / a;
     const float o_dot_d = dot3(ox, oy, oz, dx, dy, dz);
     const float o_dot_o = dot3(ox, oy, oz, ox, oy, oz);
     const float min_t_a = kMinT * a;
-
-    if (kl < kFresh) {
-      // a fresh bounce seeds its best hit with exact global tests
-      float g_best = kFillQ;
-      int g_slot = 0;
-      for (int g = 0; g < p.n_global; ++g) {
-        float q = exact_q(s_glob + 4 * g, ox, oy, oz, dx, dy, dz, a, o_dot_d,
-                          o_dot_o, min_t_a);
-        if (q < g_best) {
-          g_best = q;
-          g_slot = g;
-        }
-      }
-      bq = g_best;
-      bs = g_slot;
-    }
-
-    // slab test of every box in q-space, keeping the two nearest
-    // unvisited packed keys (entry with 7 low bits floored | cluster)
     const float ivx = inv_dir(dx), ivy = inv_dir(dy), ivz = inv_dir(dz);
-    float m0 = INFINITY, m1 = INFINITY;
-    for (int c = 0; c < p.k; ++c) {
-      const float* b = s_bnd + 6 * c;
-      float t1 = (b[0] - ox) * ivx, t2 = (b[3] - ox) * ivx;
-      float tn = fminf(t1, t2), tf = fmaxf(t1, t2);
-      t1 = (b[1] - oy) * ivy;
-      t2 = (b[4] - oy) * ivy;
-      tn = fmaxf(tn, fminf(t1, t2));
-      tf = fminf(tf, fmaxf(t1, t2));
-      t1 = (b[2] - oz) * ivz;
-      t2 = (b[5] - oz) * ivz;
-      tn = fmaxf(tn, fminf(t1, t2));
-      tf = fminf(tf, fmaxf(t1, t2));
-      const float qn = fmaxf(tn * a, min_t_a);
-      const bool hitb = (tf >= tn) & (tf * a >= min_t_a) & (qn < kQCut);
-      const float qe = hitb ? qn : kFillQ;
-      const float key = __int_as_float((__float_as_int(qe) & ~127) | c);
-      if (key > kl) {
-        if (key < m0) {
-          m1 = m0;
-          m0 = key;
-        } else if (key < m1) {
-          m1 = key;
-        }
-      }
-    }
+    bool bdone;
+    do {
+      cost += 1.0f;
+      const bool fresh = kl < kFresh;
+#ifdef RT_WALK_COUNTERS
+      const unsigned act_ = __activemask();
+      const bool leader_ = (int)(threadIdx.x & 31) == __ffs(act_) - 1;
+      RT_COUNT(kWarpTrips, leader_ ? 1u : 0u);
+      RT_COUNT(kLaneTrips, 1u);
+      RT_WARP_COUNT(kWarpFresh, fresh);
+      RT_COUNT(kLaneFresh, fresh ? 1u : 0u);
+#endif
 
-    // done when the nearest unvisited entry cannot beat the best, or the
-    // list is exhausted; else visit it, then test the next one (fused)
-    bool bdone = (key_floor(m0) >= bq) | (m0 >= kFillFloor);
-    if (!bdone) {
-      const int cidx = __float_as_int(m0) & 127;
-      const float* mb = s_mem + 4 * cidx * p.group;
-      for (int m = 0; m < p.group; ++m) {
-        float q = exact_q(mb + 4 * m, ox, oy, oz, dx, dy, dz, a, o_dot_d,
-                          o_dot_o, min_t_a);
-        if (q < bq) {
-          bq = q;
-          bs = p.n_global + cidx * p.group + m;
+      // the boxes to test: on a fresh bounce the children of the parents
+      // the ray enters, later the hit boxes not yet visited
+      BoxMask<kWords> cand = hits;
+      if (fresh) {
+        // a fresh bounce seeds its best hit with exact global tests
+        float g_best = kFillQ;
+        int g_slot = 0;
+        for (int g = 0; g < p.n_global; ++g) {
+          float q = exact_q(s_glob + 4 * g, ox, oy, oz, dx, dy, dz, a, o_dot_d,
+                            o_dot_o, min_t_a);
+          if (q < g_best) {
+            g_best = q;
+            g_slot = g;
+          }
+        }
+        bq = g_best;
+        bs = g_slot;
+#pragma unroll
+        for (int j = 0; j < kWords; ++j) cand.w[j] = 0u;
+        for (int q = 0; q < p.n_parents; ++q) {
+          RT_COUNT(kSlabTests, 1u);
+          if (box_entry(s_par + kBoxFloats * q, ox, oy, oz, ivx, ivy, ivz, a,
+                        min_t_a) < kFillQ) {
+            const int c0 = kParentFanout * q;
+            const int nc = min(kParentFanout, p.k - c0);
+            mask_or(cand, c0 >> 5, ((1u << nc) - 1u) << (c0 & 31));
+          }
         }
       }
-      kl = m0;
-      bdone = (key_floor(m1) >= bq) | (m1 >= kFillFloor);
-    }
-    if (!bdone) continue;
+
+      // slab test of the candidates in q-space, keeping the hit ones and
+      // the two nearest packed keys (entry with 7 low bits floored |
+      // cluster); every hit key here lies beyond the cursor kl
+      float m0 = INFINITY, m1 = INFINITY;
+#pragma unroll
+      for (int j = 0; j < kWords; ++j) {
+        uint32_t bits = cand.w[j];
+        hits.w[j] = 0u;
+        while (bits != 0u) {
+          const int c = 32 * j + __ffs(bits) - 1;
+          bits &= bits - 1u;
+          RT_COUNT(kSlabTests, 1u);
+          const float qe = box_entry(s_box + kBoxFloats * c, ox, oy, oz, ivx,
+                                     ivy, ivz, a, min_t_a);
+          if (qe < kFillQ) {
+            hits.w[j] |= 1u << (c & 31);
+            const float key = __int_as_float((__float_as_int(qe) & ~127) | c);
+            if (key < m0) {
+              m1 = m0;
+              m0 = key;
+            } else if (key < m1) {
+              m1 = key;
+            }
+          }
+        }
+      }
+
+      // done when the nearest unvisited entry cannot beat the best, or the
+      // list is exhausted; else visit it, then test the next one (fused)
+      bdone = (key_floor(m0) >= bq) | (m0 >= kFillFloor);
+      RT_WARP_COUNT(kWarpVisit, !bdone);
+      RT_COUNT(kLaneVisit, bdone ? 0u : 1u);
+      if (!bdone) {
+        const int cidx = __float_as_int(m0) & 127;
+        const float4* mb =
+            reinterpret_cast<const float4*>(s_mem + 4 * cidx * p.mstride);
+        for (int m = 0; m < p.group; ++m) {
+          const float4 c4 = mb[m];
+          const float c[4] = {c4.x, c4.y, c4.z, c4.w};
+          float q = exact_q(c, ox, oy, oz, dx, dy, dz, a, o_dot_d, o_dot_o,
+                            min_t_a);
+          if (q < bq) {
+            bq = q;
+            bs = p.n_global + cidx * p.group + m;
+          }
+        }
+        mask_clear(hits, cidx);
+        kl = m0;
+        bdone = (key_floor(m1) >= bq) | (m1 >= kFillFloor);
+      }
+    } while (!bdone);
     ++segs;
+#ifdef RT_WALK_COUNTERS
+    {
+      const unsigned act_ = __activemask();
+      const bool leader_ = (int)(threadIdx.x & 31) == __ffs(act_) - 1;
+      RT_WARP_COUNT(kWarpTail, true);
+      RT_COUNT(kLaneTail, 1u);
+    }
+#endif
 
-    // --- bounce complete: the shared tail ---
+    // --- bounce complete: the shared tail; what only it reads is formed
+    // here, so the walk holds two registers less ---
+    const uint32_t ctr = (uint32_t)(p.path.sample_offset + path.s) * dps +
+                         4u + (uint32_t)path.i * kDrawsPerBounce;
+    const float inv_a = 1.0f / a;
     const float* w = s_win + 11 * bs;
-    if (bounce_tail<kAdaptive, kStratified, kDebug>(
-            p.path, s_cam, w, w + 3, bq, inv_a, pix, dps, ctr, px, py, limit,
-            kDebug ? w[10] : 0.0f, p.dbg, path, sums) == kLaneDone)
-      break;
+    const int next = bounce_tail<kAdaptive, kStratified, kDebug>(
+        p.path, s_cam, w, w + 3, bq, inv_a, pix, dps, ctr, px, py, limit,
+        kDebug ? w[10] : 0.0f, p.dbg, path, sums);
     bq = kFillQ;
     bs = 0;
     kl = kNegBig;
-  }
+    if (next != kLaneDone) continue;
 
-  write_lane<kAdaptive>(p.out, p.segs, p.n, lane, sums, cost, path, segs);
+    // the lane has taken its samples: write it, and go on with the next
+    // lane of the map that has any
+    write_lane<kAdaptive>(p.out, p.segs, p.n, lane, sums, cost, path, segs);
+    for (;;) {
+      lane = next_lane(p);
+      if (lane >= p.n) break;
+      if (lane_setup<kAdaptive>(p.path, p.pixel_map, p.budget, p.out,
+                                p.segs, p.n, lane, px, py, pix, limit))
+        break;
+    }
+    if (lane >= p.n) break;
+    path.s = 0;
+    path.i = 0;
+    gen_ray<kStratified>(s_cam, p.path, (uint32_t)p.path.sample_offset, dps,
+                         px, py, pix, path);
+    path.cr = path.cg = path.cb = 1.0f;
+    sums = {0.0f, 0.0f, 0.0f, 0.0f};
+    cost = 0.0f;
+    segs = 0;
+  }
+#ifdef RT_WALK_COUNTERS
+  for (int c = 0; c < kNumCounters; ++c) atomicAdd(&g_counters[c], cnt[c]);
+#endif
 }
 
+template <bool kAdaptive, bool kStratified, bool kDebug, int kWords>
+cudaError_t launch_words(const Params& p, int blocks, size_t smem,
+                         cudaStream_t stream) {
+  auto kernel = cluster_walk_kernel<kAdaptive, kStratified, kDebug, kWords>;
+  // persistent: as many blocks as fit on every SM at once. The shared-
+  // memory limit and that count depend only on the instantiation, the
+  // device and the tables' size: worked out again only when one changes.
+  static int set_dev = -1, grid_max = 0;
+  static size_t set_smem = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev != set_dev || smem != set_smem) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kWalkThreads, smem);
+    if (err != cudaSuccess) return err;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    set_dev = dev;
+    set_smem = smem;
+    grid_max = per_sm * sms;
+  }
+  if (blocks > grid_max) blocks = grid_max;
+  err = cudaMemsetAsync(p.next_lane, 0, sizeof(int), stream);
+  if (err != cudaSuccess) return err;
+  kernel<<<blocks, kWalkThreads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// the box mask's width from the partition: one word up to 32 clusters
 template <bool kAdaptive, bool kStratified, bool kDebug>
 cudaError_t launch(const Params& p, int blocks, size_t smem,
                    cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      cluster_walk_kernel<kAdaptive, kStratified, kDebug>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  cluster_walk_kernel<kAdaptive, kStratified, kDebug>
-      <<<blocks, kThreads, smem, stream>>>(p);
-  return cudaGetLastError();
+  return p.k <= 32
+             ? launch_words<kAdaptive, kStratified, kDebug, 1>(p, blocks,
+                                                               smem, stream)
+             : launch_words<kAdaptive, kStratified, kDebug, kMaxWords>(
+                   p, blocks, smem, stream);
 }
 
 }  // namespace
 
 // Launches the walk's <adaptive, stratified, debug> instantiation on
 // `stream`; returns the launch's cudaError_t (0 on success), and
-// cudaErrorInvalidValue for debug with adaptive, which has none. Tables,
-// map and budget (null without one) are device pointers; the caller
-// checks shapes. The cursor and the selection are read with debug only.
+// cudaErrorInvalidValue for debug with adaptive, which has none, or for
+// tables that are not 16-byte aligned. The packed tables, map, budget
+// (null without one) and lane counter (one int) are device
+// pointers; the caller checks shapes and the tables' layout. The launch
+// zeroes the lane counter on `stream` first, so launches that share one
+// counter must share the stream. The cursor and the selection are read
+// with debug only.
 extern "C" int cluster_walk_launch(
-    const float* camera, const float* globals, const float* bounds,
-    const float* members, const float* winner, const int* pixel_map,
-    const int* budget, float* out, int* segs, int adaptive, int stratified,
-    int debug, int n, int n_global, int k, int group, int wp,
-    int seed, int sample_offset, int spp, int max_depth, int rr_depth,
-    int exhaust_black, int near_zero_guard, float inv_w, float inv_h,
-    float cursor_x, float cursor_y, float cursor_z, float selected,
-    void* stream) {
+    const float* tables, const int* pixel_map, const int* budget, float* out,
+    int* segs, int* next_lane, int adaptive, int stratified,
+    int debug, int n, int n_global, int k, int group, int n_parents,
+    int mstride, int off_glob, int off_par, int off_box, int off_mem,
+    int off_win, int n_floats, int wp, int seed, int sample_offset, int spp,
+    int max_depth, int rr_depth, int exhaust_black, int near_zero_guard,
+    float inv_w, float inv_h, float cursor_x, float cursor_y,
+    float cursor_z, float selected, void* stream) {
   if (n <= 0) return 0;
+  if (((uintptr_t)tables & 15u) != 0u || (n_floats & 3) != 0)
+    return (int)cudaErrorInvalidValue;
   Params p;
   p.path = path_params(wp, seed, sample_offset, spp, max_depth, rr_depth,
                        exhaust_black, near_zero_guard, inv_w, inv_h);
-  p.camera = camera;
-  p.globals = globals;
-  p.bounds = bounds;
-  p.members = members;
-  p.winner = winner;
+  p.tables = tables;
   p.pixel_map = pixel_map;
   p.budget = budget;
   p.out = out;
   p.segs = segs;
+  p.next_lane = next_lane;
   p.n = n;
   p.n_global = n_global;
   p.k = k;
   p.group = group;
-  p.slots = n_global + k * group;
+  p.n_parents = n_parents;
+  p.mstride = mstride;
+  p.off_glob = off_glob;
+  p.off_par = off_par;
+  p.off_box = off_box;
+  p.off_mem = off_mem;
+  p.off_win = off_win;
+  p.n_floats = n_floats;
   p.dbg = {cursor_x, cursor_y, cursor_z, selected};
-  const size_t smem =
-      sizeof(float) * (size_t)smem_floats(n_global, k, group, p.slots);
-  const int blocks = (n + kThreads - 1) / kThreads;
+  const size_t smem = sizeof(float) * (size_t)n_floats;
+  const int blocks = (n + kWalkThreads - 1) / kWalkThreads;
   cudaStream_t st = (cudaStream_t)stream;
   if (debug) {
     if (adaptive) return (int)cudaErrorInvalidValue;
@@ -284,3 +525,20 @@ extern "C" int cluster_walk_launch(
   return (int)(stratified ? launch<false, true, false>(p, blocks, smem, st)
                           : launch<false, false, false>(p, blocks, smem, st));
 }
+
+// The version of cluster_walk_launch's argument list, raised whenever it
+// changes: a caller binds only a library whose version it knows.
+extern "C" int cluster_walk_abi() { return 2; }
+
+#ifdef RT_WALK_COUNTERS
+// The counter build's totals since the last reset, into `host`
+// (kNumCounters entries); returns the cudaError_t.
+extern "C" int cluster_walk_counters(unsigned long long* host, int reset) {
+  cudaError_t err = cudaDeviceSynchronize();
+  if (err != cudaSuccess) return (int)err;
+  err = cudaMemcpyFromSymbol(host, g_counters, sizeof(g_counters));
+  if (err != cudaSuccess || !reset) return (int)err;
+  static const unsigned long long zeros[kNumCounters] = {};
+  return (int)cudaMemcpyToSymbol(g_counters, zeros, sizeof(g_counters));
+}
+#endif

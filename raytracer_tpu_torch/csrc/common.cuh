@@ -127,20 +127,6 @@ __device__ __forceinline__ void normalize3(float& x, float& y, float& z) {
   z = z * inv;
 }
 
-// random point in the unit ball; the cube root is exp(log(u)/3)
-__device__ __forceinline__ void unit_sphere(uint32_t pix, uint32_t ctr,
-                                            uint32_t salt, float& x, float& y,
-                                            float& z) {
-  float hx = u01(pix, ctr, salt) * 2.0f - 1.0f;
-  float phi = u01(pix, ctr, salt + 1) * kTwoPi;
-  float u = u01(pix, ctr, salt + 2);
-  float r = expf(logf(fmaxf(u, kUEps)) * kOneThird);
-  float s = sqrtf(fmaxf(1.0f - hx * hx, 0.0f));
-  x = r * s * sinf(phi);
-  y = r * s * cosf(phi);
-  z = r * hx;
-}
-
 // the sphere quadratic in q-space (q = t*|d|^2), roots nb -/+ sq. A
 // negative discriminant poisons sq to -3e38, never NaN.
 // c = [cx, cy, cz, k1 = |c|^2 - r^2].
@@ -263,26 +249,37 @@ __device__ __forceinline__ int bounce_tail(
       }
     }
     const float mat = (kDebug && marked) ? kMarked : wm[1];
-    if (mat < 0.5f) {  // diffuse
-      float uvx, uvy, uvz;
-      if (kStratified && path.i == 0) {
-        // first bounce: (hx, phi) on the unit sphere, already unit
+    // diffuse and metal draw their random vector in one place, so a warp
+    // whose lanes mix the two, or a stratified first bounce with later
+    // ones, runs the transcendentals once: a point in the unit ball,
+    // exp(log(u)/3) its radius (diffuse normalises it), or on a sample's
+    // first stratified diffuse bounce a point on the unit sphere
+    float vx = 0.0f, vy = 0.0f, vz = 0.0f;
+    if (mat < 1.5f) {
+      const bool diffuse = mat < 0.5f;
+      const bool strat0 = kStratified && diffuse && path.i == 0;
+      float hx, phi, r = 1.0f;
+      if (strat0) {
         const uint32_t s_u = (uint32_t)(p.sample_offset + path.s);
-        const float b_hx =
-            r2_fixed(pix, kRotBounce0, 0, s_u, kAB0Fix0) * 2.0f - 1.0f;
-        const float b_phi =
-            r2_fixed(pix, kRotBounce0, 1, s_u, kAB0Fix1) * kTwoPi;
-        const float b_s = sqrtf(fmaxf(1.0f - b_hx * b_hx, 0.0f));
-        uvx = b_s * sinf(b_phi);
-        uvy = b_s * cosf(b_phi);
-        uvz = b_hx;
+        hx = r2_fixed(pix, kRotBounce0, 0, s_u, kAB0Fix0) * 2.0f - 1.0f;
+        phi = r2_fixed(pix, kRotBounce0, 1, s_u, kAB0Fix1) * kTwoPi;
       } else {
-        unit_sphere(pix, ctr, 0, uvx, uvy, uvz);
-        normalize3(uvx, uvy, uvz);
+        const uint32_t salt = diffuse ? 0u : 3u;
+        hx = u01(pix, ctr, salt) * 2.0f - 1.0f;
+        phi = u01(pix, ctr, salt + 1) * kTwoPi;
+        r = expf(logf(fmaxf(u01(pix, ctr, salt + 2), kUEps)) * kOneThird);
       }
-      ndx = nx + uvx;
-      ndy = ny + uvy;
-      ndz = nz + uvz;
+      const float s = sqrtf(fmaxf(1.0f - hx * hx, 0.0f));
+      const float rs = strat0 ? s : r * s;
+      vx = rs * sinf(phi);
+      vy = rs * cosf(phi);
+      vz = strat0 ? hx : r * hx;
+      if (diffuse && !strat0) normalize3(vx, vy, vz);
+    }
+    if (mat < 0.5f) {  // diffuse
+      ndx = nx + vx;
+      ndy = ny + vy;
+      ndz = nz + vz;
       if (p.near_zero_guard && fabsf(ndx) < kNearZero &&
           fabsf(ndy) < kNearZero && fabsf(ndz) < kNearZero) {
         ndx = nx;
@@ -291,13 +288,11 @@ __device__ __forceinline__ int bounce_tail(
       }
       scat = true;
     } else if (mat < 1.5f) {  // metal: reflect + fuzz
-      float usx, usy, usz;
-      unit_sphere(pix, ctr, 3, usx, usy, usz);
       const float d_dot_n = dot3(dx, dy, dz, nx, ny, nz);
       const float fuzz = wm[5];
-      ndx = dx - 2.0f * d_dot_n * nx + fuzz * usx;
-      ndy = dy - 2.0f * d_dot_n * ny + fuzz * usy;
-      ndz = dz - 2.0f * d_dot_n * nz + fuzz * usz;
+      ndx = dx - 2.0f * d_dot_n * nx + fuzz * vx;
+      ndy = dy - 2.0f * d_dot_n * ny + fuzz * vy;
+      ndz = dz - 2.0f * d_dot_n * nz + fuzz * vz;
       scat = dot3(nx, ny, nz, ndx, ndy, ndz) > 0.0f;
     } else if (mat < 2.5f) {  // glass: Snell + TIR + Schlick roll
       const float refr = wm[6];

@@ -85,8 +85,11 @@ __device__ __forceinline__ float far_q(const float* c, float ox, float oy,
   return nb + sq;
 }
 
+// seven blocks an SM: ptxas keeps the kernel within 72 registers, 28
+// warps an SM, where the shared tail's merged draw took it to 71-86
+// unbounded (64 registers slow K2 on the cover's 487 slots by 6 %)
 template <bool kAdaptive, bool kStratified, bool kSplit, bool kDebug>
-__global__ void __launch_bounds__(kThreads) flat_scan_kernel(Params p) {
+__global__ void __launch_bounds__(kThreads, 7) flat_scan_kernel(Params p) {
   extern __shared__ float smem[];
   float* s_cam = smem;       // 19, padded to 20
   float* s_tab = smem + 20;  // slots * kRow
@@ -241,3 +244,7 @@ extern "C" int flat_scan_launch(
   return (int)(stratified ? launch_split<false, true>(p, split, blocks, smem, st)
                           : launch_split<false, false>(p, split, blocks, smem, st));
 }
+
+// The version of flat_scan_launch's argument list, raised whenever it
+// changes: a caller binds only a library whose version it knows.
+extern "C" int flat_scan_abi() { return 1; }

@@ -22,7 +22,11 @@ extraction of the two nearest unvisited packed (entry, cluster) keys,
 an exact test of the first one's members, the fused bounce-done test on
 the second, and on bounce completion the shared tail: winner lookup,
 front-face normal, diffuse / metal / glass scatter, Russian roulette,
-depth exhaustion, accumulation and path regeneration.
+depth exhaustion, accumulation and path regeneration. The kernel makes
+the same selection from fewer slab tests: once a bounce, through parent
+boxes (``tables.parent_boxes``) and a mask of the boxes hit; the plain
+version tests every box on every walk iteration (:func:`box_keys`,
+:func:`select_two`).
 
 Three compile-time switches of the kernel follow ``opts``. Adaptive
 (``adaptive_tolerance`` > 0): a lane samples up to its own ``budget``
@@ -55,13 +59,18 @@ from raytracer_tpu_torch.render.options import (
 )
 from raytracer_tpu_torch.render.tables import (
     MAX_CLUSTERS,
+    PARENT_FANOUT,
     WalkTables,
     debug_uniforms,
+    walk_layout,
 )
 
 LANES_TPU = 128  # the RNG's pixel id keeps the TPU's padded row width
 DRAWS_PER_BOUNCE = 8
 FILLQ = 3e38
+#: the version of ``cluster_walk_launch``'s arguments that :func:`call`
+#: passes (``cluster_walk_abi`` in ``csrc/cluster_walk.cu``)
+ABI = 2
 NEG_BIG = -3e38
 #: the overlay's marker: a hit whose squared distance to the cursor is
 #: below this; the outline: the selected sphere where d·n > GRAZING
@@ -100,14 +109,17 @@ def variant_name(opts: TraceOptions) -> str:
 
 def _check(tables: WalkTables, pixel_map: torch.Tensor, width: int,
            height: int, spp: int, opts: TraceOptions, budget):
-    check_tables(tables, ("camera", "globals", "bounds", "members", "winner"),
-                 pixel_map.device)
+    check_tables(tables, ("camera", "globals", "bounds", "members", "winner",
+                          "parents", "packed"), pixel_map.device)
     k, group = tables.members.shape[:2]
     n_global = tables.globals.shape[0]
     if (tables.camera.shape != (19,) or tables.globals.shape[1:] != (4,)
             or tables.bounds.shape != (k, 6)
             or tables.members.shape[2:] != (4,)
-            or tables.winner.shape != (n_global + k * group, 11)):
+            or tables.winner.shape != (n_global + k * group, 11)
+            or tables.parents.shape != (-(-k // PARENT_FANOUT), 6)
+            or tables.packed.shape != (
+                walk_layout(n_global, k, group).n_floats,)):
         raise ValueError("inconsistent walk table shapes")
     if not 1 <= k <= MAX_CLUSTERS:
         raise ValueError(f"cluster count {k} outside [1, {MAX_CLUSTERS}]")
@@ -189,10 +201,22 @@ def reset_launch_counts():
 def _lib():
     from raytracer_tpu_torch.utils import cuda_build
 
-    lib = cuda_build.load("cluster_walk")
+    return bind(cuda_build.load("cluster_walk"))
+
+
+def bind(lib: ctypes.CDLL):
+    """``cluster_walk_launch`` of a loaded library, with its argument
+    types set; raises where the library's interface version is not
+    ``ABI``."""
+    from raytracer_tpu_torch.utils import cuda_build
+
     fn = lib.cluster_walk_launch
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 15
+        got = cuda_build.abi(lib, "cluster_walk_abi")
+        if got != ABI:
+            raise RuntimeError(f"cluster_walk library has launch interface "
+                               f"{got}, this wrapper passes {ABI}")
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 23
                        + [ctypes.c_float] * 6 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
@@ -200,8 +224,24 @@ def _lib():
 
 def _launch(tables, pixel_map, seed, sample_offset, spp, width, height,
             opts, budget, uniforms):
+    out, segs = call(_lib(), tables, pixel_map, seed, sample_offset, spp,
+                     width, height, opts, budget, uniforms)
+    cluster_walk.launches += 1
+    name = variant_name(opts)
+    by_variant = cluster_walk.launches_by_variant
+    by_variant[name] = by_variant.get(name, 0) + 1
+    return out, segs
+
+
+def call(fn, tables, pixel_map, seed, sample_offset, spp, width, height,
+         opts, budget, uniforms):
+    """``(out, segs)`` of one launch of ``fn`` (a bound
+    ``cluster_walk_launch``) on the current stream, uncounted; raises on
+    the launch's CUDA error."""
     n = pixel_map.shape[0]
     k, group = tables.members.shape[:2]
+    n_global = tables.globals.shape[0]
+    lay = walk_layout(n_global, k, group)
     dev = pixel_map.device
     adaptive = opts.adaptive_tolerance > 0.0
     # the kernel writes every element, zeros for a lane without budget
@@ -210,19 +250,18 @@ def _launch(tables, pixel_map, seed, sample_offset, spp, width, height,
     segs = torch.empty((n,), dtype=torch.int32, device=dev)
     if n == 0:
         return out, segs
-    fn = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        next_lane = _lane_counter(dev, stream)
         err = fn(
-            tables.camera.data_ptr(), tables.globals.data_ptr(),
-            tables.bounds.data_ptr(), tables.members.data_ptr(),
-            tables.winner.data_ptr(), pixel_map.data_ptr(),
+            tables.packed.data_ptr(), pixel_map.data_ptr(),
             None if budget is None else budget.data_ptr(),
-            out.data_ptr(), segs.data_ptr(),
+            out.data_ptr(), segs.data_ptr(), next_lane.data_ptr(),
             int(adaptive), int(opts.sampler == "stratified"),
             int(uniforms is not None),
-            n, tables.globals.shape[0], k, group, padded_width(width),
-            int(seed), int(sample_offset), int(spp),
+            n, n_global, k, group, lay.n_parents, lay.mstride, lay.off_glob,
+            lay.off_par, lay.off_box, lay.off_mem, lay.off_win, lay.n_floats,
+            padded_width(width), int(seed), int(sample_offset), int(spp),
             opts.max_depth, opts.russian_roulette_depth,
             int(opts.exhaust_black), int(opts.near_zero_guard),
             float(np.float32(1.0 / width)), float(np.float32(1.0 / height)),
@@ -230,11 +269,20 @@ def _launch(tables, pixel_map, seed, sample_offset, spp, width, height,
         )
     if err != 0:
         raise RuntimeError(f"cluster_walk kernel launch failed: CUDA error {err}")
-    cluster_walk.launches += 1
-    name = variant_name(opts)
-    by_variant = cluster_walk.launches_by_variant
-    by_variant[name] = by_variant.get(name, 0) + 1
     return out, segs
+
+
+_LANE_COUNTERS = {}
+
+
+def _lane_counter(dev: torch.device, stream: int) -> torch.Tensor:
+    """The kernel's lane counter for ``stream`` on ``dev``: one int32 that
+    every launch on that stream reuses (the launch zeroes it there)."""
+    key = (dev.index, stream)
+    if key not in _LANE_COUNTERS:
+        _LANE_COUNTERS[key] = torch.zeros((1,), dtype=torch.int32,
+                                          device=dev)
+    return _LANE_COUNTERS[key]
 
 
 def _gen_ray(cam, s_abs, px, py, pix, inv_w, inv_h, dps, stratified):
@@ -577,6 +625,40 @@ def bounce_tail(st: PathState, lanes: Lanes, win, bq: torch.Tensor,
     return scat_cont
 
 
+def box_keys(ray, boxes: torch.Tensor) -> torch.Tensor:
+    """(n, K) packed visit keys of each lane's ray (``ray`` = (ox, oy, oz,
+    dx, dy, dz, a, o_dot_d, o_dot_o, min_t_a), each (n,)) against the
+    (K, 6) ``boxes``: the slab test's entry q = t·|d|² with its 7 low bits
+    floored, OR the box's index; a missed box's key is at least
+    FILL_FLOOR."""
+    ox, oy, oz, dx, dy, dz, a, _, _, min_t_a = ray
+    tn = tf = None
+    for j, (o_, d_) in enumerate(((ox, dx), (oy, dy), (oz, dz))):
+        iv = _col(_inv_dir(d_))
+        t1 = (boxes[None, :, j] - _col(o_)) * iv
+        t2 = (boxes[None, :, j + 3] - _col(o_)) * iv
+        if tn is None:
+            tn, tf = torch.minimum(t1, t2), torch.maximum(t1, t2)
+        else:
+            tn = torch.maximum(tn, torch.minimum(t1, t2))
+            tf = torch.minimum(tf, torch.maximum(t1, t2))
+    qn_q = torch.maximum(tn * _col(a), _col(min_t_a))
+    hitb = (tf >= tn) & (tf * _col(a) >= _col(min_t_a)) & (qn_q < 1e20)
+    qe = torch.where(hitb, qn_q, FILLQ)
+    idx = torch.arange(boxes.shape[0], device=boxes.device,
+                       dtype=torch.int32)
+    return ((qe.view(torch.int32) & -128) | idx).view(torch.float32)
+
+
+def select_two(keys: torch.Tensor, kl: torch.Tensor):
+    """(m0, m1): each lane's two smallest keys beyond its cursor ``kl``,
+    INFINITY where there are none."""
+    inf = float("inf")
+    m0 = torch.where(keys > _col(kl), keys, inf).min(dim=1).values
+    m1 = torch.where(keys > _col(m0), keys, inf).min(dim=1).values
+    return m0, m1
+
+
 def cluster_walk_plain(tables: WalkTables, pixel_map: torch.Tensor,
                        seed: int, sample_offset: int, spp: int, width: int,
                        height: int, opts: TraceOptions,
@@ -589,13 +671,10 @@ def cluster_walk_plain(tables: WalkTables, pixel_map: torch.Tensor,
     f32 = torch.float32
     n = pixel_map.shape[0]
     n_global = tables.globals.shape[0]
-    k, group = tables.members.shape[:2]
+    group = tables.members.shape[1]
     glob = [list(g.unbind(0)) for g in tables.globals]
-    bnd = [tables.bounds[:, j] for j in range(6)]
     lanes, st = lane_setup(tables.camera, pixel_map, seed, sample_offset,
                            spp, width, height, opts, budget, debug)
-    idx_k = torch.arange(k, device=dev, dtype=torch.int32)
-
     bq = torch.full((n,), FILLQ, dtype=f32, device=dev)
     bs = torch.zeros(n, dtype=torch.int64, device=dev)
     kl = torch.full((n,), NEG_BIG, dtype=f32, device=dev)
@@ -624,26 +703,7 @@ def cluster_walk_plain(tables: WalkTables, pixel_map: torch.Tensor,
         bs = torch.where(fresh, g_slot, bs)
 
         # slab test of every cluster box, in q-space
-        tn = tf = None
-        for o_, d_, lo, hi in ((ox, dx, bnd[0], bnd[3]),
-                               (oy, dy, bnd[1], bnd[4]),
-                               (oz, dz, bnd[2], bnd[5])):
-            iv = _col(_inv_dir(d_))
-            t1 = (lo[None, :] - _col(o_)) * iv
-            t2 = (hi[None, :] - _col(o_)) * iv
-            if tn is None:
-                tn, tf = torch.minimum(t1, t2), torch.maximum(t1, t2)
-            else:
-                tn = torch.maximum(tn, torch.minimum(t1, t2))
-                tf = torch.minimum(tf, torch.maximum(t1, t2))
-        qn_q = torch.maximum(tn * _col(a), _col(min_t_a))
-        hitb = (tf >= tn) & (tf * _col(a) >= _col(min_t_a)) & (qn_q < 1e20)
-        qe = torch.where(hitb, qn_q, FILLQ)
-        # packed key: entry with its 7 low bits floored, OR cluster index
-        keys = ((qe.view(torch.int32) & -128) | idx_k).view(f32)
-        inf = float("inf")
-        m0 = torch.where(keys > _col(kl), keys, inf).min(dim=1).values
-        m1 = torch.where(keys > _col(m0), keys, inf).min(dim=1).values
+        m0, m1 = select_two(box_keys(ray, tables.bounds), kl)
 
         imm_done = (_key_floor(m0) >= bq) | (m0 >= FILL_FLOOR)
         u_live = alive & ~imm_done

@@ -57,6 +57,9 @@ ROW = 12
 #: shared memory a block may take without opting in to more; the scan's
 #: whole table (20 + 12 floats a slot) must fit: at most 1022 slots
 MAX_SMEM_BYTES = 48 * 1024
+#: the version of ``flat_scan_launch``'s arguments that :func:`call`
+#: passes (``flat_scan_abi`` in ``csrc/flat_scan.cu``)
+ABI = 1
 
 
 def smem_bytes(slots: int) -> int:
@@ -130,9 +133,20 @@ def reset_launch_counts():
 def _lib():
     from raytracer_tpu_torch.utils import cuda_build
 
-    lib = cuda_build.load("flat_scan")
+    return bind(cuda_build.load("flat_scan"))
+
+
+def bind(lib: ctypes.CDLL):
+    """``flat_scan_launch`` of a loaded library, with its argument types
+    set; raises where the library's interface version is not ``ABI``."""
+    from raytracer_tpu_torch.utils import cuda_build
+
     fn = lib.flat_scan_launch
     if fn.argtypes is None:
+        got = cuda_build.abi(lib, "flat_scan_abi")
+        if got != ABI:
+            raise RuntimeError(f"flat_scan library has launch interface "
+                               f"{got}, this wrapper passes {ABI}")
         fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 15
                        + [ctypes.c_float] * 6 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -141,6 +155,20 @@ def _lib():
 
 def _launch(tables, pixel_map, seed, sample_offset, spp, width, height,
             opts, g_full, budget, uniforms):
+    out, segs = call(_lib(), tables, pixel_map, seed, sample_offset, spp,
+                     width, height, opts, g_full, budget, uniforms)
+    flat_scan.launches += 1
+    name = variant_name(opts, is_split(tables, g_full))
+    by_variant = flat_scan.launches_by_variant
+    by_variant[name] = by_variant.get(name, 0) + 1
+    return out, segs
+
+
+def call(fn, tables, pixel_map, seed, sample_offset, spp, width, height,
+         opts, g_full, budget, uniforms):
+    """``(out, segs)`` of one launch of ``fn`` (a bound
+    ``flat_scan_launch``) on the current stream, uncounted; raises on the
+    launch's CUDA error."""
     n = pixel_map.shape[0]
     dev = pixel_map.device
     adaptive = opts.adaptive_tolerance > 0.0
@@ -152,7 +180,6 @@ def _launch(tables, pixel_map, seed, sample_offset, spp, width, height,
     segs = torch.empty((n,), dtype=torch.int32, device=dev)
     if n == 0:
         return out, segs
-    fn = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(
@@ -171,10 +198,6 @@ def _launch(tables, pixel_map, seed, sample_offset, spp, width, height,
         )
     if err != 0:
         raise RuntimeError(f"flat_scan kernel launch failed: CUDA error {err}")
-    flat_scan.launches += 1
-    name = variant_name(opts, split)
-    by_variant = flat_scan.launches_by_variant
-    by_variant[name] = by_variant.get(name, 0) + 1
     return out, segs
 
 

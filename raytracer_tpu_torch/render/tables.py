@@ -7,13 +7,17 @@
 The TPU layouts (sublane pre-broadcast, 128-lane winner banks, the
 bf16-split parameter table, padding to 128 lanes and to 8 rows) are
 gone: the tables are plain row-major float32 arrays that the kernels load
-into shared memory once per block and index directly. Tables are built
-where the scene lives and then uploaded (:func:`upload`).
+into shared memory once per block and index directly. The cluster walk's
+kernel reads them packed into one array laid out as its shared memory
+(:func:`walk_layout`, :func:`pack_walk`), with one level of parent boxes
+over its kd leaves (:func:`parent_boxes`). Tables are built where the
+scene lives and then uploaded (:func:`upload`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
@@ -29,6 +33,12 @@ from raytracer_tpu_torch.scene.spheres import Scene
 
 #: the packed visit key carries the cluster index in 7 mantissa bits
 MAX_CLUSTERS = 128
+#: kd leaves under one parent box of the walk's culled box test
+PARENT_FANOUT = 4
+#: floats of a box in the packed tables: [lo xyz, 0, hi xyz, 0]
+BOX_FLOATS = 8
+#: floats of the camera's 19 uniforms in the packed tables
+CAMERA_FLOATS = 20
 
 
 def _sum3(v: torch.Tensor) -> torch.Tensor:
@@ -137,19 +147,56 @@ def cluster_reorder(scene: Scene, uuid: torch.Tensor) -> Scene:
 
 @dataclasses.dataclass(frozen=True)
 class WalkTables:
-    """Everything the cluster walk reads besides the lane→pixel map."""
+    """Everything the cluster walk reads besides the lane→pixel map: the
+    tables the plain version reads, and ``packed``, the same tables (with
+    ``parents``) as the kernel's shared memory holds them. Built by
+    :func:`walk_tables` (and moved by :meth:`to`) as views of one buffer,
+    ``packed`` first."""
 
     camera: torch.Tensor  # (19,) origin, llc, horizontal, vertical, u, v, lens
     globals: torch.Tensor  # (n_global, 4) [cx, cy, cz, k1]
     bounds: torch.Tensor  # (K, 6) member AABBs [lo xyz, hi xyz]
     members: torch.Tensor  # (K, group, 4) [cx, cy, cz, k1]
     winner: torch.Tensor  # (slots, 11) [c xyz, 1/r, mat, albedo, fuzz, ior, uuid]
+    parents: torch.Tensor  # (ceil(K / PARENT_FANOUT), 6), see parent_boxes
+    packed: torch.Tensor  # (walk_layout(...).n_floats,), see pack_walk
 
     def to(self, device) -> "WalkTables":
-        return WalkTables(**{
-            f.name: upload(getattr(self, f.name), device)
-            for f in dataclasses.fields(self)
-        })
+        """The tables on ``device``, in one copy."""
+        tabs = {name: getattr(self, name) for name in _WALK_ORDER}
+        device = torch.device(device)
+        if all(t.device.type == device.type
+               and device.index in (None, t.device.index)
+               for t in tabs.values()):
+            return self
+        flat = torch.cat([t.reshape(-1) for t in tabs.values()])
+        return WalkTables(**_views(upload(flat, device), {
+            name: tuple(t.shape) for name, t in tabs.items()}))
+
+
+#: the walk tables' order in their one buffer: ``packed`` at its start,
+#: so the kernel's 16-byte rows stay aligned
+_WALK_ORDER = ("packed", "camera", "globals", "bounds", "members", "winner",
+               "parents")
+
+
+def _views(buf, shapes: dict) -> dict:
+    """Name → the view of ``buf`` (a 1-D numpy array or tensor) that holds
+    that table, the tables one after another in the order of
+    ``shapes``."""
+    views, at = {}, 0
+    for name, shape in shapes.items():
+        strides = [1]
+        for d in shape[:0:-1]:
+            strides.insert(0, strides[0] * d)
+        n = strides[0] * shape[0]
+        if isinstance(buf, torch.Tensor):
+            # one PyTorch call a view: the tables are rebuilt every frame
+            views[name] = buf.as_strided(shape, strides, at)
+        else:
+            views[name] = buf[at:at + n].reshape(shape)
+        at += n
+    return views
 
 
 @dataclasses.dataclass(frozen=True)
@@ -205,13 +252,107 @@ def cluster_tables(scene: Scene, boxes, uuid, n_global: int,
     )
 
 
+def parent_boxes(bounds: np.ndarray) -> np.ndarray:
+    """(ceil(K / PARENT_FANOUT), 6) float32 from the (K, 6) float32 kd
+    leaves: each run of PARENT_FANOUT consecutive leaves (the last run
+    may be shorter) under one box, the min of their lows and the max of
+    their highs, exact."""
+    k = bounds.shape[0]
+    n_par = -(-k // PARENT_FANOUT)
+    # repeat the last leaf into the short run: it changes no min or max
+    runs = np.concatenate(
+        [bounds, np.repeat(bounds[-1:], n_par * PARENT_FANOUT - k, 0)]
+    ).reshape(n_par, PARENT_FANOUT, 6)
+    return np.concatenate([runs[..., :3].min(1), runs[..., 3:].max(1)], 1)
+
+
+def member_stride(group: int) -> int:
+    """float4 rows from one cluster's members to the next in the packed
+    tables: ``group`` made odd, so the same member of clusters a warp
+    visits at once lies in different shared-memory banks."""
+    return group | 1
+
+
+@dataclasses.dataclass(frozen=True)
+class WalkLayout:
+    """Offsets (in floats, each a multiple of 4) of the packed walk
+    tables: camera at 0, then globals, parent boxes, boxes, members (a
+    cluster every ``mstride`` float4 rows) and winner rows."""
+
+    n_parents: int
+    mstride: int
+    off_glob: int
+    off_par: int
+    off_box: int
+    off_mem: int
+    off_win: int
+    n_floats: int
+
+
+def walk_layout(n_global: int, k: int, group: int) -> WalkLayout:
+    n_par = -(-k // PARENT_FANOUT)
+    mstride = member_stride(group)
+    off_glob = CAMERA_FLOATS
+    off_par = off_glob + 4 * n_global
+    off_box = off_par + BOX_FLOATS * n_par
+    off_mem = off_box + BOX_FLOATS * k
+    off_win = off_mem + 4 * k * mstride
+    end = off_win + 11 * (n_global + k * group)
+    return WalkLayout(n_par, mstride, off_glob, off_par, off_box, off_mem,
+                      off_win, -(-end // 4) * 4)
+
+
+def pack_walk(out, camera, globals_, parents, bounds, members, winner):
+    """Writes the walk's tables into ``out``, laid out as
+    :func:`walk_layout` says: a zeroed (n_floats,) float32 numpy array or
+    tensor, with the tables of the same kind (and device). Returns
+    ``out``."""
+    k, group = members.shape[:2]
+    lay = walk_layout(globals_.shape[0], k, group)
+    out[:19] = camera
+    out[lay.off_glob:lay.off_par] = globals_.reshape(-1)
+    for off, n, boxes in ((lay.off_par, lay.n_parents, parents),
+                          (lay.off_box, k, bounds)):
+        rows = out[off:off + BOX_FLOATS * n].reshape(n, BOX_FLOATS)
+        rows[:, :3] = boxes[:, :3]
+        rows[:, 4:7] = boxes[:, 3:]
+    out[lay.off_mem:lay.off_win].reshape(k, lay.mstride, 4)[:, :group] = \
+        members
+    out[lay.off_win:lay.off_win + 11 * winner.shape[0]] = winner.reshape(-1)
+    return out
+
+
 def walk_tables(part: ClusteredScene, dcam: DerivedCamera,
                 device) -> WalkTables:
-    """The partition's and the camera's tables, on ``device``."""
+    """The partition's and the camera's tables on ``device``: built where
+    the scene lives (the boxes and their parents on the host), written
+    with the packed array into one buffer there, and uploaded in one
+    copy; every table is a view of it. A scene on the host is packed in
+    numpy, without a PyTorch call."""
     globals_, bounds, members, winner = cluster_tables(
         part.scene, part.boxes, part.uuid, part.n_global, part.group
     )
-    return WalkTables(
-        camera=camera_uniforms(dcam), globals=globals_, bounds=bounds,
-        members=members, winner=winner,
-    ).to(device)
+    n_global, (k, group) = globals_.shape[0], members.shape[:2]
+    bounds = bounds.numpy()
+    tabs = {"camera": camera_uniforms(dcam), "globals": globals_,
+            "bounds": bounds, "members": members, "winner": winner,
+            "parents": parent_boxes(bounds)}
+    shapes = {"packed": (walk_layout(n_global, k, group).n_floats,),
+              **{name: tuple(t.shape) for name, t in tabs.items()}}
+    total = sum(math.prod(shape) for shape in shapes.values())
+    at = members.device
+    if all(t.device.type == "cpu" for t in (tabs["camera"], globals_,
+                                             members, winner)):
+        tabs = {name: np.asarray(t) for name, t in tabs.items()}
+        buf = np.zeros(total, np.float32)
+    else:
+        tabs = {name: torch.as_tensor(t).to(at) for name, t in tabs.items()}
+        buf = torch.zeros(total, dtype=torch.float32, device=at)
+    views = _views(buf, shapes)
+    pack_walk(views.pop("packed"), tabs["camera"], tabs["globals"],
+              tabs["parents"], tabs["bounds"], tabs["members"],
+              tabs["winner"])
+    for name, view in views.items():
+        view[...] = tabs[name]
+    flat = torch.from_numpy(buf) if isinstance(buf, np.ndarray) else buf
+    return WalkTables(**_views(upload(flat, device), shapes))

@@ -1,0 +1,667 @@
+"""The cluster walk (K1 and its five other instantiations) against the
+base revision of its kernel, on the card, the walk's own structure
+counters, and the flat scan that shares its tail against its base
+revision too.
+
+    python -m raytracer_tpu_torch.scripts.walk_ab [--repeats 6] [--out DIR]
+
+The base revision is the commit this tree's kernels are held against:
+``HEAD`` where the working tree's ``raytracer_tpu_torch/csrc`` differs
+from it, else ``HEAD``'s parent (:func:`base_revision`). Its package is
+unpacked with ``git archive`` into ``build/walk_parent/<commit>``, and
+``build/walk_parent/BASE`` names it, so that a copy of the tree without
+its history (``.git``) still finds it. Without either, the old builds are
+left out. A base library is bound by the launch interface version it
+exports (``cluster_walk_abi``, ``flat_scan_abi``; none is version 1);
+one whose version no binder here knows is left out, never called.
+
+1. Builds, one ``nvcc`` each and all at once: the base revision, the
+   current source, and the current source with ``-DRT_WALK_COUNTERS``;
+   prints ``-Xptxas -v`` of each instantiation and the SASS (``cuobjdump
+   -sass``) of each walk instantiation: its instruction count, and per
+   loop (a backward branch) its body's instructions by class.
+2. Runs every build on the same inputs at the main path's shapes: K1 and
+   K1s on one 153-spp sorted chunk of the cover at 1200x800, depth 50,
+   roulette from bounce 5 (``chip_smoke.py``'s kernel-alone chunk), and K1
+   there with the cover in clusters of 8 (61: the wide box mask); K1a
+   and K1a+K1s on two launches of the cover's adaptive render (tolerance
+   0.2), with the lane map and budget its own re-plans gave them: the
+   first sorted chunk, where every lane has budget, and one from the
+   middle of the tail, where few have; K3 on K1 and on K1s on a 1280x720
+   frame, 1 spp, depth 8 (the engine's), the cursor at the centre's hit.
+   Every output row and the segments must be bitwise equal to the
+   current build's.
+3. Times them in turns (old, new, then the reverse order, and again) by
+   CUDA events around one launch each.
+4. The counter build on the same inputs: warp trips and the SIMT
+   efficiency (active lanes per warp trip over 32) of the trip, of the
+   bounce start, of the member loop and of the tail; slab tests per
+   completed bounce beside the k a trip the flat walk made.
+5. The flat scan (``csrc/flat_scan.cu``), which shares the walk's bounce
+   tail: its ten instantiations, base revision and current build, bitwise
+   and timed in turns the same way, on the demo's 1080p progressive frame
+   (31-spp chunks for the adaptive ones, 40 % of the lanes without
+   budget), the engine's 720p frame for the debug ones, and K2 and K2s on
+   a 41-spp chunk of the cover (487 slots, depth 50).
+
+Writes everything to ``<out>/walk_ab.json`` as well, and the SASS
+listings under ``<out>/sass/`` (``--out``, ``build/walk_ab`` by default).
+Needs a card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import io
+import json
+import os
+import re
+import shutil
+import subprocess
+import tarfile
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from raytracer_tpu_torch.render import cluster_walk as cw
+from raytracer_tpu_torch.utils import cuda_build
+
+ROOT = cuda_build.PACKAGE_DIR.parent
+PARENT_DIR = ROOT / "build" / "walk_parent"
+OUT_DIR = ROOT / "build" / "walk_ab"
+PACKAGE_REL = "raytracer_tpu_torch"
+CSRC_REL = f"{PACKAGE_REL}/csrc"
+COUNTERS = ("warp_trips", "lane_trips", "warp_fresh", "lane_fresh",
+            "warp_visit", "lane_visit", "warp_tail", "lane_tail",
+            "slab_tests")
+#: instantiation name → (adaptive, stratified, debug)
+VARIANTS = {
+    "cluster_walk": (False, False, False),
+    "cluster_walk_stratified": (False, True, False),
+    "cluster_walk_adaptive": (True, False, False),
+    "cluster_walk_adaptive_stratified": (True, True, False),
+    "cluster_walk_debug": (False, False, True),
+    "cluster_walk_stratified_debug": (False, True, True),
+}
+#: flat-scan instantiation → (adaptive, stratified, split, debug)
+FLAT_VARIANTS = {
+    "flat_scan": (False, False, False, False),
+    "flat_scan_stratified": (False, True, False, False),
+    "flat_scan_adaptive": (True, False, False, False),
+    "flat_scan_adaptive_stratified": (True, True, False, False),
+    "flat_scan_split": (False, False, True, False),
+    "flat_scan_split_stratified": (False, True, True, False),
+    "flat_scan_split_adaptive": (True, False, True, False),
+    "flat_scan_split_adaptive_stratified": (True, True, True, False),
+    "flat_scan_debug": (False, False, False, True),
+    "flat_scan_stratified_debug": (False, True, False, True),
+}
+PROG_W, PROG_H = 1920, 1080
+COVER_FLAT_CHUNK = 41
+ADAPTIVE_CHUNK = 31
+#: launches of the cover's adaptive render ([4] + [31] x 16) the A/B
+#: takes, by case-name suffix: the first sorted chunk (no pixel has the 64
+#: samples it needs to stop, so every lane has budget), and one from the
+#: middle of the tail (launches 3-16, after pixels begin to stop)
+ADAPTIVE_LAUNCHES = {"": 1, " tail": 9}
+#: the cover in clusters of 8: 61 clusters, past the one-word box mask
+WIDE_GROUP = 8
+SASS_LOOPS_SHOWN = 8
+ENGINE_W, ENGINE_H, ENGINE_DEPTH = 1280, 720, 8
+
+
+def _git(root: Path, *args) -> subprocess.CompletedProcess:
+    return subprocess.run(["git", "-C", str(root), *args],
+                          capture_output=True)
+
+
+def base_revision(root: Path = ROOT) -> str | None:
+    """The commit the tree's kernels are held against: ``HEAD`` where the
+    working tree's ``csrc`` differs from it, else ``HEAD``'s parent; None
+    where the checkout has no history for it."""
+    if shutil.which("git") is None or not (root / ".git").exists():
+        return None
+    changed = _git(root, "diff", "--quiet", "HEAD", "--", CSRC_REL).returncode
+    if changed not in (0, 1):
+        return None
+    rev = _git(root, "rev-parse", "--verify", "-q",
+               "HEAD" if changed else "HEAD^")
+    return rev.stdout.decode().strip() if rev.returncode == 0 else None
+
+
+def parent_tree(root: Path = ROOT) -> Path | None:
+    """The base revision's tree (its package alone), unpacked under
+    ``build/walk_parent/<commit>``; where the checkout has no history, the
+    one ``build/walk_parent/BASE`` names; None where neither is there."""
+    sha = base_revision(root)
+    base = PARENT_DIR / "BASE"
+    if sha is None:
+        if not base.exists():
+            return None
+        sha = base.read_text().strip()
+        tree = PARENT_DIR / sha
+        return tree if (tree / CSRC_REL / "cluster_walk.cu").exists() else None
+    tree = PARENT_DIR / sha
+    if not (tree / CSRC_REL / "cluster_walk.cu").exists():
+        proc = _git(root, "archive", sha, f"{PACKAGE_REL}/")
+        if proc.returncode != 0:
+            return None
+        tree.mkdir(parents=True, exist_ok=True)
+        with tarfile.open(fileobj=io.BytesIO(proc.stdout)) as tar:
+            tar.extractall(tree, filter="data")
+    base.write_text(sha + "\n")
+    return tree
+
+
+def parent_csrc(root: Path = ROOT) -> Path | None:
+    """The base revision's ``csrc`` (see :func:`parent_tree`), or None."""
+    tree = parent_tree(root)
+    return None if tree is None else tree / CSRC_REL
+
+
+def bind_v1(lib: ctypes.CDLL):
+    """``cluster_walk_launch`` at launch interface version 1: the camera
+    and the four scene tables, map, budget, out, segs; 15 ints, 6 floats,
+    stream."""
+    fn = lib.cluster_walk_launch
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 15
+                       + [ctypes.c_float] * 6 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def call_v1(fn, tables, pixel_map, seed, sample_offset, spp, width,
+            height, opts, budget, uniforms):
+    """One launch of a version-1 library on the current stream."""
+    n = pixel_map.shape[0]
+    k, group = tables.members.shape[:2]
+    adaptive = opts.adaptive_tolerance > 0.0
+    out = torch.empty((6 if adaptive else 4, n), dtype=torch.float32,
+                      device=pixel_map.device)
+    segs = torch.empty((n,), dtype=torch.int32, device=pixel_map.device)
+    err = fn(
+        tables.camera.data_ptr(), tables.globals.data_ptr(),
+        tables.bounds.data_ptr(), tables.members.data_ptr(),
+        tables.winner.data_ptr(), pixel_map.data_ptr(),
+        None if budget is None else budget.data_ptr(),
+        out.data_ptr(), segs.data_ptr(),
+        int(adaptive), int(opts.sampler == "stratified"),
+        int(uniforms is not None),
+        n, tables.globals.shape[0], k, group, cw.padded_width(width),
+        int(seed), int(sample_offset), int(spp),
+        opts.max_depth, opts.russian_roulette_depth,
+        int(opts.exhaust_black), int(opts.near_zero_guard),
+        float(np.float32(1.0 / width)), float(np.float32(1.0 / height)),
+        *(uniforms or (0.0,) * 4),
+        torch.cuda.current_stream().cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"old cluster_walk launch failed: CUDA error {err}")
+    return out, segs
+
+
+def walk_caller(lib: ctypes.CDLL):
+    """``call(*case)`` for a walk library, chosen by the launch interface
+    version it exports; None for a version no binder here knows."""
+    version = cuda_build.abi(lib, "cluster_walk_abi")
+    if version == cw.ABI:
+        fn = cw.bind(lib)
+        return lambda *a: cw.call(fn, *a)
+    if version == 1:
+        fn = bind_v1(lib)
+        return lambda *a: call_v1(fn, *a)
+    print(f"[walk A/B] a walk library with launch interface {version}: no "
+          "binder for it here, left out")
+    return None
+
+
+def flat_caller(lib: ctypes.CDLL):
+    """``call(*case)`` for a flat-scan library, as :func:`walk_caller`."""
+    from raytracer_tpu_torch.render import flat_scan as fs
+
+    version = cuda_build.abi(lib, "flat_scan_abi")
+    if version == fs.ABI:
+        fn = fs.bind(lib)
+        return lambda *a: fs.call(fn, *a)
+    print(f"[walk A/B] a flat-scan library with launch interface {version}: "
+          "no binder for it here, left out")
+    return None
+
+
+def ptxas_report(log: str) -> list:
+    """(instantiation, registers / stack / spill line) from ``-Xptxas -v``."""
+    rows, inst = [], None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            inst = "<" + ",".join(re.findall(r"L[bi](\d+)E", line)) + ">"
+        elif "stack frame" in line or "registers" in line:
+            rows.append((inst, line.strip()))
+    return rows
+
+
+_SASS_INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
+                        r"([A-Z][A-Z0-9_.]*)([^;]*);")
+_SASS_TARGET = re.compile(r"\b0x([0-9a-f]+)\s*$")
+SASS_CLASSES = {
+    "fp32": ("FADD", "FMUL", "FFMA", "FMNMX", "FSETP", "FSEL", "FCHK",
+             "FSET", "FRND", "FMUL32I", "FADD32I"),
+    "int": ("IADD3", "IMAD", "LOP3", "SHF", "ISETP", "LEA", "IABS", "SEL",
+            "PRMT", "IMNMX", "FLO", "POPC", "BREV", "IADD", "LOP", "SHL",
+            "SHR", "VIMNMX", "I2F", "F2I", "I2FP", "F2IP"),
+    "mufu": ("MUFU",),
+    "shared": ("LDS", "STS", "LDSM"),
+    "global": ("LDG", "STG", "RED", "ATOM", "ATOMG", "LDGSTS", "UBLKCP"),
+    "local": ("LDL", "STL"),
+    "control": ("BRA", "BSSY", "BSYNC", "WARPSYNC", "EXIT", "CALL", "RET",
+                "BMOV", "BREAK", "VOTE", "NOP", "YIELD"),
+}
+
+
+def _sass_class(op: str) -> str:
+    base = op.split(".")[0]
+    for name, ops in SASS_CLASSES.items():
+        if base in ops:
+            return name
+    return "other"
+
+
+def sass_report(lib: Path, dump: Path | None = None) -> dict:
+    """Per walk instantiation (``<a,s,d>``): its instruction count and its
+    loops (a backward branch), smallest first, each with its
+    body's instructions by class. The whole listing goes to ``dump`` where
+    one is given. Empty where ``cuobjdump`` is missing."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return {}
+    text = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True).stdout
+    if dump is not None:
+        dump.parent.mkdir(parents=True, exist_ok=True)
+        dump.write_text(text)
+    report = {}
+    for chunk in text.split("Function : ")[1:]:
+        name = chunk.splitlines()[0].strip()
+        if "cluster_walk_kernel" not in name:
+            continue
+        inst = "<" + ",".join(re.findall(r"L[bi](\d+)E", name)) + ">"
+        insns = [(int(m.group(1), 16), m.group(2), m.group(3))
+                 for m in map(_SASS_INSN.search, chunk.splitlines()) if m]
+        at = {addr: j for j, (addr, _, _) in enumerate(insns)}
+        loops = []
+        for j, (addr, op, rest) in enumerate(insns):
+            t = _SASS_TARGET.search(rest.strip())
+            if not (op.startswith("BRA") and t):
+                continue
+            start = at.get(int(t.group(1), 16))
+            if start is None or start > j:
+                continue
+            by = {}
+            for _, o, _ in insns[start:j + 1]:
+                c = _sass_class(o)
+                by[c] = by.get(c, 0) + 1
+            loops.append({"start": start, "end": j, "insns": j + 1 - start,
+                          "by_class": by})
+        loops.sort(key=lambda lp: lp["insns"])
+        report[inst] = {"insns": len(insns), "loops": loops}
+    return report
+
+
+def engine_debug(scene, cam, device):
+    """The cursor and selection at the frame's centre, as the engine's
+    pick there gives them."""
+    from raytracer_tpu_torch.interact.picking import update_cursor_state
+    from raytracer_tpu_torch.render.options import DebugParams
+
+    _, point, sel = update_cursor_state(scene.to(device), cam)
+    return DebugParams(point, sel)
+
+
+def cases(device="cuda") -> dict:
+    """Instantiation name → the launch's arguments (as
+    :func:`~raytracer_tpu_torch.render.cluster_walk.cluster_walk` takes
+    them) at its main path's shape."""
+    from raytracer_tpu_torch.camera.camera import derive_camera
+    from raytracer_tpu_torch.render import schedule, tables
+    from raytracer_tpu_torch.render.megakernel import plan_from_cost
+    from raytracer_tpu_torch.render.options import TraceOptions
+    from raytracer_tpu_torch.render.rng import kernel_seed
+    from raytracer_tpu_torch.scene import presets
+
+    scene, cam, w, h, spp, depth = presets.get_config("cover")
+    seed = kernel_seed(0)
+    got = {}
+    pmap = None
+    for name, (adaptive, stratified, debug) in VARIANTS.items():
+        sampler = "stratified" if stratified else "random"
+        if debug:
+            opts = TraceOptions(max_depth=ENGINE_DEPTH, sampler=sampler,
+                                enable_debug=True)
+            tabs = tables.walk_tables(tables.cluster_partition(scene, opts),
+                                      derive_camera(cam), device)
+            dbg = engine_debug(scene, cam, device)
+            uniforms = cw.overlay(opts, dbg)
+            got[name] = (tabs, cw.identity_map(ENGINE_W, ENGINE_H, device),
+                         seed, 3, 1, ENGINE_W, ENGINE_H, opts, None,
+                         uniforms)
+            continue
+        opts = TraceOptions(max_depth=depth, russian_roulette_depth=5,
+                            sampler=sampler,
+                            adaptive_tolerance=0.2 if adaptive else 0.0)
+        tabs = tables.walk_tables(tables.cluster_partition(scene, opts),
+                                  derive_camera(cam), device)
+        chunk = schedule.pick_chunk_spp(spp, w * h, scene.count, depth, 5)
+        sizes, _ = schedule.chunk_schedule(spp, chunk)
+        if pmap is None:
+            out0, _ = cw.cluster_walk(tabs, cw.identity_map(w, h, device),
+                                      seed, 0, sizes[0], w, h, opts)
+            _, pmap = plan_from_cost(out0[3], w)
+        if adaptive:
+            seen = adaptive_launches(tabs, scene.count, w, h, spp, opts, seed,
+                                     device)
+            for suffix, j in ADAPTIVE_LAUNCHES.items():
+                lane_map, offset, cs, budget = seen[min(j, len(seen) - 1)]
+                got[name + suffix] = (tabs, lane_map, seed, offset, cs, w, h,
+                                      opts, budget, None)
+            continue
+        got[name] = (tabs, pmap, seed, sizes[0], sizes[-1], w, h, opts,
+                     None, None)
+    # more than 32 clusters take the four-word box mask: K1 on the same
+    # chunk with the cover cut into clusters of WIDE_GROUP
+    opts = TraceOptions(max_depth=depth, russian_roulette_depth=5,
+                        cluster_group=WIDE_GROUP)
+    tabs = tables.walk_tables(tables.cluster_partition(scene, opts),
+                              derive_camera(cam), device)
+    got[f"cluster_walk {tabs.bounds.shape[0]} clusters"] = (
+        tabs, pmap, seed, sizes[0], sizes[-1], w, h, opts, None, None)
+    return got
+
+
+def adaptive_launches(tabs, count: int, w: int, h: int, spp: int, opts,
+                      seed: int, device) -> list:
+    """(lane map, sample offset, spp, budget) of every launch of the
+    adaptive render of ``spp`` through the walk on ``tabs`` (of a scene of
+    ``count`` spheres), as its re-plans (``megakernel.plan_adaptive``)
+    gave them."""
+    from raytracer_tpu_torch.render import megakernel, schedule
+
+    chunk = schedule.pick_chunk_spp(spp, w * h, count, opts.max_depth,
+                                    opts.russian_roulette_depth)
+    sizes = schedule.adaptive_schedule(spp, chunk, opts.adaptive_chunk_spp,
+                                       opts.sort_pixels)
+    seen = []
+
+    def launch(pixel_map, offset, cs, budget=None):
+        seen.append((pixel_map, offset, cs, budget))
+        return cw.cluster_walk(tabs, pixel_map, seed, offset, cs, w, h, opts,
+                               budget)
+
+    megakernel._render_adaptive(launch, sizes, w, h, opts, device)
+    return seen
+
+
+def budgeted(lane_map, n_spp: int, device):
+    """The flat scan's adaptive cases: the map with 40 % of its lanes
+    (seeded) converged and sorted last, as a re-plan sorts them, and the
+    budget: ``n_spp`` or 0. (The flat scan launches one thread a lane, so
+    where the live lanes sit in the map does not decide its grid.)"""
+    g = torch.Generator(device="cpu").manual_seed(5)
+    live = torch.rand(lane_map.shape[0], generator=g) >= 0.4
+    order = torch.argsort((~live).to(torch.int8), stable=True)
+    budget = torch.where(live[order], n_spp, 0).to(torch.int32).to(device)
+    return lane_map[order.to(device)].contiguous(), budget
+
+
+def flat_cases(device="cuda") -> dict:
+    """Flat-scan instantiation → the arguments of
+    :func:`~raytracer_tpu_torch.render.flat_scan.call` after its ``fn`` at
+    its main path's shape: the demo's progressive frame (1920x1080, 1
+    spp, depth 8), the adaptive ones a 31-spp chunk of it (roulette from
+    bounce 5) with 40 % of the lanes without budget, the debug ones the
+    engine's 1280x720 frame with the cursor at the centre's hit. The split
+    ones take the demo's containable split. Then K2 and K2s on the
+    cover's 487 slots."""
+    from raytracer_tpu_torch.camera.camera import derive_camera
+    from raytracer_tpu_torch.render import flat_scan as fs
+    from raytracer_tpu_torch.render import megakernel
+    from raytracer_tpu_torch.render.options import TraceOptions
+    from raytracer_tpu_torch.render.rng import kernel_seed
+    from raytracer_tpu_torch.scene import presets
+
+    got = {}
+    for name, (adaptive, stratified, split, debug) in FLAT_VARIANTS.items():
+        w, h = (ENGINE_W, ENGINE_H) if debug else (PROG_W, PROG_H)
+        scene, cam, *_ = presets.get_config("demo", w, h)
+        opts = TraceOptions(
+            max_depth=ENGINE_DEPTH, russian_roulette_depth=5 if adaptive else 0,
+            sampler="stratified" if stratified else "random",
+            adaptive_tolerance=0.2 if adaptive else 0.0, enable_debug=debug)
+        choice = megakernel.choose_kernel(scene, derive_camera(cam), opts,
+                                          device, analyse=split)
+        if (choice.kernel != "flat_scan"
+                or fs.is_split(choice.tables, choice.g_full) != split):
+            raise RuntimeError(f"{name}: the demo took {choice}")
+        lane_map, budget, spp = cw.identity_map(w, h, device), None, 1
+        if adaptive:
+            spp = ADAPTIVE_CHUNK
+            lane_map, budget = budgeted(lane_map, spp, device)
+        uniforms = (cw.overlay(opts, engine_debug(scene, cam, device))
+                    if debug else None)
+        got[name] = (choice.tables, lane_map, kernel_seed(0), 3, spp, w, h,
+                     opts, choice.g_full, budget, uniforms)
+    # the cover through K2 and K2s (cluster_scan=False): the fixed
+    # render's profile chunk, 41 spp at 1200x800, depth 50, rr5
+    scene, cam, w, h, _, depth = presets.get_config("cover")
+    opts = TraceOptions(max_depth=depth, russian_roulette_depth=5,
+                        cluster_scan=False)
+    for name, split in (("flat_scan", False), ("flat_scan_split", True)):
+        choice = megakernel.choose_kernel(scene, derive_camera(cam), opts,
+                                          device, analyse=split)
+        got[f"{name} cover"] = (choice.tables, cw.identity_map(w, h, device),
+                                kernel_seed(0), 0, COVER_FLAT_CHUNK, w, h,
+                                opts, choice.g_full, None, None)
+    return got
+
+
+def counters(lib: ctypes.CDLL, args_by_name: dict) -> dict:
+    """The counter build's totals per instantiation, and the derived
+    SIMT efficiencies and slab tests per bounce."""
+    read = lib.cluster_walk_counters
+    read.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    read.restype = ctypes.c_int
+    buf = (ctypes.c_ulonglong * len(COUNTERS))()
+    fn = cw.bind(lib)
+    got = {}
+    for name, args in args_by_name.items():
+        if read(buf, 1) != 0:
+            raise RuntimeError("counter reset failed")
+        out, segs = cw.call(fn, *args)
+        if read(buf, 1) != 0:
+            raise RuntimeError("counter read failed")
+        c = dict(zip(COUNTERS, (int(v) for v in buf)))
+        k = args[0].members.shape[0]
+        bounces = max(c["lane_tail"], 1)
+        got[name] = {
+            **c,
+            "simt_trip": c["lane_trips"] / max(32 * c["warp_trips"], 1),
+            "simt_fresh": c["lane_fresh"] / max(32 * c["warp_fresh"], 1),
+            "simt_visit": c["lane_visit"] / max(32 * c["warp_visit"], 1),
+            "simt_tail": c["lane_tail"] / max(32 * c["warp_tail"], 1),
+            "trips_per_bounce": c["lane_trips"] / bounces,
+            "visits_per_bounce": c["lane_visit"] / bounces,
+            "slab_tests_per_bounce": c["slab_tests"] / bounces,
+            "flat_slab_tests_per_bounce": k * c["lane_trips"] / bounces,
+            "cost_row_equal": int(out[3].sum(dtype=torch.float64))
+            == c["lane_trips"],
+            "segs_equal": int(segs.sum(dtype=torch.int64)) == c["lane_tail"],
+        }
+        print(f"[counters {name}] " + ", ".join(
+            f"{key} {val:.4f}" if isinstance(val, float) else f"{key} {val}"
+            for key, val in got[name].items()))
+    return got
+
+
+def time_in_turns(calls: dict, args_by_name: dict, repeats: int,
+                  smi: str) -> dict:
+    """ms of one launch of each build, for each instantiation, timed in
+    turns: the builds' order, then its reverse, ``repeats`` times."""
+    times = {name: {b: [] for b in calls} for name in args_by_name}
+    order = list(calls)
+    for name, args in args_by_name.items():
+        for b in order:  # warm-up
+            calls[b](*args)
+        for r in range(repeats):
+            for b in (order if r % 2 == 0 else order[::-1]):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                torch.cuda.synchronize()
+                start.record()
+                calls[b](*args)
+                end.record()
+                torch.cuda.synchronize()
+                times[name][b].append(start.elapsed_time(end))
+        print(f"[A/B {name}] " + "; ".join(
+            f"{b} {' '.join(f'{t:.3f}' for t in ts)} ms (min "
+            f"{min(ts):.3f})" for b, ts in times[name].items())
+            + f" [{smi}]")
+    return times
+
+
+def bitwise(calls: dict, args_by_name: dict, reference: str) -> dict:
+    """Per instantiation and build: every output row and the segments
+    bitwise equal to ``reference``'s."""
+    same = {}
+    for name, args in args_by_name.items():
+        ref_out, ref_segs = calls[reference](*args)
+        for b, fn in calls.items():
+            if b == reference:
+                continue
+            out, segs = fn(*args)
+            rows = [bool(torch.equal(out[r], ref_out[r]))
+                    for r in range(out.shape[0])]
+            ok = all(rows) and torch.equal(segs, ref_segs)
+            same[(name, b)] = ok
+            print(f"[bitwise {name}] {b} vs {reference}: rows {rows}, "
+                  f"segments {torch.equal(segs, ref_segs)} "
+                  f"(total {int(segs.sum(dtype=torch.int64))})")
+    return same
+
+
+def smi_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def extra_builds(old: Path | None) -> list:
+    """(name, csrc, defines) of the builds besides the main path's: the
+    base revision's walk and flat scan (where there is one) and the
+    counter build."""
+    specs = [("cluster_walk", cuda_build.CSRC_DIR, ("RT_WALK_COUNTERS",))]
+    if old is not None:
+        specs = [("cluster_walk", old, ()), ("flat_scan", old, ())] + specs
+    return specs
+
+
+def _builds(name: str, old: Path | None, defines=()) -> dict:
+    """Build name → library of ``csrc/<name>.cu``: the base revision's
+    (``old``, where there is one) and the current one, all built at once;
+    with ``defines``, also ``counters``, the current one built with
+    them."""
+    builds = {"old": (old, ())} if old is not None else {}
+    builds["new"] = (cuda_build.CSRC_DIR, ())
+    if defines:
+        builds["counters"] = (cuda_build.CSRC_DIR, tuple(defines))
+    return dict(zip(builds, cuda_build.build_all(
+        (name, *b) for b in builds.values())))
+
+
+def _callers(paths: dict, caller) -> dict:
+    """Build name → ``call(*case)`` for every build a binder here knows
+    (the counter build left out)."""
+    calls = {}
+    for b, path in paths.items():
+        if b != "counters":
+            got = caller(ctypes.CDLL(str(path)))
+            if got is not None:
+                calls[b] = got
+    return calls
+
+
+def _print_ptxas(label: str, paths: dict) -> dict:
+    got = {}
+    for b, path in paths.items():
+        got[b] = ptxas_report(Path(str(path) + ".log").read_text())
+        for inst, line in got[b]:
+            print(f"[ptxas {label}{b} {inst}] {line}")
+    return got
+
+
+def flat_ab(old: Path | None, repeats: int, smi: str) -> dict:
+    """The flat scan's ten instantiations (the tail they share with the
+    walk): the base revision's build and the current one, bitwise and
+    timed in turns as the walk is."""
+    paths = _builds("flat_scan", old)
+    result = {"ptxas": _print_ptxas("flat ", paths)}
+    calls = _callers(paths, flat_caller)
+    args_by_name = flat_cases()
+    same = bitwise(calls, args_by_name, "new")
+    result["bitwise"] = {f"{n} {b}": ok for (n, b), ok in same.items()}
+    result["times"] = time_in_turns(calls, args_by_name, repeats, smi)
+    return result
+
+
+def run(old: Path | None, repeats: int, smi: str,
+        out: Path = OUT_DIR) -> dict:
+    """Steps 1-4 of the module docstring, the SASS listings under
+    ``out``; returns what they measured."""
+    paths = _builds("cluster_walk", old, ("RT_WALK_COUNTERS",))
+    result = {"smi": smi, "ptxas": _print_ptxas("", paths), "sass": {}}
+    for b, path in paths.items():
+        if b == "counters":
+            continue
+        result["sass"][b] = sass_report(path, out / "sass" / f"{b}.sass")
+        for inst, rep in result["sass"][b].items():
+            print(f"[sass {b} {inst}] {rep['insns']} instructions; the "
+                  f"{SASS_LOOPS_SHOWN} largest loops "
+                  + "; ".join(f"[{lp['start']}, {lp['end']}] {lp['insns']} "
+                              f"{lp['by_class']}"
+                              for lp in rep["loops"][-SASS_LOOPS_SHOWN:]))
+    calls = _callers(paths, walk_caller)
+    args_by_name = cases()
+    same = bitwise(calls, args_by_name, "new")
+    result["bitwise"] = {f"{n} {b}": ok for (n, b), ok in same.items()}
+    result["times"] = time_in_turns(calls, args_by_name, repeats, smi)
+    result["counters"] = counters(ctypes.CDLL(str(paths["counters"])),
+                                  args_by_name)
+    return result
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--repeats", type=int, default=6)
+    ap.add_argument("--out", type=Path, default=OUT_DIR,
+                    help="where walk_ab.json and the SASS listings go")
+    a = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("walk_ab needs a CUDA card")
+    old = parent_csrc()
+    smi = smi_line()
+    print(smi)
+    result = run(old, a.repeats, smi, a.out)
+    result["flat"] = flat_ab(old, a.repeats, smi)
+    result["bitwise"].update(
+        {f"flat {k}": ok for k, ok in result["flat"]["bitwise"].items()})
+    a.out.mkdir(parents=True, exist_ok=True)
+    (a.out / "walk_ab.json").write_text(json.dumps(result, default=str))
+    bad = [k for k, ok in result["bitwise"].items() if not ok]
+    if bad:
+        raise SystemExit(f"walk_ab: builds disagree bitwise: {bad}")
+    return result
+
+
+if __name__ == "__main__":
+    main()

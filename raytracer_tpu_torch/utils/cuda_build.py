@@ -6,7 +6,8 @@ first use, into ``build/kernels/`` beside the package (listed in
 ``.gitignore``); the library's name carries a hash of its source, of
 every header of ``csrc/`` it includes (``#include "..."``, followed
 recursively) and of the flags, so an edited source or header is rebuilt
-and an unchanged one is reused.
+and an unchanged one is reused. A comparison build (another revision's
+sources, or extra ``-D`` defines) lands beside them under its own hash.
 ``nvcc -Xptxas -v`` prints each kernel's registers, shared memory and
 spills; its output, and the seconds nvcc took, is kept beside the
 library as ``<library>.log``.
@@ -57,56 +58,65 @@ def nvcc_path() -> str:
 _INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 
-def sources(name: str) -> list:
-    """``csrc/<name>.cu`` and every header of ``csrc/`` it includes,
-    directly or through another header, in first-include order."""
-    found, todo = [], [CSRC_DIR / f"{name}.cu"]
+def sources(name: str, csrc: Path | None = None) -> list:
+    """``<csrc>/<name>.cu`` (``csrc/`` of the package by default) and every
+    header of that directory it includes, directly or through another
+    header, in first-include order."""
+    csrc = CSRC_DIR if csrc is None else Path(csrc)
+    found, todo = [], [csrc / f"{name}.cu"]
     while todo:
         path = todo.pop(0)
         if path in found:
             continue
         found.append(path)
-        todo.extend(CSRC_DIR / inc.decode()
+        todo.extend(csrc / inc.decode()
                     for inc in _INCLUDE.findall(path.read_bytes()))
     return found
 
 
-def library_path(name: str) -> Path:
+def library_path(name: str, csrc: Path | None = None,
+                 defines=()) -> Path:
+    """Where the library of ``<csrc>/<name>.cu`` built with the extra
+    ``-D`` ``defines`` lies: its name hashes the sources, the flags and
+    the defines."""
     h = hashlib.sha1()
-    for path in sources(name):
+    for path in sources(name, csrc):
         h.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join([*NVCC_FLAGS, *(f"-D{d}" for d in defines)]).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless its library is already built;
-    returns the library's path. Raises with nvcc's output on failure."""
-    lib = library_path(name)
+def build(name: str, csrc: Path | None = None, defines=()) -> Path:
+    """Compile ``<csrc>/<name>.cu`` (with ``-D`` each of ``defines``)
+    unless its library is already built; returns the library's path.
+    Raises with nvcc's output on failure."""
+    csrc = CSRC_DIR if csrc is None else Path(csrc)
+    lib = library_path(name, csrc, defines)
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-           str(CSRC_DIR / f"{name}.cu")]
+    cmd = [nvcc_path(), *NVCC_FLAGS, *(f"-D{d}" for d in defines),
+           "-o", str(tmp), str(csrc / f"{name}.cu")]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     log = proc.stdout + proc.stderr
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+        raise RuntimeError(f"nvcc failed for {csrc / name}.cu:\n{log}")
     log += f"nvcc took {time.perf_counter() - t0:.1f} s\n"
     Path(str(lib) + ".log").write_text(log)
     os.replace(tmp, lib)
     return lib
 
 
-def build_all(names) -> dict:
-    """Build several sources at once, one nvcc each; name → path."""
-    names = list(names)
-    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
-        paths = list(pool.map(build, names))
-    return dict(zip(names, paths))
+def build_all(specs) -> list:
+    """Build several libraries at once, one nvcc each; ``specs`` are
+    ``(name, csrc, defines)`` as :func:`build` takes them. Returns their
+    paths in order."""
+    specs = list(specs)
+    with ThreadPoolExecutor(max_workers=max(1, len(specs))) as pool:
+        return list(pool.map(lambda spec: build(*spec), specs))
 
 
 def build_log(name: str) -> str:
@@ -121,6 +131,17 @@ def check_cuda(*tensors) -> None:
         if t.device.type != "cuda":
             raise ValueError(f"the kernel takes CUDA tensors, got one on "
                              f"{t.device}")
+
+
+def abi(lib: ctypes.CDLL, symbol: str) -> int:
+    """The launch interface's version that ``lib`` exports as ``symbol``
+    (an ``int symbol()``); 1 where it exports none, as the libraries did
+    before their interfaces carried a version."""
+    if not hasattr(lib, symbol):
+        return 1
+    fn = getattr(lib, symbol)
+    fn.argtypes, fn.restype = [], ctypes.c_int
+    return int(fn())
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -91,6 +91,63 @@ def test_variant_matches_plain_on_card(card, adaptive, stratified):
         assert not seg_k[budget == 0].any()
 
 
+@pytest.mark.parametrize("adaptive, stratified, debug", [
+    (False, False, False), (False, True, False), (True, False, False),
+    (True, True, False), (False, False, True), (False, True, True),
+], ids=["K1", "K1s", "K1a", "K1a+K1s", "K3_on_K1", "K3_on_K1s"])
+def test_walk_instantiation_bitwise_on_card(card, adaptive, stratified,
+                                            debug):
+    """Each of the walk's six instantiations, with its culled box test,
+    whole-bounce walk and persistent lanes, equals its plain version (the
+    flat walk) bit for bit in every output row and segment count, at a
+    nonzero sample offset; the adaptive ones under a budget that mixes 0
+    and the chunk's spp, the debug ones with the cursor on the centre's
+    surface."""
+    scene, cam, *_ = presets.get_config("cover", W, H)
+    opts = TraceOptions(max_depth=12, russian_roulette_depth=5,
+                        adaptive_tolerance=0.2 if adaptive else 0.0,
+                        sampler="stratified" if stratified else "random",
+                        enable_debug=debug)
+    tabs = tables.walk_tables(tables.cluster_partition(scene, opts),
+                              derive_camera(cam), card)
+    ident = cw.identity_map(W, H, card)
+    budget = dbg = None
+    if adaptive:
+        g = torch.Generator().manual_seed(3)
+        budget = (torch.where(torch.rand(W * H, generator=g) < 0.4, 0, SPP)
+                  .to(torch.int32).to(card))
+    if debug:
+        from raytracer_tpu_torch.interact.picking import update_cursor_state
+
+        _, point, sel = update_cursor_state(scene.to(card), cam)
+        dbg = DebugParams(point, sel)
+    args = (tabs, ident, 9, 6, SPP, W, H, opts, budget, dbg)
+    out_k, seg_k = cw.cluster_walk(*args)
+    out_p, seg_p = cw.cluster_walk_plain(*args)
+    assert torch.equal(out_k, out_p)
+    assert torch.equal(seg_k, seg_p)
+
+
+@pytest.mark.parametrize("group", [8, 4])
+@pytest.mark.parametrize("stratified", [False, True],
+                         ids=["random", "stratified"])
+def test_walk_bitwise_past_32_clusters_on_card(card, group, stratified):
+    """The cover in clusters of 8 and 4 (61 and 121) takes the walk's
+    four-word box mask; bit for bit its plain version."""
+    scene, cam, *_ = presets.get_config("cover", W, H)
+    opts = TraceOptions(max_depth=12, russian_roulette_depth=5,
+                        cluster_group=group,
+                        sampler="stratified" if stratified else "random")
+    tabs = tables.walk_tables(tables.cluster_partition(scene, opts),
+                              derive_camera(cam), card)
+    assert tabs.bounds.shape[0] > 32
+    args = (tabs, cw.identity_map(W, H, card), 9, 6, SPP, W, H, opts)
+    out_k, seg_k = cw.cluster_walk(*args)
+    out_p, seg_p = cw.cluster_walk_plain(*args)
+    assert torch.equal(out_k, out_p)
+    assert torch.equal(seg_k, seg_p)
+
+
 def test_adaptive_render_runs_the_kernel(card):
     """An adaptive stratified render on the card goes through that
     instantiation, once per chunk, and reports its sample map."""

@@ -176,9 +176,20 @@ def test_adaptive_and_stratified_arithmetic_in_source():
     assert "sums.l2 = sums.l2 + lum * lum;" in SOURCE
     assert ("lowbias32(pix ^ ((rot + d) * 0x9E3779B9u)) + s_u * a_fix"
             in SOURCE)
-    first = SOURCE[SOURCE.index("if (kStratified && path.i == 0) {"):]
+    # the diffuse and metal vectors come from one draw: the first
+    # stratified diffuse bounce takes (hx, phi) on the unit sphere, not
+    # normalised again; the random draws keep exp(log(u)/3) as radius
+    assert "const bool strat0 = kStratified && diffuse && path.i == 0;" \
+        in COMMON
+    first = COMMON[COMMON.index("if (strat0) {"):]
     first = first[:first.index("} else {")]
-    assert "normalize3" not in first and "uvz = b_hx;" in first
+    assert "normalize3" not in first and "r2_fixed(pix, kRotBounce0, 0" \
+        in first
+    assert "vz = strat0 ? hx : r * hx;" in COMMON
+    assert "if (diffuse && !strat0) normalize3(vx, vy, vz);" in COMMON
+    assert ("r = expf(logf(fmaxf(u01(pix, ctr, salt + 2), kUEps)) * "
+            "kOneThird);") in COMMON
+    assert "const uint32_t salt = diffuse ? 0u : 3u;" in COMMON
 
 
 def test_fill_floor_clears_the_key_bits():
@@ -204,6 +215,69 @@ def test_nvcc_flags_keep_rounding():
     assert "-fmad=false" in flags
     assert not any("fast_math" in f or "fast-math" in f for f in flags)
     assert "arch=compute_90a,code=sm_90a" in flags
+
+
+def test_walk_culls_boxes_in_source():
+    """The walk's box test: one level of parent boxes on a bounce's first
+    iteration, then only the children of the parents entered; the hit
+    boxes in a bitmask that later iterations re-test, less each visited
+    cluster; a lane walks its bounce to the end before the tail. The
+    constants agree with the host tables' layout, and the counter build
+    is compiled in only on request."""
+    consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", WALK))
+    assert int(consts["kParentFanout"]) == tables.PARENT_FANOUT
+    assert int(consts["kBoxFloats"]) == tables.BOX_FLOATS
+    assert int(consts["kMaxWords"]) * 32 == tables.MAX_CLUSTERS
+    # one mask word up to 32 clusters, kMaxWords past them
+    assert "return p.k <= 32" in WALK
+    assert "launch_words<kAdaptive, kStratified, kDebug, 1>(" in WALK
+    assert "launch_words<kAdaptive, kStratified, kDebug, kMaxWords>(" in WALK
+    assert int(consts["kWalkThreads"]) == 1024
+    assert "__launch_bounds__(kWalkThreads, 1)" in WALK
+    fresh = WALK[WALK.index("if (fresh) {"):WALK.index("float m0 = INFINITY")]
+    assert "box_entry(s_par + kBoxFloats * q" in fresh
+    assert "mask_or(cand, c0 >> 5, ((1u << nc) - 1u) << (c0 & 31));" in fresh
+    assert "BoxMask<kWords> cand = hits;" in WALK
+    loop = WALK[WALK.index("float m0 = INFINITY"):
+                WALK.index("} while (!bdone);")]
+    assert "box_entry(s_box + kBoxFloats * c" in loop
+    assert "hits.w[j] |= 1u << (c & 31);" in loop
+    assert "mask_clear(hits, cidx);" in loop and "kl = m0;" in loop
+    assert "} while (!bdone);" in WALK
+    assert WALK.index("} while (!bdone);") < WALK.index("bounce_tail<")
+    assert "#ifdef RT_WALK_COUNTERS" in WALK
+    assert not any("RT_WALK" in f for f in cuda_build.NVCC_FLAGS)
+    assert "s_mem + 4 * cidx * p.mstride" in WALK
+
+
+def test_walk_grid_spreads_the_map_head_in_source():
+    """The persistent grid's first lanes go a warp's 32 at a time to the
+    blocks in turn (so an adaptive re-plan's few live lanes, at the map's
+    head, reach every SM), later ones come from the counter; the launch
+    zeroes the counter on its stream and works out the grid's size only
+    when the device or the tables' size changes."""
+    spread = WALK[WALK.index("int first_lane()"):
+                  WALK.index("int next_lane(const Params& p)")]
+    assert "32 * (warp * (int)gridDim.x + (int)blockIdx.x)" in spread
+    assert "int lane = first_lane();" in WALK
+    assert "(int)(gridDim.x * blockDim.x) + base" in WALK
+    launch = WALK[WALK.index("cudaError_t launch_words("):
+                  WALK.index("// the box mask's width")]
+    assert "if (dev != set_dev || smem != set_smem) {" in launch
+    assert launch.index("cudaMemsetAsync(p.next_lane, 0, sizeof(int), "
+                        "stream)") < launch.index("kernel<<<")
+
+
+@pytest.mark.parametrize("source, symbol, module", [
+    ("cluster_walk", "cluster_walk_abi", cw), ("flat_scan", "flat_scan_abi",
+                                               fs)])
+def test_launch_interface_version_in_source(source, symbol, module):
+    """Each library exports the version of its launch arguments, the one
+    its wrapper passes."""
+    text = (cuda_build.CSRC_DIR / f"{source}.cu").read_text()
+    found = re.findall(rf'extern "C" int {symbol}\(\) {{ return (\d+); }}',
+                       text)
+    assert found == [str(module.ABI)]
 
 
 def test_winner_slot_and_key_layout_in_source():

@@ -1,0 +1,256 @@
+"""The host side of ``raytracer_tpu_torch/scripts/walk_ab.py``, the walk's
+A/B and counter harness, which runs whole only on the card: its
+``-Xptxas -v`` and SASS readers on sample listings, the flat cases'
+budget, the launch arguments of every case at a tiny size (the adaptive
+walk's from its render's own re-plans), the binding of a library by its
+launch interface version, and which revision the A/B holds the tree
+against."""
+
+import shutil
+import subprocess
+import types
+
+import pytest
+import torch
+
+from raytracer_tpu_torch.render import cluster_walk as cw
+from raytracer_tpu_torch.render import flat_scan as fs
+from raytracer_tpu_torch.scene import presets
+from raytracer_tpu_torch.scripts import walk_ab
+
+PTXAS = """\
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_119cluster_walk_kernelILb0ELb1ELb0ELi1EEEvNS_6ParamsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_119cluster_walk_kernelILb0ELb1ELb0ELi1EEEvNS_6ParamsE
+    80 bytes stack frame, 56 bytes spill stores, 36 bytes spill loads
+ptxas info    : Used 64 registers, used 1 barriers, 80 bytes cumulative stack size
+"""
+
+SASS = """\
+	code for sm_90a
+		Function : _ZN12_GLOBAL__N_119cluster_walk_kernelILb1ELb0ELb0ELi4EEEvNS_6ParamsE
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+        /*0010*/                   FADD R3, R2, R1 ;
+        /*0020*/                   LDS.128 R4, [R2] ;
+        /*0030*/                   FMNMX R3, R4, R5, PT ;
+        /*0040*/              @!P0 BRA 0x20 ;
+        /*0050*/                   MUFU.RSQ R6, R3 ;
+        /*0060*/               @P1 BRA 0x10 ;
+        /*0070*/                   BRA 0x90 ;
+        /*0080*/                   EXIT ;
+		Function : _ZN12_GLOBAL__N_114flat_scan_kernelILb0ELb0ELb0ELb0EEEvNS_6ParamsE
+        /*0000*/                   EXIT ;
+"""
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_ptxas_report_names_each_instantiation():
+    rows = walk_ab.ptxas_report(PTXAS)
+    assert [inst for inst, _ in rows] == ["<0,1,0,1>", "<0,1,0,1>"]
+    assert "56 bytes spill stores" in rows[0][1]
+    assert "Used 64 registers" in rows[1][1]
+
+
+def test_sass_report_finds_the_walk_and_its_loops(monkeypatch, tmp_path):
+    monkeypatch.setattr(walk_ab.os.path, "exists", lambda path: True)
+    monkeypatch.setattr(walk_ab.subprocess, "run",
+                        lambda *a, **k: types.SimpleNamespace(stdout=SASS))
+    dump = tmp_path / "listing.sass"
+    got = walk_ab.sass_report(tmp_path / "lib.so", dump)
+    assert dump.read_text() == SASS
+    assert list(got) == ["<1,0,0,4>"]  # the flat kernel is not the walk's
+    rep = got["<1,0,0,4>"]
+    assert rep["insns"] == 9
+    # two backward branches: [0x20, 0x40] inside [0x10, 0x60]; the
+    # forward BRA is no loop
+    assert [(lp["start"], lp["end"], lp["insns"]) for lp in rep["loops"]] \
+        == [(2, 4, 3), (1, 6, 6)]
+    assert rep["loops"][1]["by_class"] == {
+        "fp32": 2, "shared": 1, "control": 2, "mufu": 1}
+
+
+def test_budgeted_map_puts_converged_lanes_last():
+    lane_map = cw.identity_map(40, 25, "cpu")
+    got, budget = walk_ab.budgeted(lane_map, 31, "cpu")
+    live = budget > 0
+    assert budget.dtype == torch.int32 and set(budget.tolist()) == {0, 31}
+    n_live = int(live.sum())
+    assert 0.45 < n_live / 1000 < 0.75
+    assert bool(live[:n_live].all()) and not live[n_live:].any()
+    # a permutation of the map's lanes
+    key = got[:, 1] * 40 + got[:, 0]
+    assert torch.equal(key.sort().values, torch.arange(1000,
+                                                       dtype=key.dtype))
+
+
+def _tiny(mp):
+    real = presets.get_config
+
+    def small(name, width=None, height=None):
+        # 100 spp: the adaptive schedule [7, 31, 31, 31], whose last launch
+        # follows a re-plan after the 64 samples a pixel needs to stop
+        scene, cam, *_ = real(name, 32, 16)
+        return scene, cam, 32, 16, 100, 6
+
+    mp.setattr(presets, "get_config", small)
+    mp.setattr(walk_ab, "ENGINE_W", 24)
+    mp.setattr(walk_ab, "ENGINE_H", 12)
+    mp.setattr(walk_ab, "PROG_W", 32)
+    mp.setattr(walk_ab, "PROG_H", 16)
+
+
+@pytest.fixture
+def tiny(monkeypatch):
+    _tiny(monkeypatch)
+
+
+@pytest.fixture(scope="module")
+def walk_cases():
+    """``walk_ab.cases`` at the tiny size, once for the module (the plain
+    walk renders the adaptive cases' launches)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    with pytest.MonkeyPatch.context() as mp:
+        _tiny(mp)
+        got = walk_ab.cases("cpu")
+    torch.set_num_threads(n)
+    return got
+
+
+def test_walk_cases_cover_the_six_instantiations(walk_cases):
+    got = walk_cases
+    assert [n for n in got if " " not in n] == list(walk_ab.VARIANTS)
+    assert sorted(n for n in got if n.endswith(" tail")) == [
+        "cluster_walk_adaptive tail", "cluster_walk_adaptive_stratified tail"]
+    wide = [n for n in got if n.endswith(" clusters")]
+    assert len(wide) == 1 and got[wide[0]][0].bounds.shape[0] > 32
+    for name, args in got.items():
+        tabs, lane_map, _, _, spp, w, h, opts, budget, uniforms = args
+        assert cw.variant_name(opts) == name.split(" ")[0]
+        assert lane_map.shape == (w * h, 2)
+        assert (budget is not None) == (opts.adaptive_tolerance > 0.0)
+        assert (uniforms is not None) == opts.enable_debug
+        # the kernel's argument checks pass
+        cw._check(tabs, lane_map, w, h, spp, opts, budget)
+
+
+def test_adaptive_cases_are_the_renders_own_launches(walk_cases):
+    """The adaptive cases are launches of the adaptive render as its
+    re-plans gave them: the first sorted chunk with every lane's budget,
+    and the tail launch with its converged lanes at budget 0, last."""
+    got = walk_cases
+    for name in ("cluster_walk_adaptive", "cluster_walk_adaptive_stratified"):
+        tabs, lane_map, _, offset, spp, w, h, opts, budget, _ = got[name]
+        assert (offset, spp) == (7, 31)
+        assert bool((budget == spp).all())
+        _, tail_map, _, t_offset, t_spp, *_, t_budget, _ = got[name + " tail"]
+        assert (t_offset, t_spp) == (69, 31)
+        assert set(t_budget.unique().tolist()) <= {0, t_spp}
+        live = t_budget > 0
+        n_live = int(live.sum())
+        assert n_live < w * h
+        assert bool(live[:n_live].all()) and not live[n_live:].any()
+        # both maps are permutations of the frame's pixels
+        for m in (lane_map, tail_map):
+            key = m[:, 1] * w + m[:, 0]
+            assert torch.equal(key.sort().values,
+                               torch.arange(w * h, dtype=key.dtype))
+
+
+def test_flat_cases_cover_the_ten_instantiations(tiny):
+    got = walk_ab.flat_cases("cpu")
+    names = [n for n in got if " " not in n]
+    assert names == list(walk_ab.FLAT_VARIANTS)
+    assert {n for n in got if " " in n} == {"flat_scan cover",
+                                             "flat_scan_split cover"}
+    for name, args in got.items():
+        tabs, lane_map, _, _, spp, w, h, opts, g_full, budget, _ = args
+        assert fs.variant_name(opts, fs.is_split(tabs, g_full)) \
+            == name.split(" ")[0]
+        fs._check(tabs, lane_map, w, h, spp, opts, g_full, budget)
+
+
+class FakeLib:
+    """A loaded library's ``<kernel>_launch`` (its ``argtypes`` unset)
+    and, where given, its ``<kernel>_abi``."""
+
+    def __init__(self, kernel: str, version=None):
+        setattr(self, f"{kernel}_launch",
+                types.SimpleNamespace(argtypes=None, restype=None))
+        if version is not None:
+            setattr(self, f"{kernel}_abi", lambda: version)
+
+
+@pytest.mark.parametrize("version, n_args", [(cw.ABI, 36), (None, 31),
+                                             (cw.ABI + 1, None)])
+def test_walk_library_bound_by_its_interface_version(version, n_args):
+    """The current interface through ``cluster_walk.bind``, a library
+    without a version through version 1's argument list, and an unknown
+    version not at all."""
+    lib = FakeLib("cluster_walk", version)
+    call = walk_ab.walk_caller(lib)
+    if n_args is None:
+        assert call is None
+        with pytest.raises(RuntimeError, match="launch interface"):
+            cw.bind(FakeLib("cluster_walk", version))
+    else:
+        assert callable(call)
+        assert len(lib.cluster_walk_launch.argtypes) == n_args
+
+
+@pytest.mark.parametrize("version", [None, fs.ABI, fs.ABI + 1])
+def test_flat_library_bound_by_its_interface_version(version):
+    lib = FakeLib("flat_scan", version)
+    call = walk_ab.flat_caller(lib)
+    if version == fs.ABI + 1:
+        assert call is None
+        with pytest.raises(RuntimeError, match="launch interface"):
+            fs.bind(FakeLib("flat_scan", version))
+    else:
+        assert callable(call) and len(lib.flat_scan_launch.argtypes) == 28
+
+
+def _commit(repo, text: str):
+    csrc = repo / walk_ab.CSRC_REL
+    csrc.mkdir(parents=True, exist_ok=True)
+    (csrc / "cluster_walk.cu").write_text(text)
+    git = ["git", "-C", str(repo), "-c", "user.name=t", "-c",
+           "user.email=t@t"]
+    subprocess.run(git + ["add", "-A"], check=True, capture_output=True)
+    subprocess.run(git + ["commit", "-qm", text], check=True,
+                   capture_output=True)
+    return subprocess.run(git + ["rev-parse", "HEAD"], check=True,
+                          capture_output=True, text=True).stdout.strip()
+
+
+@pytest.mark.skipif(shutil.which("git") is None, reason="needs git")
+def test_base_revision_is_the_trees_own_parent(tmp_path, monkeypatch):
+    """HEAD's parent for a committed tree, HEAD for a tree whose kernels
+    differ from it; the base's package unpacks under its commit and BASE
+    names it, which a copy without history then reads."""
+    repo = tmp_path / "repo"
+    subprocess.run(["git", "init", "-q", str(repo)], check=True)
+    first = _commit(repo, "one")
+    second = _commit(repo, "two")
+    assert walk_ab.base_revision(repo) == first
+    (repo / walk_ab.CSRC_REL / "cluster_walk.cu").write_text("three")
+    assert walk_ab.base_revision(repo) == second
+
+    monkeypatch.setattr(walk_ab, "PARENT_DIR", tmp_path / "parents")
+    tree = walk_ab.parent_tree(repo)
+    assert tree == tmp_path / "parents" / second
+    assert (tree / walk_ab.CSRC_REL / "cluster_walk.cu").read_text() == "two"
+    assert (tmp_path / "parents" / "BASE").read_text().strip() == second
+    copy = tmp_path / "copy"  # the same tree without .git
+    copy.mkdir()
+    assert walk_ab.base_revision(copy) is None
+    assert walk_ab.parent_tree(copy) == tree
+    assert walk_ab.parent_csrc(copy) == tree / walk_ab.CSRC_REL
+    (tmp_path / "parents" / "BASE").unlink()
+    assert walk_ab.parent_tree(copy) is None
