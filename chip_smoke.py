@@ -55,8 +55,9 @@ walk's six instantiations and the flat scan's ten, each built from the
 base revision's sources (the commit the tree is held against, unpacked
 with ``git archive`` where the checkout has its history) and from this
 one, held bitwise old against new at their paths' shapes and timed in
-turns; the walk's ``-Xptxas -v``, its SASS loops and its counter build
-(SIMT efficiency, slab tests a bounce).
+turns; each kernel's ``-Xptxas -v``, SASS loops and counter build (the
+walk's SIMT efficiency and slab tests a bounce; the scan's SIMT of the
+trip, the slot loop and the tail, live lanes a warp trip, roots a slot).
 
 Every image is checked (the cover against the committed golden
 ``tests/goldens/cover_jnp_rr0_500spp_f16.npz``); each kernel is timed on
@@ -221,8 +222,9 @@ def phase_device():
 
 def phase_build():
     """Every kernel source, and the walk A/B's builds (the base
-    revision's walk and flat scan, where the checkout has them, and the
-    walk's counter build), one nvcc each, all at once."""
+    revision's walk and flat scan, where the checkout has them, both
+    counter builds and the flat scan's two form builds), one nvcc each,
+    all at once."""
     from raytracer_tpu_torch.scripts import walk_ab
     from raytracer_tpu_torch.utils import cuda_build
 
@@ -231,7 +233,7 @@ def phase_build():
         walk_ab.parent_csrc())
     t0 = time.perf_counter()
     cuda_build.build_all(specs)
-    extra = [f"{name} counter build" if d else f"{name} base revision"
+    extra = [f"{name} {' '.join(d) or 'base revision'}"
              for name, _, d in specs[len(names):]]
     print(f"[build] {', '.join(names)} and the A/B's {', '.join(extra)} "
           f"at once: {time.perf_counter() - t0:.1f} s")
@@ -242,11 +244,12 @@ def phase_build():
             elif "Compiling" in line:
                 # the mangled name carries the template arguments as Lb0E
                 # / Lb1E / Li4E: adaptive, stratified, (split,) debug,
-                # (the walk's box-mask words)
+                # and the walk's box-mask words or the scan's form
                 bits = re.findall(r"L[bi](\d+)E", line)
                 keys = (("adaptive", "stratified", "debug", "mask words")
                         if name == "cluster_walk" else
-                        ("adaptive", "stratified", "split", "debug"))
+                        ("adaptive", "stratified", "split", "debug",
+                         "batched"))
                 inst = (" <" + ", ".join(f"{k}={b}" for k, b in
                                         zip(keys, bits)) + ">"
                         if len(bits) == len(keys) else "")
@@ -724,7 +727,10 @@ def phase_walk_ab(smi: str) -> dict:
     on one of its tail), every output row and the segments bitwise equal,
     timed in turns; ``-Xptxas -v``, the SASS's loops, and the counter
     build's SIMT efficiency and slab tests. Then the flat scan's ten
-    instantiations, which share the walk's tail, the same way. Without
+    instantiations the same way, with their SASS loops and the flat
+    counter build (SIMT of the trip, the slot loop and the tail, live
+    lanes a warp trip, roots a slot), and its form sweep (each scan form
+    on tables of 9-63 slots, bitwise, timed in turns). Without
     the base revision's sources (a checkout without history, and nothing
     unpacked under ``build/walk_parent``) the old builds are left out."""
     from raytracer_tpu_torch.scripts import walk_ab
@@ -741,11 +747,11 @@ def phase_walk_ab(smi: str) -> dict:
            if not ok]
     if bad:
         fail(f"a kernel disagrees with its base revision: {bad}")
-    for name, c in got["counters"].items():
+    for name, c in {**got["counters"], **got["flat"]["counters"]}.items():
         if not (c["cost_row_equal"] and c["segs_equal"]):
             fail(f"{name}: the counter build's trips or tails disagree "
                  f"with its cost row or segments")
-    for name, t in got["times"].items():
+    for name, t in {**got["times"], **got["flat"]["times"]}.items():
         if "old" in t:
             print(f"[walk A/B {name}] old {min(t['old']):.3f} ms, new "
                   f"{min(t['new']):.3f} ms (best of {len(t['new'])} in "

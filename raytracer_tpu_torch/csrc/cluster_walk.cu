@@ -78,14 +78,11 @@
 // Constants are the float32 roundings of the JAX package's Python
 // doubles, as hex literals.
 
-#include <cooperative_groups.h>
-
 #include "common.cuh"
 
 namespace {
 
 using namespace rt;
-namespace cg = cooperative_groups;
 
 // one block of 1024 threads an SM: one copy of the tables an SM, and
 // ptxas keeps the kernel within 64 registers a thread (32 warps an SM)
@@ -200,25 +197,6 @@ __device__ __forceinline__ void mask_clear(BoxMask<kWords>& m, int c) {
     if (j == (c >> 5)) m.w[j] &= ~(1u << (c & 31));
 }
 
-// The grid's threads start on lanes 0 .. grid - 1, warp w of block b on
-// the 32 lanes from 32 (w gridDim + b): the map's head spreads over every
-// block, its consecutive lanes stay in one warp.
-__device__ __forceinline__ int first_lane() {
-  const int warp = (int)(threadIdx.x >> 5);
-  return 32 * (warp * (int)gridDim.x + (int)blockIdx.x) +
-         (int)(threadIdx.x & 31);
-}
-
-// A thread whose lane is done takes the next untaken lane of the map. One
-// atomic a warp for the lanes of the warp that ask together.
-__device__ __forceinline__ int next_lane(const Params& p) {
-  cg::coalesced_group g = cg::coalesced_threads();
-  int base = 0;
-  if (g.thread_rank() == 0) base = atomicAdd(p.next_lane, (int)g.size());
-  base = g.shfl(base, 0);
-  return (int)(gridDim.x * blockDim.x) + base + (int)g.thread_rank();
-}
-
 // Copy the packed tables into shared memory, once per block.
 __device__ __forceinline__ void load_tables(float* smem, const float* src,
                                             int n_floats) {
@@ -253,7 +231,7 @@ __global__ void __launch_bounds__(kWalkThreads, 1)
     if (lane_setup<kAdaptive>(p.path, p.pixel_map, p.budget, p.out, p.segs,
                               p.n, lane, px, py, pix, limit))
       break;
-    lane = next_lane(p);
+    lane = next_lane(p.next_lane);
   }
   path.s = 0;
   path.i = 0;
@@ -400,7 +378,7 @@ __global__ void __launch_bounds__(kWalkThreads, 1)
     // lane of the map that has any
     write_lane<kAdaptive>(p.out, p.segs, p.n, lane, sums, cost, path, segs);
     for (;;) {
-      lane = next_lane(p);
+      lane = next_lane(p.next_lane);
       if (lane >= p.n) break;
       if (lane_setup<kAdaptive>(p.path, p.pixel_map, p.budget, p.out,
                                 p.segs, p.n, lane, px, py, pix, limit))

@@ -6,9 +6,10 @@
 // `gen_ray`, the tail after the closest-hit scan, and the module's
 // `_lowbias32` ... `_unit_sphere` and `_r2_fixed`.
 //
-// Included by cluster_walk.cu (K1) and flat_scan.cu (K2, K2s); the
-// plain PyTorch versions share the same tail in
-// raytracer_tpu_torch/render/cluster_walk.py `bounce_tail`.
+// Included by cluster_walk.cu (K1) and flat_scan.cu (K2, K2s), which also
+// share the persistent grid's lane dealing; the plain PyTorch versions
+// share the same tail in raytracer_tpu_torch/render/cluster_walk.py
+// `bounce_tail`.
 //
 // Numerics: build with -fmad=false and without --use_fast_math, so every
 // product and sum rounds on its own as in the plain versions. Constants
@@ -17,6 +18,7 @@
 
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -127,19 +129,36 @@ __device__ __forceinline__ void normalize3(float& x, float& y, float& z) {
   z = z * inv;
 }
 
-// the sphere quadratic in q-space (q = t*|d|^2), roots nb -/+ sq. A
-// negative discriminant poisons sq to -3e38, never NaN.
-// c = [cx, cy, cz, k1 = |c|^2 - r^2].
+// the sphere quadratic in q-space (q = t*|d|^2) of the sphere [cx, cy,
+// cz] with k1 = |c|^2 - r^2: half its b, nb, and its discriminant ds
+__device__ __forceinline__ void discriminant(float cx, float cy, float cz,
+                                             float k1, float ox, float oy,
+                                             float oz, float dx, float dy,
+                                             float dz, float a,
+                                             float o_dot_d, float o_dot_o,
+                                             float& nb, float& ds) {
+  float cdd = dot3(cx, cy, cz, dx, dy, dz);
+  float cdo = dot3(cx, cy, cz, ox, oy, oz);
+  nb = cdd - o_dot_d;
+  float cc = o_dot_o - 2.0f * cdo + k1;
+  ds = nb * nb - a * cc;
+}
+
+// the roots' half-distance sq of a discriminant: a negative one poisons
+// it to -3e38, never NaN
+__device__ __forceinline__ float root_of(float ds) {
+  return ds >= 0.0f ? sqrtf(fabsf(ds)) : kNegBig;
+}
+
+// the sphere quadratic's roots nb -/+ sq; c = [cx, cy, cz, k1]
 __device__ __forceinline__ void roots(const float* c, float ox, float oy,
                                       float oz, float dx, float dy, float dz,
                                       float a, float o_dot_d, float o_dot_o,
                                       float& nb, float& sq) {
-  float cdd = dot3(c[0], c[1], c[2], dx, dy, dz);
-  float cdo = dot3(c[0], c[1], c[2], ox, oy, oz);
-  nb = cdd - o_dot_d;
-  float cc = o_dot_o - 2.0f * cdo + c[3];
-  float ds = nb * nb - a * cc;
-  sq = ds >= 0.0f ? sqrtf(fabsf(ds)) : kNegBig;
+  float ds;
+  discriminant(c[0], c[1], c[2], c[3], ox, oy, oz, dx, dy, dz, a, o_dot_d,
+               o_dot_o, nb, ds);
+  sq = root_of(ds);
 }
 
 // nearest root q with t >= MIN_T (near root, else far root), kFillQ when
@@ -187,6 +206,18 @@ __device__ __forceinline__ void gen_ray(const float* cam, const PathParams& p,
   path.dx = cam[3] + st_s * cam[6] + st_t * cam[9] - path.ox;
   path.dy = cam[4] + st_s * cam[7] + st_t * cam[10] - path.oy;
   path.dz = cam[5] + st_s * cam[8] + st_t * cam[11] - path.oz;
+}
+
+// The camera ray of the lane's sample path.s, full throughput, bounce 0.
+template <bool kStratified>
+__device__ __forceinline__ void start_sample(const float* cam,
+                                             const PathParams& p,
+                                             uint32_t dps, float px, float py,
+                                             uint32_t pix, Path& path) {
+  gen_ray<kStratified>(cam, p, (uint32_t)(p.sample_offset + path.s), dps, px,
+                       py, pix, path);
+  path.cr = path.cg = path.cb = 1.0f;
+  path.i = 0;
 }
 
 // The bounce tail, for a lane whose closest hit is known: best q `bq`
@@ -375,11 +406,30 @@ __device__ __forceinline__ int bounce_tail(
   // the path ended: regenerate the lane's next sample, if any
   ++path.s;
   if (path.s >= limit) return kLaneDone;
-  gen_ray<kStratified>(cam, p, (uint32_t)(p.sample_offset + path.s), dps, px,
-                       py, pix, path);
-  path.cr = path.cg = path.cb = 1.0f;
-  path.i = 0;
+  start_sample<kStratified>(cam, p, dps, px, py, pix, path);
   return kNextSample;
+}
+
+// Lanes of a persistent grid, as both kernels deal them. The grid's
+// threads start on lanes 0 .. grid - 1, warp w of block b on the 32 lanes
+// from 32 (w gridDim + b): the map's head spreads over every block, its
+// consecutive lanes stay in one warp.
+__device__ __forceinline__ int first_lane() {
+  const int warp = (int)(threadIdx.x >> 5);
+  return 32 * (warp * (int)gridDim.x + (int)blockIdx.x) +
+         (int)(threadIdx.x & 31);
+}
+
+// A thread whose lane is done takes the next untaken lane of the map:
+// `counter` counts the lanes taken past the grid's own. One atomic a warp
+// for the lanes of the warp that ask together.
+__device__ __forceinline__ int next_lane(int* counter) {
+  namespace cg = cooperative_groups;
+  cg::coalesced_group g = cg::coalesced_threads();
+  int base = 0;
+  if (g.thread_rank() == 0) base = atomicAdd(counter, (int)g.size());
+  base = g.shfl(base, 0);
+  return (int)(gridDim.x * blockDim.x) + base + (int)g.thread_rank();
 }
 
 // The lane's setup shared by both kernels: its pixel, the pixel's hash

@@ -276,8 +276,9 @@ _LANE_COUNTERS = {}
 
 
 def _lane_counter(dev: torch.device, stream: int) -> torch.Tensor:
-    """The kernel's lane counter for ``stream`` on ``dev``: one int32 that
-    every launch on that stream reuses (the launch zeroes it there)."""
+    """The lane counter for ``stream`` on ``dev``: one int32 that every
+    launch of either kernel on that stream reuses (each launch zeroes it
+    there first, and launches on one stream run one after another)."""
     key = (dev.index, stream)
     if key not in _LANE_COUNTERS:
         _LANE_COUNTERS[key] = torch.zeros((1,), dtype=torch.int32,
@@ -319,16 +320,31 @@ def _gen_ray(cam, s_abs, px, py, pix, inv_w, inv_h, dps, stratified):
     return ox, oy, oz, dx, dy, dz
 
 
-def roots(cx, cy, cz, k1, ox, oy, oz, dx, dy, dz, a, o_dot_d, o_dot_o):
-    """(nb, sq) of the sphere quadratic in q-space (q = t·|d|², roots
-    nb ∓ sq), as the kernels form them: sq is poisoned to -3e38 where the
-    discriminant is negative, never NaN."""
+def discriminant(cx, cy, cz, k1, ox, oy, oz, dx, dy, dz, a, o_dot_d,
+                 o_dot_o):
+    """(nb, ds): half the b of the sphere quadratic in q-space (q =
+    t·|d|²) and its discriminant, as the kernels form them
+    (``csrc/common.cuh`` ``discriminant``)."""
     cdd = cx * dx + cy * dy + cz * dz
     cdo = cx * ox + cy * oy + cz * oz
     nb = cdd - o_dot_d
     cc = o_dot_o - 2.0 * cdo + k1
-    ds = nb * nb - a * cc
-    return nb, torch.where(ds >= 0.0, torch.sqrt(torch.abs(ds)), NEG_BIG)
+    return nb, nb * nb - a * cc
+
+
+def root_of(ds):
+    """The roots' half-distance sq of a discriminant, poisoned to -3e38
+    where it is negative (or NaN), never NaN."""
+    return torch.where(ds >= 0.0, torch.sqrt(torch.abs(ds)), NEG_BIG)
+
+
+def roots(cx, cy, cz, k1, ox, oy, oz, dx, dy, dz, a, o_dot_d, o_dot_o):
+    """(nb, sq) of the sphere quadratic in q-space (q = t·|d|², roots
+    nb ∓ sq), as the kernels form them: sq is poisoned to -3e38 where the
+    discriminant is negative, never NaN."""
+    nb, ds = discriminant(cx, cy, cz, k1, ox, oy, oz, dx, dy, dz, a,
+                          o_dot_d, o_dot_o)
+    return nb, root_of(ds)
 
 
 def _exact_q(cx, cy, cz, k1, ox, oy, oz, dx, dy, dz, a, o_dot_d, o_dot_o,

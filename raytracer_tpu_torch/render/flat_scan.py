@@ -36,6 +36,7 @@ from raytracer_tpu_torch.render import rng
 from raytracer_tpu_torch.render.cluster_walk import (
     FILLQ,
     _first_min,
+    _lane_counter,
     bounce_tail,
     check_chunk_args,
     check_tables,
@@ -59,7 +60,7 @@ ROW = 12
 MAX_SMEM_BYTES = 48 * 1024
 #: the version of ``flat_scan_launch``'s arguments that :func:`call`
 #: passes (``flat_scan_abi`` in ``csrc/flat_scan.cu``)
-ABI = 1
+ABI = 2
 
 
 def smem_bytes(slots: int) -> int:
@@ -147,7 +148,7 @@ def bind(lib: ctypes.CDLL):
         if got != ABI:
             raise RuntimeError(f"flat_scan library has launch interface "
                                f"{got}, this wrapper passes {ABI}")
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 15
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 15
                        + [ctypes.c_float] * 6 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
@@ -182,11 +183,12 @@ def call(fn, tables, pixel_map, seed, sample_offset, spp, width, height,
         return out, segs
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        next_lane = _lane_counter(dev, stream)
         err = fn(
             tables.camera.data_ptr(), tables.spheres.data_ptr(),
             pixel_map.data_ptr(),
             None if budget is None else budget.data_ptr(),
-            out.data_ptr(), segs.data_ptr(),
+            out.data_ptr(), segs.data_ptr(), next_lane.data_ptr(),
             int(adaptive), int(opts.sampler == "stratified"), int(split),
             int(uniforms is not None),
             n, slots, g_full if split else slots, padded_width(width),

@@ -14,8 +14,8 @@ counterpart of ``scripts/roofline.py``.
    roulette from bounce 5; one warm run, then the best of 2, with its
    exact segment total.
 4. Operations from the port's own account (``utils/profiling.py``: per
-   slot with full root logic or the near root alone, per trip, self-test,
-   tail and camera ray), not the TPU kernel's.
+   slot its discriminant, per trip, self-test, tail and camera ray; the
+   root logic on no slot), not the TPU kernel's.
 5. One JSON line: the render's wall and Mrays/s, the scan's operations
    per segment, ``g_full`` and ``s_pad`` (the slot count in the JAX
    package's padding; the port scans ``slots``), the useful operations a
@@ -108,7 +108,7 @@ def main(device=None, width: int | None = None,
         "cover_wall_s": best,
         "cover_mrays": segments / best / 1e6,
         "segments": segments,
-        "scan_ops_per_segment": profiling.flat_scan_ops(slots, g_full),
+        "scan_ops_per_segment": profiling.flat_scan_ops(slots),
         "ops_per_segment": ops / segments,
         "ops": ops,
         "g_full": slots if g_full is None else g_full,

@@ -1,7 +1,7 @@
-"""The cluster walk (K1 and its five other instantiations) against the
-base revision of its kernel, on the card, the walk's own structure
-counters, and the flat scan that shares its tail against its base
-revision too.
+"""The cluster walk (K1 and its five other instantiations) and the flat
+scan (K2, K2s and their eight other instantiations) against the base
+revision of their kernels, on the card, with each kernel's own structure
+counters and SASS.
 
     python -m raytracer_tpu_torch.scripts.walk_ab [--repeats 6] [--out DIR]
 
@@ -38,14 +38,32 @@ one whose version no binder here knows is left out, never called.
    bounce start, of the member loop and of the tail; slab tests per
    completed bounce beside the k a trip the flat walk made.
 5. The flat scan (``csrc/flat_scan.cu``), which shares the walk's bounce
-   tail: its ten instantiations, base revision and current build, bitwise
-   and timed in turns the same way, on the demo's 1080p progressive frame
+   tail: its ten instantiations, base revision and current build, and the
+   current source built in each scan form for every table size (``each``:
+   slot by slot, ``batched``: in batches; ``-DRT_FLAT_BATCHED_MIN``),
+   bitwise and timed in turns the same way, on the demo's 1080p
+   progressive frame
    (31-spp chunks for the adaptive ones, 40 % of the lanes without
    budget), the engine's 720p frame for the debug ones, and K2 and K2s on
-   a 41-spp chunk of the cover (487 slots, depth 50).
+   a 41-spp chunk of the cover (487 slots, depth 50); ``-Xptxas -v`` and
+   the SASS of each flat instantiation (per loop its instructions by
+   class, and its square roots: one a slot); and the flat counter build
+   (``-DRT_FLAT_COUNTERS``) on the same cases: warp trips, the SIMT
+   efficiency of the bounce trip, of the slot loop and of the tail, the
+   lanes live per warp trip (and their histogram), slot iterations per
+   bounce, the share of lane slot iterations whose discriminant is not
+   negative and the share of warp slot iterations where no lane's is
+   (the slots an exact early rejection skips), and lanes refilled.
+6. The scan form's cut (flat_scan.cu ``kBatchedMin``, the table size from
+   which the launcher takes the batched form): K2 and K2s (where the split
+   analysis splits) on a 1080p 1-spp depth-8 frame of the demo and of the
+   cover thinned to each of ``FORM_SLOTS`` spheres (:func:`thinned_cover`),
+   the two form builds bitwise and timed in turns; the smallest size from
+   which the batched form is the faster at every size measured.
 
 Writes everything to ``<out>/walk_ab.json`` as well, and the SASS
-listings under ``<out>/sass/`` (``--out``, ``build/walk_ab`` by default).
+listings, gzipped, under ``<out>/sass/`` (``--out``, ``build/walk_ab`` by
+default).
 Needs a card.
 """
 
@@ -53,6 +71,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import gzip
 import io
 import json
 import os
@@ -76,6 +95,12 @@ CSRC_REL = f"{PACKAGE_REL}/csrc"
 COUNTERS = ("warp_trips", "lane_trips", "warp_fresh", "lane_fresh",
             "warp_visit", "lane_visit", "warp_tail", "lane_tail",
             "slab_tests")
+#: the flat counter build's totals (``FlatCounter`` in flat_scan.cu), then
+#: a histogram of the active lanes of a warp trip, 0..32
+FLAT_COUNTERS = ("warp_trips", "lane_trips", "warp_slots", "lane_slots",
+                 "warp_root", "lane_root", "warp_tail", "lane_tail",
+                 "lane_refill", "warp_batch", "warp_batch_root")
+LIVE_BINS = 33
 #: instantiation name → (adaptive, stratified, debug)
 VARIANTS = {
     "cluster_walk": (False, False, False),
@@ -110,6 +135,9 @@ ADAPTIVE_LAUNCHES = {"": 1, " tail": 9}
 WIDE_GROUP = 8
 SASS_LOOPS_SHOWN = 8
 ENGINE_W, ENGINE_H, ENGINE_DEPTH = 1280, 720, 8
+#: the form sweep's table sizes: the flat scan's default range (it serves
+#: scenes under ``options.CLUSTER_AUTO_MIN_SPHERES`` slots)
+FORM_SLOTS = (9, 16, 24, 32, 40, 48, 56, 63)
 
 
 def _git(root: Path, *args) -> subprocess.CompletedProcess:
@@ -218,6 +246,51 @@ def walk_caller(lib: ctypes.CDLL):
     return None
 
 
+def bind_flat_v1(lib: ctypes.CDLL):
+    """``flat_scan_launch`` at launch interface version 1: camera, sphere
+    table, map, budget, out, segs; 15 ints, 6 floats, stream (no lane
+    counter: one thread a lane)."""
+    fn = lib.flat_scan_launch
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 15
+                       + [ctypes.c_float] * 6 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def call_flat_v1(fn, tables, pixel_map, seed, sample_offset, spp, width,
+                 height, opts, g_full, budget, uniforms):
+    """One launch of a version-1 flat-scan library on the current
+    stream."""
+    from raytracer_tpu_torch.render import flat_scan as fs
+
+    n = pixel_map.shape[0]
+    adaptive = opts.adaptive_tolerance > 0.0
+    split = fs.is_split(tables, g_full)
+    slots = tables.spheres.shape[0]
+    out = torch.empty((6 if adaptive else 4, n), dtype=torch.float32,
+                      device=pixel_map.device)
+    segs = torch.empty((n,), dtype=torch.int32, device=pixel_map.device)
+    err = fn(
+        tables.camera.data_ptr(), tables.spheres.data_ptr(),
+        pixel_map.data_ptr(),
+        None if budget is None else budget.data_ptr(),
+        out.data_ptr(), segs.data_ptr(),
+        int(adaptive), int(opts.sampler == "stratified"), int(split),
+        int(uniforms is not None),
+        n, slots, g_full if split else slots, cw.padded_width(width),
+        int(seed), int(sample_offset), int(spp),
+        opts.max_depth, opts.russian_roulette_depth,
+        int(opts.exhaust_black), int(opts.near_zero_guard),
+        float(np.float32(1.0 / width)), float(np.float32(1.0 / height)),
+        *(uniforms or (0.0,) * 4),
+        torch.cuda.current_stream().cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"old flat_scan launch failed: CUDA error {err}")
+    return out, segs
+
+
 def flat_caller(lib: ctypes.CDLL):
     """``call(*case)`` for a flat-scan library, as :func:`walk_caller`."""
     from raytracer_tpu_torch.render import flat_scan as fs
@@ -226,6 +299,9 @@ def flat_caller(lib: ctypes.CDLL):
     if version == fs.ABI:
         fn = fs.bind(lib)
         return lambda *a: fs.call(fn, *a)
+    if version == 1:
+        fn = bind_flat_v1(lib)
+        return lambda *a: call_flat_v1(fn, *a)
     print(f"[walk A/B] a flat-scan library with launch interface {version}: "
           "no binder for it here, left out")
     return None
@@ -268,11 +344,15 @@ def _sass_class(op: str) -> str:
     return "other"
 
 
-def sass_report(lib: Path, dump: Path | None = None) -> dict:
-    """Per walk instantiation (``<a,s,d>``): its instruction count and its
-    loops (a backward branch), smallest first, each with its
-    body's instructions by class. The whole listing goes to ``dump`` where
-    one is given. Empty where ``cuobjdump`` is missing."""
+def sass_report(lib: Path, dump: Path | None = None,
+                kernel: str = "cluster_walk_kernel") -> dict:
+    """Per instantiation of ``kernel`` (``<a,s,d,w>`` for the walk,
+    ``<a,s,sp,d>`` for the flat scan): its instruction count and its loops
+    (a backward branch), smallest first, each with its body's instructions
+    by class and its square roots (``rsq``, ``MUFU.RSQ``: one a slot of
+    the flat scan's loops). The whole listing goes to ``dump`` where one
+    is given (gzipped where its name ends in ``.gz``). Empty where
+    ``cuobjdump`` is missing."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         return {}
@@ -280,11 +360,14 @@ def sass_report(lib: Path, dump: Path | None = None) -> dict:
                           text=True).stdout
     if dump is not None:
         dump.parent.mkdir(parents=True, exist_ok=True)
-        dump.write_text(text)
+        if dump.suffix == ".gz":
+            dump.write_bytes(gzip.compress(text.encode()))
+        else:
+            dump.write_text(text)
     report = {}
     for chunk in text.split("Function : ")[1:]:
         name = chunk.splitlines()[0].strip()
-        if "cluster_walk_kernel" not in name:
+        if kernel not in name:
             continue
         inst = "<" + ",".join(re.findall(r"L[bi](\d+)E", name)) + ">"
         insns = [(int(m.group(1), 16), m.group(2), m.group(3))
@@ -302,8 +385,10 @@ def sass_report(lib: Path, dump: Path | None = None) -> dict:
             for _, o, _ in insns[start:j + 1]:
                 c = _sass_class(o)
                 by[c] = by.get(c, 0) + 1
+            rsq = sum(o.startswith("MUFU.RSQ") for _, o, _ in
+                      insns[start:j + 1])
             loops.append({"start": start, "end": j, "insns": j + 1 - start,
-                          "by_class": by})
+                          "by_class": by, "rsq": rsq})
         loops.sort(key=lambda lp: lp["insns"])
         report[inst] = {"insns": len(insns), "loops": loops}
     return report
@@ -405,8 +490,9 @@ def adaptive_launches(tabs, count: int, w: int, h: int, spp: int, opts,
 def budgeted(lane_map, n_spp: int, device):
     """The flat scan's adaptive cases: the map with 40 % of its lanes
     (seeded) converged and sorted last, as a re-plan sorts them, and the
-    budget: ``n_spp`` or 0. (The flat scan launches one thread a lane, so
-    where the live lanes sit in the map does not decide its grid.)"""
+    budget: ``n_spp`` or 0. (The base revision's flat scan launched one
+    thread a lane; the persistent grid deals the live lanes first, then
+    burns through the converged ones.)"""
     g = torch.Generator(device="cpu").manual_seed(5)
     live = torch.rand(lane_map.shape[0], generator=g) >= 0.4
     order = torch.argsort((~live).to(torch.int8), stable=True)
@@ -503,6 +589,54 @@ def counters(lib: ctypes.CDLL, args_by_name: dict) -> dict:
     return got
 
 
+def flat_counters(lib: ctypes.CDLL, args_by_name: dict) -> dict:
+    """The flat counter build's totals per instantiation, its live-lane
+    histogram, and the derived SIMT efficiencies and shares."""
+    from raytracer_tpu_torch.render import flat_scan as fs
+
+    read = lib.flat_scan_counters
+    read.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    read.restype = ctypes.c_int
+    buf = (ctypes.c_ulonglong * (len(FLAT_COUNTERS) + LIVE_BINS))()
+    call = flat_caller(lib)
+    got = {}
+    for name, args in args_by_name.items():
+        if read(buf, 1) != 0:
+            raise RuntimeError("flat counter reset failed")
+        out, segs = call(*args)
+        if read(buf, 1) != 0:
+            raise RuntimeError("flat counter read failed")
+        vals = [int(v) for v in buf]
+        c = dict(zip(FLAT_COUNTERS, vals))
+        live = vals[len(FLAT_COUNTERS):]
+        tabs, g_full = args[0], args[8]
+        slots = tabs.spheres.shape[0]
+        full = g_full if fs.is_split(tabs, g_full) else slots
+        bounces = max(c["lane_tail"], 1)
+        got[name] = {
+            **c,
+            "simt_trip": c["lane_trips"] / max(32 * c["warp_trips"], 1),
+            "simt_slot": c["lane_slots"] / max(32 * c["warp_slots"], 1),
+            "simt_tail": c["lane_tail"] / max(32 * c["warp_tail"], 1),
+            "live_per_warp_trip": c["lane_trips"] / max(c["warp_trips"], 1),
+            "slots_per_bounce": c["lane_slots"] / bounces,
+            "full_slots": full, "slots": slots,
+            "lane_root_share": c["lane_root"] / max(c["lane_slots"], 1),
+            "warp_no_root_share": 1.0 - c["warp_root"]
+            / max(c["warp_slots"], 1),
+            "batch_root_share": c["warp_batch_root"]
+            / max(c["warp_batch"], 1),
+            "live_hist": live,
+            "cost_row_equal": int(out[3].sum(dtype=torch.float64))
+            == c["lane_trips"],
+            "segs_equal": int(segs.sum(dtype=torch.int64)) == c["lane_tail"],
+        }
+        print(f"[flat counters {name}] " + ", ".join(
+            f"{key} {val:.4f}" if isinstance(val, float) else f"{key} {val}"
+            for key, val in got[name].items()))
+    return got
+
+
 def time_in_turns(calls: dict, args_by_name: dict, repeats: int,
                   smi: str) -> dict:
     """ms of one launch of each build, for each instantiation, timed in
@@ -556,25 +690,39 @@ def smi_line() -> str:
         check=True).stdout.strip().splitlines()[0]
 
 
+#: builds of the current source besides its main path's, by kernel: the
+#: counter build, and the flat scan in one form for every table size
+DEFINED_BUILDS = {
+    "cluster_walk": {"counters": ("RT_WALK_COUNTERS",)},
+    "flat_scan": {"counters": ("RT_FLAT_COUNTERS",),
+                  "each": ("RT_FLAT_BATCHED_MIN=1024",),
+                  "batched": ("RT_FLAT_BATCHED_MIN=1",)},
+}
+#: the builds whose kernels are the current build's own code (the same
+#: SASS), launched in another scan form
+FORM_BUILDS = ("each", "batched")
+
+
 def extra_builds(old: Path | None) -> list:
     """(name, csrc, defines) of the builds besides the main path's: the
-    base revision's walk and flat scan (where there is one) and the
-    counter build."""
-    specs = [("cluster_walk", cuda_build.CSRC_DIR, ("RT_WALK_COUNTERS",))]
+    base revision's walk and flat scan (where there is one) and
+    ``DEFINED_BUILDS``."""
+    specs = [(name, cuda_build.CSRC_DIR, d)
+             for name, builds in DEFINED_BUILDS.items()
+             for d in builds.values()]
     if old is not None:
         specs = [("cluster_walk", old, ()), ("flat_scan", old, ())] + specs
     return specs
 
 
-def _builds(name: str, old: Path | None, defines=()) -> dict:
+def _builds(name: str, old: Path | None) -> dict:
     """Build name → library of ``csrc/<name>.cu``: the base revision's
-    (``old``, where there is one) and the current one, all built at once;
-    with ``defines``, also ``counters``, the current one built with
-    them."""
+    (``old``, where there is one), the current one (``new``) and its
+    ``DEFINED_BUILDS``, all built at once."""
     builds = {"old": (old, ())} if old is not None else {}
     builds["new"] = (cuda_build.CSRC_DIR, ())
-    if defines:
-        builds["counters"] = (cuda_build.CSRC_DIR, tuple(defines))
+    for label, defines in DEFINED_BUILDS[name].items():
+        builds[label] = (cuda_build.CSRC_DIR, defines)
     return dict(zip(builds, cuda_build.build_all(
         (name, *b) for b in builds.values())))
 
@@ -594,23 +742,137 @@ def _callers(paths: dict, caller) -> dict:
 def _print_ptxas(label: str, paths: dict) -> dict:
     got = {}
     for b, path in paths.items():
+        if b in FORM_BUILDS:
+            continue
         got[b] = ptxas_report(Path(str(path) + ".log").read_text())
         for inst, line in got[b]:
             print(f"[ptxas {label}{b} {inst}] {line}")
     return got
 
 
-def flat_ab(old: Path | None, repeats: int, smi: str) -> dict:
+def _print_sass(label: str, paths: dict, kernel: str, out: Path) -> dict:
+    """SASS reports of every build but the counter build (the listings
+    under ``out/sass``), printed."""
+    got = {}
+    for b, path in paths.items():
+        if b == "counters" or b in FORM_BUILDS:
+            continue
+        got[b] = sass_report(path, out / "sass" / f"{label}{b}.sass.gz",
+                             kernel)
+        for inst, rep in got[b].items():
+            print(f"[sass {label}{b} {inst}] {rep['insns']} instructions; "
+                  f"the {SASS_LOOPS_SHOWN} largest loops "
+                  + "; ".join(f"[{lp['start']}, {lp['end']}] {lp['insns']} "
+                              f"rsq {lp['rsq']} {lp['by_class']}"
+                              for lp in rep["loops"][-SASS_LOOPS_SHOWN:]))
+    return got
+
+
+def thinned_cover(slots: int, seed: int = 0):
+    """The cover cut to ``slots`` spheres (at least 4): its ground, its
+    three large spheres and a seeded draw of its small ones, in the
+    cover's order."""
+    import dataclasses
+
+    from raytracer_tpu_torch.scene import presets
+    from raytracer_tpu_torch.scene.spheres import Scene
+
+    cover = presets.cover_scene()
+    n = cover.count
+    small = np.random.default_rng(seed).choice(
+        np.arange(1, n - 3), slots - 4, replace=False)
+    keep = torch.from_numpy(
+        np.concatenate([[0], np.sort(small), np.arange(n - 3, n)]))
+    return Scene(**{f.name: getattr(cover, f.name)[keep]
+                    for f in dataclasses.fields(cover)})
+
+
+def form_cases(device="cuda") -> dict:
+    """Case name → the arguments of
+    :func:`~raytracer_tpu_torch.render.flat_scan.call` after its ``fn``:
+    K2, and K2s where the split analysis splits, on a 1080p 1-spp depth-8
+    frame (the progressive demo's) of the demo and of the cover thinned to
+    each of ``FORM_SLOTS``."""
+    from raytracer_tpu_torch.camera.camera import derive_camera
+    from raytracer_tpu_torch.render import flat_scan as fs
+    from raytracer_tpu_torch.render import megakernel
+    from raytracer_tpu_torch.render.options import TraceOptions
+    from raytracer_tpu_torch.render.rng import kernel_seed
+    from raytracer_tpu_torch.scene import presets
+
+    opts = TraceOptions(max_depth=ENGINE_DEPTH, russian_roulette_depth=0)
+    scenes = {"demo": presets.get_config("demo", PROG_W, PROG_H)[:2]}
+    cover_cam = presets.cover_camera(PROG_W, PROG_H)
+    scenes.update({f"cover/{k}": (thinned_cover(k), cover_cam)
+                   for k in FORM_SLOTS})
+    got = {}
+    for label, (scene, cam) in scenes.items():
+        for split in (False, True):
+            choice = megakernel.choose_kernel(scene, derive_camera(cam), opts,
+                                              device, analyse=split)
+            if choice.kernel != "flat_scan":
+                raise RuntimeError(f"{label}: took {choice.kernel}")
+            if fs.is_split(choice.tables, choice.g_full) != split:
+                continue
+            slots = choice.tables.spheres.shape[0]
+            got[f"{'K2s' if split else 'K2'} {label} {slots} slots"] = (
+                choice.tables, cw.identity_map(PROG_W, PROG_H, device),
+                kernel_seed(0), 3, 1, PROG_W, PROG_H, opts, choice.g_full,
+                None, None)
+    return got
+
+
+def batched_from(times: dict) -> int | None:
+    """The smallest table size from which the batched form is the faster
+    (best of its turns) in every case of that size or more; None where it
+    is not the faster at the largest size."""
+    slots = sorted({int(n.split()[-2]) for n in times})
+    cut = None
+    for k in reversed(slots):
+        if any(min(t["batched"]) >= min(t["each"])
+               for n, t in times.items() if int(n.split()[-2]) == k):
+            break
+        cut = k
+    return cut
+
+
+def form_sweep(paths: dict, repeats: int, smi: str) -> dict:
+    """Step 6: the two form builds on :func:`form_cases`, bitwise and
+    timed in turns, and the cut their times give."""
+    calls = _callers({b: paths[b] for b in FORM_BUILDS}, flat_caller)
+    args_by_name = form_cases()
+    same = bitwise(calls, args_by_name, "each")
+    times = time_in_turns(calls, args_by_name, repeats, smi)
+    for name, t in times.items():
+        print(f"[flat form {name}] each {min(t['each']):.4f} ms, batched "
+              f"{min(t['batched']):.4f} ms: batched/each "
+              f"{min(t['batched']) / min(t['each']):.3f} [{smi}]")
+    cut = batched_from(times)
+    print(f"[flat form] the batched form is the faster from {cut} slots "
+          f"on (sizes {list(FORM_SLOTS)}, the demo's 9)")
+    return {"bitwise": {f"{n} {b}": ok for (n, b), ok in same.items()},
+            "times": times, "batched_from": cut}
+
+
+def flat_ab(old: Path | None, repeats: int, smi: str,
+            out: Path = OUT_DIR) -> dict:
     """The flat scan's ten instantiations (the tail they share with the
-    walk): the base revision's build and the current one, bitwise and
-    timed in turns as the walk is."""
+    walk): the base revision's build, the current one and its two form
+    builds, bitwise and timed in turns as the walk is; ``-Xptxas -v``, the
+    SASS loops and the counter build; then the form sweep (step 6)."""
     paths = _builds("flat_scan", old)
-    result = {"ptxas": _print_ptxas("flat ", paths)}
+    result = {"ptxas": _print_ptxas("flat ", paths),
+              "sass": _print_sass("flat_", paths, "flat_scan_kernel", out)}
     calls = _callers(paths, flat_caller)
     args_by_name = flat_cases()
     same = bitwise(calls, args_by_name, "new")
     result["bitwise"] = {f"{n} {b}": ok for (n, b), ok in same.items()}
     result["times"] = time_in_turns(calls, args_by_name, repeats, smi)
+    result["counters"] = flat_counters(ctypes.CDLL(str(paths["counters"])),
+                                       args_by_name)
+    result["form"] = form_sweep(paths, repeats, smi)
+    result["bitwise"].update({f"form {k}": ok for k, ok in
+                              result["form"]["bitwise"].items()})
     return result
 
 
@@ -618,18 +880,9 @@ def run(old: Path | None, repeats: int, smi: str,
         out: Path = OUT_DIR) -> dict:
     """Steps 1-4 of the module docstring, the SASS listings under
     ``out``; returns what they measured."""
-    paths = _builds("cluster_walk", old, ("RT_WALK_COUNTERS",))
-    result = {"smi": smi, "ptxas": _print_ptxas("", paths), "sass": {}}
-    for b, path in paths.items():
-        if b == "counters":
-            continue
-        result["sass"][b] = sass_report(path, out / "sass" / f"{b}.sass")
-        for inst, rep in result["sass"][b].items():
-            print(f"[sass {b} {inst}] {rep['insns']} instructions; the "
-                  f"{SASS_LOOPS_SHOWN} largest loops "
-                  + "; ".join(f"[{lp['start']}, {lp['end']}] {lp['insns']} "
-                              f"{lp['by_class']}"
-                              for lp in rep["loops"][-SASS_LOOPS_SHOWN:]))
+    paths = _builds("cluster_walk", old)
+    result = {"smi": smi, "ptxas": _print_ptxas("", paths),
+              "sass": _print_sass("", paths, "cluster_walk_kernel", out)}
     calls = _callers(paths, walk_caller)
     args_by_name = cases()
     same = bitwise(calls, args_by_name, "new")
@@ -652,14 +905,17 @@ def main(argv=None) -> dict:
     smi = smi_line()
     print(smi)
     result = run(old, a.repeats, smi, a.out)
-    result["flat"] = flat_ab(old, a.repeats, smi)
+    result["flat"] = flat_ab(old, a.repeats, smi, a.out)
     result["bitwise"].update(
         {f"flat {k}": ok for k, ok in result["flat"]["bitwise"].items()})
     a.out.mkdir(parents=True, exist_ok=True)
     (a.out / "walk_ab.json").write_text(json.dumps(result, default=str))
     bad = [k for k, ok in result["bitwise"].items() if not ok]
+    bad += [f"{name} counters" for name, c in {
+        **result["counters"], **result["flat"]["counters"]}.items()
+        if not (c["cost_row_equal"] and c["segs_equal"])]
     if bad:
-        raise SystemExit(f"walk_ab: builds disagree bitwise: {bad}")
+        raise SystemExit(f"walk_ab: builds disagree: {bad}")
     return result
 
 

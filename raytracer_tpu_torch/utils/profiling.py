@@ -53,11 +53,15 @@ OPS_BOUNCE_ADAPTIVE = 5
 # sample, so the bound errs low
 OPS_SAMPLE_STRATIFIED = 4 - 26
 # the flat scan (flat_scan.cu), per loop trip (one bounce): the ray's dot
-# products, reciprocal and counters; per slot with the near->far root
-# logic (two dot products, the quadratic, a root, both roots' selects,
-# the running minimum) and per near-root-only slot; K2s's self-test of
-# the last-hit slot. The tail and the camera ray are the walk's.
-OPS_FLAT_TRIP, OPS_SLOT_FULL, OPS_SLOT_NEAR, OPS_SELF_TEST = 23, 29, 26, 25
+# products, reciprocal and counters; per slot its discriminant (two dot
+# products, the quadratic's half b and discriminant, its sign test); K2s's
+# self-test of the last-hit slot. The tail and the camera ray are the
+# walk's. A slot's root logic (a root, the roots' selects, the running
+# minimum) is counted on no slot: only a slot whose discriminant is not
+# negative needs it (a negative one's candidate is 3e38, which never wins:
+# flat_scan.cu's early rejection), and that share is the data's (0.004 of
+# the cover's lane slots, 0.2 of the demo frame's), so the bound errs low
+OPS_FLAT_TRIP, OPS_SLOT_DISC, OPS_SELF_TEST = 23, 18, 25
 # the debug overlay (K3) adds, per completed bounce that hit, the cursor
 # distance (3 differences, 3 products, 2 sums, a compare), the outline
 # test (a dot product, two compares, the uuid compare) and the colour
@@ -205,14 +209,10 @@ def walk_ops(tabs, adaptive, stratified, iters, nsegs, samples,
                          + (OPS_SAMPLE_STRATIFIED if stratified else 0)))
 
 
-def flat_scan_ops(slots, g_full) -> int:
+def flat_scan_ops(slots) -> int:
     """The flat scan's operations per segment (one loop trip): the trip's
-    own and the slots' (full root logic on the first ``g_full``, the near
-    root alone on the rest; every slot full when ``g_full`` is None or not
-    below ``slots``)."""
-    full = g_full if g_full is not None and g_full < slots else slots
-    return (OPS_FLAT_TRIP + OPS_SLOT_FULL * full
-            + OPS_SLOT_NEAR * (slots - full))
+    own and every slot's discriminant."""
+    return OPS_FLAT_TRIP + OPS_SLOT_DISC * slots
 
 
 def flat_ops(slots, g_full, adaptive, stratified, nsegs, samples,
@@ -221,7 +221,7 @@ def flat_ops(slots, g_full, adaptive, stratified, nsegs, samples,
     every loop trip is one segment, which tests every slot and runs the
     tail; K2s's self-test runs on every segment but a sample's first."""
     split = g_full is not None and g_full < slots
-    return (nsegs * (flat_scan_ops(slots, g_full) + OPS_BOUNCE
+    return (nsegs * (flat_scan_ops(slots) + OPS_BOUNCE
                      + (OPS_BOUNCE_ADAPTIVE if adaptive else 0))
             + (nsegs - samples) * ((OPS_SELF_TEST if split else 0)
                                    + (OPS_BOUNCE_DEBUG if debug else 0))

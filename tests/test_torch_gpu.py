@@ -252,6 +252,92 @@ def test_flat_render_runs_the_kernel(card, config):
     assert stats["segments_exact"] >= W * H * 8
 
 
+@pytest.mark.parametrize("scene_name", ["demo", "cover"],
+                         ids=["slot_by_slot", "batched"])
+@pytest.mark.parametrize("case", ["short_map", "one_lane", "no_budget"])
+def test_flat_refill_edges_on_card(card, scene_name, case):
+    """The flat scan's persistent grid at its edges, bit for bit its plain
+    version in both scan forms (the demo's 9 slots one at a time, the
+    cover's 487 in batches): a map shorter than one block, a map of one
+    lane, and an adaptive budget without a lane to run (every lane
+    written as zeros)."""
+    scene, cam, *_ = presets.get_config(scene_name, W, H)
+    opts = TraceOptions(max_depth=12, russian_roulette_depth=5,
+                        cluster_scan=False,
+                        adaptive_tolerance=0.2 if case == "no_budget"
+                        else 0.0)
+    choice = megakernel.choose_kernel(scene, derive_camera(cam), opts, card)
+    assert choice.kernel == "flat_scan"
+    ident = cw.identity_map(W, H, card)
+    budget = None
+    if case == "short_map":
+        pmap = ident[:300].contiguous()
+    elif case == "one_lane":
+        pmap = ident[777:778].contiguous()
+    else:
+        pmap = ident
+        budget = torch.zeros((W * H,), dtype=torch.int32, device=card)
+    args = (choice.tables, pmap, 9, 6, SPP, W, H, opts, choice.g_full,
+            budget)
+    out_k, seg_k = fs.flat_scan(*args)
+    out_p, seg_p = fs.flat_scan_plain(*args)
+    assert torch.equal(out_k, out_p)
+    assert torch.equal(seg_k, seg_p)
+    if case == "no_budget":
+        assert not out_k.any() and not seg_k.any()
+    else:
+        assert int(seg_k.sum()) >= pmap.shape[0] * SPP
+
+
+FLAT_ALL = [(a, st, sp, False) for a, st, sp in FLAT_VARIANTS] + [
+    (False, st, False, True) for st in (False, True)]
+
+
+@pytest.mark.parametrize("adaptive, stratified, split, debug", FLAT_ALL,
+                         ids=[fs.variant_name(TraceOptions(
+                             adaptive_tolerance=0.2 if a else 0.0,
+                             sampler="stratified" if st else "random",
+                             enable_debug=d), sp)
+                             for a, st, sp, d in FLAT_ALL])
+def test_flat_batched_form_bitwise_on_card(card, adaptive, stratified, split,
+                                           debug):
+    """Each of the ten instantiations in the batched form (the cover's 487
+    slots, through the flat scan; K2s on the cover's own split) bit for
+    bit its plain version: the adaptive ones under a budget that mixes 0
+    and the chunk's spp, the debug ones with the cursor on the sphere at
+    the centre of the view and that sphere selected."""
+    from raytracer_tpu_torch.interact.picking import update_cursor_state
+
+    scene, cam, *_ = presets.get_config("cover", W, H)
+    opts = TraceOptions(max_depth=12, russian_roulette_depth=5,
+                        adaptive_tolerance=0.2 if adaptive else 0.0,
+                        sampler="stratified" if stratified else "random",
+                        cluster_scan=False, split_scan=split,
+                        enable_debug=debug)
+    choice = megakernel.choose_kernel(scene, derive_camera(cam), opts, card)
+    assert choice.kernel == "flat_scan"
+    assert choice.tables.spheres.shape[0] >= 32
+    assert fs.is_split(choice.tables, choice.g_full) == split
+    budget = None
+    if adaptive:
+        g = torch.Generator().manual_seed(2)
+        budget = (torch.where(torch.rand(W * H, generator=g) < 0.4, 0, SPP)
+                  .to(torch.int32).to(card))
+    debug_params = None
+    if debug:
+        _, point, sel = update_cursor_state(scene.to(card), cam)
+        debug_params = DebugParams(point, sel)
+    args = (choice.tables, cw.identity_map(W, H, card), 9, 6, SPP, W, H,
+            opts, choice.g_full, budget, debug_params)
+    out_k, seg_k = fs.flat_scan(*args)
+    out_p, seg_p = fs.flat_scan_plain(*args)
+    assert torch.equal(out_k, out_p) and torch.equal(seg_k, seg_p)
+    assert int(seg_k.sum()) > 0
+    if adaptive:
+        assert torch.equal(out_k[4], budget.float())
+        assert not out_k[:, budget == 0].any()
+
+
 def test_progressive_step_waits_for_nothing(card):
     """Steps of the progressive demo session on the card, with the sync
     debug mode raising on any call that waits for the device: none does;

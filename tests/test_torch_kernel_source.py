@@ -121,30 +121,58 @@ def test_four_template_instantiations():
 
 def test_eight_flat_instantiations():
     """The flat scan's switches (adaptive, stratified, split) are
-    template parameters too: eight instantiations behind one launcher."""
+    template parameters too: eight instantiations behind one launcher,
+    each built in two scan forms (slot by slot, and in batches), which the
+    launcher picks by the table's size."""
     assert ("template <bool kAdaptive, bool kStratified, bool kSplit, "
             "bool kDebug>") in FLAT
+    assert ("template <bool kAdaptive, bool kStratified, bool kSplit, "
+            "bool kDebug,\n          bool kBatched>\n__global__") in FLAT
     for a in ("true", "false"):
         for s in ("true", "false"):
-            assert (f"launch_split<{a}, {s}>(p, split, blocks, smem, st)"
-                    in FLAT)
+            assert f"launch_split<{a}, {s}>(p, split, smem, st)" in FLAT
     for sp in ("true", "false"):
-        assert re.search(rf"launch<kAdaptive, kStratified, {sp}, false>\(p, "
-                         r"blocks, smem,\s+st\)", FLAT)
-    assert "int adaptive, int stratified,\n    int split, int debug" in FLAT
+        assert (f"launch<kAdaptive, kStratified, {sp}, false>(p, smem, st)"
+                in FLAT)
+    form = FLAT[FLAT.index("cudaError_t launch(const Params& p"):]
+    form = form[:form.index("}")]
+    assert "return p.slots >= kBatchedMin" in form
+    for batched in ("true", "false"):
+        assert (f"launch_form<kAdaptive, kStratified, kSplit, kDebug, "
+                f"{batched}>(") in form
+    assert "int adaptive,\n    int stratified, int split, int debug" in FLAT
 
 
 def test_flat_candidate_rule_in_source():
     """The scan keeps the lowest slot of equal candidates (strict <), the
     near-only suffix starts at g_full, and the self-test of the last-hit
-    slot runs mid-path only and wins only when strictly nearer."""
-    assert FLAT.count("if (q < bq) {") == 2
-    assert "for (int j = g_full; j < p.slots; ++j) {" in FLAT
+    slot runs mid-path only and wins only when strictly nearer. A slot's
+    root logic is exact_q's (the near root alone past g_full), its update
+    strict; a batch's roots run only where some discriminant of the batch
+    is not negative, and then only on those slots, in ascending order."""
+    root = FLAT[FLAT.index("void take_root("):FLAT.index("struct Ray {")]
+    assert "const float sq = root_of(ds);" in root
+    assert ("const float q = kFull ? (qn >= min_t_a ? qn : nb + sq) : qn;"
+            in root)
+    assert "if (q >= min_t_a && q < bq) {" in root
+    assert FLAT.count("< bq) {") == 2
+    assert "scan_slots<true, kBatched>(s_tab, 0, g_full, r, bq, bs, cnt);" \
+        in FLAT
+    assert ("scan_slots<false, kBatched>(s_tab, g_full, p.slots, r, bq, bs, "
+            "cnt);") in FLAT
+    batch = FLAT[FLAT.index("for (; j + kBatch <= j1; j += kBatch) {"):
+                 FLAT.index("scan_each<kFull>(s_tab, j, j1, r, bq, bs, cnt);")]
+    assert "miss = miss & (ds[k] < 0.0f);" in batch
+    assert "if (!miss) {" in batch and "if (!(ds[k] < 0.0f))" in batch
+    assert "take_root<kFull>(nb[k], ds[k], r.min_t_a, j + k, bq, bs);" \
+        in batch
     assert "if (path.i >= 1) {" in FLAT
-    assert "if (qf >= min_t_a && qf < bq) {" in FLAT
-    assert "if (kSplit && r == kPathGoesOn) last = bs;" in FLAT
-    assert "return qn >= min_t_a ? qn : kFillQ;" in FLAT
-    assert "return nb + sq;" in FLAT
+    assert "const float qf = nb + root_of(ds);" in FLAT
+    assert "if (qf >= r.min_t_a && qf < bq) {" in FLAT
+    assert "if (kSplit && res == kPathGoesOn) last = bs;" in FLAT
+    # one quadratic for both kernels: the walk's exact_q and the scan
+    assert "discriminant(c[0], c[1], c[2], c[3]," in COMMON
+    assert "discriminant(c.x, c.y, c.z, c.w," in FLAT
     # the tail reads [1/r, mat, albedo rgb, fuzz, ior] at row + 4
     assert "row, row + 4, bq" in FLAT and "w, w + 3, bq" in WALK
 
@@ -256,16 +284,48 @@ def test_walk_grid_spreads_the_map_head_in_source():
     head, reach every SM), later ones come from the counter; the launch
     zeroes the counter on its stream and works out the grid's size only
     when the device or the tables' size changes."""
-    spread = WALK[WALK.index("int first_lane()"):
-                  WALK.index("int next_lane(const Params& p)")]
+    spread = COMMON[COMMON.index("int first_lane()"):
+                    COMMON.index("int next_lane(int* counter)")]
     assert "32 * (warp * (int)gridDim.x + (int)blockIdx.x)" in spread
-    assert "int lane = first_lane();" in WALK
-    assert "(int)(gridDim.x * blockDim.x) + base" in WALK
+    assert "(int)(gridDim.x * blockDim.x) + base" in COMMON
+    for src in (WALK, FLAT):
+        assert "int lane = first_lane();" in src
+        assert "lane = next_lane(p.next_lane);" in src
     launch = WALK[WALK.index("cudaError_t launch_words("):
                   WALK.index("// the box mask's width")]
     assert "if (dev != set_dev || smem != set_smem) {" in launch
     assert launch.index("cudaMemsetAsync(p.next_lane, 0, sizeof(int), "
                         "stream)") < launch.index("kernel<<<")
+
+
+def test_flat_persistent_grid_in_source():
+    """The flat scan runs one persistent block of 1024 threads an SM (64
+    registers a thread), its grid capped at the blocks that fit at once,
+    worked out again only when the device or the table's size changes;
+    the launch zeroes the lane counter on its stream first; a finished
+    lane's refill is an if-region the warp's lanes leave together; slots
+    go in batches of 8 from 16 slots; the counter build is compiled in
+    only on request."""
+    consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", FLAT))
+    cut = re.search(r"#ifndef RT_FLAT_BATCHED_MIN\n#define RT_FLAT_BATCHED_MIN "
+                    r"(\d+)\n#endif\nconstexpr int kBatchedMin = "
+                    r"RT_FLAT_BATCHED_MIN;", FLAT)
+    assert (int(consts["kFlatThreads"]), int(consts["kBatch"]),
+            int(cut.group(1))) == (1024, 8, 16)
+    assert "__launch_bounds__(kFlatThreads, 1)" in FLAT
+    launch = FLAT[FLAT.index("cudaError_t launch_form("):
+                  FLAT.index("// the scan's form from the table")]
+    assert "if (dev != set_dev || smem != set_smem) {" in launch
+    assert "if (blocks > grid_max) blocks = grid_max;" in launch
+    assert launch.index("cudaMemsetAsync(p.next_lane, 0, sizeof(int), "
+                        "stream)") < launch.index("kernel<<<")
+    loop = FLAT[FLAT.index("const int res = bounce_tail<"):]
+    assert loop.index("if (res == kLaneDone) {") < loop.index(
+        "write_lane<kAdaptive>(") < loop.index("if (lane >= p.n) break;")
+    assert "continue;" not in loop[:loop.index("if (lane >= p.n) break;")]
+    assert "#ifdef RT_FLAT_COUNTERS" in FLAT
+    assert not any("RT_FLAT" in f for f in cuda_build.NVCC_FLAGS)
+    assert fs.ABI == 2
 
 
 @pytest.mark.parametrize("source, symbol, module", [
@@ -329,8 +389,8 @@ def test_only_the_reachable_debug_instantiations():
     walk = re.findall(r"launch<(\w+), (\w+), true>\(p, blocks, smem, st\)",
                       WALK)
     assert sorted(walk) == [("false", "false"), ("false", "true")]
-    flat = re.findall(r"launch<(\w+), (\w+), (\w+), true>\(p, blocks, "
-                      r"smem, st\)", FLAT)
+    flat = re.findall(r"launch<(\w+), (\w+), (\w+), true>\(p, smem, st\)",
+                      FLAT)
     assert sorted(flat) == [("false", "false", "false"),
                             ("false", "true", "false")]
     assert "if (adaptive) return (int)cudaErrorInvalidValue;" in WALK

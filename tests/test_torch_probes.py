@@ -316,8 +316,7 @@ def test_roofline_account_on_the_cpu():
     assert got["device"] == "cpu" and got["issue_line_telops"] is None
     assert (got["slots"], got["s_pad"], got["g_full"]) == (487, 488, 184)
     assert got["scan_ops_per_segment"] == (
-        profiling.OPS_FLAT_TRIP + 184 * profiling.OPS_SLOT_FULL
-        + (487 - 184) * profiling.OPS_SLOT_NEAR)
+        profiling.OPS_FLAT_TRIP + 487 * profiling.OPS_SLOT_DISC)
     segs = got["segments"]
     assert got["ops"] == profiling.flat_ops(487, 184, False, False, segs,
                                             w * h * spp)
@@ -340,10 +339,11 @@ def test_roofline_needs_a_card_unless_the_cpu_is_named():
 
 def _old_flat_ops(slots, g_full, adaptive, stratified, nsegs, samples,
                   debug):
-    """``chip_smoke.flat_bound``'s operations before the account moved."""
+    """``chip_smoke.flat_bound``'s operations, written out: a slot's
+    discriminant on every slot and its root logic on none (the account's
+    one form since the scan's early rejection)."""
     split = g_full is not None and g_full < slots
-    full = g_full if split else slots
-    return (nsegs * (23 + 29 * full + 26 * (slots - full) + 150
+    return (nsegs * (23 + 18 * slots + 150
                      + (5 if adaptive else 0))
             + (nsegs - samples) * ((25 if split else 0) + (22 if debug else 0))
             + samples * (90 + ((4 - 26) if stratified else 0)))

@@ -3,8 +3,9 @@ A/B and counter harness, which runs whole only on the card: its
 ``-Xptxas -v`` and SASS readers on sample listings, the flat cases'
 budget, the launch arguments of every case at a tiny size (the adaptive
 walk's from its render's own re-plans), the binding of a library by its
-launch interface version, and which revision the A/B holds the tree
-against."""
+launch interface version, which revision the A/B holds the tree against,
+and the flat scan's form sweep: its scenes, its cases and the cut it
+reads."""
 
 import shutil
 import subprocess
@@ -204,8 +205,12 @@ def test_walk_library_bound_by_its_interface_version(version, n_args):
         assert len(lib.cluster_walk_launch.argtypes) == n_args
 
 
-@pytest.mark.parametrize("version", [None, fs.ABI, fs.ABI + 1])
+@pytest.mark.parametrize("version", [None, 1, fs.ABI, fs.ABI + 1])
 def test_flat_library_bound_by_its_interface_version(version):
+    """The current interface (with the persistent grid's lane counter)
+    through ``flat_scan.bind``, version 1 (one thread a lane) or a library
+    without a version through version 1's argument list, an unknown
+    version not at all."""
     lib = FakeLib("flat_scan", version)
     call = walk_ab.flat_caller(lib)
     if version == fs.ABI + 1:
@@ -213,7 +218,9 @@ def test_flat_library_bound_by_its_interface_version(version):
         with pytest.raises(RuntimeError, match="launch interface"):
             fs.bind(FakeLib("flat_scan", version))
     else:
-        assert callable(call) and len(lib.flat_scan_launch.argtypes) == 28
+        # version 1 without the lane counter, version 2 with it
+        assert callable(call) and len(lib.flat_scan_launch.argtypes) == (
+            29 if version == fs.ABI else 28)
 
 
 def _commit(repo, text: str):
@@ -254,3 +261,72 @@ def test_base_revision_is_the_trees_own_parent(tmp_path, monkeypatch):
     assert walk_ab.parent_csrc(copy) == tree / walk_ab.CSRC_REL
     (tmp_path / "parents" / "BASE").unlink()
     assert walk_ab.parent_tree(copy) is None
+
+
+@pytest.mark.parametrize("slots", walk_ab.FORM_SLOTS)
+def test_thinned_cover_keeps_the_ground_and_large_spheres(slots):
+    """The form sweep's scenes: the cover's ground first, its three large
+    spheres last, and a seeded draw of its small ones between, in the
+    cover's order; the same draw every time."""
+    cover = presets.cover_scene()
+    got = walk_ab.thinned_cover(slots)
+    assert got.count == slots
+    assert float(got.radius[0]) == 1000.0
+    assert torch.equal(got.center[-3:], cover.center[-3:])
+    assert bool((got.radius[1:-3] == 0.2).all())
+    rows = [int((cover.center == c).all(1).nonzero()[0])
+            for c in got.center]
+    assert rows == sorted(set(rows))
+    again = walk_ab.thinned_cover(slots)
+    assert torch.equal(got.center, again.center)
+    assert torch.equal(got.material_type, again.material_type)
+
+
+def test_form_cases_cover_every_size(tiny):
+    """K2 on the demo and on each thinned cover, K2s where the split
+    analysis splits; every case's arguments pass the kernel's checks."""
+    got = walk_ab.form_cases("cpu")
+    k2 = [n for n in got if n.startswith("K2 ")]
+    assert k2 == ["K2 demo 9 slots"] + [f"K2 cover/{k} {k} slots"
+                                        for k in walk_ab.FORM_SLOTS]
+    for name, args in got.items():
+        tabs, lane_map, _, _, spp, w, h, opts, g_full, budget, _ = args
+        assert fs.is_split(tabs, g_full) == name.startswith("K2s ")
+        assert tabs.spheres.shape[0] == int(name.split()[-2])
+        assert (spp, opts.max_depth, budget) == (1, 8, None)
+        fs._check(tabs, lane_map, w, h, spp, opts, g_full, budget)
+
+
+def _form_times(each_batched: dict) -> dict:
+    return {f"K2 cover/{k} {k} slots": {"each": [e, e + 1],
+                                        "batched": [b, b + 1]}
+            for k, (e, b) in each_batched.items()}
+
+
+@pytest.mark.parametrize("pairs, want", [
+    ({9: (1, 2), 16: (1, 2), 32: (2, 1), 63: (2, 1)}, 32),
+    ({9: (2, 1), 16: (2, 1), 63: (2, 1)}, 9),
+    ({9: (2, 1), 16: (1, 2), 32: (2, 1), 63: (2, 1)}, 32),
+    ({9: (2, 1), 32: (2, 1), 63: (1, 2)}, None),
+    ({9: (2, 1), 32: (2, 2), 63: (2, 1)}, 63)],
+    ids=["cut", "everywhere", "not_monotone", "never_at_the_top", "tie"])
+def test_batched_from_reads_the_cut(pairs, want):
+    """The smallest size from which the batched form is strictly the
+    faster at every size measured, by each build's best time."""
+    assert walk_ab.batched_from(_form_times(pairs)) == want
+
+
+def test_extra_builds_are_the_defined_builds():
+    """chip_smoke builds what the A/B runs: the base revision's two
+    kernels where there is one, then each kernel's defined builds."""
+    defined = [(name, d) for name, b in walk_ab.DEFINED_BUILDS.items()
+               for d in b.values()]
+    assert [(n, d) for n, _, d in walk_ab.extra_builds(None)] == defined
+    old = walk_ab.ROOT / "old"
+    got = walk_ab.extra_builds(old)
+    assert got[:2] == [("cluster_walk", old, ()), ("flat_scan", old, ())]
+    assert [(n, d) for n, _, d in got[2:]] == defined
+    assert walk_ab.DEFINED_BUILDS["flat_scan"]["each"] == (
+        "RT_FLAT_BATCHED_MIN=1024",)
+    assert walk_ab.DEFINED_BUILDS["flat_scan"]["batched"] == (
+        "RT_FLAT_BATCHED_MIN=1",)
