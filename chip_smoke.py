@@ -50,6 +50,26 @@ step and the interactive engine:
   x the highest SM clock, which fails the run unless the chain comes
   within 10 % of it) and the cover through the flat scan against both.
 
+Then the entry points a user starts the renderer from, each through the
+kernels:
+
+- the CLI (``python -m raytracer_tpu_torch.app.cli``), each run in its
+  own process: the cover rr5 (K1), the adaptive stratified cover with
+  its spp map (K1a+K1s), the demo's 64 progressive frames (K2s), config
+  1 (K2) and the normal AOV; every PNG byte for byte the PNG of the same
+  call made in this process;
+- the bench line (``python -m raytracer_tpu_torch.bench``) with
+  ``BENCH_CONVERGENCE=golden`` and with ``BENCH_CONFIG=progressive``:
+  ``bench.py``'s keys, the segments exactly a repeat's, the golden and
+  adaptive bounds;
+- the terminal viewer headless (320x180, 64 frames, the demo and the
+  cover, ANSI and kitty frames);
+- a real out-of-memory error in the engine's step and in
+  ``render_image``: the engine's next frames bitwise a fresh engine's,
+  the retried render bitwise the render without the fault;
+- edited covers (a sphere removed and re-added, padding, a 63-slot cover
+  grown to 64) bitwise their plain versions; an inactive slot never hit.
+
 The walk A/B (``raytracer_tpu_torch/scripts/walk_ab.py``): the cluster
 walk's six instantiations and the flat scan's ten, each built from the
 base revision's sources (the commit the tree is held against, unpacked
@@ -77,6 +97,7 @@ import json
 import os
 import re
 import subprocess
+import sys
 import time
 
 import numpy as np
@@ -85,6 +106,7 @@ import torch
 from raytracer_tpu_torch.utils.profiling import (
     bound_by,
     bound_pair,
+    card_label,
     card_lines,
     flat_bound,
     issue_bound_ms,
@@ -208,11 +230,7 @@ def cuda_ms(fn, repeats: int) -> float:
 def phase_device():
     if not torch.cuda.is_available():
         fail("CUDA is not available")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
+    smi = card_label(torch.device("cuda", 0))
     print(smi)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} "
@@ -1979,35 +1997,536 @@ def phase_probe_paths(smi: str) -> dict:
     return rows
 
 
-def main():
-    smi = phase_device()
-    phase_build()
-    crops = {"cluster_walk": phase_kernel_vs_plain()}
-    crops.update(phase_variants_vs_plain())
-    crops.update(phase_flat_vs_plain())
-    golden = np.load(GOLDEN)["image"].astype(np.float64)
-    paths = phase_main_paths(smi, golden)
-    alone = {
-        "cluster_walk": phase_fixed_kernel_alone(smi, False),
-        "cluster_walk_stratified": phase_fixed_kernel_alone(smi, True),
-        "cluster_walk_adaptive_stratified": phase_adaptive_alone(smi, True),
-        "cluster_walk_adaptive": phase_adaptive_alone(smi, False),
+# --- the entry points users start the renderer from ----------------------
+
+#: each CLI run (its flags, the in-process call it must equal byte for
+#: byte, and the kernel the in-process call launches)
+CLI_RUNS = {
+    "cover rr5": (["--config", "cover", "--russian-roulette", "5"],
+                  "cluster_walk"),
+    "cover adaptive": (["--config", "cover", "--russian-roulette", "5",
+                        "--sampler", "stratified", "--adaptive", "0.2"],
+                       "cluster_walk_adaptive_stratified"),
+    "demo progressive": (["--config", "demo", "--progressive-frames", "64"],
+                         "flat_scan_split"),
+    "two_sphere": (["--config", "two_sphere"], "flat_scan"),
+    "aov normal": (["--aov", "normal"], None),
+}
+#: the keys bench.py's cover line builds with BENCH_CONVERGENCE=golden
+#: and the default knobs (bench.py:316-328, :331-360, :405-419, :448-488)
+BENCH_COVER_KEYS = {
+    "metric", "value", "unit", "vs_baseline", "wall_s", "segments",
+    "backend", "device", "rr0_mrays", "rr0_wall_s", "adaptive_tol",
+    "adaptive_sampler", "adaptive_wall_s", "adaptive_mean_spp",
+    "adaptive_mad_vs_fixed", "convergence_mad_vs_golden",
+    "convergence_nan_px", "adaptive_golden_mad",
+}
+#: bench.py's progressive line (bench.py:137-148)
+BENCH_PROGRESSIVE_KEYS = {
+    "metric", "value", "unit", "vs_baseline", "ms_per_frame", "frames",
+    "segments_per_frame", "backend",
+}
+# the bench line's adaptive companion (tolerance 0.2, stratified, at key
+# fold_in(0, i)) against the fixed stratified render at key 0: measured
+# 5.56e-3 on an H100 80GB HBM3 at 700 W (two independent streams and the
+# early stop); the limit is about 1.5 times that.
+BENCH_ADAPTIVE_MAX_MAD = 8.5e-3
+VIEWER_W, VIEWER_H, VIEWER_FRAMES = 320, 180, 64
+OOM_WARM_FRAMES, OOM_AFTER_FRAMES = 8, 32
+#: slots added to the cover by ``pad_to``, and the thinned cover's size
+EDIT_PAD, THIN_SLOTS = 37, 63
+
+
+def start_module(args, env=None):
+    """``python -m`` ``args`` started from the checkout's root; returns
+    the process and its start time."""
+    return (subprocess.Popen([sys.executable, "-m", *args], cwd=ROOT,
+                             env={**os.environ, **(env or {})},
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                             text=True), time.perf_counter())
+
+
+def finish_module(started, label: str):
+    """Waits for a :func:`start_module` process; fails on a non-zero
+    exit. Returns its stdout, stderr and wall in s."""
+    proc, t0 = started
+    try:
+        out, err = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"{label}: exit {proc.returncode}\n{out[-2000:]}\n"
+             f"{err[-4000:]}")
+    return out, err, wall
+
+
+def cli_in_process(flags):
+    """The image (and spp map) the CLI's call with ``flags`` renders, by
+    the same functions in this process, as PNG bytes."""
+    from raytracer_tpu_torch.app import cli, io
+    from raytracer_tpu_torch.progressive.state import init_render_state
+    from raytracer_tpu_torch.progressive.step import make_step_fn, run_frames
+    from raytracer_tpu_torch.render.api import render_image
+    from raytracer_tpu_torch.render.debug import render_aov
+    from raytracer_tpu_torch.render.options import TraceOptions
+    from raytracer_tpu_torch.scene import presets
+
+    a = cli.build_parser().parse_args(flags)
+    scene, cam, w, h, spp, depth = presets.get_config(a.config, a.width,
+                                                      a.height)
+    spp = a.spp if a.spp is not None else spp
+    depth = a.max_depth if a.max_depth is not None else depth
+    if a.aov:
+        return io.encode_png(render_aov(scene, cam, w, h, a.aov,
+                                        device=a.device).cpu().numpy()), None
+    opts = TraceOptions(max_depth=depth, russian_roulette_depth=(
+        a.russian_roulette), adaptive_tolerance=a.adaptive,
+        sampler=a.sampler)
+    if a.progressive_frames:
+        step = make_step_fn(w, h, spp=spp, opts=opts, static_scene=scene,
+                            static_camera=cam, device=a.device)
+        state, _ = run_frames(step, init_render_state(w, h, a.seed,
+                                                      a.device),
+                              scene, cam, a.progressive_frames)
+        return io.encode_png(state.accum.cpu().numpy()), None
+    img, stats = render_image(scene, cam, w, h, spp, a.seed, opts,
+                              return_stats=True, device=a.device)
+    heat = None
+    if "spp_map" in stats:
+        m = stats["spp_map"].cpu().numpy().astype(np.float32)
+        heat = io.encode_png(np.repeat((m / max(float(m.max()), 1.0))[
+            ..., None], 3, axis=-1))
+    return io.encode_png(img.cpu().numpy()), heat
+
+
+def phase_cli(smi: str) -> dict:
+    """``python -m raytracer_tpu_torch.app.cli`` on the card, each run in
+    its own process: every PNG (and the adaptive run's spp map) byte for
+    byte the PNG of the same call in this process. Prints each run's wall
+    as the CLI reports it (the render and the PNG's copy to the host) and
+    as this process sees it (process start and library load too)."""
+    out_dir = os.path.join(ROOT, "build", "chip_smoke_cli")
+    os.makedirs(out_dir, exist_ok=True)
+    runs = {}
+    for label, (flags, kernel) in CLI_RUNS.items():
+        out = os.path.join(out_dir, label.replace(" ", "_") + ".png")
+        extra = ["--out", out]
+        spp_map = None
+        if "--adaptive" in flags:
+            spp_map = out.replace(".png", "_spp.png")
+            extra += ["--spp-map", spp_map]
+        runs[label] = (["raytracer_tpu_torch.app.cli", *flags, *extra], out,
+                       spp_map)
+    # the cover's run alone, for its wall; the others side by side
+    first = next(iter(runs))
+    done = {first: finish_module(start_module(runs[first][0]),
+                                 f"cli {first}")}
+    started = {label: start_module(runs[label][0]) for label in runs
+               if label != first}
+    done.update({label: finish_module(p, f"cli {label}")
+                 for label, p in started.items()})
+    launches = {}
+    for label, (flags, kernel) in CLI_RUNS.items():
+        stdout, _, wall = done[label]
+        _, out, spp_map = runs[label]
+        said = re.search(r"wall=([0-9.]+)s rays=([0-9.]+)M \(([0-9.]+) "
+                         r"Mrays/s\)", stdout) or re.search(
+            r"\(([0-9.]+)s\)", stdout)
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want, want_map = cli_in_process(flags)
+        torch.cuda.synchronize()
+        warm = time.perf_counter() - t0
+        launches[label] = launch_counts()
+        if kernel is not None and (launches[label].get(kernel, 0) < 1 or set(
+                launches[label]) != {kernel}):
+            fail(f"cli {label}: the in-process call ran {launches[label]}, "
+                 f"not {kernel} alone")
+        with open(out, "rb") as f:
+            same = f.read() == want
+        if spp_map is not None:
+            with open(spp_map, "rb") as f:
+                same = same and f.read() == want_map
+        print(f"[cli {label}] {' '.join(flags)}: exit 0, wall "
+              f"{said.group(1)} s by the CLI"
+              + (f", {said.group(3)} Mrays/s" if said.lastindex == 3 else "")
+              + f"; {wall:.3f} s with process start and library load"
+              + ("" if label == first else " (run beside the other three)")
+              + f"; the same call in this process, warm, {warm:.4f} s with "
+              f"its PNG encode; PNG byte-identical {same}; launches "
+              f"{launches[label]} [{smi}]")
+        if not same:
+            fail(f"cli {label}: the PNG differs from the in-process render")
+    return launches
+
+
+def phase_bench_line(smi: str) -> dict:
+    """``python -m raytracer_tpu_torch.bench`` with BENCH_CONVERGENCE=golden
+    (the cover line) and with BENCH_CONFIG=progressive: each line parses
+    with bench.py's keys; the cover's ``segments`` are exactly the segment
+    total of ``render_image`` at one repeat's key, ``fold_in(0, i)``; the
+    golden bound and the adaptive companion's bound hold."""
+    from raytracer_tpu_torch.render.api import render_image
+    from raytracer_tpu_torch.render.rng import fold_in, key_data
+    from raytracer_tpu_torch.scene import presets
+
+    lines = {}
+    for label, env, keys in (
+            ("cover golden", {"BENCH_CONVERGENCE": "golden"},
+             BENCH_COVER_KEYS),
+            ("progressive", {"BENCH_CONFIG": "progressive"},
+             BENCH_PROGRESSIVE_KEYS)):
+        stdout, stderr, wall = finish_module(
+            start_module(["raytracer_tpu_torch.bench"], env),
+            f"bench {label}")
+        out = stdout.strip().splitlines()
+        if len(out) != 1:
+            fail(f"bench {label}: {len(out)} lines on stdout")
+        line = lines[label] = json.loads(out[0])
+        print(f"[bench {label}] {wall:.3f} s with process start; stderr: "
+              + " | ".join(stderr.strip().splitlines()))
+        print(json.dumps(line))
+        if set(line) != keys or not line["value"] > 0:
+            fail(f"bench {label}: keys {sorted(set(line) ^ keys)} differ "
+                 f"from bench.py's, or no value")
+    cover = lines["cover golden"]
+    scene, cam, w, h, spp, depth = presets.get_config("cover")
+    opts = trace_options(5, depth)
+    reset_launch_counts()
+    segs = [render_image(scene, cam, w, h, spp, fold_in(key_data(0), i),
+                         opts, return_stats=True)[1]["segments_exact"]
+            for i in range(3)]
+    launches = launch_counts()
+    print(f"[bench cover golden] segments {cover['segments']}; "
+          f"render_image at fold_in(0, i), i = 0, 1, 2: {segs} (launches "
+          f"{launches}); golden "
+          f"mean|d| {cover['convergence_mad_vs_golden']} (limit "
+          f"{GOLDEN_MAX_MAD}), nan {cover['convergence_nan_px']}; adaptive "
+          f"mean|d| vs fixed {cover['adaptive_mad_vs_fixed']} (limit "
+          f"{BENCH_ADAPTIVE_MAX_MAD}) [{smi}]")
+    if cover["segments"] not in segs:
+        fail("bench: the line's segments are no repeat's segment total")
+    if (cover["convergence_mad_vs_golden"] > GOLDEN_MAX_MAD
+            or cover["convergence_nan_px"]):
+        fail("bench: the golden check failed")
+    if not cover["adaptive_mad_vs_fixed"] <= BENCH_ADAPTIVE_MAX_MAD:
+        fail("bench: the adaptive companion is too far from the fixed render")
+    if cover["device"] != smi:
+        fail(f"bench: device {cover['device']!r}, nvidia-smi says {smi!r}")
+    return lines
+
+
+def run_viewer_captured(config: str, display: str):
+    """``run_viewer`` off a tty (stdin from /dev/null, stdout captured):
+    the frames drawn, the output, the engine and the wall in s."""
+    import contextlib
+    import io as stdio
+
+    from raytracer_tpu_torch.app import viewer
+
+    made, real = [], viewer.Engine
+
+    def engine(*args, **kwargs):
+        made.append(real(*args, **kwargs))
+        return made[-1]
+
+    out = stdio.StringIO()
+    viewer.Engine = engine
+    try:
+        with open(os.devnull) as null, contextlib.redirect_stdout(out):
+            stdin, sys.stdin = sys.stdin, null
+            try:
+                t0 = time.perf_counter()
+                n = viewer.run_viewer(config, VIEWER_W, VIEWER_H,
+                                      max_frames=VIEWER_FRAMES,
+                                      target_fps=1e6, display=display)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            finally:
+                sys.stdin = stdin
+    finally:
+        viewer.Engine = real
+    return n, out.getvalue(), made[0], wall
+
+
+def phase_viewer(smi: str) -> dict:
+    """The terminal viewer headless at 320x180 on the demo and the cover,
+    64 frames with each display: frames drawn, the framebuffer finite,
+    ``kitty_frame`` of it round-trips to ``tonemap_u8``; ms a frame."""
+    import base64
+
+    from raytracer_tpu_torch.app.display import (
+        kitty_frame,
+        parse_kitty_commands,
+    )
+    from raytracer_tpu_torch.app.io import decode_png, tonemap_u8
+
+    launches = {}
+    for config in ("demo", "cover"):
+        for display in ("ansi", "kitty"):
+            reset_launch_counts()
+            n, out, eng, wall = run_viewer_captured(config, display)
+            launches[f"{config} {display}"] = launch_counts()
+            fb = eng.framebuffer()
+            payload = "".join(c for _, c in parse_kitty_commands(
+                kitty_frame(fb))[1:])
+            round_trip = np.array_equal(
+                decode_png(base64.standard_b64decode(payload)),
+                tonemap_u8(fb))
+            drawn = ("\x1b[38;2;" in out if display == "ansi"
+                     else "\x1b_Ga=T,f=100" in out)
+            print(f"[viewer {config} {display}] {VIEWER_W}x{VIEWER_H}, {n} "
+                  f"frames: {wall * 1e3 / n:.3f} ms a frame (tick, copy to "
+                  f"the host, encode); frames drawn {drawn}; finite "
+                  f"{bool(np.isfinite(fb).all())}; kitty round trip "
+                  f"{round_trip}; render_count "
+                  f"{eng.render_state.render_count}; launches "
+                  f"{launches[f'{config} {display}']} [{smi}]")
+            if (n != VIEWER_FRAMES or not drawn or not round_trip
+                    or not np.isfinite(fb).all()
+                    or eng.render_state.render_count != VIEWER_FRAMES):
+                fail(f"viewer {config} {display}")
+    return launches
+
+
+def oom_once(step):
+    """``step`` whose first call tries to allocate twice the card's
+    memory: a real ``torch.OutOfMemoryError`` from the allocator."""
+    calls = []
+
+    def faulty(*args, **kwargs):
+        calls.append(1)
+        if len(calls) == 1:
+            total = torch.cuda.get_device_properties(0).total_memory
+            torch.empty(2 * total, dtype=torch.uint8, device="cuda")
+        return step(*args, **kwargs)
+
+    faulty.calls = calls
+    return faulty
+
+
+def phase_fault_recovery(smi: str):
+    """A real out-of-memory error in the engine's step and in
+    ``render_image``, on the card: the engine (the cover at 1280x720 with
+    the overlay on) returns False from the faulted tick with the count at
+    0, and its next 32 frames are bitwise a fresh engine's; the render
+    retried once is bitwise the render without the fault."""
+    import logging
+
+    from raytracer_tpu_torch.app.engine import Engine
+    from raytracer_tpu_torch.render import api
+    from raytracer_tpu_torch.scene import presets
+
+    scene, cam, *_ = presets.get_config("cover", ENGINE_W, ENGINE_H)
+
+    def engine():
+        eng = Engine(scene, cam, ENGINE_W, ENGINE_H, seed=11)
+        eng.set_paused(False)
+        eng.set_debugging(True)
+        eng.handle_mouse_move(0, 0)
+        return eng
+
+    eng, fresh = engine(), engine()
+    eng.run(OOM_WARM_FRAMES)
+    real = eng._step_fn
+    eng._step_fn = lambda spp: oom_once(real(spp))
+    now = 1000.0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ticked = eng.tick(now)
+    torch.cuda.synchronize()
+    engine_ms = (time.perf_counter() - t0) * 1e3
+    del eng._step_fn
+    count = eng.render_state.render_count
+    if ticked or count != 0:
+        fail("engine: the faulted tick rendered, or the count is not 0")
+    reset_launch_counts()
+    same = True
+    for i in range(OOM_AFTER_FRAMES):
+        now += 16.0
+        if not (eng.tick(now) and fresh.tick(now)):
+            fail("engine: a frame after the recovery was skipped")
+        same = same and torch.equal(eng.render_state.accum,
+                                    fresh.render_state.accum)
+    launches = launch_counts()
+
+    scene, cam, w, h, spp, depth = presets.get_config("cover")
+    img0, stats0, wall0 = render_once(scene, cam, w, h, spp, 0,
+                                      trace_options(5, depth))
+    logged = []
+
+    class Catch(logging.Handler):
+        def emit(self, record):
+            logged.append(record.getMessage())
+
+    handler = Catch(logging.WARNING)
+    logging.getLogger("raytracer_tpu_torch.utils.resilience").addHandler(
+        handler)
+    real_render = api.render
+    api.render = oom_once(real_render)
+    try:
+        img1, stats1, wall1 = render_once(scene, cam, w, h, spp, 0,
+                                          trace_options(5, depth))
+    finally:
+        api.render = real_render
+        logging.getLogger("raytracer_tpu_torch.utils.resilience") \
+            .removeHandler(handler)
+    render_same = (torch.equal(img0, img1) and stats0["segments_exact"]
+                   == stats1["segments_exact"])
+    # where a recovery's time goes: the failed allocation (the allocator
+    # frees its cached blocks and tries once more), emptying the cache,
+    # and a render whose memory is allocated afresh
+    reserved = torch.cuda.memory_reserved() / 2**30
+    t0 = time.perf_counter()
+    try:
+        torch.empty(2 * torch.cuda.get_device_properties(0).total_memory,
+                    dtype=torch.uint8, device="cuda")
+    except torch.OutOfMemoryError:
+        pass
+    fail_ms = (time.perf_counter() - t0) * 1e3
+    left = torch.cuda.memory_reserved() / 2**30
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    empty_ms = (time.perf_counter() - t0) * 1e3
+    _, _, wall_cold = render_once(scene, cam, w, h, spp, 0,
+                                  trace_options(5, depth))
+    print(f"[fault recovery] where a render's recovery goes: the failed "
+          f"allocation {fail_ms:.1f} ms ({reserved:.2f} GiB reserved "
+          f"before it, {left:.2f} after), empty_cache {empty_ms:.1f} ms, a "
+          f"render right after it {wall_cold:.4f} s against {wall0:.4f} s "
+          f"warm [{smi}]")
+    print(f"[fault recovery] engine (cover {ENGINE_W}x{ENGINE_H}, overlay "
+          f"on): the faulted tick {engine_ms:.3f} ms, returned {ticked}, "
+          f"render_count {count} after it; the next "
+          f"{OOM_AFTER_FRAMES} frames bitwise a fresh engine's {same} "
+          f"(launches {launches}); render_image (cover rr5) with one OOM "
+          f"{wall1:.4f} s against {wall0:.4f} s without: "
+          f"{(wall1 - wall0) * 1e3:.1f} ms for the recovery; bitwise "
+          f"{render_same}; warnings {logged} [{smi}]")
+    if not same or not render_same or len(logged) != 1 or \
+            "retry 1/" not in logged[0]:
+        fail("fault recovery")
+
+
+def phase_edited_scenes(smi: str):
+    """Edited covers through the kernels, each bitwise its plain version
+    at the crop: a sphere removed, then a sphere added into its slot (K1);
+    the cover padded by 37 slots (K1); a 63-slot thinned cover (the flat
+    scan) grown to 64 slots by ``add_sphere`` (K1). The removed sphere,
+    moved in front of the camera while inactive, changes no pixel."""
+    from raytracer_tpu_torch.camera.camera import derive_camera
+    from raytracer_tpu_torch.render import cluster_walk as cw
+    from raytracer_tpu_torch.render import megakernel
+    from raytracer_tpu_torch.render.rng import kernel_seed
+    from raytracer_tpu_torch.scene import presets
+    from raytracer_tpu_torch.scene import spheres as sp
+    from raytracer_tpu_torch.scene.materials import Material
+
+    cover, cam, *_ = presets.get_config("cover", CROP_W, CROP_H)
+    dcam = derive_camera(cam)
+    opts = trace_options(5, CROP_DEPTH)
+    seed = kernel_seed(5)
+    ident = cw.identity_map(CROP_W, CROP_H, "cuda")
+    j = 200  # a small sphere of the grid
+    removed = sp.remove_sphere(cover, j)
+    ghost = sp.update_sphere(removed, j, center=(6.5, 1.0, 1.5), radius=1.0,
+                             material=Material.diffuse((1.0, 0.0, 1.0)))
+    thin = dataclasses.replace(cover, **{
+        f.name: getattr(cover, f.name)[:THIN_SLOTS]
+        for f in dataclasses.fields(cover)})
+    flat = dataclasses.replace(opts, cluster_scan=False)
+    cases = {
+        "removed": (removed, "cluster_walk", opts),
+        "removed, moved in front of the camera": (ghost, "cluster_walk",
+                                                  opts),
+        "removed, flat scan": (removed, "flat_scan", flat),
+        "removed, moved in front of the camera, flat scan": (
+            ghost, "flat_scan", flat),
+        "re-added": (sp.add_sphere(removed, (4.0, 0.2, 0.5), 0.2,
+                                   Material.metal((0.9, 0.9, 0.9), 0.0)),
+                     "cluster_walk", opts),
+        f"padded by {EDIT_PAD}": (cover.pad_to(cover.count + EDIT_PAD),
+                                  "cluster_walk", opts),
+        f"thinned to {THIN_SLOTS}": (thin, "flat_scan", opts),
+        f"thinned, grown to {THIN_SLOTS + 1}": (
+            sp.add_sphere(thin, (4.0, 0.2, 0.5), 0.2,
+                          Material.diffuse((0.2, 0.8, 0.3))),
+            "cluster_walk", opts),
     }
-    phase_walk_ab(smi)
+    images = {}
+    for label, (scene, kernel, o) in cases.items():
+        choice = megakernel.choose_kernel(scene, dcam, o, "cuda")
+        if choice.kernel != kernel:
+            fail(f"edited cover {label}: took {choice.kernel}, not {kernel}")
+        is_flat = kernel == "flat_scan"
+        args = (choice.tables, ident, seed, CROP_OFFSET, CROP_SPP, CROP_W,
+                CROP_H, o) + ((choice.g_full,) if is_flat else ())
+        got = compare(f"edited cover {label} ({scene.count} slots, "
+                      f"{int(scene.num_active())} live, {kernel}, g_full "
+                      f"{choice.g_full})", args, flat=is_flat)
+        images[label] = got["out"]
+        if not got["bitwise"]:
+            fail(f"edited cover {label}: the kernel is not bitwise its "
+                 f"plain version")
+    unseen = all(torch.equal(images[f"removed{k}"],
+                             images[f"removed, moved in front of the "
+                                    f"camera{k}"])
+                 for k in ("", ", flat scan"))
+    print(f"[edited scenes] the removed sphere never wins: the inactive "
+          f"slot moved in front of the camera changes no pixel {unseen} "
+          f"[{smi}]")
+    if not unseen:
+        fail("edited scenes: an inactive slot was hit")
+
+
+def timed(phase, *args):
+    """``phase(*args)``, with a line of the seconds it took."""
+    t0 = time.perf_counter()
+    got = phase(*args)
+    print(f"[phase time] {phase.__name__} {time.perf_counter() - t0:.1f} s")
+    return got
+
+
+def main():
+    t_start = time.perf_counter()
+    smi = timed(phase_device)
+    timed(phase_build)
+    crops = {"cluster_walk": timed(phase_kernel_vs_plain)}
+    crops.update(timed(phase_variants_vs_plain))
+    crops.update(timed(phase_flat_vs_plain))
+    golden = np.load(GOLDEN)["image"].astype(np.float64)
+    paths = timed(phase_main_paths, smi, golden)
+    alone = {
+        "cluster_walk": timed(phase_fixed_kernel_alone, smi, False),
+        "cluster_walk_stratified": timed(phase_fixed_kernel_alone, smi,
+                                         True),
+        "cluster_walk_adaptive_stratified": timed(phase_adaptive_alone, smi,
+                                                  True),
+        "cluster_walk_adaptive": timed(phase_adaptive_alone, smi, False),
+    }
+    timed(phase_walk_ab, smi)
     depth = paths["cluster_walk"]["depth"]
-    phase_where_time_goes(smi, "rr5", trace_options(5, depth))
-    phase_where_time_goes(smi, "adaptive companion",
-                          trace_options(5, depth, True, True))
-    phase_cross_kernel(smi)
-    phase_cover_flat(smi, golden)
-    phase_baseline_configs(smi)
-    flat_paths = phase_progressive(smi)
-    flat_paths.update(phase_flat_adaptive(smi))
-    crops.update(phase_debug_vs_plain())
-    flat_paths.update(phase_engine(smi))
-    phase_aov(smi)
-    crops.update(phase_probes_vs_plain())
-    probes = phase_probe_paths(smi)
+    timed(phase_where_time_goes, smi, "rr5", trace_options(5, depth))
+    timed(phase_where_time_goes, smi, "adaptive companion",
+          trace_options(5, depth, True, True))
+    timed(phase_cross_kernel, smi)
+    timed(phase_cover_flat, smi, golden)
+    timed(phase_baseline_configs, smi)
+    flat_paths = timed(phase_progressive, smi)
+    flat_paths.update(timed(phase_flat_adaptive, smi))
+    crops.update(timed(phase_debug_vs_plain))
+    flat_paths.update(timed(phase_engine, smi))
+    timed(phase_aov, smi)
+    crops.update(timed(phase_probes_vs_plain))
+    probes = timed(phase_probe_paths, smi)
+    timed(phase_cli, smi)
+    timed(phase_bench_line, smi)
+    timed(phase_viewer, smi)
+    timed(phase_fault_recovery, smi)
+    timed(phase_edited_scenes, smi)
     for name, got in flat_paths.items():
         paths[name] = alone[name] = got
     sources = {**{n: (WALK_SOURCE, KERNELS[n][2]) for n in KERNELS},
@@ -2040,6 +2559,7 @@ def main():
               f"ms; share of the issue-line bound "
               f"{row['issue_bound_ms'] / row['ms']:.4f} (of 67e12: "
               f"{row['bound_ms'] / row['ms']:.4f}) [{smi}]")
+    print(f"[phase time] all {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": renderer + [{
         "name": name,
         "route": "cuda",

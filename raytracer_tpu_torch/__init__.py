@@ -28,10 +28,25 @@ Public entries: :func:`raytracer_tpu_torch.render.api.render_image`
 :func:`~raytracer_tpu_torch.interact.picking.center_hit` and
 :func:`~raytracer_tpu_torch.interact.picking.update_cursor_state`
 (picking and autofocus); :func:`~raytracer_tpu_torch.render.debug.render_aov`
-(normal, depth, uuid and front views).
+(normal, depth, uuid and front views); :func:`~raytracer_tpu_torch.scene.spheres.update_sphere`,
+:func:`~raytracer_tpu_torch.scene.spheres.add_sphere` and
+:func:`~raytracer_tpu_torch.scene.spheres.remove_sphere` (pure scene
+edits, with ``Scene.pad_to`` and ``Scene.num_active``);
+:func:`~raytracer_tpu_torch.utils.resilience.retry_on_device_fault`
+(``render_image`` and the engine run again after a recoverable device
+fault, through the same kernels; a sticky one raises
+:class:`DeviceContextLost`).
+
+Entry points a user starts the renderer from (each on CUDA unless told
+``--device cpu`` / ``BENCH_DEVICE=cpu``):
+
+    python -m raytracer_tpu_torch.app.cli --config cover --out cover.png
+    python -m raytracer_tpu_torch.bench          # bench.py's JSON line
+    python -m raytracer_tpu_torch.app.viewer     # the terminal viewer
 """
 
 from raytracer_tpu_torch.app.engine import Engine
+from raytracer_tpu_torch.app.viewer import run_viewer
 from raytracer_tpu_torch.camera.camera import (
     CameraConfig,
     DerivedCamera,
@@ -63,32 +78,58 @@ from raytracer_tpu_torch.render.options import (
     TraceOptions,
     debug_from_numpy,
 )
-from raytracer_tpu_torch.scene.spheres import Scene, make_scene, scene_from_numpy
+from raytracer_tpu_torch.scene import presets
+from raytracer_tpu_torch.scene.materials import DIFFUSE, GLASS, METAL, Material
+from raytracer_tpu_torch.scene.spheres import (
+    Scene,
+    add_sphere,
+    make_scene,
+    remove_sphere,
+    scene_from_numpy,
+    update_sphere,
+)
+from raytracer_tpu_torch.utils.resilience import (
+    DeviceContextLost,
+    is_device_fault,
+    retry_on_device_fault,
+)
 
 __all__ = [
     "CameraConfig",
+    "DIFFUSE",
     "DebugParams",
     "DerivedCamera",
+    "DeviceContextLost",
     "Engine",
+    "GLASS",
+    "METAL",
+    "Material",
     "RenderState",
     "Scene",
     "TraceOptions",
     "accumulate",
     "adaptive_state_from_numpy",
+    "add_sphere",
     "camera_from_numpy",
     "center_hit",
     "debug_from_numpy",
     "derive_camera",
     "init_render_state",
+    "is_device_fault",
     "load_render_state",
     "make_scene",
     "make_step_fn",
+    "presets",
+    "remove_sphere",
     "render_aov",
     "render_image",
     "render_state_from_numpy",
     "reset_accumulation",
+    "retry_on_device_fault",
     "run_frames",
+    "run_viewer",
     "save_render_state",
     "scene_from_numpy",
     "update_cursor_state",
+    "update_sphere",
 ]

@@ -17,14 +17,19 @@ overlay uniforms, and the running segment total is drained to the host
 without waiting. A camera change waits once, to read the pick. The device
 is CUDA unless the caller names the CPU.
 
-Not ported: the JAX engine's recovery from a device fault (rebuild the
-state and carry on). A CUDA kernel fault poisons the context, so the
-exception propagates.
+A device fault in a frame's step is sorted by ``utils/resilience.py``. A
+recoverable one (an allocation that failed) is absorbed: the step cache
+and the device's running segment total are dropped (the host's drained
+total stays), the session's state is rebuilt from its seed, and the tick
+returns False; the next tick renders again, through the same kernels. A
+sticky one (an illegal address, a failed launch) raises
+``DeviceContextLost``: the process must be restarted.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 import time
 from typing import Callable, Optional
 
@@ -45,6 +50,14 @@ from raytracer_tpu_torch.progressive.step import make_step_fn
 from raytracer_tpu_torch.render.api import resolve_device
 from raytracer_tpu_torch.render.options import DebugParams, TraceOptions
 from raytracer_tpu_torch.scene.spheres import NO_SELECTED_OBJECT_ID, Scene
+from raytracer_tpu_torch.utils.resilience import (
+    free_cached_memory,
+    is_device_fault,
+    raise_if_sticky,
+    retry_on_device_fault,
+)
+
+log = logging.getLogger(__name__)
 
 
 def _f32(v) -> torch.Tensor:
@@ -80,6 +93,7 @@ class Engine:
         # the step a static scene: a cluster partition built once, which
         # no camera move invalidates
         self.cluster_scan = cluster_scan
+        self._seed = seed
         self.render_state: RenderState = init_render_state(
             width, height, seed, self.device)
         self._step_cache: dict = {}
@@ -272,15 +286,43 @@ class Engine:
         self.app.update_render_globals()
         self.app.update_moving_fps(now, dt)
         step = self._step_fn(self.app.effective_spp())
-        self.render_state, aux = step(self.render_state, self.scene,
-                                      self.camera, self._debug_params())
-        self._add_segments(aux["segments"])
+        faulted = False
+        try:
+            self.render_state, aux = step(self.render_state, self.scene,
+                                          self.camera, self._debug_params())
+            self._add_segments(aux["segments"])
+        except Exception as e:  # noqa: BLE001 — sorted below
+            raise_if_sticky(e)
+            if not is_device_fault(e):
+                raise
+            log.warning("device fault during the frame's step (%s); "
+                        "rebuilding the session's state", str(e)[:120])
+            faulted = True
+        if faulted:
+            # out of the handler, so the failed step's tensors are freed
+            self._recover()
+            return False
 
         if self.app.should_save:
             self.app.should_save = False
             path, self._save_path = self._save_path, None
             self.save_image(path)
         return True
+
+    def _recover(self) -> None:
+        """After a recoverable fault: drop what the failed step may have
+        left half done and start the average again from the seed."""
+        self._step_cache.clear()
+        # the device total may hold the failed frame; the host's drained
+        # total keeps everything up to the last drain
+        self._segments_dev = None
+        self._segments_unfolded = 0
+        free_cached_memory()
+        self.render_state = retry_on_device_fault(
+            lambda: init_render_state(self.app.width, self.app.height,
+                                      self._seed, self.device))()
+        self.app.render_count = 0
+        self.app.should_render = True
 
     # --- output --------------------------------------------------------
 

@@ -15,6 +15,7 @@ from raytracer_tpu_torch.render.megakernel import render, segment_stats
 from raytracer_tpu_torch.render.options import DebugParams, TraceOptions
 from raytracer_tpu_torch.render.rng import key_data
 from raytracer_tpu_torch.scene.spheres import Scene
+from raytracer_tpu_torch.utils.resilience import retry_on_device_fault
 
 
 def resolve_device(device=None) -> torch.device:
@@ -64,17 +65,32 @@ def render_image(scene: Scene, camera, width: int, height: int, spp: int,
     ``return_stats`` a dict of segment totals (``segments``,
     ``segments_exact``); an adaptive render adds ``mean_spp`` (float,
     mean samples per pixel) and ``spp_map`` ((H, W) tensor of per-pixel
-    sample counts)."""
+    sample counts).
+
+    The whole render is the unit of recovery: after a recoverable device
+    fault (an allocation that failed) it runs again from its arguments,
+    on the same device through the same kernels; a sticky fault raises
+    ``DeviceContextLost`` (``utils/resilience.py``). On the card the render
+    ends in a synchronize, so the image is complete when it returns."""
     if spp < 1:
         raise ValueError(f"spp must be >= 1, got {spp}")
     if width < 1 or height < 1:
         raise ValueError(f"bad image size {width}x{height}")
     device = resolve_device(device)
     opts = opts or TraceOptions()
-    image, segments, extra = render(
-        scene, to_derived(camera), width, height, spp, key_data(seed), opts,
-        device, sample_offset=sample_offset, debug=debug,
-    )
+    dcam, key = to_derived(camera), key_data(seed)
+
+    @retry_on_device_fault
+    def run():
+        out = render(scene, dcam, width, height, spp, key, opts, device,
+                     sample_offset=sample_offset, debug=debug)
+        if device.type == "cuda":
+            # inside the retry's scope, so an asynchronous fault surfaces
+            # here
+            torch.cuda.synchronize(device)
+        return out
+
+    image, segments, extra = run()
     if not return_stats:
         return image
     return image, segment_stats(segments, extra)

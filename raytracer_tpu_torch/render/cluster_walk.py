@@ -64,6 +64,7 @@ from raytracer_tpu_torch.render.tables import (
     debug_uniforms,
     walk_layout,
 )
+from raytracer_tpu_torch.utils import cuda_build
 
 LANES_TPU = 128  # the RNG's pixel id keeps the TPU's padded row width
 DRAWS_PER_BOUNCE = 8
@@ -199,8 +200,6 @@ def reset_launch_counts():
 
 
 def _lib():
-    from raytracer_tpu_torch.utils import cuda_build
-
     return bind(cuda_build.load("cluster_walk"))
 
 
@@ -208,8 +207,6 @@ def bind(lib: ctypes.CDLL):
     """``cluster_walk_launch`` of a loaded library, with its argument
     types set; raises where the library's interface version is not
     ``ABI``."""
-    from raytracer_tpu_torch.utils import cuda_build
-
     fn = lib.cluster_walk_launch
     if fn.argtypes is None:
         got = cuda_build.abi(lib, "cluster_walk_abi")
@@ -267,8 +264,7 @@ def call(fn, tables, pixel_map, seed, sample_offset, spp, width, height,
             float(np.float32(1.0 / width)), float(np.float32(1.0 / height)),
             *(uniforms or (0.0,) * 4), stream,
         )
-    if err != 0:
-        raise RuntimeError(f"cluster_walk kernel launch failed: CUDA error {err}")
+    cuda_build.check_launch("cluster_walk", err)
     return out, segs
 
 

@@ -52,6 +52,7 @@ from raytracer_tpu_torch.render.options import (
     TraceOptions,
 )
 from raytracer_tpu_torch.render.tables import FlatTables
+from raytracer_tpu_torch.utils import cuda_build
 
 #: floats per sphere row (see ``tables.sphere_table``)
 ROW = 12
@@ -132,16 +133,12 @@ def reset_launch_counts():
 
 
 def _lib():
-    from raytracer_tpu_torch.utils import cuda_build
-
     return bind(cuda_build.load("flat_scan"))
 
 
 def bind(lib: ctypes.CDLL):
     """``flat_scan_launch`` of a loaded library, with its argument types
     set; raises where the library's interface version is not ``ABI``."""
-    from raytracer_tpu_torch.utils import cuda_build
-
     fn = lib.flat_scan_launch
     if fn.argtypes is None:
         got = cuda_build.abi(lib, "flat_scan_abi")
@@ -198,8 +195,7 @@ def call(fn, tables, pixel_map, seed, sample_offset, spp, width, height,
             float(np.float32(1.0 / width)), float(np.float32(1.0 / height)),
             *(uniforms or (0.0,) * 4), stream,
         )
-    if err != 0:
-        raise RuntimeError(f"flat_scan kernel launch failed: CUDA error {err}")
+    cuda_build.check_launch("flat_scan", err)
     return out, segs
 
 

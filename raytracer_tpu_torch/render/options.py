@@ -23,6 +23,22 @@ MAX_T = 1e5
 CLUSTER_AUTO_MIN_SPHERES = 64
 
 
+#: the JAX package's backend names; the kernels serve 'auto' and 'pallas'
+BACKENDS = ("auto", "jnp", "pallas")
+
+
+def check_backend(backend: str) -> None:
+    """Accepts a backend the port serves; raises for the others."""
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}, got "
+                         f"{backend!r}")
+    if backend == "jnp":
+        raise NotImplementedError(
+            "backend 'jnp' (the JAX package's jax.random tracer) is not "
+            "ported yet: ROADMAP.md queue 1 item 7; 'auto' and 'pallas' "
+            "run the CUDA kernels")
+
+
 def cluster_scan_enabled(opts: "TraceOptions", scene_count: int) -> bool:
     """Resolve ``opts.cluster_scan`` ('auto' | bool) for a scene of
     ``scene_count`` slots: 'auto' is on from CLUSTER_AUTO_MIN_SPHERES
@@ -115,7 +131,8 @@ class TraceOptions:
         if self.cluster_bounds != "box":
             raise NotImplementedError(
                 f"cluster_bounds {self.cluster_bounds!r}: only 'box' is "
-                "ported"
+                "ported (the sphere-bound walk is among ROADMAP.md §2's "
+                "variants not to be ported)"
             )
         if self.cluster_partition != "kd":
             raise NotImplementedError(

@@ -35,6 +35,35 @@ class Scene:
         """Slot count, padding included."""
         return self.center.shape[0]
 
+    def num_active(self) -> torch.Tensor:
+        """Live slots, as a 0-d int32 tensor on the scene's device."""
+        return self.active.sum().to(torch.int32)
+
+    def pad_to(self, n: int) -> "Scene":
+        """The scene padded with inactive slots up to ``n``; the padding's
+        radius and refraction index are 1, so 1/r stays finite."""
+        cur = self.count
+        if cur == n:
+            return self
+        if cur > n:
+            raise ValueError(f"cannot pad scene of {cur} spheres down to {n}")
+        extra = n - cur
+
+        def pad(x, fill=0.0):
+            tail = torch.full((extra, *x.shape[1:]), fill, dtype=x.dtype,
+                              device=x.device)
+            return torch.cat([x, tail])
+
+        return Scene(
+            center=pad(self.center),
+            radius=pad(self.radius, 1.0),
+            material_type=pad(self.material_type, 0),
+            albedo=pad(self.albedo),
+            fuzz=pad(self.fuzz),
+            refraction_index=pad(self.refraction_index, 1.0),
+            active=pad(self.active),
+        )
+
     def to(self, device) -> "Scene":
         """The scene with every field on ``device``."""
         return Scene(**{f.name: getattr(self, f.name).to(device)
@@ -66,12 +95,14 @@ def scene_from_numpy(center, radius, material_type, albedo, fuzz,
 
 def make_scene(
     spheres: Sequence[Tuple[Tuple[float, float, float], float, Material]],
+    pad_to: int | None = None,
 ) -> Scene:
-    """Build a :class:`Scene` from (center, radius, material) triples."""
+    """Build a :class:`Scene` from (center, radius, material) triples,
+    padded with inactive slots up to ``pad_to`` when given."""
     if not spheres:
         raise ValueError("scene must contain at least one sphere")
     mats = [s[2] for s in spheres]
-    return scene_from_numpy(
+    scene = scene_from_numpy(
         center=np.array([s[0] for s in spheres], np.float32),
         radius=np.array([s[1] for s in spheres], np.float32),
         material_type=np.array([m.material_type for m in mats], np.int32),
@@ -81,3 +112,58 @@ def make_scene(
                                   np.float32),
         active=np.ones(len(spheres), np.float32),
     )
+    return scene if pad_to is None else scene.pad_to(pad_to)
+
+
+def _set(field: torch.Tensor, index: int, value) -> torch.Tensor:
+    """A copy of ``field`` with row ``index`` set to ``value`` (cast to the
+    field's type, on its device)."""
+    out = field.clone()
+    out[index] = torch.as_tensor(value, dtype=field.dtype,
+                                 device=field.device)
+    return out
+
+
+def update_sphere(scene: Scene, index: int, center=None, radius=None,
+                  material: Material | None = None,
+                  active: bool | None = None) -> Scene:
+    """A new :class:`Scene` with sphere ``index`` changed; ``scene`` is
+    left as it was. Restart a progressive average after an edit, as after a
+    camera move."""
+    changes = {}
+    if center is not None:
+        changes["center"] = _set(scene.center, index, center)
+    if radius is not None:
+        changes["radius"] = _set(scene.radius, index, radius)
+    if material is not None:
+        changes.update(
+            material_type=_set(scene.material_type, index,
+                               material.material_type),
+            albedo=_set(scene.albedo, index, material.albedo),
+            fuzz=_set(scene.fuzz, index, material.fuzz),
+            refraction_index=_set(scene.refraction_index, index,
+                                  material.refraction_index),
+        )
+    if active is not None:
+        changes["active"] = _set(scene.active, index,
+                                 1.0 if active else 0.0)
+    return dataclasses.replace(scene, **changes)
+
+
+def add_sphere(scene: Scene, center, radius, material: Material) -> Scene:
+    """A new :class:`Scene` with one more live sphere: in the first
+    inactive slot where there is one (the slot count stays), else in a
+    slot appended at the end. Reads ``active`` on the host."""
+    inactive = np.flatnonzero(scene.active.cpu().numpy() == 0.0)
+    if inactive.size:
+        return update_sphere(scene, int(inactive[0]), center=center,
+                             radius=radius, material=material, active=True)
+    grown = scene.pad_to(scene.count + 1)
+    return update_sphere(grown, scene.count, center=center, radius=radius,
+                         material=material, active=True)
+
+
+def remove_sphere(scene: Scene, index: int) -> Scene:
+    """A new :class:`Scene` with sphere ``index`` inactive: it is never
+    hit, and :func:`add_sphere` may reuse its slot."""
+    return update_sphere(scene, index, active=False)

@@ -130,9 +130,7 @@ def _launch(x: torch.Tensor, iters: int) -> torch.Tensor:
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), out.data_ptr(), int(x.dtype == torch.bfloat16),
                  rows * LANES, iters, stream)
-    if err != 0:
-        raise RuntimeError(f"probe_chain kernel launch failed: CUDA error "
-                           f"{err}")
+    cuda_build.check_launch("probe_chain", err)
     chain.launches += 1
     name = VARIANTS[x.dtype]
     chain.launches_by_variant[name] = chain.launches_by_variant.get(name,

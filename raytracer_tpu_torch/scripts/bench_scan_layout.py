@@ -167,9 +167,7 @@ def _launch(sph, block, rows, iters):
         stream = torch.cuda.current_stream(sph.device).cuda_stream
         err = fn(sph.data_ptr(), out.data_ptr(), block, sph.shape[0],
                  rows * LANES, iters, stream)
-    if err != 0:
-        raise RuntimeError(f"probe_scan kernel launch failed: CUDA error "
-                           f"{err}")
+    cuda_build.check_launch("probe_scan", err)
     scan_probe.launches += 1
     name = variant_name(block)
     by = scan_probe.launches_by_variant

@@ -171,9 +171,7 @@ def _launch(tbl, mode, rows, iters, reps):
         stream = torch.cuda.current_stream(tbl.device).cuda_stream
         err = fn(tbl.data_ptr(), out.data_ptr(), MODES.index(mode), s, w,
                  rows, reps, iters, stream)
-    if err != 0:
-        raise RuntimeError(f"probe_gather kernel launch failed: CUDA error "
-                           f"{err}")
+    cuda_build.check_launch("probe_gather", err)
     gather_probe.launches += 1
     name = variant_name(mode)
     by = gather_probe.launches_by_variant

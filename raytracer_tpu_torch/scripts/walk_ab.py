@@ -226,8 +226,7 @@ def call_v1(fn, tables, pixel_map, seed, sample_offset, spp, width,
         *(uniforms or (0.0,) * 4),
         torch.cuda.current_stream().cuda_stream,
     )
-    if err != 0:
-        raise RuntimeError(f"old cluster_walk launch failed: CUDA error {err}")
+    cuda_build.check_launch("old cluster_walk", err)
     return out, segs
 
 
@@ -286,8 +285,7 @@ def call_flat_v1(fn, tables, pixel_map, seed, sample_offset, spp, width,
         *(uniforms or (0.0,) * 4),
         torch.cuda.current_stream().cuda_stream,
     )
-    if err != 0:
-        raise RuntimeError(f"old flat_scan launch failed: CUDA error {err}")
+    cuda_build.check_launch("old flat_scan", err)
     return out, segs
 
 

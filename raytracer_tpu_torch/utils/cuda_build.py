@@ -124,6 +124,23 @@ def build_log(name: str) -> str:
     return Path(str(library_path(name)) + ".log").read_text()
 
 
+class CudaLaunchError(RuntimeError):
+    """A kernel launcher returned a CUDA error; ``code`` is the
+    ``cudaError_t`` (``utils/resilience.py`` sorts it)."""
+
+    def __init__(self, kernel: str, code: int):
+        super().__init__(f"{kernel} kernel launch failed: CUDA error {code}")
+        self.kernel = kernel
+        self.code = int(code)
+
+
+def check_launch(kernel: str, err: int) -> None:
+    """Raises :class:`CudaLaunchError` unless ``err`` (a launcher's
+    ``cudaError_t``) is 0."""
+    if err != 0:
+        raise CudaLaunchError(kernel, err)
+
+
 def check_cuda(*tensors) -> None:
     """Raises unless every tensor lies on a CUDA device: a kernel reads
     device pointers only."""

@@ -136,6 +136,19 @@ def device_name(device: torch.device) -> str:
     return device.type
 
 
+def card_label(device: torch.device) -> str:
+    """The device a result ran on: a card's name and power limit as
+    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
+    gives them, or ``cpu``."""
+    if device.type != "cuda":
+        return device.type
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader", "-i", str(device.index or 0)],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip()
+
+
 @functools.lru_cache(maxsize=None)
 def card_lines(index: int = 0) -> dict:
     """The card's SMs, its highest SM clock (MHz, ``nvidia-smi

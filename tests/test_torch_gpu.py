@@ -492,3 +492,113 @@ def test_scan_kernel_matches_plain_on_card(card, block):
     for rows in (bs.R_SUB, 64):
         got = bs.scan_probe(sph, block, rows, 20)
         assert torch.equal(got, bs.scan_probe_plain(sph, block, rows, 20))
+
+
+def oom_once(fn):
+    """``fn`` whose first call allocates twice the card's memory: a real
+    ``torch.OutOfMemoryError``."""
+    calls = []
+
+    def faulty(*args, **kwargs):
+        calls.append(1)
+        if len(calls) == 1:
+            total = torch.cuda.get_device_properties(0).total_memory
+            torch.empty(2 * total, dtype=torch.uint8, device="cuda")
+        return fn(*args, **kwargs)
+
+    return faulty
+
+
+def test_engine_recovers_from_oom_bitwise_on_card(card):
+    """A real OOM in the step: the tick returns False with the count at 0,
+    and the next frames are bitwise a fresh engine's (same seed)."""
+    from raytracer_tpu_torch.app.engine import Engine
+
+    scene, cam, *_ = presets.get_config("cover", W, H)
+
+    def engine():
+        eng = Engine(scene, cam, W, H, seed=4)
+        eng.set_paused(False)
+        eng.set_debugging(True)
+        return eng
+
+    eng, fresh = engine(), engine()
+    eng.run(4)
+    real = eng._step_fn
+    eng._step_fn = lambda spp: oom_once(real(spp))
+    assert eng.tick(500.0) is False
+    del eng._step_fn
+    assert eng.render_state.render_count == 0
+    for i in range(8):
+        assert eng.tick(516.0 + 16 * i) and fresh.tick(16.0 * (i + 1))
+        assert torch.equal(eng.render_state.accum, fresh.render_state.accum)
+
+
+def test_render_image_recovers_from_oom_bitwise_on_card(card, monkeypatch):
+    scene, cam, *_ = presets.get_config("cover", W, H)
+    opts = TraceOptions(max_depth=12, russian_roulette_depth=5)
+    want, want_stats = api.render_image(scene, cam, W, H, SPP, 3, opts,
+                                        return_stats=True)
+    monkeypatch.setattr(api, "render", oom_once(api.render))
+    got, got_stats = api.render_image(scene, cam, W, H, SPP, 3, opts,
+                                      return_stats=True)
+    assert torch.equal(got, want)
+    assert got_stats["segments_exact"] == want_stats["segments_exact"]
+
+
+def test_cli_cover_png_byte_identical_on_card(card, tmp_path):
+    """The CLI in its own process writes the PNG of the same call made in
+    this one."""
+    import os
+    import subprocess
+    import sys
+
+    from raytracer_tpu_torch.app import io
+
+    out = tmp_path / "cover.png"
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    subprocess.run([sys.executable, "-m", "raytracer_tpu_torch.app.cli",
+                    "--config", "cover", "--width", str(W), "--height",
+                    str(H), "--spp", str(SPP), "--russian-roulette", "5",
+                    "--out", str(out)], cwd=root, check=True, timeout=300)
+    scene, cam, *_ = presets.get_config("cover", W, H)
+    img = api.render_image(scene, cam, W, H, SPP, 0,
+                           TraceOptions(max_depth=50,
+                                        russian_roulette_depth=5))
+    assert out.read_bytes() == io.encode_png(img.cpu().numpy())
+
+
+@pytest.mark.parametrize("edit", ["removed", "padded", "grown"])
+def test_edited_cover_kernel_matches_plain_on_card(card, edit):
+    """Edited covers through the kernel their slot count picks, bitwise
+    the plain version: a sphere removed (K1), 37 slots of padding (K1), a
+    63-slot cover grown to 64 by ``add_sphere`` (K1, where 63 took the
+    flat scan)."""
+    import dataclasses
+
+    from raytracer_tpu_torch.scene import spheres as sp
+    from raytracer_tpu_torch.scene.materials import Material
+
+    scene, cam, *_ = presets.get_config("cover", W, H)
+    if edit == "removed":
+        scene = sp.remove_sphere(scene, 200)
+    elif edit == "padded":
+        scene = scene.pad_to(scene.count + 37)
+    else:
+        thin = dataclasses.replace(scene, **{
+            f.name: getattr(scene, f.name)[:63]
+            for f in dataclasses.fields(scene)})
+        assert megakernel.choose_kernel(
+            thin, derive_camera(cam), TraceOptions(), card).kernel == \
+            "flat_scan"
+        scene = sp.add_sphere(thin, (4.0, 0.2, 0.5), 0.2,
+                              Material.diffuse((0.2, 0.8, 0.3)))
+    opts = TraceOptions(max_depth=12, russian_roulette_depth=5)
+    choice = megakernel.choose_kernel(scene, derive_camera(cam), opts, card)
+    assert choice.kernel == "cluster_walk"
+    args = (choice.tables, cw.identity_map(W, H, card), 9, 6, SPP, W, H,
+            opts)
+    out_k, seg_k = cw.cluster_walk(*args)
+    out_p, seg_p = cw.cluster_walk_plain(*args)
+    assert torch.equal(out_k, out_p)
+    assert torch.equal(seg_k, seg_p)
