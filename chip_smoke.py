@@ -68,7 +68,17 @@ kernels:
   ``render_image``: the engine's next frames bitwise a fresh engine's,
   the retried render bitwise the render without the fault;
 - edited covers (a sphere removed and re-added, padding, a 63-slot cover
-  grown to 64) bitwise their plain versions; an inactive slot never hit.
+  grown to 64) bitwise their plain versions; an inactive slot never hit;
+- the sharded paths (``raytracer_tpu_torch.parallel``), each mesh in its
+  own spawned ranks: a (1, 1) NCCL mesh (the cover, the adaptive
+  stratified cover, 64 progressive frames of the demo at 1920x1080)
+  bitwise the same calls made in its process; four gloo ranks sharing the
+  card, the cover on a (2, 2) mesh (golden, exact segments, the single
+  render within the spp axis's regrouping, sorted bitwise unsorted) and
+  the adaptive stratified cover on a (4,) mesh (golden, interleaved
+  bitwise contiguous); three gloo ranks, a (3,) mesh's 64 progressive
+  frames bitwise the single step's; and K1, K1a+K1s, K2 and K2s on a band
+  of rows that starts mid-image, bitwise their plain versions.
 
 The walk A/B (``raytracer_tpu_torch/scripts/walk_ab.py``): the cluster
 walk's six instantiations and the flat scan's ten, each built from the
@@ -1813,30 +1823,6 @@ def probe_bound(ops: float, nbytes: float, flop_peak: float, line: float,
             "smem_bound_ms": terms["smem"]}
 
 
-def torch_gather_ns(tbl, mode: str, rows: int, iters: int) -> dict:
-    """The reference the gather probe exists to give: ``torch.gather`` of
-    the same (rows, W) shape, ns per call, and ns per (rows, W) gather of
-    ``iters`` of them in one call."""
-    s, w = tbl.shape
-    dev = tbl.device
-    if mode == "axis1":
-        src, dim = tbl, 1
-        base = torch.arange(rows, device=dev)[:, None].expand(rows, w)
-        mod = w
-    else:
-        src = tbl if mode == "axis0" else tbl[:, :1].expand(s, w)
-        dim = 0
-        base = torch.arange(w, device=dev)[None, :].expand(rows, w)
-        mod = s
-    idx = (base % mod).contiguous()
-    call_ms = cuda_ms(lambda: torch.gather(src, dim, idx), 200)
-    trips = torch.arange(iters, device=dev)[:, None, None]
-    idx_all = ((base[None] + trips) % mod).contiguous()
-    src_all = src.unsqueeze(0).expand(iters, s, w)
-    batched_ms = cuda_ms(lambda: torch.gather(src_all, dim + 1, idx_all), 5)
-    return {"call_ns": call_ms * 1e6, "batched_ns": batched_ms * 1e6 / iters}
-
-
 def phase_probe_paths(smi: str) -> dict:
     """The probes' entry points as a user runs them, each with the launch
     counts set to 0 just before it and read just after: the chain
@@ -1893,21 +1879,20 @@ def phase_probe_paths(smi: str) -> dict:
         case = gather["cases"][label]
         tbl = pg.gather_table(shape)
         want = pg.gather_probe_plain(tbl, mode, r, pg.ITERS)[0]
-        for kind in ("tpu", "fill"):
+        for kind in ("tpu", "fill", "library"):
             if not torch.equal(case[kind]["out"], want):
                 fail(f"gather {label} ({kind}): the main path's output "
                      "differs from the plain version")
-        ref = torch_gather_ns(tbl.cuda(), mode, r, pg.ITERS)
-        case["torch_gather"] = ref
+        fill, reps, lib = case["fill"], case["fill"]["reps"], case["library"]
         print(f"[probe gather] {label}: kernel "
               f"{case['tpu']['ns_per_gather']:.1f} ns per gather alone, "
-              f"{case['fill']['ns_per_gather']:.3f} ns with "
-              f"{case['fill']['reps']} replicas; torch.gather of the same "
-              f"shape {ref['call_ns']:.1f} ns a call, {ref['batched_ns']:.3f}"
-              f" ns each with {pg.ITERS} in one call [{smi}]")
+              f"{fill['ns_per_gather']:.3f} ns with {reps} replicas "
+              f"({fill['seconds'] * 1e3:.3f} ms); torch.gather doing the "
+              f"same work (one call a trip over the replicas, summed trip "
+              f"by trip) {lib['ns_per_gather']:.3f} ns per gather "
+              f"({lib['seconds'] * 1e3:.3f} ms) [{smi}]")
         if GATHER_ROW_CASE[mode] != label:
             continue
-        fill, reps = case["fill"], case["fill"]["reps"]
         elements = reps * r * shape[1]
         nbytes = 4 * (shape[0] * shape[1] + elements)
         # every mode reads one shared-memory word a lane and trip, or one
@@ -1938,8 +1923,10 @@ def phase_probe_paths(smi: str) -> dict:
             "tpu_shape_ms": case["tpu"]["seconds"] * 1e3,
             "ns_per_gather": case["tpu"]["ns_per_gather"],
             "fill_ns_per_gather": fill["ns_per_gather"],
-            "torch_gather_call_ns": ref["call_ns"],
-            "torch_gather_batched_ns": ref["batched_ns"],
+            # torch.gather doing the same work as "ms": every trip's
+            # gathers of every replica, summed trip by trip
+            "library_ns_per_gather": lib["ns_per_gather"],
+            "library_ms": lib["seconds"] * 1e3,
             "shape": f"{shape} -> {reps}x({r},{shape[1]}) x{pg.ITERS}",
             **bound}
 
@@ -2482,6 +2469,340 @@ def phase_edited_scenes(smi: str):
         fail("edited scenes: an inactive slot was hit")
 
 
+# --- the sharded paths (parallel/) ----------------------------------------
+
+#: the spp axis regroups the float32 sums (each shard sums its own samples,
+#: the all-reduce adds the shards): at most a few ulps of a pixel
+SHARD_REGROUP_MAX_ABS = 1e-5
+SHARD_FRAMES = 64
+#: a band that starts mid-image, each kernel against its plain version
+BAND_ROWS, BAND_SPP, BAND_DEPTH = (400, 416), 2, 12
+ONE_CARD = ("the ranks share one card, so these are no scaling figures; "
+            "multi-GPU speed is not measured")
+
+
+def synced_ms(fn):
+    """``(fn(), milliseconds)`` between two synchronizes."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def same_stats(a: dict, b: dict) -> bool:
+    return a.keys() == b.keys() and all(
+        torch.equal(a[k], b[k]) if isinstance(a[k], torch.Tensor)
+        else a[k] == b[k] for k in a)
+
+
+def shard_frames(step, state, scene, cam, frames: int):
+    segs = []
+    for _ in range(frames):
+        state, aux = step(state, scene, cam)
+        segs.append(aux["segments"])
+    return state, [int(x) for x in segs]
+
+
+def shard_world_one() -> dict:
+    """A (1, 1) NCCL mesh on cuda:0: the cover (K1), the adaptive
+    stratified cover (K1a+K1s) and the demo's progressive frames (K2)
+    through the mesh and through ``render_image`` / ``make_step_fn`` in
+    this process."""
+    from raytracer_tpu_torch import init_render_state, make_step_fn
+    from raytracer_tpu_torch.parallel import (
+        gather_rows,
+        make_mesh,
+        make_sharded_step_fn,
+        render_image_sharded_pallas,
+        shard_render_state,
+    )
+    from raytracer_tpu_torch.render.api import render_image
+    from raytracer_tpu_torch.render.options import TraceOptions
+    from raytracer_tpu_torch.scene import presets
+
+    import torch.distributed as dist
+
+    mesh = make_mesh((1, 1))
+    got = {"device": str(mesh.device), "backend": mesh.backend}
+    # the NCCL collectives each path issues (a (1, 1) mesh still runs them)
+    issued = {}
+
+    def counted(name):
+        real = getattr(dist, name)
+
+        def call(*args, **kwargs):
+            issued[name] = issued.get(name, 0) + 1
+            return real(*args, **kwargs)
+        return call
+
+    dist.all_reduce = counted("all_reduce")
+    dist.all_gather = counted("all_gather")
+    scene, cam, w, h, spp, depth = presets.get_config("cover")
+    for label, adaptive in (("cover rr5", False),
+                            ("adaptive stratified cover", True)):
+        opts = trace_options(5, depth, adaptive, adaptive)
+        reset_launch_counts()
+        issued.clear()
+        (img, stats), ms = synced_ms(lambda: render_image_sharded_pallas(
+            scene, cam, w, h, spp, 0, mesh, opts, return_stats=True))
+        launches = launch_counts()
+        ref, ref_stats = render_image(scene, cam, w, h, spp, 0, opts,
+                                      return_stats=True)
+        got[label] = {"bitwise": bool(torch.equal(img, ref)
+                                      and same_stats(stats, ref_stats)),
+                      "segments": stats["segments_exact"],
+                      "ref_segments": ref_stats["segments_exact"],
+                      "ms": ms, "launches": launches,
+                      "collectives": dict(issued)}
+    scene, cam, _ = demo_inputs(PROG_W, PROG_H)
+    opts = TraceOptions(max_depth=PROG_DEPTH)
+    step = make_sharded_step_fn(PROG_W, PROG_H, mesh, 1, opts)
+    state = shard_render_state(init_render_state(PROG_W, PROG_H, 0), mesh)
+    reset_launch_counts()
+    issued.clear()
+    (state, segs), ms = synced_ms(lambda: shard_frames(
+        step, state, scene, cam, SHARD_FRAMES))
+    launches = launch_counts()
+    accum = gather_rows(state.accum, mesh)
+    collectives = dict(issued)
+    ref, ref_segs = shard_frames(
+        make_step_fn(PROG_W, PROG_H, 1, opts),
+        init_render_state(PROG_W, PROG_H, 0), scene, cam, SHARD_FRAMES)
+    got["progressive"] = {
+        "bitwise": bool(torch.equal(accum, ref.accum) and segs == ref_segs),
+        "segments": sum(segs), "ms": ms, "launches": launches,
+        "collectives": collectives}
+    return got
+
+
+def shard_world_four() -> dict:
+    """Four gloo ranks on the one card: the cover on a (2, 2) mesh,
+    sorted and unsorted; the adaptive stratified cover on a (4,) mesh,
+    contiguous and interleaved; the (4,) mesh refusing 1080 rows."""
+    import torch.distributed as dist
+
+    from raytracer_tpu_torch.parallel import (
+        make_mesh,
+        make_sharded_step_fn,
+        render_image_sharded_pallas,
+    )
+    from raytracer_tpu_torch.scene import presets
+
+    rank0 = dist.get_rank() == 0
+    m22, m4 = make_mesh((2, 2)), make_mesh((4,), ("rows",))
+    scene, cam, w, h, spp, depth = presets.get_config("cover")
+    got = {"coords": (m22.index("rows"), m22.index("spp"), m4.index("rows"))}
+    for label, mesh, adaptive, variant in (
+            ("cover", m22, False, dict(sort_pixels=False)),
+            ("adaptive", m4, True, dict(interleave_rows=True))):
+        opts = trace_options(5, depth, adaptive, adaptive)
+        reset_launch_counts()
+        (img, stats), ms = synced_ms(lambda: render_image_sharded_pallas(
+            scene, cam, w, h, spp, 0, mesh, opts, return_stats=True))
+        launches = launch_counts()
+        (img2, stats2), ms2 = synced_ms(lambda: render_image_sharded_pallas(
+            scene, cam, w, h, spp, 0, mesh,
+            dataclasses.replace(opts, **variant), return_stats=True))
+        got[label] = {
+            "image": img.cpu() if rank0 else None,
+            "spp_map": stats["spp_map"].cpu() if rank0 and adaptive
+            else None,
+            "stats": {k: v for k, v in stats.items() if k != "spp_map"},
+            "ms": (ms, ms2), "launches": launches,
+            # the image, the sample map and the segments; the mean spp
+            # is a mean of other bands' float64 means
+            "variant_bitwise": bool(
+                torch.equal(img, img2)
+                and stats["segments_exact"] == stats2["segments_exact"]
+                and (not adaptive
+                     or torch.equal(stats["spp_map"], stats2["spp_map"]))),
+            "variant_mean_spp": stats2.get("mean_spp")}
+    try:
+        make_sharded_step_fn(PROG_W, PROG_H, m4)
+        got["step_error"] = ""
+    except ValueError as e:
+        got["step_error"] = str(e)
+    return got
+
+
+def shard_world_three() -> dict:
+    """Three gloo ranks on the one card, a (3,) rows mesh: the demo's
+    progressive frames."""
+    import torch.distributed as dist
+
+    from raytracer_tpu_torch import init_render_state
+    from raytracer_tpu_torch.parallel import (
+        gather_rows,
+        make_mesh,
+        make_sharded_step_fn,
+        shard_render_state,
+    )
+    from raytracer_tpu_torch.render.options import TraceOptions
+
+    mesh = make_mesh((3,), ("rows",))
+    scene, cam, _ = demo_inputs(PROG_W, PROG_H)
+    step = make_sharded_step_fn(PROG_W, PROG_H, mesh, 1,
+                                TraceOptions(max_depth=PROG_DEPTH))
+    state = shard_render_state(init_render_state(PROG_W, PROG_H, 0), mesh)
+    reset_launch_counts()
+    (state, segs), ms = synced_ms(lambda: shard_frames(
+        step, state, scene, cam, SHARD_FRAMES))
+    launches = launch_counts()
+    accum = gather_rows(state.accum, mesh)
+    return {"accum": accum.cpu() if dist.get_rank() == 0 else None,
+            "segments": segs, "ms": ms, "launches": launches}
+
+
+def phase_band_kernels() -> None:
+    """K1, K1a+K1s, K2 and K2s each render the band BAND_ROWS of the
+    cover (a sharded render's lane map, starting mid-image) against
+    their plain versions: bitwise."""
+    from raytracer_tpu_torch.render import cluster_walk as cw
+    from raytracer_tpu_torch.render.megakernel import band_pixels
+    from raytracer_tpu_torch.render.options import TraceOptions
+    from raytracer_tpu_torch.render.rng import kernel_seed
+    from raytracer_tpu_torch.scene import presets
+
+    scene, cam, w, h, _, _ = presets.get_config("cover")
+    rows = torch.arange(*BAND_ROWS, device="cuda")
+    band = band_pixels(cw.identity_map(w, rows.shape[0], "cuda"), rows)
+    seed = kernel_seed(7)
+    label = f"band rows {BAND_ROWS} of {w}x{h}, {BAND_SPP} spp d{BAND_DEPTH}"
+    for name in ("cluster_walk", "cluster_walk_adaptive_stratified"):
+        adaptive = name != "cluster_walk"
+        tabs, opts = walk_inputs(5, w, h, BAND_DEPTH, adaptive, adaptive)
+        pmap, budget = band, None
+        if adaptive:
+            pmap, budget = budgeted_map(
+                lambda m, s: cw.cluster_walk(tabs, m, seed, 0, s, w, h,
+                                             opts), band, BAND_SPP, 3)
+        got = compare(f"{name} {label}", (tabs, pmap, seed, 3, BAND_SPP, w,
+                                           h, opts, budget))
+        if not got["bitwise"]:
+            fail(f"{name} on a band differs from its plain version")
+    for name, split in (("flat_scan", False), ("flat_scan_split", True)):
+        opts = TraceOptions(max_depth=BAND_DEPTH, russian_roulette_depth=5,
+                            cluster_scan=False, split_scan=split)
+        choice = flat_choice(name, scene, cam, opts, split)
+        got = compare(f"{name} {label}", (choice.tables, band, seed, 3,
+                                           BAND_SPP, w, h, opts,
+                                           choice.g_full), flat=True)
+        if not got["bitwise"]:
+            fail(f"{name} on a band differs from its plain version")
+
+
+def mesh_launches(label: str, launches: dict, kernel: str):
+    if launches.get(kernel, 0) < 1 or set(launches) != {kernel}:
+        fail(f"{label} did not run through {kernel} alone: {launches}")
+
+
+def phase_sharding(smi: str, golden) -> None:
+    """The sharded paths (``raytracer_tpu_torch.parallel``), each mesh in
+    its own spawned ranks on the one card: a (1, 1) NCCL mesh bitwise
+    the same calls in one process; four gloo ranks, the (2, 2) cover
+    against the golden and the single render (exact segments) and sorted
+    against unsorted, the (4,) adaptive cover interleaved against
+    contiguous; three gloo ranks, the (3,) progressive frames bitwise the
+    single step's; and each kernel on a band against its plain version."""
+    from raytracer_tpu_torch import init_render_state, make_step_fn
+    from raytracer_tpu_torch.parallel import run_ranks
+    from raytracer_tpu_torch.render.options import TraceOptions
+    from raytracer_tpu_torch.scene import presets
+
+    phase_band_kernels()
+    scene, cam, w, h, spp, depth = presets.get_config("cover")
+    ref, ref_stats, _ = render_once(scene, cam, w, h, spp, 0,
+                                    trace_options(5, depth))
+    ref = ref.cpu()
+    pscene, pcam, _ = demo_inputs(PROG_W, PROG_H)
+    pref, pref_segs = shard_frames(
+        make_step_fn(PROG_W, PROG_H, 1, TraceOptions(max_depth=PROG_DEPTH)),
+        init_render_state(PROG_W, PROG_H, 0), pscene, pcam, SHARD_FRAMES)
+
+    one, wall = synced_ms(lambda: run_ranks(shard_world_one, 1,
+                                            backend="nccl"))
+    one = one[0]
+    print(f"[sharding (1, 1) nccl on {one['device']}] mesh wall (spawn "
+          f"included) {wall:.1f} ms [{smi}]")
+    for label, kernel in (("cover rr5", "cluster_walk"),
+                          ("adaptive stratified cover",
+                           "cluster_walk_adaptive_stratified"),
+                          ("progressive", "flat_scan")):
+        got = one[label]
+        print(f"[sharding (1, 1) {label}] bitwise the single-device call "
+              f"{got['bitwise']}, segments {got['segments']}, "
+              f"{got['ms']:.1f} ms, launches {got['launches']}, NCCL "
+              f"collectives {got['collectives']} [{smi}]")
+        mesh_launches(f"(1, 1) {label}", got["launches"], kernel)
+        if not (got["collectives"].get("all_reduce")
+                and got["collectives"].get("all_gather")):
+            fail(f"(1, 1) mesh: {label} issued no NCCL all-reduce or no "
+                 f"all-gather: {got['collectives']}")
+        if not got["bitwise"]:
+            fail(f"(1, 1) mesh: {label} differs from the single-device call")
+
+    four, wall = synced_ms(lambda: run_ranks(shard_world_four, 4))
+    print(f"[sharding 4 gloo ranks] mesh wall (spawn included) {wall:.1f} "
+          f"ms; {ONE_CARD} [{smi}]")
+    for label, kernel, bound in (
+            ("cover", "cluster_walk", GOLDEN_MAX_MAD),
+            ("adaptive", "cluster_walk_adaptive_stratified",
+             ADAPTIVE_GOLDEN_MAX_MAD["stratified"])):
+        got = four[0][label]
+        img = got["image"]
+        im = img.numpy().astype(np.float64)
+        nan = int(np.isnan(im).any(-1).sum())
+        mad = float(np.abs(im - golden).mean())
+        line = (f"[sharding {label} {'(2, 2)' if label == 'cover' else '(4,)'}"
+                f"] ranks' times (ms, the variant's ms) "
+                f"{[tuple(round(x, 1) for x in r[label]['ms']) for r in four]}"
+                f", launches of rank 0 {got['launches']}, golden mean|d| "
+                f"{mad:.3e} (limit {bound}), nan pixels {nan}, segments "
+                f"{got['stats']['segments_exact']}, "
+                + ("sorted bitwise unsorted" if label == "cover" else
+                   "interleaved bitwise contiguous")
+                + f" {all(r[label]['variant_bitwise'] for r in four)}")
+        mesh_launches(f"sharded {label}", got["launches"], kernel)
+        if nan or mad > bound or img.shape != golden.shape:
+            fail(f"sharded {label} disagrees with the golden (mean|d| "
+                 f"{mad}, nan pixels {nan})")
+        if not all(r[label]["variant_bitwise"] for r in four):
+            fail(f"sharded {label}: the variant's render differs")
+        if label == "cover":
+            d = float((img - ref).abs().max())
+            line += (f", max|d| vs the single render {d:.3e} (limit "
+                     f"{SHARD_REGROUP_MAX_ABS}), single segments "
+                     f"{ref_stats['segments_exact']}")
+            if (d > SHARD_REGROUP_MAX_ABS or got["stats"]["segments_exact"]
+                    != ref_stats["segments_exact"]):
+                fail("the (2, 2) cover differs from the single render")
+        else:
+            mean, mean2 = got["stats"]["mean_spp"], got["variant_mean_spp"]
+            line += (f", mean_spp {mean!r} (interleaved {mean2!r}), spp_map "
+                     f"min {float(got['spp_map'].min()):.0f}")
+            if abs(mean - mean2) > 1e-12 * mean:
+                fail("sharded adaptive: the interleaved mean spp differs")
+        print(line + f" [{smi}]")
+    if "divisible by rows*8 = 32" not in four[0]["step_error"]:
+        fail(f"a (4,) mesh on {PROG_H} rows: {four[0]['step_error']!r}")
+    print(f"[sharding (4,) step on {PROG_H} rows] ValueError: "
+          f"{four[0]['step_error']}")
+
+    three, wall = synced_ms(lambda: run_ranks(shard_world_three, 3))
+    got = three[0]
+    bitwise = (torch.equal(got["accum"], pref.accum.cpu())
+               and got["segments"] == pref_segs)
+    print(f"[sharding (3,) progressive {PROG_W}x{PROG_H} {SHARD_FRAMES} "
+          f"frames] mesh wall (spawn included) {wall:.1f} ms; ranks' "
+          f"frames {[round(r['ms'], 1) for r in three]} ms; launches of "
+          f"rank 0 {got['launches']}; bitwise the single step's "
+          f"{bitwise}; {ONE_CARD} [{smi}]")
+    mesh_launches("(3,) progressive", got["launches"], "flat_scan")
+    if not bitwise:
+        fail("the (3,) progressive frames differ from the single step's")
+
+
 def timed(phase, *args):
     """``phase(*args)``, with a line of the seconds it took."""
     t0 = time.perf_counter()
@@ -2527,6 +2848,7 @@ def main():
     timed(phase_viewer, smi)
     timed(phase_fault_recovery, smi)
     timed(phase_edited_scenes, smi)
+    timed(phase_sharding, smi, golden)
     for name, got in flat_paths.items():
         paths[name] = alone[name] = got
     sources = {**{n: (WALK_SOURCE, KERNELS[n][2]) for n in KERNELS},

@@ -37,6 +37,12 @@ edits, with ``Scene.pad_to`` and ``Scene.num_active``);
 fault, through the same kernels; a sticky one raises
 :class:`DeviceContextLost`).
 
+Multi-device sharding is the subpackage :mod:`raytracer_tpu_torch.parallel`
+(imported on its own): ``make_mesh`` over ``torch.distributed``,
+``render_image_sharded_pallas``, ``make_sharded_step_fn``,
+``shard_render_state``, ``gather_rows`` and ``dryrun_multichip``, one
+process per card, through the same kernels.
+
 Entry points a user starts the renderer from (each on CUDA unless told
 ``--device cpu`` / ``BENCH_DEVICE=cpu``):
 

@@ -33,6 +33,11 @@ lanes do nothing, and the image divides each pixel's sums by its own
 count. Budgets, maps and statistics are built on the device: the loop
 never waits for it.
 
+A band of image rows (the sharded renders of ``parallel/``) renders
+through the same loop: its lanes map to absolute pixels just before each
+launch, so the kernels key every stream on the absolute pixel and sample
+as a whole-image render does.
+
 Segment totals are exact int64 sums of the kernel's per-lane counts;
 ``return_stats`` reports them rounded once to float32 under
 ``"segments"`` (as the JAX package does) and exactly under
@@ -296,29 +301,51 @@ def _render_adaptive(launch, sizes, width, height, opts, device):
     return acc, segments
 
 
-def render(scene: Scene, dcam: DerivedCamera, width: int, height: int,
-           spp: int, key, opts: TraceOptions, device, sample_offset: int = 0,
-           static_split=None, static_cluster=None, analyse: bool = True,
-           debug: DebugParams | None = None):
-    """Render ``spp`` samples per pixel of ``scene`` on ``device``, with
-    key data ``key`` (see ``rng.key_data``), starting at absolute sample
-    ``sample_offset``; with ``opts.enable_debug``, the overlay of
-    ``debug`` (``DebugParams.none()`` when omitted). Returns ``(image,
-    segments, extra)``: the (H, W, 3) image, the exact int64 segment total
-    as a 0-d device tensor (read it when you need it: that waits for the
-    device), and for an adaptive render ``{'spp_map': (H, W) sample
-    counts}``, else ``{}``."""
+def band_pixels(pixel_map: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """A band's lane map in absolute pixels: ``pixel_map``'s [px, i] pairs
+    (i a row of the band) with i replaced by the image row ``rows[i]``."""
+    py = rows[pixel_map[:, 1].to(torch.int64)]
+    return torch.stack([pixel_map[:, 0], py.to(torch.int32)], 1)
+
+
+def render_sums(scene: Scene, dcam: DerivedCamera, width: int, height: int,
+                spp: int, key, opts: TraceOptions, device,
+                sample_offset: int = 0, static_split=None,
+                static_cluster=None, analyse: bool = True,
+                debug: DebugParams | None = None, rows=None):
+    """The pixel-order sums of :func:`render`, before the image is formed:
+    ``(acc, segments)``, ``acc`` (4, n) [rgb, cumulative cost] of a fixed
+    render or (6, n) [rgb, cost, n, Σ lum²] of an adaptive one, and the
+    exact int64 segment total as a 0-d device tensor.
+
+    ``rows`` (an int64 tensor of absolute image rows, in order) renders a
+    band: its pixel i·W + x is the image pixel (x, ``rows[i]``), so every
+    lane keys its streams on the absolute pixel and the band's sums are
+    the image's sums at those pixels. The plans sort and place the band's
+    own pixels, and the schedule sees the band's pixel count. ``None`` is
+    every row."""
     device = torch.device(device)
+    n_rows = height
+    if rows is not None:
+        rows = torch.as_tensor(rows, dtype=torch.int64).to(device)
+        if rows.dim() != 1 or rows.shape[0] < 1:
+            raise ValueError(f"rows must be a non-empty 1-D tensor, got "
+                             f"shape {tuple(rows.shape)}")
+        n_rows = rows.shape[0]
     choice = choose_kernel(scene, dcam, opts, device, static_split,
                            static_cluster, analyse)
-    launch = choice.launcher(kernel_seed_from_key(key), width, height, opts,
-                             debug)
+    kseed = kernel_seed_from_key(key)
+
+    def launcher(opts):
+        launch = choice.launcher(kseed, width, height, opts, debug)
+        if rows is None:
+            return launch
+        return lambda pixel_map, offset, cs, budget=None: launch(
+            band_pixels(pixel_map, rows), offset, cs, budget)
+
+    launch = launcher(opts)
     # the ORIGINAL slot count: the schedule must not see the padding
-    chunk = schedule.pick_chunk_spp(
-        spp, width * height, scene.count, opts.max_depth,
-        opts.russian_roulette_depth,
-    )
-    adaptive_sizes = None
+    plan = schedule.render_schedule(spp, width * n_rows, scene.count, opts)
     if opts.adaptive_tolerance > 0.0:
         if sample_offset != 0:
             # pixels stop at different sample counts, so no uniform base
@@ -327,28 +354,20 @@ def render(scene: Scene, dcam: DerivedCamera, width: int, height: int,
                 "adaptive_tolerance requires sample_offset == 0 "
                 "(per-pixel stop counts cannot resume from a uniform base)"
             )
-        adaptive_sizes = schedule.adaptive_schedule(
-            spp, chunk, opts.adaptive_chunk_spp, opts.sort_pixels
-        )
-        if adaptive_sizes is None or opts.enable_debug:
-            # nothing could gate a later chunk, or the overlay is on: it
-            # has no adaptive instantiation. Render fixed spp through the
-            # four-row kernels
-            adaptive_sizes = None
-            opts = dataclasses.replace(opts, adaptive_tolerance=0.0)
-            launch = choice.launcher(kernel_seed_from_key(key), width,
-                                     height, opts, debug)
-    if adaptive_sizes is not None:
-        acc, segments = _render_adaptive(launch, adaptive_sizes, width,
-                                         height, opts, device)
-        image, spp_map = finalize_adaptive(acc, width, height, opts.gamma)
-        return image, segments, {"spp_map": spp_map}
-    sizes, _ = schedule.chunk_schedule(spp, chunk)
-    n = width * height
-    acc = torch.zeros((4, n), dtype=torch.float32, device=device)
+        if plan.adaptive is None:
+            # nothing could gate a later chunk, or the overlay is on.
+            # Render fixed spp through the four-row kernels
+            launch = launcher(dataclasses.replace(opts,
+                                                  adaptive_tolerance=0.0))
+    if plan.adaptive is not None:
+        return _render_adaptive(launch, plan.adaptive, width, n_rows, opts,
+                                device)
+    sizes, _ = schedule.chunk_schedule(spp, plan.chunk)
+    acc = torch.zeros((4, width * n_rows), dtype=torch.float32,
+                      device=device)
     segments = torch.zeros((), dtype=torch.int64, device=device)
-    sort = opts.sort_pixels and len(sizes) > 1
-    pixel_map, inv = identity_map(width, height, device), None
+    sort = plan.sort
+    pixel_map, inv = identity_map(width, n_rows, device), None
     offset = sample_offset
     for cs in sizes:
         out, segs = launch(pixel_map, offset, cs)
@@ -360,8 +379,39 @@ def render(scene: Scene, dcam: DerivedCamera, width: int, height: int,
         offset += cs
         if sort and offset < sample_offset + spp:
             inv, pixel_map = plan_from_cost(acc[3], width)
-    image = finalize_flat(acc[:3], width, height, spp, opts.gamma)
-    return image, segments, {}
+    return acc, segments
+
+
+def finish(acc: torch.Tensor, width: int, height: int, spp: int,
+           gamma: bool):
+    """:func:`render_sums`' sums of ``height`` rows → ``(image, extra)``:
+    the (height, W, 3) image and, for an adaptive render's six rows,
+    ``{'spp_map': (height, W) sample counts}``, else ``{}``."""
+    if acc.shape[0] == 6:
+        image, spp_map = finalize_adaptive(acc, width, height, gamma)
+        return image, {"spp_map": spp_map}
+    return finalize_flat(acc[:3], width, height, spp, gamma), {}
+
+
+def render(scene: Scene, dcam: DerivedCamera, width: int, height: int,
+           spp: int, key, opts: TraceOptions, device, sample_offset: int = 0,
+           static_split=None, static_cluster=None, analyse: bool = True,
+           debug: DebugParams | None = None, rows=None):
+    """Render ``spp`` samples per pixel of ``scene`` on ``device``, with
+    key data ``key`` (see ``rng.key_data``), starting at absolute sample
+    ``sample_offset``; with ``opts.enable_debug``, the overlay of
+    ``debug`` (``DebugParams.none()`` when omitted); only the image rows
+    ``rows`` where given (see :func:`render_sums`). Returns ``(image,
+    segments, extra)``: the (len(rows) or H, W, 3) image, the exact int64
+    segment total as a 0-d device tensor (read it when you need it: that
+    waits for the device), and for an adaptive render ``{'spp_map':
+    sample counts of the same rows}``, else ``{}``."""
+    acc, segments = render_sums(scene, dcam, width, height, spp, key, opts,
+                                device, sample_offset, static_split,
+                                static_cluster, analyse, debug, rows)
+    image, extra = finish(acc, width, acc.shape[1] // width, spp,
+                          opts.gamma)
+    return image, segments, extra
 
 
 def segment_stats(segments: torch.Tensor, extra: dict) -> dict:

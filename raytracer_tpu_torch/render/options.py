@@ -77,6 +77,11 @@ class TraceOptions:
     keeps the scene's slot order (no split) and strips an adaptive
     tolerance, as the JAX package does.
 
+    ``interleave_rows`` gives each rows shard of a sharded render
+    (``parallel/sharding.py``) every rows-th block of rows instead of one
+    band; the image does not change, and a single-device render ignores
+    it.
+
     ``cluster_scan`` ('auto', True or False) chooses the cluster walk
     over the flat scan (see :func:`cluster_scan_enabled`). ``split_scan``
     lets a concrete scene's flat scan skip the far root of spheres that
@@ -105,6 +110,7 @@ class TraceOptions:
     scan_mxu: bool = False
     cluster_scan: bool | str = "auto"
     enable_debug: bool = False
+    interleave_rows: bool = False
 
     def __post_init__(self):
         if self.max_depth < 1:

@@ -13,6 +13,7 @@ partition's.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 #: samples a pixel must have before it may be declared converged
 ADAPTIVE_MIN_N = 64
@@ -75,3 +76,30 @@ def adaptive_schedule(spp: int, chunk: int, adaptive_chunk_spp: int,
     if spp <= chunk_a or not sort_pixels or not uniform:
         return None
     return sizes
+
+
+class RenderSchedule(NamedTuple):
+    """How a render launches: ``chunk`` the fixed render's chunk spp,
+    ``sort`` whether chunks after the first run in sorted pixel order,
+    ``adaptive`` the adaptive render's per-launch spp counts (``None``
+    for fixed spp)."""
+
+    chunk: int
+    sort: bool
+    adaptive: list | None
+
+
+def render_schedule(spp: int, n_pixels: int, s_count: int,
+                    opts) -> RenderSchedule:
+    """The schedule of ``spp`` samples over ``n_pixels`` pixels (a band's
+    own count when sharded) of a scene of ``s_count`` ORIGINAL slots,
+    under ``opts`` (``TraceOptions``). An adaptive tolerance gives sizes
+    only where :func:`adaptive_schedule` does and the debug overlay is
+    off: it has no adaptive instantiation."""
+    chunk = pick_chunk_spp(spp, n_pixels, s_count, opts.max_depth,
+                           opts.russian_roulette_depth)
+    adaptive = None
+    if opts.adaptive_tolerance > 0.0 and not opts.enable_debug:
+        adaptive = adaptive_schedule(spp, chunk, opts.adaptive_chunk_spp,
+                                     opts.sort_pixels)
+    return RenderSchedule(chunk, opts.sort_pixels and spp > chunk, adaptive)

@@ -17,7 +17,10 @@ uniforms, the index recomputed from the trip counter i every trip:
 
 Each case runs at the TPU's shape, warm then best of 3, and prints the
 script's line with ns per gather of that shape; then at a card-filling
-count of replicas of the same output (``FILL_ELEMENTS``).
+count of replicas of the same output (``FILL_ELEMENTS``), beside
+``torch.gather`` doing the same work (:func:`library_gather`: one call a
+trip over all the replicas, summed trip by trip), in ns per gather of
+the shape.
 
 :func:`gather_probe` launches ``csrc/probe_gather.cu`` on CUDA tensors
 and counts its launches in ``gather_probe.launches`` (by mode in
@@ -179,6 +182,53 @@ def _launch(tbl, mode, rows, iters, reps):
     return out
 
 
+def library_inputs(tbl: torch.Tensor, mode: str, rows: int, reps: int):
+    """``torch.gather``'s operands for the kernel's gathers, all ``reps``
+    replicas in one call a trip: ``(src, dim, index)`` with ``src`` the
+    table seen as (reps, S, W) (column 0 broadcast for the one-hot mode)
+    and ``index(i)`` trip i's (reps, rows, W) index, every replica's the
+    same (broadcast views: nothing is copied)."""
+    _check(tbl, mode, rows, 0, reps)
+    s, w = tbl.shape
+    dev = tbl.device
+    if mode == "axis1":
+        src, dim, period = tbl, 2, w
+        base = torch.arange(rows, device=dev)[:, None].expand(rows, w)
+    else:
+        src = tbl if mode == "axis0" else tbl[:, :1].expand(s, w)
+        dim, period = 1, s
+        base = torch.arange(w, device=dev)[None, :].expand(rows, w)
+    # the index repeats after one period of trips
+    table = [((base + i) % period)[None].expand(reps, rows, w)
+             for i in range(period)]
+    return src[None].expand(reps, s, w), dim, lambda i: table[i % period]
+
+
+def library_sums(tbl: torch.Tensor, mode: str, rows: int, iters: int,
+                 reps: int = 1) -> torch.Tensor:
+    """The kernel's work through ``torch.gather``: ``iters`` trips, each
+    one call over the ``reps`` replicas, summed trip by trip; equal to
+    :func:`gather_probe_plain` (the library gathers what the kernel
+    gathers)."""
+    src, dim, index = library_inputs(tbl, mode, rows, reps)
+    acc = torch.zeros((reps, rows, tbl.shape[1]), dtype=torch.float32,
+                      device=tbl.device)
+    for i in range(iters):
+        acc += torch.gather(src, dim, index(i))
+    return acc
+
+
+def library_gather(tbl: torch.Tensor, mode: str, rows: int, iters: int,
+                   reps: int, device) -> tuple:
+    """``(seconds, sums)``: the best of 3 runs of :func:`library_sums` on
+    ``device`` (the library doing the kernel's whole work) and its first
+    replica's sums, on the CPU."""
+    tbl = tbl.to(device)
+    best, out = best_seconds(
+        lambda: library_sums(tbl, mode, rows, iters, reps), device)
+    return best, out[0].cpu()
+
+
 def fill_reps(mode: str, rows: int, width: int) -> int:
     """Replicas of a card-filling launch."""
     return max(1, min(MAX_REPS, FILL_ELEMENTS[mode] // (rows * width)))
@@ -205,8 +255,10 @@ def run(label: str, mode: str, shape, rows: int, iters: int, device,
 
 def main(device=None, iters: int = ITERS, fill: bool = True):
     """The script's six cases at its shapes, then (with ``fill``) at a
-    card-filling count of replicas; returns the device's name and, per
-    case label, ``tpu`` (and ``fill``) :func:`run` results."""
+    card-filling count of replicas and through ``torch.gather``; returns
+    the device's name and, per case label, ``tpu`` (and ``fill``)
+    :func:`run` results (and ``library``: :func:`library_gather`'s
+    sums, seconds and ns per gather)."""
     device = resolve_device(device)
     got = {}
     for label, mode, shape, rows in CASES:
@@ -214,8 +266,17 @@ def main(device=None, iters: int = ITERS, fill: bool = True):
                       "tpu": run(label, mode, shape, rows, iters, device)}
     if fill:
         for label, mode, shape, rows in CASES:
+            reps = fill_reps(mode, rows, shape[1])
             got[label]["fill"] = run(label, mode, shape, rows, iters, device,
-                                     fill_reps(mode, rows, shape[1]))
+                                     reps)
+            seconds, out = library_gather(gather_table(shape), mode, rows,
+                                          iters, reps, device)
+            per_gather = seconds / max(iters, 1) / reps
+            got[label]["library"] = {"out": out, "seconds": seconds,
+                                     "ns_per_gather": per_gather * 1e9}
+            print(f"{label} x{reps}: torch.gather {seconds * 1e3:.2f} ms "
+                  f"total, {per_gather * 1e9:.3f} ns per ({rows},"
+                  f"{shape[1]})-gather")
     return {"device": device_name(device), "iters": iters, "cases": got}
 
 

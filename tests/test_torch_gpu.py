@@ -602,3 +602,104 @@ def test_edited_cover_kernel_matches_plain_on_card(card, edit):
     out_p, seg_p = cw.cluster_walk_plain(*args)
     assert torch.equal(out_k, out_p)
     assert torch.equal(seg_k, seg_p)
+
+
+def nccl_mesh_of_one() -> list:
+    """In a spawned rank: the cover crop through a (1, 1) NCCL mesh and
+    through ``render_image``, fixed (K1) and adaptive stratified
+    (K1a+K1s, 48 spp as [8, 20, 20])."""
+    from raytracer_tpu_torch.parallel import (
+        make_mesh,
+        render_image_sharded_pallas,
+    )
+
+    import torch.distributed as dist
+
+    mesh = make_mesh((1, 1))
+    scene, cam, *_ = presets.get_config("cover", W, H)
+    issued = []
+    real = dist.all_reduce, dist.all_gather
+    dist.all_reduce = lambda *a, **k: (issued.append("all_reduce"),
+                                       real[0](*a, **k))[1]
+    dist.all_gather = lambda *a, **k: (issued.append("all_gather"),
+                                       real[1](*a, **k))[1]
+    got = []
+    for adaptive in (False, True):
+        opts = TraceOptions(max_depth=12, russian_roulette_depth=5,
+                            adaptive_tolerance=0.2 if adaptive else 0.0,
+                            sampler="stratified" if adaptive else "random")
+        issued.clear()
+        a, sa = render_image_sharded_pallas(scene, cam, W, H, 48, 0, mesh,
+                                            opts, return_stats=True)
+        collectives = sorted(issued)
+        b, sb = api.render_image(scene, cam, W, H, 48, 0, opts,
+                                 return_stats=True)
+        maps = [s.pop("spp_map", None) for s in (sa, sb)]
+        got.append({"image": torch.equal(a, b), "stats": sa == sb,
+                    "maps": maps[0] is None and maps[1] is None
+                    or torch.equal(*maps), "device": str(a.device),
+                    "collectives": collectives})
+    return got
+
+
+@pytest.fixture(scope="module")
+def nccl_one():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from raytracer_tpu_torch.parallel import run_ranks
+
+    return run_ranks(nccl_mesh_of_one, 1, backend="nccl")[0]
+
+
+@pytest.mark.parametrize("case", [0, 1], ids=["fixed", "adaptive"])
+def test_nccl_mesh_of_one_bitwise_render_image_on_card(nccl_one, case):
+    """A world of one NCCL rank renders what ``render_image`` renders in
+    its process, bit for bit: image, stats, sample map."""
+    got = nccl_one[case]
+    assert got["device"] == "cuda:0"
+    assert got["image"] and got["stats"] and got["maps"]
+
+
+@pytest.mark.parametrize("case", [0, 1], ids=["fixed", "adaptive"])
+def test_nccl_mesh_of_one_runs_its_collectives_on_card(nccl_one, case):
+    """The (1, 1) mesh's render goes through NCCL: the sums' all-reduce
+    over spp, the segments' over the mesh, the all-gather over rows."""
+    assert nccl_one[case]["collectives"] == ["all_gather", "all_reduce",
+                                             "all_reduce"]
+
+
+@pytest.mark.parametrize("kernel", ["cluster_walk",
+                                    "cluster_walk_adaptive_stratified",
+                                    "flat_scan", "flat_scan_split"])
+def test_band_kernel_matches_plain_on_card(card, kernel):
+    """A sharded render's lane map, a band of rows that starts mid-image
+    (rows 8-15 of the crop), through each kernel of the sharded paths:
+    bitwise its plain version, a budget mixing 0 and the chunk's spp for
+    the adaptive one."""
+    adaptive = kernel == "cluster_walk_adaptive_stratified"
+    rows = torch.arange(8, 16, device=card)
+    band = megakernel.band_pixels(cw.identity_map(W, 8, card), rows)
+    budget = None
+    if adaptive:
+        g = torch.Generator().manual_seed(4)
+        budget = (torch.where(torch.rand(W * 8, generator=g) < 0.4, 0, 2)
+                  .to(torch.int32).to(card))
+    if kernel.startswith("cluster_walk"):
+        tabs, _, opts = walk_inputs(card, 5, adaptive, adaptive)
+        args = (tabs, band, 9, 6, 2, W, H, opts, budget)
+        kernel_fn, plain_fn = cw.cluster_walk, cw.cluster_walk_plain
+    else:
+        scene, cam, *_ = presets.get_config("cover", W, H)
+        opts = TraceOptions(max_depth=12, russian_roulette_depth=5,
+                            cluster_scan=False,
+                            split_scan=kernel == "flat_scan_split")
+        choice = megakernel.choose_kernel(scene, derive_camera(cam), opts,
+                                          card)
+        assert fs.is_split(choice.tables, choice.g_full) == opts.split_scan
+        args = (choice.tables, band, 9, 6, 2, W, H, opts, choice.g_full)
+        kernel_fn, plain_fn = fs.flat_scan, fs.flat_scan_plain
+    out_k, seg_k = kernel_fn(*args)
+    out_p, seg_p = plain_fn(*args)
+    assert torch.equal(out_k, out_p) and torch.equal(seg_k, seg_p)
+    assert int(seg_k.sum()) >= (W * 8 * 2 if budget is None
+                                else int(budget.sum()))

@@ -180,6 +180,19 @@ def test_gather_matches_jax_kernel(case, jax_gathers):
             np.testing.assert_array_equal(got[r].numpy(), jax_gathers[label])
 
 
+@pytest.mark.parametrize("case", pg.CASES, ids=[c[0] for c in pg.CASES])
+def test_library_gathers_what_the_kernel_gathers(case, jax_gathers):
+    """``torch.gather``, the library call the probe is timed against,
+    summed trip by trip over three replicas in one call a trip: bitwise
+    the JAX kernel's sums and the plain version's."""
+    label, mode, shape, rows = case
+    tbl = pg.gather_table(shape)
+    got = pg.library_sums(tbl, mode, rows, 7, 3)
+    assert torch.equal(got, pg.gather_probe_plain(tbl, mode, rows, 7, 3))
+    for r in range(3):
+        np.testing.assert_array_equal(got[r].numpy(), jax_gathers[label])
+
+
 def test_gather_main_matches_jax_main(jax_gathers):
     got = pg.main("cpu", iters=7, fill=False)
     assert got["device"] == "cpu"
