@@ -80,6 +80,19 @@ kernels:
   frames bitwise the single step's; and K1, K1a+K1s, K2 and K2s on a band
   of rows that starts mid-image, bitwise their plain versions.
 
+Then the JAX package's jnp tracer, ``backend='jnp'`` (plain PyTorch on
+the card: no kernel may launch on it): Threefry on the card bitwise the
+CPU's; two_sphere, three_sphere, demo and dof at 64x36, 32 spp, against
+the JAX package's goldens and the port on the CPU; the full-width cover
+(1200x800, 487 spheres, depth 50, rr0) through its five bands against
+the golden and the kernels' render, 8x8-box averaged; BENCH_CONVERGENCE=1
+in its own process; the 1080p demo step with each sampler (no sync
+inside a frame; the stratified average bitwise the offline renders'); the
+CLI, the bench line and the viewer with ``--backend jnp`` in their own
+processes and ``Engine(backend='jnp')`` with the overlay; and, in the
+sharding phase's ranks, ``render_image_sharded`` (each band bitwise
+``_render_shard``'s formed in this process) and the debug step.
+
 The walk A/B (``raytracer_tpu_torch/scripts/walk_ab.py``): the cluster
 walk's six instantiations and the flat scan's ten, each built from the
 base revision's sources (the commit the tree is held against, unpacked
@@ -861,7 +874,11 @@ def device_profile(fn):
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows, host_ops = [], 0
     for e in prof.key_averages():
-        host_ops += e.count if e.key.startswith("aten::") else 0
+        if e.key.startswith("aten::"):
+            # an operator's device time is its kernels', which have rows
+            # of their own
+            host_ops += e.count
+            continue
         dev_us = getattr(e, "self_device_time_total", None)
         if dev_us is None:
             dev_us = e.self_cuda_time_total
@@ -2029,6 +2046,7 @@ def start_module(args, env=None):
     the process and its start time."""
     return (subprocess.Popen([sys.executable, "-m", *args], cwd=ROOT,
                              env={**os.environ, **(env or {})},
+                             stdin=subprocess.DEVNULL,
                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                              text=True), time.perf_counter())
 
@@ -2070,7 +2088,7 @@ def cli_in_process(flags):
                                         device=a.device).cpu().numpy()), None
     opts = TraceOptions(max_depth=depth, russian_roulette_depth=(
         a.russian_roulette), adaptive_tolerance=a.adaptive,
-        sampler=a.sampler)
+        sampler=a.sampler, backend=a.backend)
     if a.progressive_frames:
         step = make_step_fn(w, h, spp=spp, opts=opts, static_scene=scene,
                             static_camera=cam, device=a.device)
@@ -2573,7 +2591,81 @@ def shard_world_one() -> dict:
         "bitwise": bool(torch.equal(accum, ref.accum) and segs == ref_segs),
         "segments": sum(segs), "ms": ms, "launches": launches,
         "collectives": collectives}
+    got.update(jnp_mesh_cases(mesh, issued))
     return got
+
+
+def jnp_mesh_cases(mesh, issued=None) -> dict:
+    """The jnp tracer's sharded paths on ``mesh``: ``render_image_sharded``
+    of the demo (JNP_SHARD_W x JNP_SHARD_H, JNP_SHARD_SPP spp, depth 8)
+    and, on a mesh of one, the debug step with the cursor on the sphere
+    at the centre of the view (4 frames)."""
+    from raytracer_tpu_torch import init_render_state
+    from raytracer_tpu_torch.parallel import (
+        make_sharded_step_fn,
+        render_image_sharded,
+        shard_render_state,
+    )
+    from raytracer_tpu_torch.render.options import TraceOptions
+    from raytracer_tpu_torch.scene import presets
+
+    issued = {} if issued is None else issued
+    w, h = JNP_SHARD_W, JNP_SHARD_H
+    scene, cam, *_ = presets.get_config("demo", w, h)
+    reset_launch_counts()
+    issued.clear()
+    (img, stats), ms = synced_ms(lambda: render_image_sharded(
+        scene, cam, w, h, JNP_SHARD_SPP, 0, mesh,
+        jnp_options(max_depth=PROG_DEPTH), return_stats=True))
+    got = {"jnp render": {"image": img.cpu(), "segments":
+                          stats["segments_exact"], "ms": ms,
+                          "launches": launch_counts(),
+                          "collectives": dict(issued)}}
+    if mesh.shape == {"rows": 1, "spp": 1}:
+        debug = centre_pick(scene, cam)
+        step = make_sharded_step_fn(w, h, mesh, 1, TraceOptions(
+            max_depth=PROG_DEPTH, enable_debug=True))
+        state = shard_render_state(init_render_state(w, h, 0), mesh)
+        reset_launch_counts()
+        issued.clear()
+        for _ in range(4):
+            state, aux = step(state, scene, cam, debug)
+        got["jnp debug step"] = {
+            "centre": state.accum[h // 2 - 1, w // 2 - 1].tolist(),
+            "segments": int(aux["segments"]), "launches": launch_counts(),
+            "collectives": dict(issued)}
+    return got
+
+
+def jnp_band_reference(r: int, n_rows: int, n_spp: int) -> torch.Tensor:
+    """Rows shard r's band of the sharded jnp render, formed in this
+    process as ``_render_shard`` forms it: the spp shards' sums
+    (``sample_sums`` under ``fold_in(fold_in(key, r), s)``) added in
+    order, then the mean and the gamma."""
+    from raytracer_tpu_torch.camera.camera import pixel_st_grid
+    from raytracer_tpu_torch.render.api import to_derived
+    from raytracer_tpu_torch.render.rng import fold_in, key_data
+    from raytracer_tpu_torch.render.tracer import (
+        camera_on,
+        sample_sums,
+        scene_on,
+    )
+    from raytracer_tpu_torch.scene import presets
+
+    w, h = JNP_SHARD_W, JNP_SHARD_H
+    scene, cam, *_ = presets.get_config("demo", w, h)
+    lh = h // n_rows
+    st = pixel_st_grid(w, h, "cuda")[r * lh:(r + 1) * lh].reshape(-1, 2)
+    acc = None
+    for s in range(n_spp):
+        a, _ = sample_sums(scene_on(scene, "cuda"),
+                           camera_on(to_derived(cam), "cuda"), st,
+                           fold_in(fold_in(key_data(0), r), s), w, h,
+                           JNP_SHARD_SPP // n_spp,
+                           jnp_options(max_depth=PROG_DEPTH))
+        acc = a if acc is None else acc + a
+    color = torch.sqrt(torch.clamp_min(acc * (1.0 / JNP_SHARD_SPP), 0.0))
+    return color.reshape(lh, w, 3).cpu()
 
 
 def shard_world_four() -> dict:
@@ -2623,6 +2715,7 @@ def shard_world_four() -> dict:
         got["step_error"] = ""
     except ValueError as e:
         got["step_error"] = str(e)
+    got.update(jnp_mesh_cases(m22))
     return got
 
 
@@ -2789,6 +2882,8 @@ def phase_sharding(smi: str, golden) -> None:
     print(f"[sharding (4,) step on {PROG_H} rows] ValueError: "
           f"{four[0]['step_error']}")
 
+    jnp_sharded(smi, one, four)
+
     three, wall = synced_ms(lambda: run_ranks(shard_world_three, 3))
     got = three[0]
     bitwise = (torch.equal(got["accum"], pref.accum.cpu())
@@ -2801,6 +2896,427 @@ def phase_sharding(smi: str, golden) -> None:
     mesh_launches("(3,) progressive", got["launches"], "flat_scan")
     if not bitwise:
         fail("the (3,) progressive frames differ from the single step's")
+
+
+# --- the jnp tracer (render/tracer.py), backend='jnp', on the card ----------
+#
+# No kernel of the port lies on this path: it is plain PyTorch on CUDA
+# tensors, as the JAX package's is XLA-compiled jnp. Every phase below
+# checks that no kernel launched.
+
+JNP_RNG_SEEDS = (0, 42, 2**31 + 5)
+JNP_RNG_SIZES = (7, 1_048_577)
+JNP_GOLDEN_CONFIGS = ("two_sphere", "three_sphere", "demo", "dof")
+JNP_W, JNP_H, JNP_SPP, JNP_DEPTH, JNP_SEED = 64, 36, 32, 8, 42
+# the CPU tests' bounds (tests/test_torch_jnp_render.py, the port's render
+# bounds): share of pixels off by more than 1e-3, mean |delta|
+JNP_MAX_FORKED_SHARE, JNP_MAX_MEAN_ABS = 0.05, 8e-3
+# the full-width cover through five bands at JNP_COVER_SPP spp, rr0
+JNP_COVER_SPP = 4
+JNP_BOX = 8
+#: bounces of the band profiled for the cover's calls a bounce
+JNP_PROFILE_DEPTH = 10
+# 8x8 box means at 4 spp (measured on one H100 80GB HBM3, 700 W):
+# mean|delta| jnp against the golden 5.90e-3, against the kernels' rr0
+# render 6.40e-3 (the kernels against the golden 5.82e-3); the largest
+# per-channel mean gap to the golden 4.42e-3 (both renders sit below the
+# golden alike: the gamma of a 4-sample mean). Limits about 1.5x.
+JNP_COVER_BOX_MAX = {"golden": 9e-3, "kernel": 9.5e-3}
+JNP_COVER_CHANNEL_MAX = 7e-3
+# BENCH_CONVERGENCE=1 in its own process, at this spp (500, the line's
+# own, takes about 2.5 min of jnp on the crop: it is run on its own;
+# 200 took 66-90 s, too much of the run's 500 s). Measured at 100 spp on
+# one H100 80GB HBM3, 700 W: 9.84e-3; the limit is 1.5x it.
+JNP_CONV_SPP = 100
+JNP_CONV_MAX_MAD = 1.5e-2
+JNP_PROG_FRAMES = 16
+JNP_ENGINE_FRAMES = 32
+JNP_VIEWER_FRAMES = 8
+#: the sharded jnp render's shapes (demo)
+JNP_SHARD_W, JNP_SHARD_H, JNP_SHARD_SPP = 640, 360, 8
+#: bench.py's line for a BASELINE config with the default knobs, without
+#: a convergence mode
+BENCH_LINE_KEYS = BENCH_COVER_KEYS - {"convergence_mad_vs_golden",
+                                      "convergence_nan_px",
+                                      "adaptive_golden_mad"}
+
+
+def jnp_options(**kw):
+    from raytracer_tpu_torch.render.options import TraceOptions
+
+    return TraceOptions(backend="jnp", **kw)
+
+
+def no_kernel_launched(label: str):
+    counts = launch_counts()
+    if any(counts.values()):
+        fail(f"{label}: the jnp path launched kernels {counts}")
+
+
+def image_bounds(got, want) -> tuple:
+    """(share of pixels off by more than 1e-3, mean |delta|)."""
+    d = np.abs(np.asarray(got, np.float64) - np.asarray(want, np.float64))
+    return float((d.max(-1) > 1e-3).mean()), float(np.nanmean(d))
+
+
+def phase_jnp_rng(smi: str):
+    """Threefry ``uniform`` over (P,), (P, 2), (P, 3) and a bounce's
+    concatenated draws (split(key, 3) and the roulette fold) at P = 7 and
+    1,048,577 under three keys, on the card: bit for bit the CPU's. Then
+    the time of one bounce's draw call."""
+    from raytracer_tpu_torch.render import rng
+
+    checked = 0
+    for seed in JNP_RNG_SEEDS:
+        kd = rng.key_data(seed)
+        for p in JNP_RNG_SIZES:
+            for shape in ((p,), (p, 2), (p, 3)):
+                if not torch.equal(rng.uniform(kd, shape, "cuda").cpu(),
+                                   rng.uniform(kd, shape)):
+                    fail(f"jnp rng: uniform {shape} of seed {seed} differs "
+                         "on the card")
+                checked += int(np.prod(shape))
+            k1, k2, k3 = rng.split(kd, 3)
+            draws = [(k1, 3 * p), (k2, 3 * p), (k3, p),
+                     (rng.fold_in(kd, 7), p)]
+            for g, w in zip(rng.uniforms(draws, "cuda"),
+                            rng.uniforms(draws)):
+                if not torch.equal(g.cpu(), w):
+                    fail(f"jnp rng: a bounce's draws of seed {seed} differ "
+                         "on the card")
+                checked += w.numel()
+    print(f"[jnp rng] {checked} Threefry uniforms on the card bitwise the "
+          f"CPU's (seeds {JNP_RNG_SEEDS}, P {JNP_RNG_SIZES})")
+    for label, p in (("the cover's 1200x168 band", 1200 * 168),
+                     ("a 1920x1080 frame", 1920 * 1080)):
+        kd = rng.key_data(3)
+        k1, k2, k3 = rng.split(kd, 3)
+        draws = [(k1, 3 * p), (k2, 3 * p), (k3, p), (rng.fold_in(kd, 7), p)]
+        ms = cuda_ms(lambda: rng.uniforms(draws, "cuda"), 10)
+        print(f"[jnp rng] one bounce's draws for {label} ({8 * p} uniforms, "
+              f"one Threefry pass): {ms:.3f} ms [{smi}]")
+
+
+def phase_jnp_goldens(smi: str):
+    """two_sphere, three_sphere, demo and dof at 64x36, 32 spp, depth 8,
+    key 42, ``backend='jnp'`` on the card: against the JAX package's
+    goldens (rendered by its jnp tracer) and against the port's CPU render
+    of the same call, within the CPU test's bounds."""
+    from raytracer_tpu_torch.render.api import render_image
+    from raytracer_tpu_torch.scene import presets
+
+    opts = jnp_options(max_depth=JNP_DEPTH)
+    for name in JNP_GOLDEN_CONFIGS:
+        scene, cam, *_ = presets.get_config(name, JNP_W, JNP_H)
+        reset_launch_counts()
+        (img, st), ms = synced_ms(lambda: render_image(
+            scene, cam, JNP_W, JNP_H, JNP_SPP, JNP_SEED, opts,
+            return_stats=True))
+        no_kernel_launched(f"jnp golden {name}")
+        cpu, cst = render_image(scene, cam, JNP_W, JNP_H, JNP_SPP, JNP_SEED,
+                                opts, return_stats=True, device="cpu")
+        golden = np.load(os.path.join(ROOT, "tests", "goldens",
+                                      f"{name}_64x36_spp32_d8.npy"))
+        g = image_bounds(img.cpu(), golden)
+        c = image_bounds(img.cpu(), cpu)
+        print(f"[jnp golden {name}] {JNP_W}x{JNP_H} {JNP_SPP} spp "
+              f"d{JNP_DEPTH} on the card: {ms:.1f} ms; against the golden "
+              f"{g[0]:.4f} of pixels off by more than 1e-3, mean|d| "
+              f"{g[1]:.3e}; against the CPU {c[0]:.4f}, {c[1]:.3e} (limits "
+              f"{JNP_MAX_FORKED_SHARE}, {JNP_MAX_MEAN_ABS}); segments "
+              f"{st['segments_exact']} (CPU {cst['segments_exact']}) "
+              f"[{smi}]")
+        if (max(g[0], c[0]) > JNP_MAX_FORKED_SHARE
+                or max(g[1], c[1]) > JNP_MAX_MEAN_ABS
+                or not bool(torch.isfinite(img).all())):
+            fail(f"jnp golden {name}: the card's render is off")
+
+
+def box_mean(a: np.ndarray, box: int) -> np.ndarray:
+    """Mean over box x box blocks, NaN values left out."""
+    h, w, c = a.shape
+    return np.nanmean(a.reshape(h // box, box, w // box, box, c), (1, 3))
+
+
+def phase_jnp_cover(smi: str, golden):
+    """The cover at 1200x800, 487 spheres, depth 50, rr0 (the golden's
+    settings) through ``render_image(..., backend='jnp')``: five bands of
+    168 rows (the last 128) at 1 spp an execution, JNP_COVER_SPP spp,
+    exact int64 segments, NaN pixels counted. Held after 8x8 box
+    averaging against the golden and against the kernels' rr0 render at
+    the same spp (two unbiased estimators of one image); per-channel
+    means. Then one band under the profiler: PyTorch calls a bounce and
+    the device's busy share."""
+    from raytracer_tpu_torch.render import api
+    from raytracer_tpu_torch.render.tracer import render_image_jnp
+    from raytracer_tpu_torch.scene import presets
+
+    scene, cam, w, h, _, depth = presets.get_config("cover")
+    opts = jnp_options(max_depth=depth)
+    band = api._jnp_band_rows(w, h, scene.count, depth)
+    bands = [min(band, h - r) for r in range(0, h, band)]
+    if bands != [168] * 4 + [128] or api._jnp_chunk_spp(
+            JNP_COVER_SPP, w * band, scene.count, depth) != 1:
+        fail(f"jnp cover: bands {bands}, not the JAX package's")
+    reset_launch_counts()
+    img, st, wall = render_once(scene, cam, w, h, JNP_COVER_SPP, 0, opts)
+    no_kernel_launched("jnp cover")
+    kern, kst, kwall = render_once(scene, cam, w, h, JNP_COVER_SPP, 0,
+                                   trace_options(0, depth))
+    im, km = (x.cpu().numpy().astype(np.float64) for x in (img, kern))
+    nan_px = int(np.isnan(im).any(-1).sum())
+    bj, bk, bg = (box_mean(a, JNP_BOX) for a in (im, km, golden))
+    mad_g = float(np.nanmean(np.abs(bj - bg)))
+    mad_k = float(np.nanmean(np.abs(bj - bk)))
+    mad_kg = float(np.nanmean(np.abs(bk - bg)))
+    means = [np.nanmean(a.reshape(-1, 3), 0) for a in (im, km, golden)]
+    ch = float(np.abs(means[0] - means[2]).max())
+    segs = st["segments_exact"]
+    print(f"[jnp cover] {w}x{h}, {scene.count} spheres, d{depth}, rr0, "
+          f"{JNP_COVER_SPP} spp through bands {bands}: wall {wall:.3f} s, "
+          f"{segs} segments (exact), {segs / wall / 1e6:.2f} Mrays/s; NaN "
+          f"pixels {nan_px}; the kernels' rr0 render at {JNP_COVER_SPP} spp "
+          f"{kwall:.3f} s ({kst['segments_exact']} segments) [{smi}]")
+    print(f"[jnp cover {JNP_BOX}x{JNP_BOX} boxes] mean|d| jnp vs golden "
+          f"{mad_g:.4e} (limit {JNP_COVER_BOX_MAX['golden']}), jnp vs "
+          f"kernels {mad_k:.4e} (limit {JNP_COVER_BOX_MAX['kernel']}), "
+          f"kernels vs golden {mad_kg:.4e}; per-channel means jnp "
+          f"{means[0].round(5).tolist()}, kernels "
+          f"{means[1].round(5).tolist()}, golden "
+          f"{means[2].round(5).tolist()} (largest jnp-golden gap {ch:.4e}, "
+          f"limit {JNP_COVER_CHANNEL_MAX})")
+    if (img.shape != (h, w, 3) or mad_g > JNP_COVER_BOX_MAX["golden"]
+            or mad_k > JNP_COVER_BOX_MAX["kernel"]
+            or ch > JNP_COVER_CHANNEL_MAX):
+        fail("jnp cover: the render is off the golden or the kernels'")
+    from raytracer_tpu_torch.render.api import to_derived
+    from raytracer_tpu_torch.render.rng import key_data
+
+    dcam = to_derived(cam)
+    short = dataclasses.replace(opts, max_depth=JNP_PROFILE_DEPTH)
+    _, band_ms, busy, rows, host_ops = device_profile(
+        lambda: render_image_jnp(scene, dcam, w, h, 1, key_data(0), short,
+                                 row_offset=0, band_height=band,
+                                 device="cuda"))
+    print(f"[jnp cover where the time goes] one {w}x{band} band, 1 spp, "
+          f"{JNP_PROFILE_DEPTH} bounces under the profiler: wall "
+          f"{band_ms:.1f} ms, {host_ops / JNP_PROFILE_DEPTH:.1f} PyTorch "
+          f"operator calls a bounce on the "
+          f"host (nested ones too); device "
+          + (f"busy {busy:.1f} ms = {busy / band_ms:.4f} of the wall, idle "
+             f"{1 - busy / band_ms:.4f}" if rows else
+             "time not measured by the profiler") + f" [{smi}]")
+    for dev_ms, count, key in rows[:8]:
+        print(f"  {dev_ms:10.3f} ms  x{count:<5d} {key[:90]}")
+
+
+def phase_jnp_convergence(smi: str):
+    """``python -m raytracer_tpu_torch.bench`` with BENCH_CONVERGENCE=1 in
+    its own process: the kernels at rr5 on the 304x200 crop against the
+    jnp tracer at rr0 in 10-spp chunks under ``fold_in(key, 1000 +
+    done)``, at JNP_CONV_SPP spp."""
+    env = {"BENCH_CONVERGENCE": "1", "BENCH_SPP": str(JNP_CONV_SPP)}
+    stdout, stderr, wall = finish_module(
+        start_module(["raytracer_tpu_torch.bench"], env), "bench convergence")
+    out = stdout.strip().splitlines()
+    line = json.loads(out[-1])
+    keys = BENCH_LINE_KEYS | {"convergence_mad_vs_jnp", "convergence_nan_px"}
+    print(f"[jnp convergence] BENCH_CONVERGENCE=1 BENCH_SPP={JNP_CONV_SPP}: "
+          f"{wall:.1f} s with process start; stderr: "
+          + " | ".join(stderr.strip().splitlines()) + f" [{smi}]")
+    print(json.dumps(line))
+    if len(out) != 1 or set(line) != keys:
+        fail(f"jnp convergence: keys {sorted(set(line) ^ keys)} differ from "
+             "bench.py's")
+    if not line["convergence_mad_vs_jnp"] <= JNP_CONV_MAX_MAD:
+        fail(f"jnp convergence: mean|d| {line['convergence_mad_vs_jnp']} "
+             f"above {JNP_CONV_MAX_MAD}")
+
+
+def phase_jnp_progressive(smi: str):
+    """The demo at 1920x1080, depth 8, 1 spp a frame, JNP_PROG_FRAMES
+    frames with each sampler through ``make_step_fn(..., backend='jnp')``,
+    with the sync debug mode raising on any call that waits for the
+    device; the stratified session's running average bitwise that of the
+    offline jnp renders at sample_offset = i."""
+    from raytracer_tpu_torch import init_render_state, make_step_fn
+    from raytracer_tpu_torch.progressive.step import accumulate
+    from raytracer_tpu_torch.render.api import render_image
+    from raytracer_tpu_torch.render.options import TraceOptions
+
+    scene, cam, _ = demo_inputs(PROG_W, PROG_H)
+    for sampler in ("random", "stratified"):
+        opts = TraceOptions(max_depth=PROG_DEPTH, sampler=sampler)
+        step = make_step_fn(PROG_W, PROG_H, 1, opts, backend="jnp")
+        step(init_render_state(PROG_W, PROG_H, 1), scene, cam)  # warm
+        state = init_render_state(PROG_W, PROG_H, 0)
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for _ in range(JNP_PROG_FRAMES):
+                state, aux = step(state, scene, cam)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / JNP_PROG_FRAMES
+        no_kernel_launched(f"jnp progressive {sampler}")
+        line = (f"[jnp progressive {sampler}] demo {PROG_W}x{PROG_H} 1 "
+                f"spp/frame d{PROG_DEPTH}, {JNP_PROG_FRAMES} frames: "
+                f"{ms:.2f} ms a frame = {1e3 / ms:.2f} fps, last frame "
+                f"{int(aux['segments'])} segments; no device sync inside a "
+                f"frame")
+        if sampler == "stratified":
+            avg = None
+            for i in range(JNP_PROG_FRAMES):
+                f = render_image(scene, cam, PROG_W, PROG_H, 1, 0,
+                                 dataclasses.replace(opts, backend="jnp"),
+                                 sample_offset=i)
+                avg = f if avg is None else accumulate(avg, f, i + 1)
+            same = bool(torch.equal(state.accum, avg))
+            line += (f"; running average bitwise the offline renders' at "
+                     f"sample_offset i {same}")
+            if not same:
+                fail("jnp progressive: the stratified session is not the "
+                     "offline renders' running average")
+        print(line + f" [{smi}]")
+        if not bool(torch.isfinite(state.accum).all()):
+            fail(f"jnp progressive {sampler}: the average is not finite")
+
+
+def phase_jnp_entry_points(smi: str):
+    """``backend='jnp'`` through the entry points on the card: the CLI on
+    two_sphere and on a demo progressive run, each in its own process,
+    their PNGs byte-identical to the same calls in this process; the
+    bench line with BENCH_BACKEND=jnp BENCH_CONFIG=two_sphere; the viewer
+    headless for JNP_VIEWER_FRAMES frames in its own process; and
+    ``Engine(backend='jnp')`` at 1280x720 on the demo with the overlay
+    on: the centre pixel marker blue after every batch (no device sync
+    inside a frame), the outline on the selection's silhouette."""
+    from raytracer_tpu_torch import Engine
+    from raytracer_tpu_torch.scene import presets
+
+    out_dir = os.path.join(ROOT, "build", "chip_smoke_cli")
+    os.makedirs(out_dir, exist_ok=True)
+    runs = {"two_sphere": ["--config", "two_sphere"],
+            "demo progressive": ["--config", "demo", "--progressive-frames",
+                                 "8"]}
+    started = {}
+    for label, flags in runs.items():
+        out = os.path.join(out_dir, "jnp_" + label.replace(" ", "_") + ".png")
+        runs[label] = flags + ["--backend", "jnp", "--out", out]
+        started[label] = start_module(["raytracer_tpu_torch.app.cli",
+                                       *runs[label]])
+    started["bench"] = start_module(["raytracer_tpu_torch.bench"], {
+        "BENCH_BACKEND": "jnp", "BENCH_CONFIG": "two_sphere"})
+    started["viewer"] = start_module([
+        "raytracer_tpu_torch.app.viewer", "--backend", "jnp", "--max-frames",
+        str(JNP_VIEWER_FRAMES)])
+    for label, flags in runs.items():
+        stdout, _, wall = finish_module(started[label], f"jnp cli {label}")
+        reset_launch_counts()
+        want, _ = cli_in_process(flags)
+        no_kernel_launched(f"jnp cli {label}")
+        with open(flags[-1], "rb") as f:
+            same = f.read() == want
+        print(f"[jnp cli {label}] {' '.join(flags[:-2])}: {wall:.3f} s with "
+              f"process start; {stdout.strip().splitlines()[-1]}; PNG "
+              f"byte-identical to the same call in this process {same} "
+              f"[{smi}]")
+        if not same:
+            fail(f"jnp cli {label}: the PNG differs from the in-process call")
+    stdout, stderr, wall = finish_module(started["bench"], "jnp bench")
+    out = stdout.strip().splitlines()
+    line = json.loads(out[-1])
+    print(f"[jnp bench two_sphere] {wall:.1f} s with process start; stderr: "
+          + " | ".join(stderr.strip().splitlines()))
+    print(json.dumps(line))
+    if (len(out) != 1 or set(line) != BENCH_LINE_KEYS
+            or line["backend"] != "jnp" or not line["value"] > 0):
+        fail(f"jnp bench: keys {sorted(set(line) ^ BENCH_LINE_KEYS)} or "
+             f"backend {line.get('backend')}")
+    stdout, _, wall = finish_module(started["viewer"], "jnp viewer")
+    drawn = stdout.count("\x1b[38;2;") > 0
+    print(f"[jnp viewer] --backend jnp --max-frames {JNP_VIEWER_FRAMES}, "
+          f"headless: exit 0 in {wall:.1f} s with process start; frames "
+          f"drawn {drawn} [{smi}]")
+    if not drawn:
+        fail("jnp viewer: no frame drawn")
+
+    w, h = ENGINE_W, ENGINE_H
+    scene, cam, *_ = presets.get_config("demo", w, h)
+    eng = Engine(scene, cam, w, h, max_depth=ENGINE_DEPTH, backend="jnp")
+    now = [0.0]
+    eng.set_paused(False)
+    eng.set_debugging(True)
+    eng.handle_mouse_move(4.0, -3.0)
+    eng.handle_mouse_move(-4.0, 3.0)
+    sel = eng.app.selected_object
+    if sel == 1000:
+        fail("jnp engine: the pick hit nothing")
+    now[0] += 16.0
+    eng.tick(now[0])
+    eng.set_debugging(False)
+    eng.set_debugging(True)
+    centre = (h // 2 - 1, w // 2 - 1)
+    blue = torch.tensor([0.0, 0.0, 1.0], device="cuda")
+
+    def centre_is_blue(batch):
+        c = eng.render_state.accum[centre]
+        if not bool((c == blue).all()):
+            fail(f"jnp engine: centre pixel {c.tolist()} after batch "
+                 f"{batch}, not the marker's (0, 0, 1)")
+
+    reset_launch_counts()
+    ms = engine_batches(eng, now, JNP_ENGINE_FRAMES, centre_is_blue)
+    no_kernel_launched("jnp engine")
+    fb = eng.render_state.accum
+    total, on_edge = silhouette_red(fb, uuid_map(eng.scene, eng.camera, w, h)
+                                    == sel)
+    print(f"[jnp engine demo {w}x{h} d{ENGINE_DEPTH}] overlay on, selected "
+          f"{sel}: {JNP_ENGINE_FRAMES} frames, fps {1e3 / min(ms):.2f} "
+          f"(batches {' '.join(f'{x:.2f}' for x in ms)} ms/frame); centre "
+          f"pixel (0, 0, 1) after every batch; red-dominant pixels {total}, "
+          f"on the selection's silhouette {on_edge}; no device sync inside "
+          f"a frame [{smi}]")
+    if on_edge == 0 or not bool(torch.isfinite(fb).all()):
+        fail("jnp engine: no outline on the selection, or a NaN")
+
+
+
+
+def jnp_sharded(smi: str, one: dict, four: list) -> None:
+    """The jnp tracer's sharded cases of the (1, 1) NCCL rank and the
+    (2, 2) gloo ranks: every band bitwise ``_render_shard``'s, formed in
+    this process; no kernel launched; the (1, 1) mesh through NCCL; the
+    debug step's centre pixel the marker's blue."""
+    for label, got, n_rows, n_spp in (
+            ("(1, 1) nccl", one["jnp render"], 1, 1),
+            ("(2, 2) gloo", four[0]["jnp render"], 2, 2)):
+        lh = JNP_SHARD_H // n_rows
+        same = [bool(torch.equal(got["image"][r * lh:(r + 1) * lh],
+                                 jnp_band_reference(r, n_rows, n_spp)))
+                for r in range(n_rows)]
+        print(f"[sharding {label} jnp render] demo {JNP_SHARD_W}x"
+              f"{JNP_SHARD_H} {JNP_SHARD_SPP} spp: {got['ms']:.1f} ms, "
+              f"segments {got['segments']}, launches {got['launches']}, "
+              f"collectives {got['collectives']}; each band bitwise "
+              f"_render_shard's in this process {same} [{smi}]")
+        if not all(same) or any(got["launches"].values()):
+            fail(f"sharded jnp render {label}: a band differs, or kernels "
+                 "ran")
+    if not (one["jnp render"]["collectives"].get("all_reduce")
+            and one["jnp render"]["collectives"].get("all_gather")):
+        fail("(1, 1) mesh: the jnp render issued no NCCL collective")
+    dbg = one["jnp debug step"]
+    print(f"[sharding (1, 1) nccl jnp debug step] 4 frames: centre pixel "
+          f"{dbg['centre']}, segments of the last {dbg['segments']}, "
+          f"launches {dbg['launches']}, collectives {dbg['collectives']} "
+          f"[{smi}]")
+    if dbg["centre"] != [0.0, 0.0, 1.0] or any(dbg["launches"].values()):
+        fail("sharded jnp debug step: no marker at the centre, or kernels "
+             "ran")
 
 
 def timed(phase, *args):
@@ -2849,6 +3365,14 @@ def main():
     timed(phase_fault_recovery, smi)
     timed(phase_edited_scenes, smi)
     timed(phase_sharding, smi, golden)
+    t_jnp = time.perf_counter()
+    timed(phase_jnp_rng, smi)
+    timed(phase_jnp_goldens, smi)
+    timed(phase_jnp_cover, smi, golden)
+    timed(phase_jnp_convergence, smi)
+    timed(phase_jnp_progressive, smi)
+    timed(phase_jnp_entry_points, smi)
+    t_jnp = time.perf_counter() - t_jnp
     for name, got in flat_paths.items():
         paths[name] = alone[name] = got
     sources = {**{n: (WALK_SOURCE, KERNELS[n][2]) for n in KERNELS},
@@ -2881,7 +3405,9 @@ def main():
               f"ms; share of the issue-line bound "
               f"{row['issue_bound_ms'] / row['ms']:.4f} (of 67e12: "
               f"{row['bound_ms'] / row['ms']:.4f}) [{smi}]")
-    print(f"[phase time] all {time.perf_counter() - t_start:.1f} s")
+    t_all = time.perf_counter() - t_start
+    print(f"[phase time] all {t_all:.1f} s; the jnp phases "
+          f"{t_jnp:.1f} s of it, a share of {t_jnp / t_all:.3f}")
     print(json.dumps({"kernels": renderer + [{
         "name": name,
         "route": "cuda",

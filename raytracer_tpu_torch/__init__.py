@@ -18,6 +18,13 @@ closest-hit scan in plain PyTorch. The card probes and the roofline
 package imports torch and numpy only; every entry runs on CUDA unless the
 caller names the CPU.
 
+The JAX package's second backend, its plain wavefront tracer, is
+``TraceOptions(backend='jnp')`` (:mod:`raytracer_tpu_torch.render.tracer`,
+drawing from Threefry as ``jax.random`` does, :mod:`~raytracer_tpu_torch.render.rng`):
+plain PyTorch on the same device, through ``render_image``, the
+progressive step, the engine, the sharded paths, the CLI, the viewer and
+the bench line. 'auto' and 'pallas' run the kernels.
+
 Public entries: :func:`raytracer_tpu_torch.render.api.render_image`
 (``debug=`` a :class:`DebugParams`);
 :func:`~raytracer_tpu_torch.progressive.step.make_step_fn`,

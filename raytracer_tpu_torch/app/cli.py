@@ -9,8 +9,9 @@ The render runs on the card through the CUDA kernels; ``--device cpu``
 runs their plain PyTorch versions. Without a card and without
 ``--device cpu`` it exits with an error; it never falls back to the CPU.
 ``--backend`` takes the JAX package's names: ``auto`` and ``pallas`` run
-the kernels, ``jnp`` (the JAX tracer) is not ported yet. ``--scan-mxu``
-(a TPU offload) is served by the flat scan in exact float32.
+the kernels, ``jnp`` the JAX package's wavefront tracer in plain PyTorch,
+on the same device. ``--scan-mxu`` (a TPU offload) is served by the flat
+scan in exact float32.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ from raytracer_tpu_torch.render.debug import render_aov
 from raytracer_tpu_torch.render.options import (
     BACKENDS,
     TraceOptions,
-    check_backend,
+    resolve_backend,
 )
 from raytracer_tpu_torch.scene import presets
 from raytracer_tpu_torch.utils.profiling import mrays_per_sec
@@ -49,8 +50,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--out", default="render.png")
     p.add_argument(
         "--backend", default="auto", choices=list(BACKENDS),
-        help="'auto' and 'pallas' run the CUDA kernels; 'jnp' (the JAX "
-        "package's tracer) is not ported yet (ROADMAP.md queue 1 item 7)")
+        help="'auto' and 'pallas' run the CUDA kernels; 'jnp' the JAX "
+        "package's wavefront tracer, in plain PyTorch on the same device")
     p.add_argument(
         "--progressive-frames", type=int, default=0,
         help="accumulate N progressive frames (of --spp samples each) "
@@ -115,7 +116,6 @@ def main(argv=None) -> int:
                      "versions")
     except ValueError as e:
         parser.error(f"--device {args.device}: {e}")
-    check_backend(args.backend)
     scene, cam, w, h, spp, depth = presets.get_config(
         args.config, args.width, args.height)
     # 'is not None': an explicit --spp 0 raises in the render
@@ -131,12 +131,15 @@ def main(argv=None) -> int:
         scan_mxu=args.scan_mxu,
         cluster_scan=args.cluster_scan,
         cluster_bounds=args.cluster_bounds,
+        backend=args.backend,
     )
 
-    if args.adaptive > 0.0 and args.progressive_frames > 0:
-        # the progressive step strips the tolerance
-        print("warning: --adaptive requires a batch render; rendering "
-              "fixed spp", file=sys.stderr)
+    if args.adaptive > 0.0 and (resolve_backend(args.backend) != "pallas"
+                                or args.progressive_frames > 0):
+        # only the kernels' batch render samples adaptively: the jnp
+        # tracer and the progressive step render fixed spp
+        print("warning: --adaptive requires the Pallas batch backend; "
+              "rendering fixed spp", file=sys.stderr)
 
     if args.aov:
         t0 = time.perf_counter()

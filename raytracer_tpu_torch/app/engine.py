@@ -7,8 +7,9 @@ requestAnimationFrame closure).
       picking             interact/picking.py, on every camera change
       should-render gate  AppState.compute_should_render
       resize debounce     AppState.resize_due / apply_resize
-      frame               the progressive step, through the kernels, with
-                          the debug overlay when it is on
+      frame               the progressive step, through the kernels (or
+                          the jnp tracer, ``backend='jnp'``), with the
+                          debug overlay when it is on
       save                PNG of the framebuffer, when one was requested
 
 Input handlers change host state; the next tick consumes it. A frame
@@ -48,7 +49,11 @@ from raytracer_tpu_torch.progressive.state import (
 )
 from raytracer_tpu_torch.progressive.step import make_step_fn
 from raytracer_tpu_torch.render.api import resolve_device
-from raytracer_tpu_torch.render.options import DebugParams, TraceOptions
+from raytracer_tpu_torch.render.options import (
+    DebugParams,
+    TraceOptions,
+    check_backend,
+)
 from raytracer_tpu_torch.scene.spheres import NO_SELECTED_OBJECT_ID, Scene
 from raytracer_tpu_torch.utils.resilience import (
     free_cached_memory,
@@ -78,7 +83,9 @@ class Engine:
                  height: int, spp: int = 1, max_depth: int = 8,
                  seed: int = 0, enable_debugging: bool = False,
                  sampler: str = "random",
-                 cluster_scan: bool | str = "auto", device=None):
+                 cluster_scan: bool | str = "auto", device=None,
+                 backend: str = "auto"):
+        check_backend(backend)
         self.device = resolve_device(device)
         self.scene = scene
         self.camera = camera
@@ -89,6 +96,9 @@ class Engine:
                             samples_per_pixel=spp, max_depth=max_depth,
                             enable_debugging=enable_debugging)
         self.sampler = sampler
+        # 'auto' and 'pallas': the kernels; 'jnp': the JAX package's
+        # tracer (render/tracer.py), on the same device
+        self.backend = backend
         # the scene is fixed between resets, so 'auto' (or True) gives
         # the step a static scene: a cluster partition built once, which
         # no camera move invalidates
@@ -161,6 +171,7 @@ class Engine:
             opts = TraceOptions(
                 max_depth=app.max_depth, enable_debug=app.enable_debugging,
                 sampler=self.sampler, cluster_scan=self.cluster_scan,
+                backend=self.backend,
             )
             self._step_cache[key] = make_step_fn(
                 app.width, app.height, spp=spp, opts=opts,

@@ -38,7 +38,7 @@ import numpy as np
 
 from raytracer_tpu_torch.app.display import kitty_frame
 from raytracer_tpu_torch.app.engine import Engine
-from raytracer_tpu_torch.render.options import BACKENDS, check_backend
+from raytracer_tpu_torch.render.options import BACKENDS
 from raytracer_tpu_torch.scene import presets
 
 
@@ -244,16 +244,15 @@ def run_viewer(config: str = "demo", width: int = 320, height: int = 180,
                display: str = "ansi", device=None) -> int:
     """Run the viewer on preset ``config`` until 'q' or ``max_frames``;
     returns the frames drawn. ``backend`` takes the JAX package's names:
-    'auto' and 'pallas' run the kernels, 'jnp' raises (ROADMAP.md queue 1
-    item 7)."""
-    check_backend(backend)
+    'auto' and 'pallas' run the kernels, 'jnp' the JAX package's tracer
+    (``render/tracer.py``) on the same device."""
     if display not in ("ansi", "kitty"):
         raise ValueError(f"display must be 'ansi' or 'kitty', got "
                          f"{display!r}")
     scene, cam, *_ = presets.get_config(config, width, height)
     engine = Engine(scene, cam, width, height, spp=1, max_depth=8,
                     sampler=sampler, cluster_scan=cluster_scan,
-                    device=device)
+                    device=device, backend=backend)
     engine.set_paused(False)
 
     held: dict = {}

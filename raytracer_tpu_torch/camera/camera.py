@@ -5,8 +5,8 @@
 degrees, fov in radians, aperture, focus distance, aspect ratio);
 :func:`derive_camera` turns it into the basis the kernel reads. The
 kernels generate their own jittered thin-lens rays; :func:`generate_rays`
-is the pinhole form without jitter that the AOV views read, and
-:func:`center_ray` the ray that picking casts.
+gives the jnp tracer's (and, pinhole and unjittered, the AOV views'),
+and :func:`center_ray` the ray that picking casts.
 """
 
 from __future__ import annotations
@@ -18,7 +18,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from raytracer_tpu_torch.core import vec
+from raytracer_tpu_torch.core import sampling, vec
+from raytracer_tpu_torch.render import rng
 
 # the controller's clamps (the reference's src/state.rs:349-358)
 FOV_MIN = 0.0001
@@ -122,25 +123,59 @@ def pixel_st_grid(width: int, height: int, device="cpu") -> torch.Tensor:
     """Pixel-centre viewport coordinates st in (0, 1)², (H, W, 2) float32;
     row 0 is the bottom of the image (GL order)."""
     f32 = torch.float32
+    # 0-d divisors filled on the device: exact divisions, and nothing is
+    # copied to a card
     xs = ((torch.arange(width, dtype=f32, device=device) + 0.5)
-          / torch.tensor(float(width), dtype=f32, device=device))
+          / torch.full((), float(width), dtype=f32, device=device))
     ys = ((torch.arange(height, dtype=f32, device=device) + 0.5)
-          / torch.tensor(float(height), dtype=f32, device=device))
+          / torch.full((), float(height), dtype=f32, device=device))
     t, s = torch.meshgrid(ys, xs, indexing="ij")
     return torch.stack([s, t], dim=-1)
 
 
-def generate_rays(dcam: DerivedCamera, st: torch.Tensor) -> Ray:
-    """Pinhole rays through the viewport points ``st`` (..., 2), without
-    jitter or lens offset: the JAX package's ``generate_rays(...,
-    jitter=False)`` with the lens radius zeroed, as its AOV views call it.
-    The camera's tensors go to ``st``'s device."""
+def generate_rays(dcam: DerivedCamera, st: torch.Tensor, key=None,
+                  width: int = 0, height: int = 0, jitter: bool = True,
+                  uv: torch.Tensor | None = None) -> Ray:
+    """Thin-lens rays through the viewport points ``st`` (..., 2), as the
+    JAX package generates them. ``key`` (key data) gives two keys,
+    ``split(key)``: the sub-pixel jitter, uniform [0, 1)² / (width,
+    height) added to ``st`` (forward of the pixel centre, as the reference
+    does), and the lens disc, scaled by the lens radius and laid along
+    (u, v). ``uv`` (..., 4) replaces both draws with [jitter u, jitter v,
+    lens u, lens v] (the stratified sampler). Directions are not
+    normalised.
+
+    Without ``key`` and ``uv`` the rays are pinhole and unjittered: the
+    JAX function's ``jitter=False`` with the lens radius zeroed, as its
+    AOV views call it. The camera's tensors go to ``st``'s device."""
     dev = st.device
     llc, hor, ver, org = (t.to(dev) for t in (
         dcam.lower_left_corner, dcam.horizontal, dcam.vertical,
         dcam.origin))
-    direction = llc + st[..., 0:1] * hor + st[..., 1:2] * ver - org
-    return Ray(origin=org.expand(direction.shape), direction=direction)
+    if key is None and uv is None:
+        direction = llc + st[..., 0:1] * hor + st[..., 1:2] * ver - org
+        return Ray(origin=org.expand(direction.shape), direction=direction)
+    shape = st.shape[:-1]
+    if uv is None:
+        kj, kl = rng.split(key)
+        n = int(math.prod(shape))
+        uj, ul = rng.uniforms([(kj, 2 * n), (kl, 2 * n)], dev)
+        uv = torch.cat([uj.reshape(shape + (2,)), ul.reshape(shape + (2,))],
+                       dim=-1)
+    if jitter:
+        # exact divisions: a host scalar divisor may become a product
+        # with its reciprocal
+        st = st + torch.stack([
+            uv[..., 0] / torch.full((), float(width), device=dev),
+            uv[..., 1] / torch.full((), float(height), device=dev)],
+            dim=-1)
+    rd = dcam.lens_radius.to(dev) * sampling.disk_from_uv(uv[..., 2],
+                                                          uv[..., 3])
+    offset = rd[..., 0:1] * dcam.u.to(dev) + rd[..., 1:2] * dcam.v.to(dev)
+    direction = (llc + st[..., 0:1] * hor + st[..., 1:2] * ver - org
+                 - offset)
+    return Ray(origin=(org + offset).expand(shape + (3,)),
+               direction=direction)
 
 
 def center_ray(dcam: DerivedCamera) -> Ray:

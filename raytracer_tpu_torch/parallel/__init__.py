@@ -6,7 +6,11 @@ over the ranks of the default process group.
 - samples per pixel are shared out as ranges of absolute sample indices,
   with one all-reduce of linear sums per render or frame;
 - a progressive session's accumulation buffer stays on each rank as its
-  band, frame to frame.
+  band, frame to frame;
+- the kernels' paths (``render_image_sharded_pallas``, the step) render
+  what one device renders; the jnp tracer's (``render_image_sharded``,
+  the step with ``backend='jnp'`` or the overlay) key each shard apart,
+  as the JAX package's do.
 
 Start one process per card, for example
 ``python -m torch.distributed.run --nproc-per-node 4 my_render.py``, where

@@ -4,7 +4,9 @@
     python -m raytracer_tpu_torch.parallel.dryrun [N] [--device cpu]
 
 It spawns N gloo ranks (several may share one card) and runs, at the JAX
-dry run's tiny shapes: the progressive step over a (rows, spp) mesh, the
+dry run's tiny shapes: the progressive step over a (rows, spp) mesh (once
+through the jnp tracer, which is what the JAX dry run's 'auto' gives on
+CPU devices, and once through the kernels), the
 sharded render, the sorted stratified render and the cluster walk under
 a forced multi-chunk schedule, the adaptive render and the interleaved
 one over a rows mesh of all N ranks, the step again at 128 columns, a
@@ -54,16 +56,18 @@ def _dryrun_rank(n_devices: int, device) -> dict:
     opts = TraceOptions(max_depth=4)
     got = {"mesh": mesh.shape, "image": (height, width)}
 
-    def step_segments(w: int, key: int) -> int:
-        step = make_sharded_step_fn(w, height, mesh, spp=spp_axis,
-                                    opts=opts)
+    def step_segments(w: int, key: int, backend: str = "auto") -> int:
+        step = make_sharded_step_fn(
+            w, height, mesh, spp=spp_axis,
+            opts=dataclasses.replace(opts, backend=backend))
         state = shard_render_state(
             init_render_state(w, height, key, device="cpu"), mesh)
         _, aux = step(state, scene, cam)
         return int(aux["segments"])
 
+    got["jnp_segments"] = step_segments(width, 0, "jnp")
     got["segments"] = step_segments(width, 0)
-    if got["segments"] <= 0:
+    if got["segments"] <= 0 or got["jnp_segments"] <= 0:
         raise AssertionError("the sharded step counted no segment")
     got["pallas_sharded"] = tuple(render_image_sharded_pallas(
         scene, cam, 128, 8 * rows, spp_axis, 0, mesh, opts).shape)
@@ -131,7 +135,7 @@ def dryrun_multichip(n_devices: int, device=None) -> dict:
     print(
         f"dryrun_multichip OK: mesh={got['mesh']} "
         f"image={got['image'][0]}x{got['image'][1]} "
-        f"segments={got['segments']} "
+        f"jnp_segments={got['jnp_segments']} segments={got['segments']} "
         f"pallas_sharded={got['pallas_sharded']} "
         f"pallas_sorted={got['pallas_sorted']} "
         f"pallas_cluster={got['pallas_cluster']} "

@@ -1,8 +1,9 @@
-"""Pixel-row and spp sharding of the kernel renders over a (rows, spp)
-mesh (counterpart of ``raytracer_tpu/parallel/sharding.py``'s kernel
-paths: ``render_image_sharded_pallas``, ``make_sharded_step_fn`` with
+"""Pixel-row and spp sharding of the renders over a (rows, spp) mesh
+(counterpart of ``raytracer_tpu/parallel/sharding.py``): the kernel
+paths (``render_image_sharded_pallas``, ``make_sharded_step_fn`` with
 ``_make_sharded_step_fn_pallas``, ``shard_render_state`` and the band
-helpers).
+helpers) and the jnp tracer's (``render_image_sharded``,
+``_render_shard``, the step's jnp path).
 
 Each rows shard renders a band of image rows and each spp shard a
 disjoint range of absolute sample indices. The kernels key every stream
@@ -20,10 +21,14 @@ spp shard, and each band, runs its own chunk schedule) and the image
 differs in float32 summation order only. Segment totals are exact int64
 over the whole mesh.
 
-The JAX package's ``jnp`` tracer paths (``render_image_sharded``, the
-step with ``enable_debug``) are not ported yet: ROADMAP.md queue 1 item
-7. The port's options hold no backend, so the step has no ``jnp`` path
-to refuse.
+The JAX package's jnp tracer paths (``render_image_sharded``,
+``_render_shard`` and the step with ``opts.backend == 'jnp'`` or
+``enable_debug``) key each shard's streams apart instead: the key is
+folded with the rows coordinate and, where the mesh has an spp axis, the
+spp coordinate, and each shard draws by its own batch positions. The mesh
+then renders another Monte Carlo estimate than one device, the same at
+every mesh of that shape, as in the JAX package. These paths need height
+% rows == 0 only.
 """
 
 from __future__ import annotations
@@ -33,7 +38,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from raytracer_tpu_torch.camera.camera import CameraConfig
+from raytracer_tpu_torch.camera.camera import CameraConfig, pixel_st_grid
 from raytracer_tpu_torch.parallel.mesh import Mesh
 from raytracer_tpu_torch.progressive.state import RenderState
 from raytracer_tpu_torch.progressive.step import (
@@ -49,18 +54,23 @@ from raytracer_tpu_torch.render.megakernel import (
     render_sums,
     segment_stats,
 )
-from raytracer_tpu_torch.render.options import TraceOptions
+from raytracer_tpu_torch.render.options import (
+    DebugParams,
+    TraceOptions,
+    resolve_backend,
+)
 from raytracer_tpu_torch.render.rng import fold_in, key_data
 from raytracer_tpu_torch.render.split import containable_split
+from raytracer_tpu_torch.render.tracer import (
+    camera_on,
+    sample_sums,
+    scene_on,
+)
 from raytracer_tpu_torch.scene.spheres import Scene
 
 #: the rows-shard height unit of the JAX package's kernel paths (its
 #: tile's sublane rows), kept so the port takes exactly its arguments
 ROW_UNIT = 8
-
-_JNP_PATHS = ("is not ported yet: ROADMAP.md queue 1 item 7 (the JAX "
-              "package's jax.random tracer); render_image_sharded_pallas "
-              "and make_sharded_step_fn run the CUDA kernels")
 
 
 def interleave_block(local_h: int) -> int:
@@ -193,9 +203,72 @@ def render_image_sharded_pallas(scene: Scene, camera, width: int,
     return image, stats
 
 
-def render_image_sharded(*args, **kwargs):
-    """The JAX package's sharded render through its ``jnp`` tracer."""
-    raise NotImplementedError(f"render_image_sharded {_JNP_PATHS}")
+def shard_key(key, mesh: Mesh) -> tuple:
+    """A shard's key of the jnp paths: ``key`` folded with the rows
+    coordinate and, where the mesh has an spp axis, the spp coordinate."""
+    key = fold_in(key, mesh.index("rows"))
+    if "spp" in mesh.axis_names:
+        key = fold_in(key, mesh.index("spp"))
+    return key
+
+
+def _render_shard(scene: Scene, dcam, st_block: torch.Tensor, key,
+                  width: int, height: int, spp_local: int,
+                  opts: TraceOptions, debug: DebugParams | None, mesh: Mesh,
+                  sample_offset: int = 0):
+    """A rank's share of the jnp tracer's sharded render: its pixel rows
+    ``st_block`` (rows_local, W, 2) at ``spp_local`` samples under its
+    :func:`shard_key`; the linear sums added over the spp axis, then the
+    mean and the gamma. Returns ``(image (rows_local, W, 3), segments)``:
+    the exact int64 segments of the rows shard (summed over spp), a 0-d
+    tensor. ``sample_offset`` shifts the shard's sample indices (the
+    stratified step passes frame·spp_local)."""
+    rows_local = st_block.shape[0]
+    acc, segments = sample_sums(scene, dcam, st_block.reshape(-1, 2),
+                                shard_key(key, mesh), width, height,
+                                spp_local, opts, debug, sample_offset)
+    # nothing moves without an spp axis
+    mesh.all_reduce("spp", acc)
+    mesh.all_reduce("spp", segments)
+    color = acc * (1.0 / (spp_local * mesh.size("spp")))
+    if opts.gamma:
+        color = torch.sqrt(torch.clamp_min(color, 0.0))
+    return color.reshape(rows_local, -1, 3), segments
+
+
+def _check_height(height: int, n_rows: int):
+    if height % n_rows:
+        raise ValueError(
+            f"height {height} not divisible by rows axis {n_rows}")
+
+
+def render_image_sharded(scene: Scene, camera, width: int, height: int,
+                         spp: int, key, mesh: Mesh,
+                         opts: TraceOptions | None = None,
+                         debug: DebugParams | None = None,
+                         return_stats: bool = False):
+    """The JAX package's sharded render through its jnp tracer, over
+    ``mesh`` (axes 'rows' and optionally 'spp'): each rank renders its
+    band of H/rows rows at spp/spp_axis samples (:func:`_render_shard`),
+    and every rank gets the whole (H, W, 3) image on its device after one
+    all-gather over rows (and with ``return_stats`` ``{'segments',
+    'segments_exact'}``, exact over the mesh). Needs height % rows == 0
+    and spp % spp_axis == 0; ``key`` is a seed or key data."""
+    opts = opts or TraceOptions()
+    n_rows, spp_size = mesh.size("rows"), mesh.size("spp")
+    _check_height(height, n_rows)
+    _check_spp(spp, spp_size)
+    local_h = height // n_rows
+    device = mesh.device
+    row0 = mesh.index("rows") * local_h
+    st = pixel_st_grid(width, height, device)[row0:row0 + local_h]
+    band, segments = _render_shard(
+        scene_on(scene, device), camera_on(to_derived(camera), device), st,
+        key_data(key), width, height, spp // spp_size, opts, debug, mesh)
+    image = torch.cat(mesh.all_gather("rows", band))
+    if not return_stats:
+        return image
+    return image, segment_stats(mesh.all_reduce("rows", segments), {})
 
 
 def make_sharded_step_fn(width: int, height: int, mesh: Mesh, spp: int = 1,
@@ -216,20 +289,80 @@ def make_sharded_step_fn(width: int, height: int, mesh: Mesh, spp: int = 1,
     call receives, for a fixed-scene session: the split scan's analysis
     runs once here. Like the JAX package's sharded step, the frames go
     through the flat scan only (K2, or K2s with the hints). An adaptive
-    tolerance is stripped. ``opts.enable_debug`` is the JAX package's
-    tracer path, not ported yet."""
+    tolerance is stripped.
+
+    With ``opts.backend == 'jnp'`` or ``opts.enable_debug`` the frames are
+    the JAX package's jnp tracer's instead, as it decides: each rank
+    renders its band through :func:`_render_shard` (the overlay of the
+    step's ``debug`` where enabled), which needs height % rows == 0
+    only."""
     opts = opts or TraceOptions()
+    opts = dataclasses.replace(opts, backend=resolve_backend(opts.backend))
     n_rows, spp_size = mesh.size("rows"), mesh.size("spp")
-    if height % n_rows:
-        raise ValueError(
-            f"height {height} not divisible by rows axis {n_rows}")
+    _check_height(height, n_rows)
     _check_spp(spp, spp_size)
-    if opts.enable_debug:
-        raise NotImplementedError(
-            f"the sharded step with enable_debug {_JNP_PATHS}")
+    if opts.backend == "jnp" or opts.enable_debug:
+        return _make_sharded_step_fn_jnp(
+            width, height, mesh, spp, opts, should_average,
+            last_frame_weight, max_render_count)
     return _make_sharded_step_fn_kernels(
         width, height, mesh, spp, opts, should_average, last_frame_weight,
         max_render_count, static_scene, static_camera)
+
+
+def _blend(state: RenderState, color: torch.Tensor, should_average: bool,
+           last_frame_weight: float, max_render_count: int) -> RenderState:
+    """Fold a frame's band into the rank's running average, in place."""
+    render_count = min(state.render_count + 1, max_render_count)
+    if should_average:
+        accumulate(state.accum, color, render_count, last_frame_weight,
+                   out=state.accum)
+    else:
+        state.accum.copy_(color)
+    return dataclasses.replace(state, render_count=render_count,
+                               frame=state.frame + 1)
+
+
+def _check_band(state: RenderState, local_h: int, width: int, device):
+    if (state.accum.device != device
+            or tuple(state.accum.shape) != (local_h, width, 3)):
+        raise ValueError(
+            f"state.accum is {tuple(state.accum.shape)} on "
+            f"{state.accum.device}; this rank's band is "
+            f"({local_h}, {width}, 3) on {device} (shard_render_state)"
+        )
+
+
+def _make_sharded_step_fn_jnp(width, height, mesh, spp, opts,
+                              should_average, last_frame_weight,
+                              max_render_count):
+    """The JAX package's jnp sharded step: with the random sampler frame
+    i folds i into the session key, with the stratified one the key stays
+    and each shard's samples start at frame·spp_local; the rank's band of
+    the frame comes from :func:`_render_shard`, the segments are summed
+    over the mesh."""
+    n_rows, spp_size = mesh.size("rows"), mesh.size("spp")
+    local_h, spp_local = height // n_rows, spp // spp_size
+    device = mesh.device
+    row0 = mesh.index("rows") * local_h
+    st = pixel_st_grid(width, height, device)[row0:row0 + local_h]
+    stratified = opts.sampler == "stratified"
+
+    def step(state: RenderState, scene: Scene, camera, debug=None):
+        _check_band(state, local_h, width, device)
+        if stratified:
+            key, offset = state.key, state.frame * spp_local
+        else:
+            key, offset = fold_in(state.key, state.frame), 0
+        color, segments = _render_shard(
+            scene_on(scene, device), camera_on(to_derived(camera), device),
+            st, key, width, height, spp_local, opts, debug, mesh,
+            sample_offset=offset)
+        state = _blend(state, color, should_average, last_frame_weight,
+                       max_render_count)
+        return state, {"segments": mesh.all_reduce("rows", segments)}
+
+    return step
 
 
 def _make_sharded_step_fn_kernels(width, height, mesh, spp, opts,
@@ -255,13 +388,7 @@ def _make_sharded_step_fn_kernels(width, height, mesh, spp, opts,
     device = mesh.device
 
     def step(state: RenderState, scene: Scene, camera, debug=None):
-        if (state.accum.device != device
-                or tuple(state.accum.shape) != (local_h, width, 3)):
-            raise ValueError(
-                f"state.accum is {tuple(state.accum.shape)} on "
-                f"{state.accum.device}; this rank's band is "
-                f"({local_h}, {width}, 3) on {device} (shard_render_state)"
-            )
+        _check_band(state, local_h, width, device)
         if stratified:
             key, base = state.key, state.frame * spp
         else:
@@ -273,15 +400,9 @@ def _make_sharded_step_fn_kernels(width, height, mesh, spp, opts,
         )
         mesh.all_reduce("spp", acc)
         color = finalize_flat(acc[:3], width, local_h, spp, opts.gamma)
-        render_count = min(state.render_count + 1, max_render_count)
-        if should_average:
-            accumulate(state.accum, color, render_count, last_frame_weight,
-                       out=state.accum)
-        else:
-            state.accum.copy_(color)
-        return (dataclasses.replace(state, render_count=render_count,
-                                    frame=state.frame + 1),
-                {"segments": mesh.all_reduce(None, segments)})
+        state = _blend(state, color, should_average, last_frame_weight,
+                       max_render_count)
+        return state, {"segments": mesh.all_reduce(None, segments)}
 
     step.static_split = static_split
     return step

@@ -27,10 +27,12 @@ from raytracer_tpu_torch.render.options import (
     DebugParams,
     TraceOptions,
     cluster_scan_enabled,
+    resolve_backend,
 )
 from raytracer_tpu_torch.render.rng import fold_in
 from raytracer_tpu_torch.render.split import containable_split
 from raytracer_tpu_torch.render.tables import cluster_partition
+from raytracer_tpu_torch.render.tracer import render_image_jnp
 from raytracer_tpu_torch.scene.spheres import Scene
 
 # the reference viewer's defaults
@@ -66,7 +68,8 @@ def make_step_fn(width: int, height: int, spp: int = 1,
                  last_frame_weight: float = DEFAULT_LAST_FRAME_WEIGHT,
                  max_render_count: int = DEFAULT_MAX_RENDER_COUNT,
                  static_scene: Scene | None = None,
-                 static_camera: CameraConfig | None = None, device=None):
+                 static_camera: CameraConfig | None = None, device=None,
+                 backend: str | None = None):
     """Build ``step(state, scene, camera, debug=None) -> (state', aux)``.
 
     ``aux['segments']`` is the frame's exact segment count as a 0-d
@@ -82,14 +85,23 @@ def make_step_fn(width: int, height: int, spp: int = 1,
     sampling is an offline mode, and the running average would weight
     per-pixel means over unequal sample counts as if equal.
 
+    ``backend`` (when given) replaces ``opts.backend``. 'jnp' frames are
+    the JAX package's ``render_image_jnp`` of the whole frame on the same
+    device (``render/tracer.py``; no hints, no bands), and like the
+    kernels' they wait for the device nowhere.
+
     The step blends into ``state.accum`` in place and returns a new state
     around the same tensor: do not reuse the old state."""
     if spp < 1:
         raise ValueError(f"spp must be >= 1, got {spp}")
     device = resolve_device(device)
     opts = opts or TraceOptions()
+    if backend is not None:
+        opts = dataclasses.replace(opts, backend=backend)
+    opts = dataclasses.replace(opts, backend=resolve_backend(opts.backend))
+    jnp = opts.backend == "jnp"
     static_split = static_cluster = None
-    if static_scene is not None:
+    if static_scene is not None and not jnp:
         if cluster_scan_enabled(opts, static_scene.count):
             part = cluster_partition(static_scene, opts)
             if part is not None:
@@ -116,11 +128,18 @@ def make_step_fn(width: int, height: int, spp: int = 1,
             key, offset = state.key, state.frame * spp
         else:
             key, offset = fold_in(state.key, state.frame), 0
-        color, segments, _ = render(
-            scene, to_derived(camera), width, height, spp, key, opts, device,
-            sample_offset=offset, static_split=static_split,
-            static_cluster=static_cluster, analyse=False, debug=debug,
-        )
+        if jnp:
+            color, stats = render_image_jnp(
+                scene, to_derived(camera), width, height, spp, key, opts,
+                debug, return_stats=True, sample_offset=offset,
+                device=device)
+            segments = stats["segments"]
+        else:
+            color, segments, _ = render(
+                scene, to_derived(camera), width, height, spp, key, opts,
+                device, sample_offset=offset, static_split=static_split,
+                static_cluster=static_cluster, analyse=False, debug=debug,
+            )
         render_count = min(state.render_count + 1, max_render_count)
         if should_average:
             accumulate(state.accum, color, render_count, last_frame_weight,

@@ -1,8 +1,12 @@
 """The port's render entry point (counterpart of
-``raytracer_tpu/render/api.py`` ``render_image`` with the Pallas
-backend)."""
+``raytracer_tpu/render/api.py``): one signature, two backends. 'auto'
+and 'pallas' run the kernels (``render/megakernel.py``), 'jnp' the JAX
+package's wavefront tracer (``render/tracer.py``), each on the device the
+caller gets from :func:`resolve_device`."""
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -12,8 +16,13 @@ from raytracer_tpu_torch.camera.camera import (
     derive_camera,
 )
 from raytracer_tpu_torch.render.megakernel import render, segment_stats
-from raytracer_tpu_torch.render.options import DebugParams, TraceOptions
-from raytracer_tpu_torch.render.rng import key_data
+from raytracer_tpu_torch.render.options import (
+    DebugParams,
+    TraceOptions,
+    resolve_backend,
+)
+from raytracer_tpu_torch.render.rng import fold_in, key_data
+from raytracer_tpu_torch.render.tracer import render_image_jnp
 from raytracer_tpu_torch.scene.spheres import Scene
 from raytracer_tpu_torch.utils.resilience import retry_on_device_fault
 
@@ -46,6 +55,70 @@ def to_derived(camera) -> DerivedCamera:
     return camera
 
 
+#: the JAX package's work bound of one jnp execution, in ray-sphere tests
+#: at the render's depth (its bounce loop runs max_depth bounces over
+#: every lane). Here it decides only how a render is cut into bands and
+#: spp chunks, and so which samples it draws: the JAX package's value,
+#: so that both cut a render alike.
+_JNP_EXEC_BUDGET = 5e9
+#: the key fold of a band that starts at row r: 7_000_000 + r
+BAND_KEY_FOLD = 7_000_000
+
+
+def _jnp_chunk_spp(spp: int, p: int, s_count: int, max_depth: int) -> int:
+    """spp per execution for a p-pixel grid (at least 1)."""
+    per_sample = p * max_depth * max(s_count, 1)
+    return max(1, min(spp, int(_JNP_EXEC_BUDGET // max(per_sample, 1))))
+
+
+def _jnp_band_rows(width: int, height: int, s_count: int,
+                   max_depth: int) -> int:
+    """Rows per execution: the full height when a 1-spp pass of the whole
+    grid fits the budget, else a multiple of 8 rows (at least 8) whose
+    1-spp pass does; the last band may be shorter."""
+    per_row = width * max_depth * max(s_count, 1)
+    if per_row * height <= _JNP_EXEC_BUDGET:
+        return height
+    rows = max(8, int(_JNP_EXEC_BUDGET // per_row) // 8 * 8)
+    return min(height, rows)
+
+
+def render_jnp(scene: Scene, dcam: DerivedCamera, width: int, height: int,
+               spp: int, key, opts: TraceOptions, device,
+               sample_offset: int = 0, debug: DebugParams | None = None):
+    """The JAX package's jnp dispatch: bands of :func:`_jnp_band_rows`
+    rows, each keyed ``fold_in(key, 7_000_000 + first row)`` (one band
+    keeps ``key``), rendered in spp chunks of :func:`_jnp_chunk_spp` whose
+    means times their spp are summed, then the mean over ``spp`` and the
+    gamma. Returns ``(image, segments)``: the (H, W, 3) image and the
+    exact int64 segment total as a 0-d device tensor. A chunked render
+    equals the unchunked one to float32 rounding, as in the JAX
+    package."""
+    lin = dataclasses.replace(opts, gamma=False)
+    band = _jnp_band_rows(width, height, scene.count, opts.max_depth)
+    chunk = _jnp_chunk_spp(spp, width * band, scene.count, opts.max_depth)
+    bands, segments = [], torch.zeros((), dtype=torch.int64, device=device)
+    for row0 in range(0, height, band):
+        bh = min(band, height - row0)
+        bkey = key if band >= height else fold_in(key, BAND_KEY_FOLD + row0)
+        acc, offset = None, 0
+        while offset < spp:
+            cs = min(chunk, spp - offset)
+            img, stats = render_image_jnp(
+                scene, dcam, width, height, cs, bkey, lin, debug,
+                return_stats=True, sample_offset=sample_offset + offset,
+                row_offset=row0, band_height=bh, device=device)
+            img = img * cs  # the chunk's linear sum
+            acc = img if acc is None else acc + img
+            segments = segments + stats["segments"]
+            offset += cs
+        bands.append(acc)
+    color = (bands[0] if len(bands) == 1 else torch.cat(bands)) * (1.0 / spp)
+    if opts.gamma:
+        color = torch.sqrt(torch.clamp_min(color, 0.0))
+    return color, segments
+
+
 def render_image(scene: Scene, camera, width: int, height: int, spp: int,
                  seed, opts: TraceOptions | None = None,
                  return_stats: bool = False, device=None,
@@ -57,8 +130,10 @@ def render_image(scene: Scene, camera, width: int, height: int, spp: int,
     (a ``(2,)`` uint32 pair, such as ``jax.random.fold_in``'s). Samples
     are numbered from ``sample_offset`` on (a stratified progressive
     session renders its frame i at i·spp); an adaptive render needs 0.
-    Scenes go through the cluster walk or the flat scan as the JAX
-    package's Pallas backend chooses. With ``opts.enable_debug`` the
+    With ``opts.backend`` 'auto' or 'pallas', scenes go through the
+    cluster walk or the flat scan as the JAX package's Pallas backend
+    chooses; 'jnp' renders with the JAX package's wavefront tracer
+    (:func:`render_jnp`), on the same device. With ``opts.enable_debug`` the
     kernel draws the overlay of ``debug`` (a :class:`DebugParams`;
     ``DebugParams.none()`` when omitted). Returns an (H, W, 3) float32 image
     in [0, 1] on ``device``, row 0 at the image bottom, and with
@@ -80,10 +155,18 @@ def render_image(scene: Scene, camera, width: int, height: int, spp: int,
     opts = opts or TraceOptions()
     dcam, key = to_derived(camera), key_data(seed)
 
+    jnp = resolve_backend(opts.backend) == "jnp"
+
     @retry_on_device_fault
     def run():
-        out = render(scene, dcam, width, height, spp, key, opts, device,
-                     sample_offset=sample_offset, debug=debug)
+        if jnp:
+            image, segments = render_jnp(scene, dcam, width, height, spp,
+                                         key, opts, device, sample_offset,
+                                         debug)
+            out = image, segments, {}
+        else:
+            out = render(scene, dcam, width, height, spp, key, opts, device,
+                         sample_offset=sample_offset, debug=debug)
         if device.type == "cuda":
             # inside the retry's scope, so an asynchronous fault surfaces
             # here

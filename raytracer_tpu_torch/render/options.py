@@ -1,7 +1,7 @@
 """Trace options of the port (counterpart of
-``raytracer_tpu/render/options.py``), limited to what the ported paths
-(cluster walk, flat and split scan; fixed spp, adaptive, stratified; the
-debug overlay) read. The production cluster-walk configuration of the
+``raytracer_tpu/render/options.py``): what the ported paths (cluster
+walk, flat and split scan; fixed spp, adaptive, stratified; the debug
+overlay; the jnp tracer) read. The production cluster-walk configuration of the
 JAX package (one cluster per walk step, packed visit key, fused
 bounce-done test) is the only walk the port has, so it carries no knobs
 for it."""
@@ -23,20 +23,26 @@ MAX_T = 1e5
 CLUSTER_AUTO_MIN_SPHERES = 64
 
 
-#: the JAX package's backend names; the kernels serve 'auto' and 'pallas'
+#: the JAX package's backend names
 BACKENDS = ("auto", "jnp", "pallas")
 
 
 def check_backend(backend: str) -> None:
-    """Accepts a backend the port serves; raises for the others."""
+    """Raises for a name that is not a backend."""
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got "
                          f"{backend!r}")
-    if backend == "jnp":
-        raise NotImplementedError(
-            "backend 'jnp' (the JAX package's jax.random tracer) is not "
-            "ported yet: ROADMAP.md queue 1 item 7; 'auto' and 'pallas' "
-            "run the CUDA kernels")
+
+
+def resolve_backend(backend: str) -> str:
+    """``backend`` with 'auto' resolved: 'pallas', the kernels (the CUDA
+    kernels on a card, their plain PyTorch versions on the CPU), on every
+    device. This differs from the JAX package on purpose: there 'auto'
+    off a TPU means 'jnp', because its CPU runs Pallas only in interpret
+    mode; the port's plain versions render on the CPU, so 'jnp' runs
+    only when it is named."""
+    check_backend(backend)
+    return "pallas" if backend == "auto" else backend
 
 
 def cluster_scan_enabled(opts: "TraceOptions", scene_count: int) -> bool:
@@ -82,6 +88,12 @@ class TraceOptions:
     band; the image does not change, and a single-device render ignores
     it.
 
+    ``backend`` is 'auto', 'pallas' (both: the kernels) or 'jnp' (the JAX
+    package's wavefront tracer, ``render/tracer.py``, in plain PyTorch on
+    the same device); see :func:`resolve_backend`. The jnp tracer reads
+    the physics options, the sampler and the overlay, and ignores the
+    kernels' scan, sort and adaptive options, as the JAX package's does.
+
     ``cluster_scan`` ('auto', True or False) chooses the cluster walk
     over the flat scan (see :func:`cluster_scan_enabled`). ``split_scan``
     lets a concrete scene's flat scan skip the far root of spheres that
@@ -111,8 +123,10 @@ class TraceOptions:
     cluster_scan: bool | str = "auto"
     enable_debug: bool = False
     interleave_rows: bool = False
+    backend: str = "auto"
 
     def __post_init__(self):
+        check_backend(self.backend)
         if self.max_depth < 1:
             raise ValueError(f"max_depth must be >= 1, got {self.max_depth}")
         if self.cluster_group < 1:

@@ -1,7 +1,13 @@
-"""Counter-based RNG and sampling primitives of the cluster walk, on
-tensors (counterpart of ``raytracer_tpu/render/pallas_kernel.py``
-``_lowbias32`` … ``_unit_vec`` and ``_r2_fixed``; the CUDA kernel carries
-the same functions in ``csrc/cluster_walk.cu``).
+"""The port's two random number generators, on tensors.
+
+- The counter hash of the kernels (counterpart of
+  ``raytracer_tpu/render/pallas_kernel.py`` ``_lowbias32`` … ``_unit_vec``
+  and ``_r2_fixed``; the CUDA kernels carry the same functions in
+  ``csrc/common.cuh``).
+- Threefry-2x32 as ``jax.random`` runs it (partitionable bits), which the
+  jnp tracer (``render/tracer.py``) draws from: ``fold_in``, ``split`` and
+  the key data on the host as ints, ``random_bits`` / ``uniform`` /
+  ``uniforms`` on the device, one Threefry for both.
 
 Unsigned 32-bit values ride in int64 tensors holding [0, 2^32). Products
 are formed from 16-bit halves of the constant so no intermediate leaves
@@ -65,34 +71,122 @@ def kernel_seed(seed: int) -> int:
 _THREEFRY_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 
 
+def threefry2x32_tensor(k0, k1, x0, x1):
+    """The Threefry-2x32 block cipher (20 rounds) as ``jax.random`` runs
+    it, on uint32 values held in int64 tensors or in Python ints: key (k0,
+    k1) and counter words (x0, x1), broadcasting together. Returns the two
+    output words, in [0, 2^32). On Python ints (the host's key
+    derivation) it runs no tensor operation.
+
+    x0 is reduced mod 2^32 only at the end (it stays below 2^38: it
+    gains one word a round and one at each key injection); x1 is reduced
+    after each xor, so every rotation reads a 32-bit word. Only x0's low
+    32 bits reach x1 or the output, so the result is the uint32 one."""
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    x0 = x0 + ks[0]
+    x1 = (x1 + ks[1]) & M32
+    for j in range(5):
+        for r in _THREEFRY_ROTATIONS[j % 2]:
+            x0 += x1
+            hi = x1 << r
+            x1 >>= 32 - r
+            x1 |= hi
+            x1 ^= x0
+            x1 &= M32
+        x0 += ks[(j + 1) % 3]
+        x1 += ks[(j + 2) % 3]
+        x1 += j + 1
+        x1 &= M32
+    return x0 & M32, x1
+
+
+def _is_int(v) -> bool:
+    return isinstance(v, (int, np.integer)) or (
+        isinstance(v, np.ndarray) and v.ndim == 0)
+
+
 def threefry2x32(k0, k1, x0, x1):
-    """The Threefry-2x32 block cipher (20 rounds) on uint32 numpy values,
-    as ``jax.random`` runs it: key (k0, k1), counter words (x0, x1)."""
-    with np.errstate(over="ignore"):
-        k0, k1, x0, x1 = (np.asarray(v, np.uint32) for v in (k0, k1, x0, x1))
-        ks = (k0, k1, k0 ^ k1 ^ np.uint32(0x1BD11BDA))
-        x0, x1 = x0 + ks[0], x1 + ks[1]
-        for j in range(5):
-            for r in _THREEFRY_ROTATIONS[j % 2]:
-                x0 = x0 + x1
-                x1 = (x1 << np.uint32(r)) | (x1 >> np.uint32(32 - r))
-                x1 = x0 ^ x1
-            x0 = x0 + ks[(j + 1) % 3]
-            x1 = x1 + ks[(j + 2) % 3] + np.uint32(j + 1)
-    return x0, x1
+    """:func:`threefry2x32_tensor` on uint32 numpy values (or ints),
+    for the host's key derivation; returns uint32 arrays."""
+    k0, k1, x0, x1 = torch.broadcast_tensors(*(
+        torch.from_numpy(np.asarray(v, np.uint32).astype(np.int64))
+        for v in (k0, k1, x0, x1)))
+    y0, y1 = threefry2x32_tensor(k0, k1, x0, x1)
+    return (y0.numpy().astype(np.uint32), y1.numpy().astype(np.uint32))
 
 
 def fold_in(kd, data):
     """``jax.random.fold_in`` of key data ``kd`` with 32-bit ``data``
     (an int or a numpy array of them): Threefry-2x32 of the key over the
     counter words (0, data). Returns the new key data (host ints for an
-    int ``data``, uint32 arrays otherwise)."""
-    k0, k1 = (np.asarray(v, np.uint32) for v in kd)
+    int ``data`` and key, uint32 arrays otherwise)."""
+    if _is_int(kd[0]) and _is_int(kd[1]) and _is_int(data):
+        return threefry2x32_tensor(int(kd[0]) & M32, int(kd[1]) & M32, 0,
+                                   int(data) & M32)
     d = np.asarray(np.asarray(data, np.int64) & M32, np.uint32)
-    y0, y1 = threefry2x32(k0, k1, np.zeros_like(d), d)
-    if y0.ndim == 0:
-        return int(y0), int(y1)
+    y0, y1 = threefry2x32(kd[0], kd[1], np.zeros_like(d), d)
     return y0, y1
+
+
+def fold(kd, *counters: int) -> tuple:
+    """Fold a chain of counters into key data, one ``fold_in`` each."""
+    for c in counters:
+        kd = fold_in(kd, c)
+    return kd
+
+
+def split(kd, n: int = 2) -> list:
+    """``jax.random.split(key, n)`` of key data: Threefry-2x32 of the key
+    over the counter words (0, i), i < n; a list of n key-data pairs of
+    host ints."""
+    k0, k1 = int(kd[0]) & M32, int(kd[1]) & M32
+    return [threefry2x32_tensor(k0, k1, 0, i) for i in range(n)]
+
+
+def _counters(n: int, device) -> torch.Tensor:
+    """The low counter word of a draw of n values: its flat C-order
+    index (the high word, i >> 32, is 0 below 2^32 values)."""
+    if n >= 1 << 32:
+        raise ValueError(f"a draw of {n} values needs the high counter word")
+    return torch.arange(n, dtype=torch.int64, device=device)
+
+
+def random_bits(kd, shape, device="cpu") -> torch.Tensor:
+    """``jax.random.bits(key, shape)`` (32-bit, partitionable Threefry):
+    bits1 ^ bits2 of Threefry-2x32 over each element's flat index, as
+    int64 in [0, 2^32)."""
+    n = int(np.prod(shape, dtype=np.int64))
+    lo = _counters(n, device)
+    b1, b2 = threefry2x32_tensor(kd[0], kd[1], torch.zeros_like(lo), lo)
+    return (b1 ^ b2).reshape(tuple(shape))
+
+
+def bits_to_uniform(bits: torch.Tensor) -> torch.Tensor:
+    """``jax.random.uniform``'s map of 32 random bits to float32 [0, 1):
+    the top 23 bits as the mantissa of a float in [1, 2), minus 1."""
+    f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
+    return f - 1.0
+
+
+def uniform(kd, shape, device="cpu") -> torch.Tensor:
+    """``jax.random.uniform(key, shape)`` (float32, [0, 1)) of key data
+    ``kd``, bit for bit."""
+    return bits_to_uniform(random_bits(kd, shape, device))
+
+
+def uniforms(draws, device="cpu") -> list:
+    """Several ``jax.random.uniform`` draws in one Threefry pass:
+    ``draws`` is a list of (key data, n); returns the flat (n,) float32
+    draws, each bit for bit ``uniform(kd, (n,))``. The keys ride in int64
+    tensors filled from host ints, so nothing is copied to the device."""
+    def column(word):
+        return torch.cat([torch.full((n,), kd[word], dtype=torch.int64,
+                                     device=device) for kd, n in draws])
+
+    lo = torch.cat([_counters(n, device) for _, n in draws])
+    b1, b2 = threefry2x32_tensor(column(0), column(1), torch.zeros_like(lo),
+                                 lo)
+    return list(bits_to_uniform(b1 ^ b2).split([n for _, n in draws]))
 
 
 #: counters of the stratified sampler's per-pixel rotations: −4 for the

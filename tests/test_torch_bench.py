@@ -10,6 +10,8 @@ against the repository's ``bench.py``.
   package's interpret-mode render (``render_image_pallas``) at the same
   key, ``fold_in(PRNGKey(0), 0)``, the best and only repeat;
 - the progressive line has ``bench.py``'s keys;
+- ``BENCH_BACKEND=jnp``, ``BENCH_CONVERGENCE=1|full`` and the jnp
+  progressive line run on the CPU with ``bench.py``'s keys;
 - the knobs the port refuses, and the card missing, give the error line
   (``value`` 0) and exit 1.
 """
@@ -130,24 +132,60 @@ def test_progressive_line_has_the_keys_of_bench_py(monkeypatch):
         assert f'"{key}":' in ret
 
 
+QUICK = {"BENCH_CONFIG": "two_sphere", "BENCH_SPP": "1",
+         "BENCH_REPEATS": "1", "BENCH_ADAPTIVE": "0", "BENCH_SKIP_RR0": "1",
+         "BENCH_DEVICE": "cpu"}
+
+
+@pytest.mark.parametrize("knobs", [
+    {"BENCH_BACKEND": "jnp"},
+    {"BENCH_CONVERGENCE": "1"},
+    {"BENCH_CONVERGENCE": "full"},
+    {"BENCH_CONFIG": "progressive", "BENCH_BACKEND": "jnp"},
+], ids=["jnp", "convergence_1", "convergence_full", "progressive_jnp"])
+def test_jnp_knobs_print_the_line(monkeypatch, capsys, knobs):
+    """``BENCH_BACKEND=jnp`` and ``BENCH_CONVERGENCE=1|full`` run on the
+    CPU, the presets cut to 32x18 (the convergence crop is then the whole
+    frame) and the progressive line to 4 frames: the line has the keys
+    ``bench.py`` builds for the same knobs (its renders stubbed; its
+    progressive line's keys read from its source), and the convergence
+    keys are numbers."""
+    real = bench.presets.get_config
+    monkeypatch.setattr(bench.presets, "get_config",
+                        lambda name, *a, **k: real(name, 32, 18))
+    real_prog = bench.bench_progressive
+    monkeypatch.setattr(bench, "bench_progressive", lambda device: real_prog(
+        device, frames=4, batch=2))
+    knobs = {**QUICK, **knobs}
+    for k, v in knobs.items():
+        monkeypatch.setenv(k, v)
+    capsys.readouterr()
+    assert bench.main() == 0
+    out = capsys.readouterr()
+    line = json.loads(out.out.strip().splitlines()[-1])
+    assert "error" not in line and line["value"] > 0
+    assert line["backend"] == knobs.get("BENCH_BACKEND", "auto")
+    if knobs["BENCH_CONFIG"] == "progressive":
+        assert line["unit"] == "fps" and line["frames"] == 4
+        assert line["metric"] == "progressive_demo_32x18_1spp_d8 fps"
+        return
+    want = jax_line(monkeypatch, capsys, knobs)
+    assert set(line) == set(want)
+    if "BENCH_CONVERGENCE" in knobs:
+        assert 0.0 <= line["convergence_mad_vs_jnp"] < 0.5
+        assert isinstance(line["convergence_nan_px"], int)
+        assert "vs jnp(rr0) @ 1 spp 32x18" in out.err
+
+
 @pytest.mark.parametrize("knobs, match", [
-    ({"BENCH_BACKEND": "jnp"}, "queue 1 item 7"),
-    ({"BENCH_CONVERGENCE": "1"}, "queue 1 item 7"),
-    ({"BENCH_CONVERGENCE": "full"}, "queue 1 item 7"),
     ({"BENCH_CLUSTER_CPI": "2"}, "ROADMAP.md §2"),
     ({"BENCH_CLUSTER_BOUNDS": "sphere"}, "ROADMAP.md §2"),
     ({"BENCH_DEVICE": "cuda"}, "CUDA is not available"),
-    ({"BENCH_CONFIG": "progressive", "BENCH_BACKEND": "jnp"},
-     "queue 1 item 7"),
-], ids=["jnp", "convergence_1", "convergence_full", "cpi", "sphere",
-        "no_card", "progressive_jnp"])
+], ids=["cpi", "sphere", "no_card"])
 def test_refused_knobs_print_the_error_line(monkeypatch, capsys, knobs,
                                             match):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    for k, v in {"BENCH_CONFIG": "two_sphere", "BENCH_SPP": "1",
-                 "BENCH_REPEATS": "1", "BENCH_ADAPTIVE": "0",
-                 "BENCH_SKIP_RR0": "1", "BENCH_DEVICE": "cpu",
-                 **knobs}.items():
+    for k, v in {**QUICK, **knobs}.items():
         monkeypatch.setenv(k, v)
     assert bench.main() == 1
     out = capsys.readouterr().out.strip().splitlines()
@@ -155,8 +193,7 @@ def test_refused_knobs_print_the_error_line(monkeypatch, capsys, knobs,
     line = json.loads(out[0])
     assert line["value"] == 0.0 and line["vs_baseline"] == 0.0
     assert match in line["error"]
-    progressive = knobs.get("BENCH_CONFIG") == "progressive"
-    assert line["unit"] == ("fps" if progressive else "Mrays/s")
+    assert line["unit"] == "Mrays/s"
 
 
 def test_baseline_rate_is_read_from_the_file():

@@ -7,7 +7,9 @@ against the JAX package's (``raytracer_tpu/app/cli.py``).
   3 against the JAX CLI's ``--backend pallas`` (Pallas in interpret mode),
   the PNGs decoded: at least 99.5 % of the u8 values equal and none off
   by more than 1 (measured on seeds 0-5, with and without rr2 and the
-  stratified sampler: every value equal);
+  stratified sampler: every value equal); ``--backend jnp`` against the
+  JAX CLI's, the same bound (measured: every value equal, a batch render
+  and two progressive frames);
 - the progressive, AOV, adaptive ``--spp-map`` and warning paths, the
   options the port refuses, and without a card and without ``--device``
   a clear error and a non-zero exit, never a CPU render.
@@ -155,8 +157,45 @@ def test_cli_progressive_strips_adaptive_with_warnings(tmp_path, capsys):
     assert open(a, "rb").read() == open(b, "rb").read()
 
 
+@pytest.mark.parametrize("flags", [
+    ["--spp", "2"],
+    ["--spp", "1", "--progressive-frames", "2", "--adaptive", "0.2"],
+], ids=["jnp", "jnp_progressive"])
+def test_cli_jnp_backend_renders(tmp_path, capsys, flags):
+    """``--backend jnp`` on the CPU: the PNG byte for byte the same call's
+    PNG made in process (``render_image``, or the jnp step's running
+    average), and within the u8 bounds of the JAX CLI's ``--backend jnp``;
+    ``--adaptive`` warns as the JAX CLI does and renders fixed spp."""
+    from raytracer_tpu_torch.progressive.state import init_render_state
+    from raytracer_tpu_torch.progressive.step import make_step_fn, run_frames
+    from raytracer_tpu_torch.render.api import render_image
+    from raytracer_tpu_torch.render.options import TraceOptions
+    from raytracer_tpu_torch.scene import presets
+
+    out, ref = str(tmp_path / "p.png"), str(tmp_path / "j.png")
+    args = TINY + flags + ["--backend", "jnp", "--seed", "3"]
+    assert cli.main(args + ["--device", "cpu", "--out", out]) == 0
+    said = capsys.readouterr()
+    assert "backend=jnp" in said.out
+    scene, cam, w, h, _, _ = presets.get_config("two_sphere", 48, 27)
+    opts = TraceOptions(max_depth=3, backend="jnp")
+    if "--progressive-frames" in flags:
+        assert ("warning: --adaptive requires the Pallas batch backend; "
+                "rendering fixed spp") in said.err
+        step = make_step_fn(w, h, 1, opts, device="cpu")
+        state, _ = run_frames(step, init_render_state(w, h, 3, "cpu"),
+                              scene, cam, 2)
+        image = state.accum
+    else:
+        image = render_image(scene, cam, w, h, 2, 3, opts, device="cpu")
+    assert open(out, "rb").read() == io.encode_png(image.numpy())
+    assert jax_cli.main(args + ["--out", ref]) == 0
+    a, b = png(out).astype(int), png(ref).astype(int)
+    assert (a == b).mean() >= MIN_EQUAL_SHARE
+    assert np.abs(a - b).max() <= MAX_U8_DIFF
+
+
 @pytest.mark.parametrize("flags, match", [
-    (["--backend", "jnp"], "queue 1 item 7"),
     (["--cluster-bounds", "sphere"], "ROADMAP.md §2"),
 ])
 def test_cli_refuses_unported_options(tmp_path, flags, match):

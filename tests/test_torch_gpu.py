@@ -703,3 +703,59 @@ def test_band_kernel_matches_plain_on_card(card, kernel):
     assert torch.equal(out_k, out_p) and torch.equal(seg_k, seg_p)
     assert int(seg_k.sum()) >= (W * 8 * 2 if budget is None
                                 else int(budget.sum()))
+
+
+# --- the jnp tracer (render/tracer.py) on the card -------------------------
+
+@pytest.mark.parametrize("p", [7, 4099, 1 << 20])
+def test_threefry_on_card_bitwise_cpu(card, p):
+    """Every Threefry draw on the card is the CPU's, bit for bit: the
+    uniforms of (P,), (P, 2), (P, 3) and a concatenated bounce's draws."""
+    from raytracer_tpu_torch.render import rng
+
+    for seed in (0, 42, 2**31 + 5):
+        kd = rng.key_data(seed)
+        for shape in ((p,), (p, 2), (p, 3)):
+            got = rng.uniform(kd, shape, card)
+            assert torch.equal(got.cpu(), rng.uniform(kd, shape))
+        draws = [(k, n) for k, n in zip(rng.split(kd, 3), (3 * p, 3 * p, p))]
+        for g, w in zip(rng.uniforms(draws, card), rng.uniforms(draws)):
+            assert torch.equal(g.cpu(), w)
+
+
+def test_jnp_render_on_card_matches_cpu(card):
+    """``backend='jnp'`` on the card against the same call on the CPU:
+    the CPU test's bounds (at most 5 % of pixels off by more than 1e-3,
+    mean |Δ| ≤ 8e-3, segments within 1 %); the card's sin, cos, sqrt and
+    pow round as they do, so a path may fork."""
+    scene, cam, *_ = presets.get_config("demo", W, H)
+    opts = TraceOptions(max_depth=8, backend="jnp")
+    got, st = api.render_image(scene, cam, W, H, 8, 42, opts,
+                               return_stats=True)
+    assert got.device.type == "cuda"
+    ref, rst = api.render_image(scene, cam, W, H, 8, 42, opts,
+                                return_stats=True, device="cpu")
+    d = (got.cpu() - ref).abs()
+    assert float((d.amax(-1) > 1e-3).float().mean()) <= 0.05
+    assert float(d.mean()) <= 8e-3
+    assert abs(st["segments_exact"] - rst["segments_exact"]) <= \
+        0.01 * rst["segments_exact"]
+
+
+def test_jnp_step_waits_for_nothing(card):
+    """The jnp progressive step on the card, with the sync debug mode
+    raising on any call that waits for the device: none does."""
+    scene, cam, *_ = presets.get_config("demo", W, H)
+    step = pstep.make_step_fn(W, H, 1, TraceOptions(max_depth=4),
+                              backend="jnp")
+    state = pstate.init_render_state(W, H, 0, card)
+    state, _ = step(state, scene, cam)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            state, aux = step(state, scene, cam)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert state.frame == 4 and int(aux["segments"]) >= W * H
+    assert bool(torch.isfinite(state.accum).all())

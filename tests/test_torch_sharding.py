@@ -22,7 +22,6 @@ fixed-spp render's exact segment total equals the single render's.
 import contextlib
 import dataclasses
 import hashlib
-import inspect
 
 import numpy as np
 import pytest
@@ -43,7 +42,9 @@ from raytracer_tpu_torch.parallel import sharding
 from raytracer_tpu_torch.progressive import state as pstate
 from raytracer_tpu_torch.progressive import step as pstep
 from raytracer_tpu_torch.render import api, megakernel, schedule
-from raytracer_tpu_torch.render.options import TraceOptions, check_backend
+from raytracer_tpu_torch.render.options import TraceOptions
+from raytracer_tpu_torch.render.rng import fold_in, key_data
+from raytracer_tpu_torch.render.tracer import render_image_jnp
 from raytracer_tpu_torch.scene import presets
 from raytracer_tpu_torch.scene.materials import Material
 from raytracer_tpu_torch.scene.spheres import make_scene
@@ -219,9 +220,20 @@ def world4() -> dict:
         "step_height": caught(make_sharded_step_fn, W, 30, m4),
         "step_rows8": caught(make_sharded_step_fn, W, 36, m4),
         "step_spp": caught(make_sharded_step_fn, W, H, m22, spp=3),
-        "step_debug": caught(make_sharded_step_fn, W, H, m4,
-                             opts=TraceOptions(enable_debug=True)),
     }
+    # the jnp tracer's paths: the step with backend 'jnp' or the overlay
+    # (one frame each), the sharded render
+    for name, o in (("step_jnp", dataclasses.replace(sopts, backend="jnp")),
+                    ("step_debug", dataclasses.replace(sopts,
+                                                       enable_debug=True))):
+        step = make_sharded_step_fn(W, H, m4, spp=1, opts=o)
+        st = shard_render_state(pstate.init_render_state(W, H, 0, "cpu"),
+                                m4)
+        st, segs = steps(step, st, scene, cam, 1)
+        got[name] = (gather_rows(st.accum, m4), segs)
+    got["jnp22"] = render_image_sharded(
+        scene, cam, W, H, 4, 0, m22, dataclasses.replace(opts, backend="jnp"),
+        return_stats=True)
     return got
 
 
@@ -606,27 +618,48 @@ def test_indivisible_shapes_raise(ranks4, case, message):
 
 
 @pytest.mark.parametrize("case", ["step_jnp", "step_debug"])
-def test_jnp_step_paths_not_ported(ranks4, case):
-    """The step with the overlay raises, naming ROADMAP item 7. The jnp
-    step cannot be asked for: the JAX package reads it from
-    ``opts.backend``, which the port's options do not hold, and the step
-    takes the JAX package's arguments, none of them a backend; the entry
-    points refuse 'jnp' naming item 7."""
-    if case == "step_jnp":
-        assert "backend" not in inspect.signature(
-            make_sharded_step_fn).parameters
-        assert "backend" not in {f.name for f in
-                                 dataclasses.fields(TraceOptions)}
-        with pytest.raises(NotImplementedError, match="item 7"):
-            check_backend("jnp")
-        return
-    got = ranks4[0]["errors"][case]
-    assert got.startswith("NotImplementedError") and "item 7" in got
+def test_jnp_step_paths(ranks4, case):
+    """The sharded step with ``backend='jnp'`` or the overlay renders
+    through the jnp tracer (the overlay at the default cursor, nothing
+    selected): on the (4,) mesh its first frame is, band by band,
+    ``render_image_jnp`` of that band under ``fold_in(fold_in(key, 0),
+    rows coordinate)``, bit for bit."""
+    accum, segs = ranks4[0][case]
+    scene, cam = two_sphere()
+    opts = TraceOptions(max_depth=3, backend="jnp",
+                        enable_debug=case == "step_debug")
+    lh = H // 4
+    frame_key = fold_in(key_data(0), 0)
+    bands = [render_image_jnp(scene, api.to_derived(cam), W, H, 1,
+                              fold_in(frame_key, r), opts,
+                              row_offset=r * lh, band_height=lh)
+             for r in range(4)]
+    assert torch.equal(accum, torch.cat(bands))
+    assert segs[0] > W * H
+    for r in ranks4[1:]:
+        assert torch.equal(r[case][0], accum) and r[case][1] == segs
 
 
-def test_jnp_render_not_ported():
-    with pytest.raises(NotImplementedError, match="item 7"):
-        render_image_sharded(*two_sphere(), W, H, 2, 0, None)
+def test_jnp_render(ranks4):
+    """``render_image_sharded`` on the (2, 2) mesh: every rank holds the
+    whole image; each rows band is the mean of its two spp shards'
+    ``render_image_jnp`` under ``fold_in(fold_in(key, row), spp)``,
+    within float32 rounding of the regrouped sums."""
+    img, stats = ranks4[0]["jnp22"]
+    scene, cam = two_sphere()
+    opts = TraceOptions(max_depth=4, backend="jnp", gamma=False)
+    lh = H // 2
+    bands = []
+    for r in range(2):
+        lin = sum(render_image_jnp(scene, api.to_derived(cam), W, H, 2,
+                                   fold_in(fold_in(key_data(0), r), s), opts,
+                                   row_offset=r * lh, band_height=lh)
+                  for s in range(2)) * 0.5
+        bands.append(torch.sqrt(torch.clamp_min(lin, 0.0)))
+    assert float((img - torch.cat(bands)).abs().max()) <= REGROUP_MAX_ABS
+    assert stats["segments_exact"] > W * H * 4
+    for r in ranks4[1:]:
+        assert torch.equal(r["jnp22"][0], img) and r["jnp22"][1] == stats
 
 
 def test_dryrun_multichip():

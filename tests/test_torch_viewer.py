@@ -121,10 +121,27 @@ def test_kitty_frame_matches_jax_and_round_trips(shape, image_id):
     assert np.array_equal(decoded, tonemap_u8(img, flip_vertical=True))
 
 
-def test_run_viewer_refuses_the_jnp_backend():
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        viewer.run_viewer("two_sphere", 16, 8, backend="jnp", max_frames=1,
-                          device="cpu")
+def test_run_viewer_runs_the_jnp_backend(monkeypatch):
+    """``backend='jnp'`` off a terminal on the CPU: the engine renders
+    with the jnp tracer and the frames are drawn as ANSI."""
+    import contextlib
+    import io as stdio
+
+    made, real = [], viewer.Engine
+
+    def engine(*args, **kwargs):
+        made.append(real(*args, **kwargs))
+        return made[-1]
+
+    monkeypatch.setattr(viewer, "Engine", engine)
+    out = stdio.StringIO()
+    with open(os.devnull) as null, contextlib.redirect_stdout(out):
+        monkeypatch.setattr(sys, "stdin", null)
+        n = viewer.run_viewer("two_sphere", 16, 8, backend="jnp",
+                              max_frames=2, target_fps=1e6, device="cpu")
+    assert n == 2 and made[0].backend == "jnp"
+    assert made[0].render_state.render_count == 2
+    assert "\x1b[38;2;" in out.getvalue()
 
 
 def test_viewer_loop_pty_smoke():
