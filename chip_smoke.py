@@ -45,10 +45,14 @@ step and the interactive engine:
   ``csrc/probe_chain.cu``, ``probe_gather.cu`` and ``probe_scan.cu``: two
   chains, three gather modes, four scan blocks), each instantiation first
   held bitwise against its plain version at the TPU's shape and at a
-  card-filling one, then each probe's entry point at its script's trips,
-  and the roofline: its float32 chain against the issue line (SMs x 128
-  x the highest SM clock, which fails the run unless the chain comes
-  within 10 % of it) and the cover through the flat scan against both.
+  card-filling one, then the probe A/B (``scripts/probe_ab.py``: the
+  scan's four blocks and the one-hot product, redesigned for Hopper,
+  against their base revision's builds, bitwise and timed in turns, with
+  registers, spill bytes and SASS counts), then each probe's entry point
+  at its script's trips, and the roofline: its float32 chain against the
+  issue line (SMs x 128 x the highest SM clock, which fails the run
+  unless the chain comes within 10 % of it) and the cover through the
+  flat scan against both.
 
 Then the entry points a user starts the renderer from, each through the
 kernels:
@@ -262,16 +266,18 @@ def phase_device():
 
 
 def phase_build():
-    """Every kernel source, and the walk A/B's builds (the base
-    revision's walk and flat scan, where the checkout has them, both
-    counter builds and the flat scan's two form builds), one nvcc each,
-    all at once."""
-    from raytracer_tpu_torch.scripts import walk_ab
+    """Every kernel source, the walk A/B's builds (the base revision's
+    walk and flat scan, where the checkout has them, both counter builds
+    and the flat scan's two form builds) and the probe A/B's (the base
+    revision's two probes and their design builds), one nvcc each, all at
+    once."""
+    from raytracer_tpu_torch.scripts import probe_ab, walk_ab
     from raytracer_tpu_torch.utils import cuda_build
 
     names = ("cluster_walk", "flat_scan", *PROBE_SOURCES)
-    specs = [(name, None, ()) for name in names] + walk_ab.extra_builds(
-        walk_ab.parent_csrc())
+    old = walk_ab.parent_csrc()
+    specs = ([(name, None, ()) for name in names]
+             + walk_ab.extra_builds(old) + probe_ab.extra_builds(old))
     t0 = time.perf_counter()
     cuda_build.build_all(specs)
     extra = [f"{name} {' '.join(d) or 'base revision'}"
@@ -1456,7 +1462,7 @@ def uuid_map(scene, cam, w: int, h: int):
     from raytracer_tpu_torch.render.tracer import hit_world
 
     ray = generate_rays(derive_camera(cam),
-                        pixel_st_grid(w, h, "cuda").reshape(-1, 2))
+                        pixel_st_grid(w, h, device="cuda").reshape(-1, 2))
     return hit_world(ray.origin, ray.direction,
                      scene.to("cuda")).uuid.reshape(h, w)
 
@@ -1747,6 +1753,8 @@ INSTR_LINE_TOLERANCE = 0.10
 #: launches of each walk build per instantiation in the walk A/B, taken
 #: in turns (old, new, new, old, ...)
 WALK_AB_REPEATS = 6
+#: launches of each probe build per case in the probe A/B, in turns
+PROBE_AB_REPEATS = 4
 
 
 def held(label: str, got: torch.Tensor, want: torch.Tensor):
@@ -1819,6 +1827,36 @@ def phase_probes_vs_plain() -> dict:
               f"{PROBE_SCAN_CHECK_ITERS['fill']}; plain "
               f"{results[name]['plain_ms']:.3f} ms")
     return results
+
+
+def phase_probe_ab(smi: str) -> dict:
+    """The scan probe's four blocks and the one-hot product against their
+    base revision (``scripts/probe_ab.py``): each build's registers,
+    spill bytes and SASS counts (per slot and ray of the scan; the
+    product's HMMAs), every build bitwise the current one (and the
+    one-hot's odd trip count bitwise its plain version), times in turns.
+    Fails on a disagreement, a spill in a current scan instantiation or a
+    one-hot product without HMMA. Without the base revision's sources
+    the old builds are left out."""
+    from raytracer_tpu_torch.scripts import probe_ab, walk_ab
+
+    old = walk_ab.parent_csrc()
+    print("[probe A/B] " + ("the base revision's sources are not in this "
+                            "checkout: the current builds alone"
+                            if old is None else
+                            f"base revision {old.parent.parent.name}"))
+    got = probe_ab.run(old, PROBE_AB_REPEATS, smi)
+    bad = probe_ab.failures(got)
+    if bad:
+        fail(f"probe A/B: {bad}")
+    for name in probe_ab.SOURCES:
+        for case, t in got[name]["times"].items():
+            line = ", ".join(f"{b} {min(ts):.3f} ms" for b, ts in t.items())
+            ratio = (f", old/new x{min(t['old']) / min(t['new']):.3f}"
+                     if "old" in t else "")
+            print(f"[probe A/B {case}] best of {len(t['new'])} in turns: "
+                  f"{line}{ratio} [{smi}]")
+    return got
 
 
 def probe_bound(ops: float, nbytes: float, flop_peak: float, line: float,
@@ -1922,10 +1960,13 @@ def phase_probe_paths(smi: str) -> dict:
             nbytes, pf.FP32_FLOP_PEAK, card_lines()["fp32"],
             elements * pg.ITERS)
         if mode == "onehot":
-            bound["scan_issue_bound_ms"] = probe_bound(
-                pg.probe_ops(mode, shape[0], r, shape[1], pg.ITERS, reps),
-                nbytes, pf.FP32_FLOP_PEAK, card_lines()["fp32"],
-                elements * pg.ITERS * shape[0])["issue_bound_ms"]
+            # beside it, what the product issues: its MMAs at the data
+            # sheet's dense bf16 rate, and its CUDA-core side (the
+            # one-hot's words and the pieces' sums) at the issue line
+            mma = pg.mma_account(shape[0], r, shape[1], pg.ITERS, reps)
+            bound["tensor_bound_ms"] = mma["flop"] / pf.BF16_TC_PEAK * 1e3
+            bound["cuda_core_bound_ms"] = (mma["cuda_core_ops"]
+                                           / card_lines()["fp32"] * 1e3)
         print(f"[probe gather] {pg.variant_name(mode)} x{reps}: "
               f"{fill['seconds'] * 1e3:.3f} ms, bound "
               f"{bound['issue_bound_ms']:.3f} ms by "
@@ -1933,8 +1974,10 @@ def phase_probe_paths(smi: str) -> dict:
               f"{bound['issue_ops_ms']:.3f} ms, smem "
               f"{bound['smem_bound_ms']:.3f} ms), share "
               f"{bound['issue_bound_ms'] / (fill['seconds'] * 1e3):.4f}"
-              + (f"; its own scan's bound {bound['scan_issue_bound_ms']:.3f}"
-                 " ms" if mode == "onehot" else "") + f" [{smi}]")
+              + (f"; its MMAs at the tensor cores' bf16 rate "
+                 f"{bound['tensor_bound_ms']:.3f} ms, its CUDA-core side "
+                 f"at the issue line {bound['cuda_core_bound_ms']:.3f} ms"
+                 if mode == "onehot" else "") + f" [{smi}]")
         rows[pg.variant_name(mode)] = {
             "ms": fill["seconds"] * 1e3,
             "tpu_shape_ms": case["tpu"]["seconds"] * 1e3,
@@ -2093,7 +2136,7 @@ def cli_in_process(flags):
         step = make_step_fn(w, h, spp=spp, opts=opts, static_scene=scene,
                             static_camera=cam, device=a.device)
         state, _ = run_frames(step, init_render_state(w, h, a.seed,
-                                                      a.device),
+                                                      device=a.device),
                               scene, cam, a.progressive_frames)
         return io.encode_png(state.accum.cpu().numpy()), None
     img, stats = render_image(scene, cam, w, h, spp, a.seed, opts,
@@ -2655,7 +2698,8 @@ def jnp_band_reference(r: int, n_rows: int, n_spp: int) -> torch.Tensor:
     w, h = JNP_SHARD_W, JNP_SHARD_H
     scene, cam, *_ = presets.get_config("demo", w, h)
     lh = h // n_rows
-    st = pixel_st_grid(w, h, "cuda")[r * lh:(r + 1) * lh].reshape(-1, 2)
+    st = pixel_st_grid(w, h, device="cuda")[r * lh:(r + 1) * lh]
+    st = st.reshape(-1, 2)
     acc = None
     for s in range(n_spp):
         a, _ = sample_sums(scene_on(scene, "cuda"),
@@ -3358,6 +3402,7 @@ def main():
     flat_paths.update(timed(phase_engine, smi))
     timed(phase_aov, smi)
     crops.update(timed(phase_probes_vs_plain))
+    timed(phase_probe_ab, smi)
     probes = timed(phase_probe_paths, smi)
     timed(phase_cli, smi)
     timed(phase_bench_line, smi)
@@ -3395,20 +3440,7 @@ def main():
         "crop_ms": crops[name]["crop_ms"],
         "plain_shape": f"{CROP_W}x{CROP_H}x{CROP_SPP}spp d{CROP_DEPTH}",
     } for name, (source, replaces) in sources.items()]
-    # the order for the renderer's kernel redesigns: the time each path
-    # spends above the issue-line bound, launches x (ms - bound)
-    for row in sorted(renderer, key=lambda r: -r["launches"] * (
-            r["ms"] - r["issue_bound_ms"])):
-        print(f"[redesign order] {row['name']}: {row['launches']} launches x "
-              f"({row['ms']:.4f} - {row['issue_bound_ms']:.4f}) ms = "
-              f"{row['launches'] * (row['ms'] - row['issue_bound_ms']):.3f} "
-              f"ms; share of the issue-line bound "
-              f"{row['issue_bound_ms'] / row['ms']:.4f} (of 67e12: "
-              f"{row['bound_ms'] / row['ms']:.4f}) [{smi}]")
-    t_all = time.perf_counter() - t_start
-    print(f"[phase time] all {t_all:.1f} s; the jnp phases "
-          f"{t_jnp:.1f} s of it, a share of {t_jnp / t_all:.3f}")
-    print(json.dumps({"kernels": renderer + [{
+    probe_rows = [{
         "name": name,
         "route": "cuda",
         "source": PROBE_SOURCES[source],
@@ -3418,7 +3450,22 @@ def main():
         "library_ms": None,
         "plain_shape": crops[name]["plain_shape"],
         **probes[name],
-    } for name, (source, replaces) in PROBE_KERNELS.items()]}))
+    } for name, (source, replaces) in PROBE_KERNELS.items()]
+    # the order for kernel redesigns, the renderer's and the probes'
+    # together: the time each path spends above the issue-line bound,
+    # launches x (ms - bound)
+    for row in sorted(renderer + probe_rows, key=lambda r: -r["launches"] * (
+            r["ms"] - r["issue_bound_ms"])):
+        print(f"[redesign order] {row['name']}: {row['launches']} launches x "
+              f"({row['ms']:.4f} - {row['issue_bound_ms']:.4f}) ms = "
+              f"{row['launches'] * (row['ms'] - row['issue_bound_ms']):.3f} "
+              f"ms; share of the issue-line bound "
+              f"{row['issue_bound_ms'] / row['ms']:.4f} (of the data "
+              f"sheet's: {row['bound_ms'] / row['ms']:.4f}) [{smi}]")
+    t_all = time.perf_counter() - t_start
+    print(f"[phase time] all {t_all:.1f} s; the jnp phases "
+          f"{t_jnp:.1f} s of it, a share of {t_jnp / t_all:.3f}")
+    print(json.dumps({"kernels": renderer + probe_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -161,7 +161,7 @@ def main(argv=None) -> int:
         # hints let the step build its partition or split once
         step = make_step_fn(w, h, spp=spp, opts=opts, static_scene=scene,
                             static_camera=cam, device=device)
-        state = init_render_state(w, h, args.seed, device)
+        state = init_render_state(w, h, args.seed, device=device)
         state, segments = run_frames(step, state, scene, cam,
                                      args.progressive_frames)
         image = state.accum.cpu().numpy()

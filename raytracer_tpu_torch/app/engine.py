@@ -81,10 +81,15 @@ class Engine:
 
     def __init__(self, scene: Scene, camera: CameraConfig, width: int,
                  height: int, spp: int = 1, max_depth: int = 8,
-                 seed: int = 0, enable_debugging: bool = False,
+                 backend: str = "auto", seed: int = 0,
+                 enable_debugging: bool = False, *,
                  sampler: str = "random",
-                 cluster_scan: bool | str = "auto", device=None,
-                 backend: str = "auto"):
+                 cluster_scan: bool | str = "auto", device=None):
+        """The JAX package's arguments in its order, up to
+        ``enable_debugging``; it has ``exhaust_black`` and
+        ``russian_roulette_depth`` next, which the port's engine does not
+        take (its step uses ``TraceOptions``' defaults), so ``sampler``,
+        ``cluster_scan`` and the port's ``device`` are keyword-only."""
         check_backend(backend)
         self.device = resolve_device(device)
         self.scene = scene
@@ -105,7 +110,7 @@ class Engine:
         self.cluster_scan = cluster_scan
         self._seed = seed
         self.render_state: RenderState = init_render_state(
-            width, height, seed, self.device)
+            width, height, seed, device=self.device)
         self._step_cache: dict = {}
         self._saved_images: list = []
         self.on_save: Optional[Callable[[np.ndarray], None]] = None
@@ -285,7 +290,8 @@ class Engine:
             self.camera = dataclasses.replace(self.camera,
                                               aspect_ratio=_f32(w / h))
             self.render_state = dataclasses.replace(
-                init_render_state(w, h, self.render_state.key, self.device),
+                init_render_state(w, h, self.render_state.key,
+                                  device=self.device),
                 frame=self.render_state.frame)
             self.app.render_count = 0
             self.app.should_render = True
@@ -331,7 +337,7 @@ class Engine:
         free_cached_memory()
         self.render_state = retry_on_device_fault(
             lambda: init_render_state(self.app.width, self.app.height,
-                                      self._seed, self.device))()
+                                      self._seed, device=self.device))()
         self.app.render_count = 0
         self.app.should_render = True
 

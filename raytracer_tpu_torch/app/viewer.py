@@ -241,7 +241,7 @@ def run_viewer(config: str = "demo", width: int = 320, height: int = 180,
                backend: str = "auto", max_frames: int | None = None,
                target_fps: float = 30.0, cols: int = 100,
                sampler: str = "random", cluster_scan: bool | str = "auto",
-               display: str = "ansi", device=None) -> int:
+               display: str = "ansi", *, device=None) -> int:
     """Run the viewer on preset ``config`` until 'q' or ``max_frames``;
     returns the frames drawn. ``backend`` takes the JAX package's names:
     'auto' and 'pallas' run the kernels, 'jnp' the JAX package's tracer

@@ -169,7 +169,7 @@ def bench_progressive(device, config: str = "demo", width: int = 1920,
     scene, cam, w, h, _, _ = presets.get_config(config, width, height)
     step = make_step_fn(w, h, spp=1, opts=TraceOptions(max_depth=8),
                         device=device, backend=backend())
-    state = init_render_state(w, h, 0, device)
+    state = init_render_state(w, h, 0, device=device)
     debug = DebugParams.none()
     for _ in range(5):  # warm
         state, aux = step(state, scene, cam, debug)

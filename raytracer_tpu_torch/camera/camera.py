@@ -119,16 +119,18 @@ def camera_from_numpy(fields: dict):
     return cls(**{k: _f32(v) for k, v in fields.items()})
 
 
-def pixel_st_grid(width: int, height: int, device="cpu") -> torch.Tensor:
-    """Pixel-centre viewport coordinates st in (0, 1)², (H, W, 2) float32;
-    row 0 is the bottom of the image (GL order)."""
-    f32 = torch.float32
+def pixel_st_grid(width: int, height: int, dtype=torch.float32, *,
+                  device="cpu") -> torch.Tensor:
+    """Pixel-centre viewport coordinates st in (0, 1)², (H, W, 2) of
+    ``dtype``; row 0 is the bottom of the image (GL order)."""
+    if not isinstance(dtype, torch.dtype):
+        raise TypeError(f"dtype must be a torch.dtype, got {dtype!r}")
     # 0-d divisors filled on the device: exact divisions, and nothing is
     # copied to a card
-    xs = ((torch.arange(width, dtype=f32, device=device) + 0.5)
-          / torch.full((), float(width), dtype=f32, device=device))
-    ys = ((torch.arange(height, dtype=f32, device=device) + 0.5)
-          / torch.full((), float(height), dtype=f32, device=device))
+    xs = ((torch.arange(width, dtype=dtype, device=device) + 0.5)
+          / torch.full((), float(width), dtype=dtype, device=device))
+    ys = ((torch.arange(height, dtype=dtype, device=device) + 0.5)
+          / torch.full((), float(height), dtype=dtype, device=device))
     t, s = torch.meshgrid(ys, xs, indexing="ij")
     return torch.stack([s, t], dim=-1)
 

@@ -87,15 +87,15 @@ def unit_vector_from_uniforms(u: torch.Tensor) -> torch.Tensor:
     return vec.normalize(unit_sphere_from_uniforms(u), eps=1e-20)
 
 
-def random_in_unit_sphere(kd, shape=(), device="cpu") -> torch.Tensor:
+def random_in_unit_sphere(key, shape=(), *, device="cpu") -> torch.Tensor:
     """A point inside the unit ball, shape ``shape + (3,)``."""
-    return unit_sphere_from_uniforms(rng.uniform(kd, tuple(shape) + (3,),
+    return unit_sphere_from_uniforms(rng.uniform(key, tuple(shape) + (3,),
                                                  device))
 
 
-def random_unit_vector(kd, shape=(), device="cpu") -> torch.Tensor:
+def random_unit_vector(key, shape=(), *, device="cpu") -> torch.Tensor:
     """A direction on the unit sphere, shape ``shape + (3,)``."""
-    return unit_vector_from_uniforms(rng.uniform(kd, tuple(shape) + (3,),
+    return unit_vector_from_uniforms(rng.uniform(key, tuple(shape) + (3,),
                                                  device))
 
 
@@ -106,15 +106,15 @@ def disk_from_uv(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return torch.stack([r * torch.cos(a), r * torch.sin(a)], dim=-1)
 
 
-def random_in_unit_disk(kd, shape=(), device="cpu") -> torch.Tensor:
+def random_in_unit_disk(key, shape=(), *, device="cpu") -> torch.Tensor:
     """A point in the unit disc, shape ``shape + (2,)``."""
-    u = rng.uniform(kd, tuple(shape) + (2,), device)
+    u = rng.uniform(key, tuple(shape) + (2,), device)
     return disk_from_uv(u[..., 0], u[..., 1])
 
 
-def pixel_jitter(kd, shape=(), device="cpu") -> torch.Tensor:
+def pixel_jitter(key, shape=(), *, device="cpu") -> torch.Tensor:
     """The sub-pixel jitter in [0, 1)², shape ``shape + (2,)``."""
-    return rng.uniform(kd, tuple(shape) + (2,), device)
+    return rng.uniform(key, tuple(shape) + (2,), device)
 
 
 def bounce_keys(kd) -> list:
@@ -123,11 +123,11 @@ def bounce_keys(kd) -> list:
     return rng.split(kd, 3)
 
 
-def sphere_disk_glass_uniforms(kd, shape=(), device="cpu"):
+def sphere_disk_glass_uniforms(key, shape=(), *, device="cpu"):
     """One bounce's material draws from one key, in one Threefry pass:
     (unit vector (..., 3), unit-ball point (..., 3), glass roll (...))."""
     n = int(math.prod(shape))
-    k1, k2, k3 = bounce_keys(kd)
+    k1, k2, k3 = bounce_keys(key)
     u1, u2, u3 = rng.uniforms([(k1, 3 * n), (k2, 3 * n), (k3, n)], device)
     shape = tuple(shape)
     return (unit_vector_from_uniforms(u1.reshape(shape + (3,))),
@@ -157,11 +157,12 @@ def r2_point(cp: torch.Tensor, s: int, alphas=R2_ALPHAS_4D) -> torch.Tensor:
     return ((x & rng.M32) >> 8).to(torch.float32) * (2.0 ** -24)
 
 
-def stratified_rotations(kd, p: int, device="cpu"):
+def stratified_rotations(key, p: int, *, device="cpu"):
     """The per-pixel Cranley-Patterson rotations of the stratified jnp
     path: ((p, 4) camera dims, (p, 3) first-bounce dims), uniform under
-    ``fold_in(kd, CP_CAMERA_SALT)`` and ``fold_in(kd, CP_BOUNCE0_SALT)``."""
-    cam, b0 = rng.uniforms([(rng.fold_in(kd, CP_CAMERA_SALT), 4 * p),
-                            (rng.fold_in(kd, CP_BOUNCE0_SALT), 3 * p)],
+    ``fold_in(key, CP_CAMERA_SALT)`` and ``fold_in(key, CP_BOUNCE0_SALT)``
+    (``key``: key data, as for every draw here)."""
+    cam, b0 = rng.uniforms([(rng.fold_in(key, CP_CAMERA_SALT), 4 * p),
+                            (rng.fold_in(key, CP_BOUNCE0_SALT), 3 * p)],
                            device)
     return cam.reshape(p, 4), b0.reshape(p, 3)

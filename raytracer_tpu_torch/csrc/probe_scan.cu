@@ -1,5 +1,5 @@
 // The closest-hit scan layout probe on Hopper: the scan's near-root chain
-// over sphere slots held in shared memory, at four unroll blocks.
+// over sphere slots held in shared memory, at four blocks.
 //
 // Replaces the TPU kernel of scripts/bench_scan_layout.py `make_kernel`
 // (P4, launched at :119). Ray j = row * 128 + lane starts at
@@ -14,35 +14,43 @@
 // the origin by (bq, bq, -bq) * 1e-12 so every trip depends on the last,
 // and adds bq to the output.
 //
-// Design. One thread per ray; the slot table (float4 per slot, 8 KiB at
-// 512 slots) sits in shared memory and every lane of a warp reads the same
-// slot, a broadcast. kBlock slots form one unrolled inner loop with its own
-// partial minimum, then a minimum over the blocks: the TPU's question of
-// array layout (one (512, 128) chain against (8, 128) strips) becomes one
-// of unroll and registers. The inner loop unrolls fully up to kMaxUnroll
-// slots; the 512-slot block ("full", the TPU's one chain over every slot)
-// is one running minimum over the table, unrolled kMaxUnroll slots at a
-// time. A minimum is exact, so every block gives the same values. The
-// arithmetic is the TPU body's, operation for operation and in the same
-// order, each rounded on its own (-fmad=false); sqrtf is correctly rounded
-// without fast math, as torch.sqrt is.
+// Design. The slot table (float4 per slot, 8 KiB at 512 slots) sits in
+// shared memory; every lane of a warp reads the same slot, a broadcast.
+// On the TPU the block (512 "full", 64, 32, 8) chose an array layout; here
+// it keeps only its meaning, the point where partial minima meet: each
+// block of kBlock slots has its own partial minimum, folded into the
+// trip's. Every instantiation runs the same slot loop, kUnroll slots a
+// step (their kUnroll float4 loads issued together, then the
+// candidates), so the unroll, the registers and the code size no longer
+// grow with the block. A minimum of these values is exact and independent
+// of order (finite candidates, 3e38 fills, never NaN; a partial minimum
+// starts at +inf, above every candidate), so every block gives the same
+// bits. One ray a thread: two rays a thread (one broadcast load serving
+// both, their chains interleaved) leave 16 warps an SM at the
+// card-filling shape and measured slower (scripts/probe_ab.py), as did a
+// step of 4 slots. __launch_bounds__ asks for kMinBlocks blocks of
+// kThreads an SM (32 warps), which caps a thread at 64 registers; the
+// loop's kUnroll x 4 slot registers stay under it with no spill. The arithmetic
+// is the TPU body's, operation for operation and in the same order, each
+// rounded on its own (-fmad=false); sqrtf is correctly rounded without
+// fast math, as torch.sqrt is.
 //
-// What bounds it on this card: the FP32 issue rate, about 25 operations a
-// slot per ray and trip (a root among them); device memory sees the table
-// and one output per ray. The compiler hoists a block's shared-memory
-// loads ahead of its arithmetic, four registers a slot: an unroll of 64
-// slots exceeds the 255 registers a thread may hold and spills, which is
-// part of the answer the probe gives. Unrolled whole, the 512-slot block
-// spilled 9 KB and took minutes of ptxas, so its unroll stops at 64 too.
+// What bounds it on this card: the issue rate, about 25 operations a slot
+// per ray and trip (a root among them), which compile to about 44 SASS
+// instructions: the correctly rounded sqrtf is a MUFU, a correction and a
+// slow-path branch with its reconvergence (BSSY/BSYNC, the call's moves),
+// and the root's select is a branch too; device memory sees the table and
+// one output per ray.
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kThreads = 128;
+constexpr int kMinBlocks = 8;                  // 8 x 128 threads: 32 warps
+constexpr int kUnroll = 8;                     // slots a loop step
 constexpr int kLanes = 128;
 constexpr int kRows = 8;
-constexpr int kMaxUnroll = 64;                 // slots unrolled at most
 constexpr float kFillQ = 0x1.c363ccp+127f;    // 3e38: no candidate
 constexpr float kNegBig = -0x1.c363ccp+127f;  // -3e38: no root
 constexpr float kMinT = 0x1.0624dep-10f;      // 0.001
@@ -57,6 +65,17 @@ struct Ray {
   float dx, dy, dz, odd, ooo, ox, oy, oz, a, min_t_a;
 };
 
+__device__ __forceinline__ void start_ray(Ray& r, int ray) {
+  r.ox = (float)(ray % kLanes) * kLaneX;
+  r.oy = 1.0f;
+  r.oz = (float)((ray / kLanes) % kRows) * kTenth;
+  r.dx = r.ox * kTenth + kDirX;
+  r.dy = r.oy * kDirY;
+  r.dz = r.oz * kDirZ + kTenth;
+  r.a = r.dx * r.dx + r.dy * r.dy + r.dz * r.dz;
+  r.min_t_a = kMinT * r.a;
+}
+
 __device__ __forceinline__ float candidate(const float4 c, const Ray& r) {
   const float c_dot_d = c.x * r.dx + c.y * r.dy + c.z * r.dz;
   const float c_dot_o = c.x * r.ox + c.y * r.oy + c.z * r.oz;
@@ -69,45 +88,38 @@ __device__ __forceinline__ float candidate(const float4 c, const Ray& r) {
 }
 
 template <int kBlock>
-__device__ __forceinline__ float block_min(const float4* slots, int b,
-                                           const Ray& r) {
-  constexpr int kUnroll = kBlock < kMaxUnroll ? kBlock : kMaxUnroll;
-  float m = candidate(slots[b], r);
-#pragma unroll
-  for (int j = 1; j < kUnroll; ++j) m = fminf(m, candidate(slots[b + j], r));
-#pragma unroll 1
-  for (int c = b + kUnroll; c < b + kBlock; c += kUnroll) {
-#pragma unroll
-    for (int j = 0; j < kUnroll; ++j) m = fminf(m, candidate(slots[c + j], r));
-  }
-  return m;
-}
-
-template <int kBlock>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
     scan_kernel(const float4* __restrict__ sph, float* __restrict__ out,
                 int n_slots, int n, int iters) {
+  constexpr int kSteps = kBlock / kUnroll;  // loop steps a block
+  static_assert(kBlock % kUnroll == 0, "the block holds whole steps");
   extern __shared__ float4 slots[];
   for (int j = threadIdx.x; j < n_slots; j += kThreads) slots[j] = sph[j];
   __syncthreads();
   const int ray = blockIdx.x * kThreads + threadIdx.x;
   if (ray >= n) return;
   Ray r;
-  r.ox = (float)(ray % kLanes) * kLaneX;
-  r.oy = 1.0f;
-  r.oz = (float)((ray / kLanes) % kRows) * kTenth;
-  r.dx = r.ox * kTenth + kDirX;
-  r.dy = r.oy * kDirY;
-  r.dz = r.oz * kDirZ + kTenth;
-  r.a = r.dx * r.dx + r.dy * r.dy + r.dz * r.dz;
-  r.min_t_a = kMinT * r.a;
+  start_ray(r, ray);
   float acc = 0.0f;
   for (int i = 0; i < iters; ++i) {
     r.odd = r.ox * r.dx + r.oy * r.dy + r.oz * r.dz;
     r.ooo = r.ox * r.ox + r.oy * r.oy + r.oz * r.oz;
-    float bq = block_min<kBlock>(slots, 0, r);
-    for (int b = kBlock; b < n_slots; b += kBlock)
-      bq = fminf(bq, block_min<kBlock>(slots, b, r));
+    float bq = __int_as_float(0x7f800000);  // +inf
+#pragma unroll 1
+    for (int b = 0; b < n_slots; b += kBlock) {
+      float part = __int_as_float(0x7f800000);  // the block's minimum
+#pragma unroll 1
+      for (int s = 0; s < kSteps; ++s) {
+        const float4* at = slots + b + s * kUnroll;
+        float4 c[kUnroll];
+#pragma unroll
+        for (int j = 0; j < kUnroll; ++j) c[j] = at[j];
+#pragma unroll
+        for (int j = 0; j < kUnroll; ++j)
+          part = fminf(part, candidate(c[j], r));
+      }
+      bq = fminf(bq, part);
+    }
     const float step = bq * kStep;
     r.ox = r.ox + step;
     r.oy = r.oy + step;

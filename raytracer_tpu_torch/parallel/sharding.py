@@ -261,7 +261,7 @@ def render_image_sharded(scene: Scene, camera, width: int, height: int,
     local_h = height // n_rows
     device = mesh.device
     row0 = mesh.index("rows") * local_h
-    st = pixel_st_grid(width, height, device)[row0:row0 + local_h]
+    st = pixel_st_grid(width, height, device=device)[row0:row0 + local_h]
     band, segments = _render_shard(
         scene_on(scene, device), camera_on(to_derived(camera), device), st,
         key_data(key), width, height, spp // spp_size, opts, debug, mesh)
@@ -345,7 +345,7 @@ def _make_sharded_step_fn_jnp(width, height, mesh, spp, opts,
     local_h, spp_local = height // n_rows, spp // spp_size
     device = mesh.device
     row0 = mesh.index("rows") * local_h
-    st = pixel_st_grid(width, height, device)[row0:row0 + local_h]
+    st = pixel_st_grid(width, height, device=device)[row0:row0 + local_h]
     stratified = opts.sampler == "stratified"
 
     def step(state: RenderState, scene: Scene, camera, debug=None):

@@ -36,11 +36,13 @@ class RenderState:
         return self.accum.shape[1]
 
 
-def init_render_state(width: int, height: int, key=0,
+def init_render_state(width: int, height: int, key=None, *,
                       device=None) -> RenderState:
     """A fresh session: zero average, counters at 0. ``key`` is an int
-    seed (``jax.random.PRNGKey(seed)``'s data) or key data; ``device``
-    defaults to CUDA."""
+    seed (``jax.random.PRNGKey(seed)``'s data) or key data; None is the
+    JAX package's default, ``PRNGKey(0)``. ``device`` defaults to CUDA."""
+    if key is None:
+        key = 0
     return RenderState(
         accum=torch.zeros((height, width, 3), dtype=torch.float32,
                           device=resolve_device(device)),
@@ -80,7 +82,7 @@ def save_render_state(path, state: RenderState) -> None:
     )
 
 
-def load_render_state(path, device=None) -> RenderState:
+def load_render_state(path, *, device=None) -> RenderState:
     with np.load(path) as data:
         return render_state_from_numpy(data["accum"], data["render_count"],
                                        data["frame"], data["key"], device)

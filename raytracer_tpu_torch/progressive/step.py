@@ -26,6 +26,7 @@ from raytracer_tpu_torch.render.megakernel import render
 from raytracer_tpu_torch.render.options import (
     DebugParams,
     TraceOptions,
+    check_backend,
     cluster_scan_enabled,
     resolve_backend,
 )
@@ -41,7 +42,7 @@ DEFAULT_MAX_RENDER_COUNT = 100_000
 
 
 def accumulate(prev: torch.Tensor, new: torch.Tensor, render_count: int,
-               last_frame_weight: float = DEFAULT_LAST_FRAME_WEIGHT,
+               last_frame_weight: float = DEFAULT_LAST_FRAME_WEIGHT, *,
                out: torch.Tensor | None = None) -> torch.Tensor:
     """The reference's progressive blend, in the JAX package's order:
     ``(prev·rc + new·w) / (rc + w)`` in float32, or ``new`` where the
@@ -67,9 +68,10 @@ def make_step_fn(width: int, height: int, spp: int = 1,
                  should_average: bool = True,
                  last_frame_weight: float = DEFAULT_LAST_FRAME_WEIGHT,
                  max_render_count: int = DEFAULT_MAX_RENDER_COUNT,
+                 backend: str | None = None, jit: bool = True,
                  static_scene: Scene | None = None,
-                 static_camera: CameraConfig | None = None, device=None,
-                 backend: str | None = None):
+                 static_camera: CameraConfig | None = None, *,
+                 device=None):
     """Build ``step(state, scene, camera, debug=None) -> (state', aux)``.
 
     ``aux['segments']`` is the frame's exact segment count as a 0-d
@@ -85,6 +87,11 @@ def make_step_fn(width: int, height: int, spp: int = 1,
     sampling is an offline mode, and the running average would weight
     per-pixel means over unequal sample counts as if equal.
 
+    The arguments are the JAX package's, in its order; ``device`` is the
+    port's own and keyword-only. ``jit`` is accepted for the JAX
+    package's callers and changes nothing: the port runs eagerly, and its
+    step computes the same frame either way.
+
     ``backend`` (when given) replaces ``opts.backend``. 'jnp' frames are
     the JAX package's ``render_image_jnp`` of the whole frame on the same
     device (``render/tracer.py``; no hints, no bands), and like the
@@ -94,9 +101,12 @@ def make_step_fn(width: int, height: int, spp: int = 1,
     around the same tensor: do not reuse the old state."""
     if spp < 1:
         raise ValueError(f"spp must be >= 1, got {spp}")
+    if not isinstance(jit, bool):
+        raise TypeError(f"jit must be a bool, got {jit!r}")
     device = resolve_device(device)
     opts = opts or TraceOptions()
     if backend is not None:
+        check_backend(backend)
         opts = dataclasses.replace(opts, backend=backend)
     opts = dataclasses.replace(opts, backend=resolve_backend(opts.backend))
     jnp = opts.backend == "jnp"

@@ -19,6 +19,7 @@ from raytracer_tpu_torch.render.megakernel import render, segment_stats
 from raytracer_tpu_torch.render.options import (
     DebugParams,
     TraceOptions,
+    check_debug,
     resolve_backend,
 )
 from raytracer_tpu_torch.render.rng import fold_in, key_data
@@ -30,7 +31,11 @@ from raytracer_tpu_torch.utils.resilience import retry_on_device_fault
 def resolve_device(device=None) -> torch.device:
     """``device`` as given, else CUDA; raises when CUDA is asked for
     (explicitly or by default) and absent. The CPU runs only when the
-    caller names it."""
+    caller names it. A value that is not a device or a device's name
+    (an argument given in another position) raises ``TypeError``."""
+    if not (device is None or isinstance(device, (str, torch.device))):
+        raise TypeError(f"device must be a torch.device or its name, got "
+                        f"{type(device).__name__} {device!r}")
     device = torch.device("cuda" if device is None else device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -120,13 +125,16 @@ def render_jnp(scene: Scene, dcam: DerivedCamera, width: int, height: int,
 
 
 def render_image(scene: Scene, camera, width: int, height: int, spp: int,
-                 seed, opts: TraceOptions | None = None,
-                 return_stats: bool = False, device=None,
-                 sample_offset: int = 0, debug: DebugParams | None = None):
-    """Render ``spp`` samples per pixel. ``camera`` is a
+                 key, opts: TraceOptions | None = None,
+                 debug: DebugParams | None = None,
+                 return_stats: bool = False, *, device=None,
+                 sample_offset: int = 0):
+    """Render ``spp`` samples per pixel. The arguments are the JAX
+    package's, in its order; ``device`` and ``sample_offset`` are the
+    port's own and keyword-only. ``camera`` is a
     :class:`CameraConfig` or an already derived :class:`DerivedCamera`.
-    ``seed`` is an int, which drives the same hash streams as
-    ``jax.random.PRNGKey(seed)`` in the JAX package, or a JAX key's data
+    ``key`` is an int, which drives the same hash streams as
+    ``jax.random.PRNGKey(key)`` in the JAX package, or a JAX key's data
     (a ``(2,)`` uint32 pair, such as ``jax.random.fold_in``'s). Samples
     are numbered from ``sample_offset`` on (a stratified progressive
     session renders its frame i at i·spp); an adaptive render needs 0.
@@ -151,9 +159,15 @@ def render_image(scene: Scene, camera, width: int, height: int, spp: int,
         raise ValueError(f"spp must be >= 1, got {spp}")
     if width < 1 or height < 1:
         raise ValueError(f"bad image size {width}x{height}")
+    if not (opts is None or isinstance(opts, TraceOptions)):
+        raise TypeError(f"opts must be a TraceOptions or None, got "
+                        f"{type(opts).__name__}")
+    check_debug(debug)
+    if not isinstance(return_stats, bool):
+        raise TypeError(f"return_stats must be a bool, got {return_stats!r}")
     device = resolve_device(device)
     opts = opts or TraceOptions()
-    dcam, key = to_derived(camera), key_data(seed)
+    dcam, key = to_derived(camera), key_data(key)
 
     jnp = resolve_backend(opts.backend) == "jnp"
 

@@ -9,10 +9,13 @@ scan as picking (``render/tracer.py``).
   red.
 
 The rays are pinhole and unjittered (the lens radius is zeroed), so each
-pixel's view is fixed. A miss is black. Rows run bottom-up (GL order).
+pixel's view is fixed, whatever the key. A miss is black. Rows run
+bottom-up (GL order).
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -48,17 +51,27 @@ def uuid_colour(uuid: torch.Tensor) -> torch.Tensor:
 
 
 def render_aov(scene: Scene, camera, width: int, height: int,
-               mode: str = "normal", device=None) -> torch.Tensor:
+               mode: str = "normal", key=None, *,
+               device=None) -> torch.Tensor:
     """One AOV view, (H, W, 3) float32 in [0, 1] on ``device`` (CUDA
-    unless the CPU is named). ``camera`` is a :class:`CameraConfig` or an
-    already derived :class:`DerivedCamera`."""
+    unless the CPU is named; keyword-only, the port's own). ``camera`` is
+    a :class:`CameraConfig` or an already derived :class:`DerivedCamera`.
+
+    ``key`` (an int seed or key data; None is ``PRNGKey(0)``'s) draws the
+    camera rays, as the JAX function does, with the jitter off and the
+    lens radius zeroed: the lens draw is scaled by zero, so no key changes
+    a pixel, for a defocused camera too (in both packages)."""
     if mode not in AOV_MODES:
         raise ValueError(f"unknown AOV mode {mode!r}; choose from "
                          f"{AOV_MODES}")
+    kd = rng.key_data(0 if key is None else key)
     device = resolve_device(device)
     scene = scene.to(device)
-    st = pixel_st_grid(width, height, device).reshape(-1, 2)
-    ray = generate_rays(to_derived(camera), st)
+    st = pixel_st_grid(width, height, device=device).reshape(-1, 2)
+    dcam = to_derived(camera)
+    pinhole = dataclasses.replace(
+        dcam, lens_radius=torch.zeros_like(dcam.lens_radius))
+    ray = generate_rays(pinhole, st, kd, width, height, jitter=False)
     rec = hit_world(ray.origin, ray.direction, scene)
     hit3 = rec.hit[:, None]
     if mode == "normal":

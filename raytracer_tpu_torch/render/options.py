@@ -28,7 +28,12 @@ BACKENDS = ("auto", "jnp", "pallas")
 
 
 def check_backend(backend: str) -> None:
-    """Raises for a name that is not a backend."""
+    """Raises ``TypeError`` for a value that is not a string (an argument
+    given in another position) and ``ValueError`` for a name that is not a
+    backend."""
+    if not isinstance(backend, str):
+        raise TypeError(f"backend must be one of {BACKENDS}, got "
+                        f"{type(backend).__name__} {backend!r}")
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got "
                          f"{backend!r}")
@@ -103,27 +108,38 @@ class TraceOptions:
 
     Options the JAX package has and the port does not yet serve raise
     ``NotImplementedError`` naming their ROADMAP item.
+
+    The fields up to ``cluster_scan`` are the JAX package's, in its order
+    and with its defaults, so a positional call means what it means there.
+    The rest are keyword-only: the JAX package's next field
+    (``cluster_cpi``) is not ported, and a keyword only the JAX package
+    has raises ``TypeError``.
     """
 
     max_depth: int = 8
     exhaust_black: bool = False
     near_zero_guard: bool = False
     gamma: bool = True
+    enable_debug: bool = False
+    backend: str = "auto"
     russian_roulette_depth: int = 0
     sort_pixels: bool = True
-    #: spheres per cluster of the partition
-    cluster_group: int = 16
-    cluster_bounds: str = "box"
-    cluster_partition: str = "kd"
     adaptive_tolerance: float = 0.0
     adaptive_chunk_spp: int = 0
     sampler: str = "random"
     split_scan: bool = True
     scan_mxu: bool = False
     cluster_scan: bool | str = "auto"
-    enable_debug: bool = False
+    # the JAX package's next field, cluster_cpi, is not ported (ROADMAP
+    # "Not to port"): from here on every field is keyword-only, so a
+    # positional call past cluster_scan raises instead of filling another
+    # field
+    _: dataclasses.KW_ONLY
+    cluster_bounds: str = "box"
+    #: spheres per cluster of the partition
+    cluster_group: int = 16
+    cluster_partition: str = "kd"
     interleave_rows: bool = False
-    backend: str = "auto"
 
     def __post_init__(self):
         check_backend(self.backend)
@@ -159,6 +175,14 @@ class TraceOptions:
                 f"cluster_partition {self.cluster_partition!r}: only 'kd' "
                 "is ported"
             )
+
+
+def check_debug(debug) -> None:
+    """Raises ``TypeError`` unless ``debug`` is a :class:`DebugParams` or
+    None (an argument given in another position)."""
+    if debug is not None and not isinstance(debug, DebugParams):
+        raise TypeError(f"debug must be a DebugParams or None, got "
+                        f"{type(debug).__name__} {debug!r}")
 
 
 def _f32(v) -> float:

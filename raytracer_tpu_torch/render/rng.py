@@ -50,6 +50,9 @@ def key_data(seed) -> tuple:
     if isinstance(seed, (int, np.integer)):
         return 0, int(seed) & M32
     kd = np.asarray(seed).reshape(-1)
+    if not np.issubdtype(kd.dtype, np.integer):
+        raise TypeError(f"a key is an int seed or 2 integers of key data, "
+                        f"got {seed!r}")
     if kd.shape != (2,):
         raise ValueError(f"key data must be 2 values, got shape {kd.shape}")
     return int(kd[0]) & M32, int(kd[1]) & M32
@@ -128,11 +131,12 @@ def fold_in(kd, data):
     return y0, y1
 
 
-def fold(kd, *counters: int) -> tuple:
-    """Fold a chain of counters into key data, one ``fold_in`` each."""
+def fold(key, *counters: int) -> tuple:
+    """Fold a chain of counters into key data ``key``, one ``fold_in``
+    each."""
     for c in counters:
-        kd = fold_in(kd, c)
-    return kd
+        key = fold_in(key, c)
+    return key
 
 
 def split(kd, n: int = 2) -> list:

@@ -177,7 +177,7 @@ def scatter(direction: torch.Tensor, rec: HitRecord, key,
     absorb."""
     if uniforms is None:
         uniforms = sampling.sphere_disk_glass_uniforms(
-            key, tuple(rec.t.shape), rec.t.device)
+            key, tuple(rec.t.shape), device=rec.t.device)
     unit_vec, unit_sphere, glass_u = uniforms
     diffuse_dir = rec.normal + unit_vec
     if opts.near_zero_guard:
@@ -340,7 +340,8 @@ def sample_sums(scene: Scene, dcam: DerivedCamera, st: torch.Tensor, key,
     device = st.device
     cp = cp_b0 = None
     if opts.sampler == "stratified":
-        cp, cp_b0 = sampling.stratified_rotations(key, st.shape[0], device)
+        cp, cp_b0 = sampling.stratified_rotations(key, st.shape[0],
+                                                  device=device)
     acc = torch.zeros((st.shape[0], 3), dtype=torch.float32, device=device)
     segments = torch.zeros((), dtype=torch.int64, device=device)
     for s in range(spp):
@@ -362,7 +363,7 @@ def render_image_jnp(scene: Scene, dcam: DerivedCamera, width: int,
                      debug: DebugParams | None = None,
                      return_stats: bool = False, sample_offset: int = 0,
                      row_offset: int = 0, band_height: int | None = None,
-                     device=None):
+                     *, device=None):
     """The offline render of the JAX package's ``render_image_jnp``, on
     ``device`` (the scene's when None), with key data ``key``: ``spp``
     passes, their mean and the gamma; (H, W, 3) float32, row 0 at the
@@ -380,7 +381,8 @@ def render_image_jnp(scene: Scene, dcam: DerivedCamera, width: int,
     device = scene.center.device if device is None else torch.device(device)
     scene, dcam = scene_on(scene, device), camera_on(dcam, device)
     bh = band_height if band_height is not None else height
-    st = pixel_st_grid(width, height, device)[row_offset:row_offset + bh]
+    st = pixel_st_grid(width, height, device=device)[
+        row_offset:row_offset + bh]
     st = st.reshape(-1, 2)
     acc, segments = sample_sums(scene, dcam, st, key, width, height, spp,
                                 opts, debug, sample_offset)

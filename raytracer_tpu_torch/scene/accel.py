@@ -1,6 +1,7 @@
 """The kd cluster partition of the gathered cluster walk (counterpart of
 ``raytracer_tpu/scene/accel.py``: ``_kd_chunks`` and
-``build_grid_clustered(partition='kd')``), built on the host in numpy.
+``build_grid_clustered(..., partition='kd')``), built on the host in
+numpy.
 
 Big spheres (|radius| > ``big_radius``) become "globals", tested exactly
 at the start of every bounce; the rest are split by balanced recursive
@@ -48,11 +49,14 @@ def _kd_chunks(idx, centers, radii, group):
             + _kd_chunks(order[n_left:], centers, radii, group))
 
 
-def build_grid_clustered(scene: Scene, big_radius: float = 0.5,
-                         group: int = 8,
-                         partition: str = "kd") -> ClusteredScene:
-    """Host-side build of the global/cluster partition. Only the 'kd'
-    partition is ported (the grid partition and its cell size are not).
+def build_grid_clustered(scene: Scene, cell_size: float = 2.0,
+                         big_radius: float = 0.5, group: int = 8,
+                         partition: str = "grid") -> ClusteredScene:
+    """Host-side build of the global/cluster partition, with the JAX
+    package's arguments and defaults. Only the 'kd' partition is ported:
+    the default, 'grid', raises ``NotImplementedError`` (ROADMAP "Not to
+    port"), so callers pass ``partition='kd'``; ``cell_size`` sizes the
+    grid's cells and is unused by 'kd'.
     """
     if partition != "kd":
         raise NotImplementedError(

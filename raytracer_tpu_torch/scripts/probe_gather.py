@@ -13,7 +13,9 @@ uniforms, the index recomputed from the trip counter i every trip:
 - the same-shape axis-1 forms (P1b): out[r, l] = Σ_i tbl[r, (r + i) mod W];
 - ``onehot_matmul`` (P1): out[r, l] = Σ_i Σ_s tbl[s, 0]·[s = (l + i) mod
   S], the TPU kernel's one-hot product over column 0 only, so its output
-  differs from ``take_along_axis`` wherever l ≠ 0.
+  differs from ``take_along_axis`` wherever l ≠ 0. On the card it runs
+  on the tensor cores (bf16 MMAs over the exact three-piece split of
+  column 0, :func:`bf16_split`; :func:`mma_account` counts its work).
 
 Each case runs at the TPU's shape, warm then best of 3, and prints the
 script's line with ns per gather of that shape; then at a card-filling
@@ -62,6 +64,19 @@ MAX_REPS = 65535
 #: the accumulation (a gather is a load, no operation); the one-hot scan
 #: adds a compare, a select, a product and a sum per table row
 OPS_TRIP, OPS_ONEHOT_ROW = 3, 4
+#: the one-hot product on the tensor cores (``csrc/probe_gather.cu``
+#: ``onehot_mma_kernel``, tables of at most ``MMA_MAX_ROWS`` rows): an
+#: m16n8k16's outputs, table rows and flops; a thread's CUDA-core
+#: operations a trip: per fragment row (two) the index and its mask, its
+#: k-tile and the compare with the warp's first, the two column offsets,
+#: and two compares and two shifted or zero words (``OPS_MMA_ROW``); once
+#: (``OPS_MMA_TRIP``) the warp's first k-tile (a sum, a mask, a shift),
+#: the switch on it, eight selects into the first and the next k-tile's
+#: words, the sum of the two accumulators (four), and the pieces' two
+#: sums, the accumulation and a shuffle for each of the two rows (eight)
+MMA_M, MMA_K, MMA_FLOP = 16, 16, 2 * 16 * 8 * 16
+MMA_MAX_ROWS = 256
+OPS_MMA_ROW, OPS_MMA_TRIP = 11, 24
 
 
 def gather_table(shape) -> torch.Tensor:
@@ -80,6 +95,35 @@ def probe_ops(mode: str, table_rows: int, rows: int, width: int,
     per_trip = OPS_TRIP + (OPS_ONEHOT_ROW * table_rows
                            if mode == "onehot" else 0)
     return per_trip * iters * rows * width * reps
+
+
+def mma_account(table_rows: int, rows: int, width: int, iters: int,
+                reps: int = 1) -> dict:
+    """What the one-hot product of one launch issues: its m16n8k16 MMAs
+    (every k-tile of every trip, for every 16 outputs), their flops, and
+    its CUDA-core operations (``OPS_MMA_*`` a thread and trip, 32 threads
+    for every 16 outputs)."""
+    tiles = max(1, table_rows // MMA_K)
+    warps = reps * -(-rows * width // MMA_M)
+    mmas = warps * iters * tiles
+    per_trip = 2 * OPS_MMA_ROW + OPS_MMA_TRIP
+    return {"mmas": mmas, "flop": mmas * MMA_FLOP,
+            "cuda_core_ops": warps * 32 * iters * per_trip}
+
+
+def bf16_split(x: torch.Tensor) -> tuple:
+    """The kernel's exact split of float32 ``x`` into three bf16 pieces,
+    as float32: ``hi`` its top 16 bits, ``mid`` those of ``x - hi``,
+    ``lo = (x - hi) - mid``; ``(hi + mid) + lo`` is ``x`` bit for bit for
+    every normal ``x`` of magnitude at least 2^-103 (and zero), where
+    ``lo`` has at most 8 significant bits and so is a bf16."""
+    def top16(v):
+        return (v.view(torch.int32) & -65536).view(torch.float32)
+
+    hi = top16(x)
+    r = x - hi
+    mid = top16(r)
+    return hi, mid, r - mid
 
 
 def _check(tbl: torch.Tensor, mode: str, rows: int, iters: int, reps: int):

@@ -74,6 +74,9 @@ FP32_FLOP_PEAK = 67e12
 #: bf16 outside the tensor cores: two elements per instruction (the
 #: Hopper architecture white paper's 133.8 TFLOP/s for the SXM part)
 BF16_FLOP_PEAK = 2 * FP32_FLOP_PEAK
+#: H100 SXM data sheet, bf16 on the tensor cores, dense (the one-hot
+#: product's MMAs)
+BF16_TC_PEAK = 989e12
 #: float32 lanes of a Hopper SM, and the 4-byte shared-memory words it
 #: serves a clock (32 banks: one warp-wide load without conflict, or one
 #: broadcast)

@@ -24,6 +24,7 @@ from __future__ import annotations
 import functools
 import logging
 import os
+import time
 
 import torch
 
@@ -111,14 +112,21 @@ def free_cached_memory() -> None:
         torch.cuda.empty_cache()
 
 
-def retry_on_device_fault(fn=None, *, retries: int | None = None):
+def retry_on_device_fault(fn=None, *, retries: int | None = None,
+                          delay_s: float = 0.0):
     """Decorator: run ``fn`` again after a recoverable device fault, with
-    the allocator's cache emptied in between.
+    the allocator's cache emptied and ``delay_s`` seconds slept in
+    between.
 
     Retries ``retries`` times (default: env RAYTRACER_TPU_DEVICE_RETRIES,
     else 2). A sticky fault raises :class:`DeviceContextLost` at once;
     anything else re-raises unchanged. The wrapped call must be
     restartable from its arguments, and it runs the same code each time.
+
+    ``delay_s`` is the JAX package's argument with another default, on
+    purpose: there 10 s let a crashed TPU worker come back; here the
+    fault is an allocation that failed, the cache is emptied at once, and
+    there is nothing to wait for, so 0.0.
     """
 
     def wrap(f):
@@ -141,6 +149,8 @@ def retry_on_device_fault(fn=None, *, retries: int | None = None):
                 # out of the handler, the failed attempt's frames and the
                 # tensors they held are released
                 free_cached_memory()
+                if delay_s > 0:
+                    time.sleep(delay_s)
 
         return inner
 

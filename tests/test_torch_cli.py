@@ -183,7 +183,7 @@ def test_cli_jnp_backend_renders(tmp_path, capsys, flags):
         assert ("warning: --adaptive requires the Pallas batch backend; "
                 "rendering fixed spp") in said.err
         step = make_step_fn(w, h, 1, opts, device="cpu")
-        state, _ = run_frames(step, init_render_state(w, h, 3, "cpu"),
+        state, _ = run_frames(step, init_render_state(w, h, 3, device="cpu"),
                               scene, cam, 2)
         image = state.accum
     else:

@@ -336,9 +336,9 @@ def test_debug_strips_adaptive_and_never_splits():
     # a hinted debug session renders the unhinted one's frames
     bare = pstep.make_step_fn(32, 16, 1, fixed, device="cpu")
     s1, t1 = pstep.run_frames(hinted, pstate.init_render_state(
-        32, 16, 0, "cpu"), scene, cam, 2, dbg)
+        32, 16, 0, device="cpu"), scene, cam, 2, dbg)
     s2, t2 = pstep.run_frames(bare, pstate.init_render_state(
-        32, 16, 0, "cpu"), scene, cam, 2, dbg)
+        32, 16, 0, device="cpu"), scene, cam, 2, dbg)
     assert torch.equal(s1.accum, s2.accum) and t1 == t2
 
 
@@ -356,7 +356,7 @@ def test_debug_step_matches_jax_step():
                                                       enable_debug=True),
                               device="cpu")
     ps, p_segs = pstep.run_frames(
-        step, pstate.init_render_state(48, 27, 5, "cpu"),
+        step, pstate.init_render_state(48, 27, 5, device="cpu"),
         port_scene(j_scene), port_camera(j_cam), 2,
         debug_from_numpy(jd.cursor_point, jd.selected_object))
     d = np.abs(ps.accum.numpy() - np.asarray(js.accum)).max(axis=-1)

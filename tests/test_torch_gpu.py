@@ -358,7 +358,7 @@ def test_progressive_step_waits_for_nothing(card):
     assert state.frame == 4 and state.render_count == 4
     cpu_step = pstep.make_step_fn(W, H, 1, opts, device="cpu")
     ref, _ = pstep.run_frames(cpu_step,
-                              pstate.init_render_state(W, H, 0, "cpu"),
+                              pstate.init_render_state(W, H, 0, device="cpu"),
                               scene, cam, 4)
     d = (state.accum.cpu() - ref.accum).abs().amax(-1)
     assert float((d > 1e-3).float().mean()) <= 0.005
@@ -492,6 +492,54 @@ def test_scan_kernel_matches_plain_on_card(card, block):
     for rows in (bs.R_SUB, 64):
         got = bs.scan_probe(sph, block, rows, 20)
         assert torch.equal(got, bs.scan_probe_plain(sph, block, rows, 20))
+
+
+@pytest.mark.parametrize("block", list(bs.BLOCKS))
+def test_scan_block_bitwise_at_odd_rows_on_card(card, block):
+    """The redesigned scan (one slot loop for every block) at odd row
+    counts and an odd trip count: bitwise the plain version."""
+    sph = bs.scan_table().to(card)
+    for rows in (1, 7, 133):
+        got = bs.scan_probe(sph, block, rows, 9)
+        assert torch.equal(got, bs.scan_probe_plain(sph, block, rows, 9))
+
+
+@pytest.mark.parametrize("reps, rows, iters", [(1, 8, 5000), (3, 8, 77),
+                                               (5, 3, 31), (257, 1, 6)])
+def test_onehot_mma_bitwise_at_odd_counts_on_card(card, reps, rows, iters):
+    """The one-hot product on the tensor cores at odd replica, row and
+    trip counts (a warp's 16 outputs past a replica's end, the trip
+    loop's tail): bitwise the plain version."""
+    tbl = pg.gather_table((pg.S, 128)).to(card)
+    got = pg.gather_probe(tbl, "onehot", rows, iters, reps)
+    assert torch.equal(got, pg.gather_probe_plain(tbl, "onehot", rows,
+                                                  iters, reps))
+
+
+@pytest.mark.parametrize("shape", [(16, 8), (64, 32), (8, 4)])
+def test_onehot_mma_small_tables_on_card(card, shape):
+    """Tables of fewer than 256 rows (fewer k-tiles; one, zero-padded,
+    under 16 rows) and narrower than 16 lanes: bitwise."""
+    tbl = pg.gather_table(shape).to(card)
+    got = pg.gather_probe(tbl, "onehot", 5, 41, 2)
+    assert torch.equal(got, pg.gather_probe_plain(tbl, "onehot", 5, 41, 2))
+
+
+def test_probe_ab_base_equals_new_for_unchanged_sources(card, tmp_path):
+    """``scripts/probe_ab.py`` with the current sources as its base: both
+    builds bound, run and held bitwise on every case; nothing fails."""
+    import shutil
+
+    from raytracer_tpu_torch.scripts import probe_ab
+    from raytracer_tpu_torch.utils import cuda_build
+
+    old = tmp_path / "csrc"
+    shutil.copytree(cuda_build.CSRC_DIR, old)
+    got = probe_ab.run(old, 1, "test", tmp_path / "out")
+    for name in probe_ab.SOURCES:
+        assert got[name]["bitwise"] and all(got[name]["bitwise"].values())
+        assert "old" in got[name]["reports"]
+    assert probe_ab.failures(got) == []
 
 
 def oom_once(fn):
@@ -748,7 +796,7 @@ def test_jnp_step_waits_for_nothing(card):
     scene, cam, *_ = presets.get_config("demo", W, H)
     step = pstep.make_step_fn(W, H, 1, TraceOptions(max_depth=4),
                               backend="jnp")
-    state = pstate.init_render_state(W, H, 0, card)
+    state = pstate.init_render_state(W, H, 0, device=card)
     state, _ = step(state, scene, cam)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")

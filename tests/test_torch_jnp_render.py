@@ -213,7 +213,7 @@ def test_progressive_step_matches_jax(sampler):
     step = make_step_fn(48, 27, 1, TraceOptions(max_depth=4,
                                                 sampler=sampler),
                         device="cpu", backend="jnp")
-    st = init_render_state(48, 27, 5, "cpu")
+    st = init_render_state(48, 27, 5, device="cpu")
     for _ in range(4):
         jst, jaux = jstep(jst, jscene, jcam, JaxDebug.none())
         st, aux = step(st, scene, cam)
@@ -229,7 +229,7 @@ def test_stratified_step_frames_are_offline_renders():
     scene, cam, *_ = presets.get_config("demo", 32, 18)
     opts = TraceOptions(max_depth=3, sampler="stratified", backend="jnp")
     step = make_step_fn(32, 18, 1, opts, should_average=False, device="cpu")
-    st = init_render_state(32, 18, 2, "cpu")
+    st = init_render_state(32, 18, 2, device="cpu")
     for i in range(3):
         st, _ = step(st, scene, cam)
         ref = api.render_image(scene, cam, 32, 18, 1, 2, opts, device="cpu",
@@ -307,11 +307,11 @@ def test_auto_takes_the_kernels(monkeypatch):
         launched.append(1), real_render(*a, **k))[1])
     from raytracer_tpu_torch.progressive import step as pstep
     monkeypatch.setattr(pstep, "render", megakernel.render)
-    st = init_render_state(16, 8, 0, "cpu")
+    st = init_render_state(16, 8, 0, device="cpu")
     make_step_fn(16, 8, 1, device="cpu")(st, scene, cam)
     assert launched == [1]
     make_step_fn(16, 8, 1, device="cpu", backend="jnp")(
-        init_render_state(16, 8, 0, "cpu"), scene, cam)
+        init_render_state(16, 8, 0, device="cpu"), scene, cam)
     assert launched == [1]
 
 

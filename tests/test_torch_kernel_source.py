@@ -452,15 +452,26 @@ def test_probe_instantiations():
         "__nv_bfloat162", "float"]
     assert "__hmul2(a, b)" in chain and "__hadd2(a, b)" in chain
     assert "v = add(mul(v, xs[c]), xs[(c + k + 1) % kChains]);" in chain
-    assert re.findall(r"launch<(k\w+)>\(tbl, out", gather) == [
-        "kAxis0", "kAxis1", "kOneHot"]
+    assert re.findall(r"return \(int\)(launch\w*)(<k\w+>)?\(tbl, out",
+                      gather) == [("launch", "<kAxis0>"),
+                                  ("launch", "<kAxis1>"),
+                                  ("launch_onehot", "")]
     assert "cudaFuncAttributeMaxDynamicSharedMemorySize" in gather
     assert "cudaDevAttrMaxSharedMemoryPerBlockOptin" in gather
-    assert "g = g + smem[s * W] * (s == idx ? 1.0f : 0.0f);" in gather
+    # the one-hot product on the tensor cores: bf16 MMAs with an fp32
+    # accumulator over the exact three-piece split of column 0
+    assert re.search(r'"mma\.sync\.aligned\.m16n8k16\.row\.col\.f32\.bf16'
+                     r'\.bf16\.f32 "', gather)
+    assert "const float lo = r - mid;" in gather
+    assert "acc_g = acc_g + ((d[0] + d[1]) + lo_g);" in gather
+    assert "__launch_bounds__(kMmaThreads, kMmaMinBlocks)" in gather
     assert sorted(int(b) for b in re.findall(
         r"case (\d+): return \(int\)launch<\1>\(s, out", scan)) == [
             8, 32, 64, 512]
     assert "template <int kBlock>" in scan
+    # every block one slot loop under a register cap of 32 warps an SM
+    assert "__launch_bounds__(kThreads, kMinBlocks)" in scan
+    assert "constexpr int kMinBlocks = 8;" in scan
     for src in PROBES.values():
         assert src.count("return (int)cudaErrorInvalidValue;") >= 1
         assert "return cudaGetLastError();" in src

@@ -214,6 +214,51 @@ def test_gather_modes_differ_off_lane_zero(jax_gathers):
     assert torch.equal(a[:, 0], b[:, 0]) and bool((a[:, 1:] != b[:, 1:]).all())
 
 
+def test_bf16_split_reproduces_the_table_bitwise():
+    """The one-hot product's B: column 0 of the script's table split into
+    three bf16 pieces (each float32 with zero low 16 bits) whose sum
+    ``(hi + mid) + lo`` is every value bit for bit."""
+    col0 = pg.gather_table((pg.S, 128))[:, 0].contiguous()
+    hi, mid, lo = pg.bf16_split(col0)
+    for piece in (hi, mid, lo):
+        assert bool(((piece.view(torch.int32) & 0xFFFF) == 0).all())
+    assert torch.equal(((hi + mid) + lo).view(torch.int32),
+                       col0.view(torch.int32))
+
+
+def test_bf16_split_is_exact_on_its_domain():
+    """The stated domain: zero and every normal float32 of magnitude at
+    least 2^-103 (here 2^20 random bit patterns across it, both signs,
+    and its edges), so that ``lo`` stays a normal bf16."""
+    rs = np.random.RandomState(3)
+    bits = rs.randint(0, 2**31 - 1, size=1 << 20, dtype=np.int64)
+    x = bits.astype(np.uint32).view(np.float32)
+    x = x[np.isfinite(x) & (np.abs(x) >= 2.0**-103)]
+    edges = np.array([0.0, 2.0**-103, -(2.0**-103), 1.0, -1.0,
+                      np.nextafter(np.float32(1), np.float32(0)),
+                      np.finfo(np.float32).max, -np.finfo(np.float32).max],
+                     np.float32)
+    x = torch.from_numpy(np.concatenate([x * rs.choice([-1, 1], x.size)
+                                         .astype(np.float32), edges]))
+    hi, mid, lo = pg.bf16_split(x)
+    assert bool(((lo.view(torch.int32) & 0xFFFF) == 0).all())
+    assert torch.equal(((hi + mid) + lo).view(torch.int32),
+                       x.view(torch.int32))
+
+
+def test_mma_account_of_the_card_filling_case():
+    """The one-hot product at 256 replicas of (8, 128) outputs, 5000
+    trips, 16 k-tiles: 1.31e9 m16n8k16 MMAs, 5.4e12 flop (5.4 ms at the
+    data sheet's dense bf16 989e12)."""
+    got = pg.mma_account(pg.S, 8, 128, pg.ITERS, 256)
+    assert got["mmas"] == 256 * (8 * 128 // 16) * pg.ITERS * 16
+    assert got["flop"] == got["mmas"] * 4096
+    assert got["flop"] / profiling.BF16_TC_PEAK * 1e3 == pytest.approx(
+        5.43, abs=0.01)
+    assert got["cuda_core_ops"] == got["mmas"] // 16 * 32 * (
+        2 * pg.OPS_MMA_ROW + pg.OPS_MMA_TRIP)
+
+
 def test_gather_refuses_what_the_kernel_cannot_hold():
     """A table above a block's shared memory, sides that are not powers of
     two, axis-1 rows the table lacks, too many replicas: refused on every
@@ -503,3 +548,70 @@ def test_best_seconds_returns_the_last_result():
     best, got = profiling.best_seconds(
         lambda: calls.append(1) or len(calls), torch.device("cpu"), 3)
     assert got == 4 and len(calls) == 4 and best >= 0.0
+
+
+# ---- the probe A/B's compiler reports ----
+
+def sass_line(addr: int, text: str) -> str:
+    return f"        /*{addr:04x}*/                   {text} ;"
+
+
+def test_probe_ab_counts_the_scan_loop_per_slot_and_ray():
+    """The slot loop is the smallest loop holding a root (``MUFU.RSQ``);
+    its instructions are counted per root, a slot and ray."""
+    from raytracer_tpu_torch.scripts import probe_ab, walk_ab
+
+    body = ["LDS.128 R4, [R2]", "FMUL R6, R4, R8", "FADD R6, R6, R9",
+            "MUFU.RSQ R7, R6", "FMNMX R10, R10, R7, PT",
+            "MUFU.RSQ R7, R6", "FMNMX R11, R11, R7, PT",
+            "ISETP.NE.AND P0, PT, R3, RZ, PT", "@P0 BRA 0x20"]
+    lines = [sass_line(0x10, "MOV R1, c[0x0][0x28]")]
+    lines += [sass_line(0x20 + 0x10 * j, t) for j, t in enumerate(body)]
+    lines += [sass_line(0x20 + 0x10 * len(body), "STL [R1], R4"),
+              sass_line(0x30 + 0x10 * len(body), "BRA 0x10"),
+              sass_line(0x40 + 0x10 * len(body), "EXIT")]
+    insns = [(int(m.group(1), 16), m.group(2), m.group(3)) for m in
+             map(walk_ab._SASS_INSN.search, lines) if m]
+    got = probe_ab.scan_sass(insns)
+    assert got["slot_rays"] == 2 and got["loop_insns"] == len(body)
+    assert got["per_slot_ray"] == len(body) / 2
+    assert got["by_opcode"]["MUFU.RSQ"] == 1.0
+    assert got["by_opcode"]["FMNMX"] == 1.0 and got["local"] == 1
+    hmma = [(0x10 * j, "HMMA.16816.F32.BF16", " R4, R8, R12, R4")
+            for j in range(3)] + [(0x30, "BRA", " 0x0")]
+    assert probe_ab.onehot_sass(hmma)["hmma"] == 3
+    assert probe_ab.onehot_sass(hmma)["by_class"]["hmma"] == 3
+
+
+def test_probe_ab_reads_ptxas_per_instantiation():
+    """Registers and spill bytes per kernel instantiation; a device
+    function's own report is not its caller's."""
+    from raytracer_tpu_torch.scripts import probe_ab
+
+    scan = "_ZN12_GLOBAL__N_111scan_kernelILi512EEEvPK6float4Pfiii"
+    mma = "_ZN12_GLOBAL__N_117onehot_mma_kernelILi16EEEvPKfPfiiii"
+    log = "\n".join([
+        f"ptxas info    : Compiling entry function '{scan}' for 'sm_90a'",
+        f"ptxas info    : Function properties for {scan}",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 40 registers, 380 bytes cmem[0]",
+        "ptxas info    : Function properties for __internal_sqrt",
+        "    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads",
+        f"ptxas info    : Compiling entry function '{mma}' for 'sm_90a'",
+        f"ptxas info    : Function properties for {mma}",
+        "    0 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads",
+        "ptxas info    : Used 64 registers, 380 bytes cmem[0]"])
+    assert probe_ab.ptxas(log) == {
+        "scan_kernel<512>": {"spill_bytes": 0, "registers": 40},
+        "onehot_mma_kernel<16>": {"spill_bytes": 16, "registers": 64}}
+    assert probe_ab.instantiation("_Z3foov") is None
+
+
+def test_probe_ab_builds_the_base_revision(tmp_path):
+    """The base revision's two probes, as ``cuda_build.build_all`` takes
+    them; without a base, nothing besides the kernels' own builds."""
+    from raytracer_tpu_torch.scripts import probe_ab
+
+    assert probe_ab.extra_builds(tmp_path) == [
+        ("probe_scan", tmp_path, ()), ("probe_gather", tmp_path, ())]
+    assert probe_ab.extra_builds(None) == []

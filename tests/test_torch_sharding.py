@@ -189,13 +189,13 @@ def world4() -> dict:
                     ("stratified", dataclasses.replace(
                         sopts, sampler="stratified"))):
         step = make_sharded_step_fn(W, H, m4, spp=1, opts=o)
-        st = shard_render_state(pstate.init_render_state(W, H, 0, "cpu"),
+        st = shard_render_state(pstate.init_render_state(W, H, 0, device="cpu"),
                                 m4)
         st, segs = steps(step, st, scene, cam, 2)
         got[f"step4_{name}"] = (gather_rows(st.accum, m4), segs, st.frame,
                                 st.render_count)
     step = make_sharded_step_fn(W, H, m22, spp=2, opts=sopts)
-    st = shard_render_state(pstate.init_render_state(W, H, 0, "cpu"), m22)
+    st = shard_render_state(pstate.init_render_state(W, H, 0, device="cpu"), m22)
     st, segs = steps(step, st, scene, cam, 1)
     got["step22"] = (gather_rows(st.accum, m22), segs)
     sc, scam = split_scene(), presets.simple_camera(W, H)
@@ -204,7 +204,7 @@ def world4() -> dict:
     plain = make_sharded_step_fn(W, H, m4, spp=1, opts=sopts)
     got["hint"] = hinted.static_split is not None
     for name, step in (("hinted", hinted), ("plain", plain)):
-        st = shard_render_state(pstate.init_render_state(W, H, 0, "cpu"),
+        st = shard_render_state(pstate.init_render_state(W, H, 0, device="cpu"),
                                 m4)
         st, segs = steps(step, st, sc, scam, 2)
         got[f"split_{name}"] = (gather_rows(st.accum, m4), segs)
@@ -227,7 +227,7 @@ def world4() -> dict:
                     ("step_debug", dataclasses.replace(sopts,
                                                        enable_debug=True))):
         step = make_sharded_step_fn(W, H, m4, spp=1, opts=o)
-        st = shard_render_state(pstate.init_render_state(W, H, 0, "cpu"),
+        st = shard_render_state(pstate.init_render_state(W, H, 0, device="cpu"),
                                 m4)
         st, segs = steps(step, st, scene, cam, 1)
         got[name] = (gather_rows(st.accum, m4), segs)
@@ -327,10 +327,10 @@ def single():
         for name, o in (("random", sopts),
                         ("stratified", dataclasses.replace(
                             sopts, sampler="stratified"))):
-            st = pstate.init_render_state(W, H, 0, "cpu")
+            st = pstate.init_render_state(W, H, 0, device="cpu")
             step = pstep.make_step_fn(W, H, 1, o, device="cpu")
             got[f"step_{name}"] = steps(step, st, scene, cam, 2)
-        st = pstate.init_render_state(W, H, 0, "cpu")
+        st = pstate.init_render_state(W, H, 0, device="cpu")
         got["step2"] = steps(pstep.make_step_fn(W, H, 2, sopts,
                                                 device="cpu"),
                              st, scene, cam, 1)
@@ -574,7 +574,7 @@ def test_static_split_step_bitwise_hint_less(ranks4):
 def test_step_buffer_stays_a_band():
     """shard_render_state gives each rank its band; a step refuses the
     whole buffer."""
-    st = pstate.init_render_state(W, H, 0, "cpu")
+    st = pstate.init_render_state(W, H, 0, device="cpu")
     st.accum.copy_(torch.arange(H * W * 3, dtype=torch.float32)
                    .reshape(H, W, 3))
 

@@ -87,12 +87,12 @@ def port_world(scene_np: dict, cam_np: dict) -> dict:
     got["render4"] = render_image_sharded(scene, cam, W, H, SPP, 0, m4,
                                           strat, return_stats=True)
     step = make_sharded_step_fn(W, H, m22, spp=2, opts=opts)
-    st = shard_render_state(init_render_state(W, H, 0, "cpu"), m22)
+    st = shard_render_state(init_render_state(W, H, 0, device="cpu"), m22)
     st, segs = steps(step, st, scene, cam)
     got["step22"] = (gather_rows(st.accum, m22), segs)
     dbg_opts = TraceOptions(max_depth=DEPTH, enable_debug=True)
     step = make_sharded_step_fn(W, H, m4, spp=1, opts=dbg_opts)
-    st = shard_render_state(init_render_state(W, H, 0, "cpu"), m4)
+    st = shard_render_state(init_render_state(W, H, 0, device="cpu"), m4)
     st, segs = steps(step, st, scene, cam, DebugParams(CURSOR, SELECTED))
     got["debug4"] = (gather_rows(st.accum, m4), segs)
     return got
