@@ -84,6 +84,15 @@ kernels:
   frames bitwise the single step's; and K1, K1a+K1s, K2 and K2s on a band
   of rows that starts mid-image, bitwise their plain versions.
 
+Then the JAX package's names: ``render_image_pallas``
+(``render/pallas_kernel.py``) on the full cover through K1, its image and
+exact segments bitwise ``render_image``'s, both walls in turns;
+``python -m raytracer_tpu_torch.entry`` in its own process, and
+``entry()``'s step (the demo at 256x144, 1 spp, depth 8): bitwise a
+directly built ``make_step_fn`` frame, K2 and no other kernel of the
+renderer under the profiler, K2 bitwise its plain version on the step's
+inputs, ms a frame.
+
 Then the JAX package's jnp tracer, ``backend='jnp'`` (plain PyTorch on
 the card: no kernel may launch on it): Threefry on the card bitwise the
 CPU's; two_sphere, three_sphere, demo and dof at 64x36, 32 spp, against
@@ -2365,7 +2374,7 @@ def phase_fault_recovery(smi: str):
     import logging
 
     from raytracer_tpu_torch.app.engine import Engine
-    from raytracer_tpu_torch.render import api
+    from raytracer_tpu_torch.render import pallas_kernel
     from raytracer_tpu_torch.scene import presets
 
     scene, cam, *_ = presets.get_config("cover", ENGINE_W, ENGINE_H)
@@ -2413,13 +2422,13 @@ def phase_fault_recovery(smi: str):
     handler = Catch(logging.WARNING)
     logging.getLogger("raytracer_tpu_torch.utils.resilience").addHandler(
         handler)
-    real_render = api.render
-    api.render = oom_once(real_render)
+    real_render = pallas_kernel.render
+    pallas_kernel.render = oom_once(real_render)
     try:
         img1, stats1, wall1 = render_once(scene, cam, w, h, spp, 0,
                                           trace_options(5, depth))
     finally:
-        api.render = real_render
+        pallas_kernel.render = real_render
         logging.getLogger("raytracer_tpu_torch.utils.resilience") \
             .removeHandler(handler)
     render_same = (torch.equal(img0, img1) and stats0["segments_exact"]
@@ -2942,6 +2951,165 @@ def phase_sharding(smi: str, golden) -> None:
         fail("the (3,) progressive frames differ from the single step's")
 
 
+# --- the import surface: render_image_pallas and entry() ------------------
+
+#: timed repeats of each render of the pallas-cover path (in turns)
+SURFACE_REPEATS = 3
+#: frames of entry()'s step timed in batches of PROG_BATCH
+ENTRY_FRAMES = 4 * PROG_BATCH
+#: K2 <adaptive, stratified, split, debug, form> as the profiler names it
+K2_PROFILE_NAME = "flat_scan_kernel<false, false, false, false,"
+ENTRY_LINE = re.compile(r"^entry OK: \((\d+), (\d+), 3\) (\d+\.\d+)$")
+
+
+def phase_import_surface_entry(smi: str, golden) -> None:
+    """The JAX package's names through the kernels:
+
+    - pallas-cover: ``render_image_pallas`` (``render/pallas_kernel.py``)
+      on the full cover (1200x800, 500 spp, d50, rr5), the path
+      ``bench.py`` times, through K1 alone: the image and the exact
+      segments bitwise ``render_image``'s, the image against the golden;
+      both walls, best of SURFACE_REPEATS in turns;
+    - entry-demo: ``python -m raytracer_tpu_torch.entry`` in its own
+      process, its line the same step's in this one; then ``entry()``'s
+      step (the demo at 256x144, 1 spp, d8): bitwise a directly built
+      ``make_step_fn`` frame with one launch of K2, K2 ``<0,0,0,0,b>``
+      and no other kernel of the renderer under the profiler over
+      PROG_BATCH steps (the wrapper counting one launch a step), K2
+      bitwise its plain version on the step's own tables and lane map,
+      ms a frame (best batch of PROG_BATCH)."""
+    from raytracer_tpu_torch.camera.camera import derive_camera
+    from raytracer_tpu_torch.entry import HEIGHT, WIDTH, entry
+    from raytracer_tpu_torch.progressive.state import init_render_state
+    from raytracer_tpu_torch.progressive.step import make_step_fn
+    from raytracer_tpu_torch.render import cluster_walk as cw
+    from raytracer_tpu_torch.render import megakernel
+    from raytracer_tpu_torch.render.options import TraceOptions
+    from raytracer_tpu_torch.render.pallas_kernel import render_image_pallas
+    from raytracer_tpu_torch.render.rng import fold_in, kernel_seed_from_key
+    from raytracer_tpu_torch.scene import presets
+
+    scene, cam, w, h, spp, depth = presets.get_config("cover")
+    opts, dcam = trace_options(5, depth), derive_camera(cam)
+
+    def pallas(seed):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img, stats = render_image_pallas(scene, dcam, w, h, spp, seed, opts,
+                                         return_stats=True)
+        torch.cuda.synchronize()
+        return img, stats, time.perf_counter() - t0
+
+    (img_p, st_p, _), launches = render_path(
+        "pallas-cover", "cluster_walk", lambda: pallas(0))
+    img_r, st_r, _ = render_once(scene, cam, w, h, spp, 0, opts)
+    same = (torch.equal(img_p, img_r)
+            and st_p["segments_exact"] == st_r["segments_exact"])
+    walls = {"render_image_pallas": [], "render_image": []}
+    for _ in range(SURFACE_REPEATS):
+        walls["render_image_pallas"].append(pallas(0)[2])
+        walls["render_image"].append(render_once(scene, cam, w, h, spp, 0,
+                                                 opts)[2])
+    im = img_p.cpu().numpy().astype(np.float64)
+    mad = float(np.abs(im - golden).mean())
+    segs = st_p["segments_exact"]
+    best = {k: min(v) for k, v in walls.items()}
+    print(f"[pallas-cover] render_image_pallas {w}x{h} {spp} spp "
+          f"d{depth} rr5: launches {launches} of cluster_walk alone; image "
+          f"and segments_exact ({segs} against {st_r['segments_exact']}) "
+          f"bitwise render_image's {same}; golden mean|d| {mad:.3e}; wall "
+          + "; ".join(f"{k} {' '.join(f'{x:.4f}' for x in v)} s (best "
+                      f"{best[k]:.4f}, {segs / best[k] / 1e6:.2f} Mrays/s)"
+                      for k, v in walls.items())
+          + f" [{smi}]")
+    if not same:
+        fail("pallas-cover: render_image_pallas differs from render_image")
+    if im.shape != golden.shape or not np.isfinite(im).all() \
+            or mad > GOLDEN_MAX_MAD:
+        fail(f"pallas-cover disagrees with the golden (mean|d| {mad})")
+
+    out, _, wall = finish_module(start_module(["raytracer_tpu_torch.entry"]),
+                                 "entry-demo module")
+    line = out.strip().splitlines()[-1] if out.strip() else ""
+    match = ENTRY_LINE.match(line)
+    step, args = entry()
+    state0 = dataclasses.replace(args[0], accum=args[0].accum.clone())
+    (got, aux), n_launch = render_path("entry-demo", "flat_scan",
+                                       lambda: step(*args))
+    direct_step = make_step_fn(WIDTH, HEIGHT, spp=1,
+                               opts=TraceOptions(max_depth=8), jit=False)
+    want, want_aux = direct_step(init_render_state(WIDTH, HEIGHT, 0),
+                                 *args[1:])
+    seg = int(aux["segments"])
+    direct = (torch.equal(got.accum, want.accum)
+              and seg == int(want_aux["segments"]))
+    print(f"[entry-demo] python -m raytracer_tpu_torch.entry: {line!r} in "
+          f"{wall:.3f} s with process start; in this process the step's "
+          f"segments {seg}, launches {n_launch} of flat_scan alone, the "
+          f"frame bitwise a direct make_step_fn frame {direct} [{smi}]")
+    if (not match or (int(match[1]), int(match[2])) != (HEIGHT, WIDTH)
+            or float(match[3]) != float(seg)):
+        fail(f"entry-demo: the module printed {line!r}, this process's "
+             f"step {seg} segments")
+    if not direct or n_launch != 1:
+        fail("entry-demo: entry()'s step differs from make_step_fn's")
+
+    # a batch of steps under the profiler, from the same fresh state: one
+    # step alone is too short a window (after the sharding phase, one
+    # step's window held 0.0138 ms of device time and no K2 row)
+    def batch():
+        st = dataclasses.replace(state0, accum=state0.accum.clone())
+        for _ in range(PROG_BATCH):
+            st, _ = step(st, *args[1:])
+        return st
+
+    reset_launch_counts()
+    _, wall_ms, busy, rows, host_ops = device_profile(batch)
+    counted = launch_counts()
+    kernels = [r for r in rows if "_kernel<" in r[2]
+               and ("flat_scan" in r[2] or "cluster_walk" in r[2])]
+    print(f"[entry-demo] {PROG_BATCH} steps under the profiler: wall "
+          f"{wall_ms / PROG_BATCH:.4f} ms a step, device busy "
+          f"{busy / PROG_BATCH:.4f} ms a step (idle share "
+          f"{1 - busy / wall_ms:.4f}), {host_ops / PROG_BATCH:.1f} PyTorch "
+          f"operator calls a step; launches {counted}; the renderer's "
+          f"kernel rows {[(k, n, round(ms, 4)) for ms, n, k in kernels]} "
+          f"[{smi}]")
+    if (counted != {"flat_scan": PROG_BATCH} or len(kernels) != 1
+            or not 1 <= kernels[0][1] <= PROG_BATCH
+            or K2_PROFILE_NAME not in kernels[0][2]):
+        fail(f"entry-demo: the profiler saw {kernels} and the wrapper "
+             f"counted {counted}, not K2 <0,0,0,0,b> alone")
+
+    # K2 against its plain version on the step's own inputs
+    step_opts = dataclasses.replace(TraceOptions(max_depth=8),
+                                    backend="pallas")
+    choice = megakernel.choose_kernel(args[1], derive_camera(args[2]),
+                                      step_opts, "cuda", analyse=False)
+    kseed = kernel_seed_from_key(fold_in(state0.key, state0.frame))
+    k2 = compare(f"entry-demo K2 {WIDTH}x{HEIGHT} d8", (
+        choice.tables, cw.identity_map(WIDTH, HEIGHT, "cuda"), kseed, 0, 1,
+        WIDTH, HEIGHT, step_opts, choice.g_full, None), flat=True)
+    if choice.kernel != "flat_scan" or choice.g_full is not None \
+            or not k2["bitwise"]:
+        fail("entry-demo: K2 is not bitwise its plain version")
+
+    state, ms = dataclasses.replace(state0, accum=state0.accum.clone()), []
+    for _ in range(ENTRY_FRAMES // PROG_BATCH):
+        t0 = time.perf_counter()
+        for _ in range(PROG_BATCH):
+            state, aux = step(state, *args[1:])
+        int(aux["segments"])
+        ms.append((time.perf_counter() - t0) * 1e3 / PROG_BATCH)
+    print(f"[entry-demo] {WIDTH}x{HEIGHT} 1 spp d8, "
+          f"{ENTRY_FRAMES} frames in batches of {PROG_BATCH}: "
+          f"{min(ms):.4f} ms a frame (best batch; batches "
+          f"{' '.join(f'{x:.4f}' for x in ms)}), fps {1e3 / min(ms):.1f} "
+          f"[{smi}]")
+    if not torch.isfinite(state.accum).all():
+        fail("entry-demo: the running average is not finite")
+
+
 # --- the jnp tracer (render/tracer.py), backend='jnp', on the card ----------
 #
 # No kernel of the port lies on this path: it is plain PyTorch on CUDA
@@ -3410,6 +3578,7 @@ def main():
     timed(phase_fault_recovery, smi)
     timed(phase_edited_scenes, smi)
     timed(phase_sharding, smi, golden)
+    timed(phase_import_surface_entry, smi, golden)
     t_jnp = time.perf_counter()
     timed(phase_jnp_rng, smi)
     timed(phase_jnp_goldens, smi)

@@ -44,6 +44,13 @@ edits, with ``Scene.pad_to`` and ``Scene.num_active``);
 fault, through the same kernels; a sticky one raises
 :class:`DeviceContextLost`).
 
+The JAX package's import surface holds: every public name of each of
+its modules (less ``native/``, ``utils/jaxcache.py``, ``render/primary.py``
+and the TPU's grid partition and tiling) resolves at the same path here,
+``render_image_pallas`` in :mod:`raytracer_tpu_torch.render.pallas_kernel`
+among them; :func:`raytracer_tpu_torch.entry.entry` is the counterpart of
+``__graft_entry__.py``'s ``entry()``.
+
 Multi-device sharding is the subpackage :mod:`raytracer_tpu_torch.parallel`
 (imported on its own): ``make_mesh`` over ``torch.distributed``,
 ``render_image_sharded_pallas``, ``make_sharded_step_fn``,
@@ -56,16 +63,20 @@ Entry points a user starts the renderer from (each on CUDA unless told
     python -m raytracer_tpu_torch.app.cli --config cover --out cover.png
     python -m raytracer_tpu_torch.bench          # bench.py's JSON line
     python -m raytracer_tpu_torch.app.viewer     # the terminal viewer
+    python -m raytracer_tpu_torch.entry          # one progressive step
 """
 
 from raytracer_tpu_torch.app.engine import Engine
 from raytracer_tpu_torch.app.viewer import run_viewer
+from raytracer_tpu_torch.camera import controller
 from raytracer_tpu_torch.camera.camera import (
     CameraConfig,
     DerivedCamera,
     camera_from_numpy,
     derive_camera,
 )
+from raytracer_tpu_torch.core import sampling, vec
+from raytracer_tpu_torch.core.ray import Ray
 from raytracer_tpu_torch.interact.picking import (
     center_hit,
     update_cursor_state,
@@ -117,6 +128,7 @@ __all__ = [
     "GLASS",
     "METAL",
     "Material",
+    "Ray",
     "RenderState",
     "Scene",
     "TraceOptions",
@@ -125,6 +137,7 @@ __all__ = [
     "add_sphere",
     "camera_from_numpy",
     "center_hit",
+    "controller",
     "debug_from_numpy",
     "derive_camera",
     "init_render_state",
@@ -141,8 +154,10 @@ __all__ = [
     "retry_on_device_fault",
     "run_frames",
     "run_viewer",
+    "sampling",
     "save_render_state",
     "scene_from_numpy",
     "update_cursor_state",
     "update_sphere",
+    "vec",
 ]

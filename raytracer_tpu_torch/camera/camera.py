@@ -13,23 +13,18 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from raytracer_tpu_torch.core import sampling, vec
+from raytracer_tpu_torch.core.ray import Ray
 from raytracer_tpu_torch.render import rng
 
 # the controller's clamps (the reference's src/state.rs:349-358)
 FOV_MIN = 0.0001
 FOV_MAX = math.pi * 0.75
 PITCH_LIMIT_DEG = 89.0
-
-
-class Ray(NamedTuple):
-    origin: torch.Tensor  # (..., 3)
-    direction: torch.Tensor  # (..., 3), not normalised
 
 
 def _f32(v) -> torch.Tensor:

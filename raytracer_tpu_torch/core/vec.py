@@ -10,6 +10,19 @@ import math
 import torch
 
 
+def vec3(x, y, z, dtype=torch.float32) -> torch.Tensor:
+    """A (3,) vector, or (..., 3) stacked from parts that broadcast
+    together, in ``dtype``. Parts go on the device of the first part that
+    is a tensor; parts that are all Python numbers (or numpy values) go on
+    the CPU, where ``CameraConfig.create`` and ``make_scene`` build theirs
+    too."""
+    device = next((v.device for v in (x, y, z)
+                   if isinstance(v, torch.Tensor)), None)
+    parts = [torch.as_tensor(v, dtype=dtype, device=device)
+             for v in (x, y, z)]
+    return torch.stack(torch.broadcast_tensors(*parts), dim=-1)
+
+
 def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Dot product over the last axis."""
     p = a * b

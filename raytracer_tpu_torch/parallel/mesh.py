@@ -105,7 +105,7 @@ def rank_device(device=None) -> torch.device:
 
 
 def make_mesh(axis_sizes: Sequence[int],
-              axis_names: Sequence[str] = ("rows", "spp"),
+              axis_names: Sequence[str] = ("rows", "spp"), *,
               device=None) -> Mesh:
     """This rank's :class:`Mesh` of shape ``axis_sizes`` over the
     initialised default process group, whose world size must be the

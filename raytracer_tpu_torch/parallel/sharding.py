@@ -39,7 +39,7 @@ import numpy as np
 import torch
 
 from raytracer_tpu_torch.camera.camera import CameraConfig, pixel_st_grid
-from raytracer_tpu_torch.parallel.mesh import Mesh
+from raytracer_tpu_torch.parallel.mesh import Mesh, make_mesh
 from raytracer_tpu_torch.progressive.state import RenderState
 from raytracer_tpu_torch.progressive.step import (
     DEFAULT_LAST_FRAME_WEIGHT,

@@ -1,6 +1,7 @@
 """The port's render entry point (counterpart of
 ``raytracer_tpu/render/api.py``): one signature, two backends. 'auto'
-and 'pallas' run the kernels (``render/megakernel.py``), 'jnp' the JAX
+and 'pallas' run the kernels (``render_image_pallas`` in
+``render/pallas_kernel.py``, over ``render/megakernel.py``), 'jnp' the JAX
 package's wavefront tracer (``render/tracer.py``), each on the device the
 caller gets from :func:`resolve_device`."""
 
@@ -15,7 +16,7 @@ from raytracer_tpu_torch.camera.camera import (
     DerivedCamera,
     derive_camera,
 )
-from raytracer_tpu_torch.render.megakernel import render, segment_stats
+from raytracer_tpu_torch.render.megakernel import segment_stats
 from raytracer_tpu_torch.render.options import (
     DebugParams,
     TraceOptions,
@@ -47,6 +48,24 @@ def resolve_device(device=None) -> torch.device:
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
     return device
+
+
+def check_render_args(width: int, height: int, spp: int, opts, debug,
+                      return_stats) -> None:
+    """Raise on arguments no render takes: ``spp`` or a side below 1, an
+    ``opts`` that is not a :class:`TraceOptions`, a ``debug`` that is not
+    a :class:`DebugParams` or None, a ``return_stats`` that is not a
+    bool (an argument given in another position)."""
+    if spp < 1:
+        raise ValueError(f"spp must be >= 1, got {spp}")
+    if width < 1 or height < 1:
+        raise ValueError(f"bad image size {width}x{height}")
+    if not isinstance(opts, TraceOptions):
+        raise TypeError(f"opts must be a TraceOptions, got "
+                        f"{type(opts).__name__}")
+    check_debug(debug)
+    if not isinstance(return_stats, bool):
+        raise TypeError(f"return_stats must be a bool, got {return_stats!r}")
 
 
 def to_derived(camera) -> DerivedCamera:
@@ -138,8 +157,9 @@ def render_image(scene: Scene, camera, width: int, height: int, spp: int,
     (a ``(2,)`` uint32 pair, such as ``jax.random.fold_in``'s). Samples
     are numbered from ``sample_offset`` on (a stratified progressive
     session renders its frame i at i·spp); an adaptive render needs 0.
-    With ``opts.backend`` 'auto' or 'pallas', scenes go through the
-    cluster walk or the flat scan as the JAX package's Pallas backend
+    With ``opts.backend`` 'auto' or 'pallas', scenes go through
+    :func:`~raytracer_tpu_torch.render.pallas_kernel.render_image_pallas`:
+    the cluster walk or the flat scan as the JAX package's Pallas backend
     chooses; 'jnp' renders with the JAX package's wavefront tracer
     (:func:`render_jnp`), on the same device. With ``opts.enable_debug`` the
     kernel draws the overlay of ``debug`` (a :class:`DebugParams`;
@@ -155,18 +175,12 @@ def render_image(scene: Scene, camera, width: int, height: int, spp: int,
     on the same device through the same kernels; a sticky fault raises
     ``DeviceContextLost`` (``utils/resilience.py``). On the card the render
     ends in a synchronize, so the image is complete when it returns."""
-    if spp < 1:
-        raise ValueError(f"spp must be >= 1, got {spp}")
-    if width < 1 or height < 1:
-        raise ValueError(f"bad image size {width}x{height}")
-    if not (opts is None or isinstance(opts, TraceOptions)):
-        raise TypeError(f"opts must be a TraceOptions or None, got "
-                        f"{type(opts).__name__}")
-    check_debug(debug)
-    if not isinstance(return_stats, bool):
-        raise TypeError(f"return_stats must be a bool, got {return_stats!r}")
+    # imported here: pallas_kernel imports this module
+    from raytracer_tpu_torch.render.pallas_kernel import render_image_pallas
+
+    opts = TraceOptions() if opts is None else opts
+    check_render_args(width, height, spp, opts, debug, return_stats)
     device = resolve_device(device)
-    opts = opts or TraceOptions()
     dcam, key = to_derived(camera), key_data(key)
 
     jnp = resolve_backend(opts.backend) == "jnp"
@@ -177,17 +191,17 @@ def render_image(scene: Scene, camera, width: int, height: int, spp: int,
             image, segments = render_jnp(scene, dcam, width, height, spp,
                                          key, opts, device, sample_offset,
                                          debug)
-            out = image, segments, {}
+            out = ((image, segment_stats(segments, {})) if return_stats
+                   else image)
         else:
-            out = render(scene, dcam, width, height, spp, key, opts, device,
-                         sample_offset=sample_offset, debug=debug)
+            out = render_image_pallas(scene, dcam, width, height, spp, key,
+                                      opts, debug, return_stats,
+                                      sample_offset=sample_offset,
+                                      device=device)
         if device.type == "cuda":
             # inside the retry's scope, so an asynchronous fault surfaces
             # here
             torch.cuda.synchronize(device)
         return out
 
-    image, segments, extra = run()
-    if not return_stats:
-        return image
-    return image, segment_stats(segments, extra)
+    return run()

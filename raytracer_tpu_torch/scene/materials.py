@@ -11,6 +11,8 @@ DIFFUSE = 0
 METAL = 1
 GLASS = 2
 
+MATERIAL_NAMES = {DIFFUSE: "diffuse", METAL: "metal", GLASS: "glass"}
+
 
 @dataclasses.dataclass(frozen=True)
 class Material:

@@ -12,7 +12,7 @@ import torch
 from raytracer_tpu_torch.camera.camera import derive_camera
 from raytracer_tpu_torch.progressive import state as pstate
 from raytracer_tpu_torch.progressive import step as pstep
-from raytracer_tpu_torch.render import api, megakernel, tables
+from raytracer_tpu_torch.render import api, megakernel, pallas_kernel, tables
 from raytracer_tpu_torch.render import cluster_walk as cw
 from raytracer_tpu_torch.render import flat_scan as fs
 from raytracer_tpu_torch.render.options import DebugParams, TraceOptions
@@ -587,7 +587,8 @@ def test_render_image_recovers_from_oom_bitwise_on_card(card, monkeypatch):
     opts = TraceOptions(max_depth=12, russian_roulette_depth=5)
     want, want_stats = api.render_image(scene, cam, W, H, SPP, 3, opts,
                                         return_stats=True)
-    monkeypatch.setattr(api, "render", oom_once(api.render))
+    monkeypatch.setattr(pallas_kernel, "render",
+                        oom_once(pallas_kernel.render))
     got, got_stats = api.render_image(scene, cam, W, H, SPP, 3, opts,
                                       return_stats=True)
     assert torch.equal(got, want)
@@ -807,3 +808,52 @@ def test_jnp_step_waits_for_nothing(card):
         torch.cuda.set_sync_debug_mode("default")
     assert state.frame == 4 and int(aux["segments"]) >= W * H
     assert bool(torch.isfinite(state.accum).all())
+
+
+def test_entry_step_launches_the_flat_scan_on_card(card):
+    """``entry()`` without a device steps on the card: one launch of K2
+    (``flat_scan``, the unsplit fixed random instantiation) and nothing
+    else, and the frame is bitwise a directly built step's."""
+    from raytracer_tpu_torch.entry import entry
+
+    step, args = entry()
+    assert args[0].accum.device.type == "cuda"
+    cw.reset_launch_counts()
+    fs.reset_launch_counts()
+    got, got_aux = step(*args)
+    torch.cuda.synchronize()
+    assert fs.flat_scan.launches_by_variant == {"flat_scan": 1}
+    assert cw.cluster_walk.launches_by_variant == {}
+    scene, cam, *_ = presets.get_config("demo", 256, 144)
+    want, want_aux = pstep.make_step_fn(
+        256, 144, spp=1, opts=TraceOptions(max_depth=8), jit=False)(
+        pstate.init_render_state(256, 144, 0), scene, cam,
+        DebugParams.none())
+    assert torch.equal(got.accum, want.accum)
+    assert int(got_aux["segments"]) == int(want_aux["segments"])
+
+
+@pytest.mark.parametrize("adaptive", [False, True],
+                         ids=["fixed", "adaptive"])
+def test_render_image_pallas_is_render_image_on_card(card, adaptive):
+    """``render_image_pallas`` on the card, on a small cover through the
+    cluster walk: the image and the exact segments bitwise
+    ``render_image``'s."""
+    scene, cam, *_ = presets.get_config("cover", W, H)
+    spp = 96 if adaptive else SPP
+    opts = TraceOptions(max_depth=12, russian_roulette_depth=5,
+                        adaptive_tolerance=0.2 if adaptive else 0.0,
+                        sampler="stratified" if adaptive else "random")
+    cw.reset_launch_counts()
+    img, stats = pallas_kernel.render_image_pallas(
+        scene, derive_camera(cam), W, H, spp, 3, opts, return_stats=True)
+    torch.cuda.synchronize()
+    kernel = ("cluster_walk_adaptive_stratified" if adaptive
+              else "cluster_walk")
+    assert set(cw.cluster_walk.launches_by_variant) == {kernel}
+    want, want_stats = api.render_image(scene, cam, W, H, spp, 3, opts,
+                                        return_stats=True)
+    assert img.device.type == "cuda" and torch.equal(img, want)
+    assert stats["segments_exact"] == want_stats["segments_exact"]
+    if adaptive:
+        assert torch.equal(stats["spp_map"], want_stats["spp_map"])

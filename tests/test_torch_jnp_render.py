@@ -50,7 +50,7 @@ from raytracer_tpu_torch.app.engine import Engine
 from raytracer_tpu_torch.camera.camera import camera_from_numpy
 from raytracer_tpu_torch.progressive.state import init_render_state
 from raytracer_tpu_torch.progressive.step import make_step_fn
-from raytracer_tpu_torch.render import api, megakernel
+from raytracer_tpu_torch.render import api, megakernel, pallas_kernel
 from raytracer_tpu_torch.render.options import (
     TraceOptions,
     resolve_backend,
@@ -284,8 +284,8 @@ def test_auto_takes_the_kernels(monkeypatch):
     """'auto' keeps the port's meaning: the kernels (their plain versions
     on the CPU), never the jnp tracer; 'jnp' runs only when named."""
     calls = []
-    real_render, real_jnp = api.render, api.render_jnp
-    monkeypatch.setattr(api, "render", lambda *a, **k: (
+    real_render, real_jnp = pallas_kernel.render, api.render_jnp
+    monkeypatch.setattr(pallas_kernel, "render", lambda *a, **k: (
         calls.append("kernels"), real_render(*a, **k))[1])
     monkeypatch.setattr(api, "render_jnp", lambda *a, **k: (
         calls.append("jnp"), real_jnp(*a, **k))[1])

@@ -22,7 +22,7 @@ import pytest
 import torch
 
 from raytracer_tpu_torch.app.engine import Engine
-from raytracer_tpu_torch.render import api
+from raytracer_tpu_torch.render import api, pallas_kernel
 from raytracer_tpu_torch.scene import presets
 from raytracer_tpu_torch.utils import cuda_build, resilience
 from raytracer_tpu_torch.utils.cuda_build import CudaLaunchError
@@ -191,7 +191,7 @@ def test_render_image_retries_the_whole_render(monkeypatch, caplog):
     scene, cam, *_ = presets.get_config("two_sphere", 32, 16)
     want, want_stats = api.render_image(scene, cam, 32, 16, 2, 5,
                                         return_stats=True, device="cpu")
-    real, devices = api.render, []
+    real, devices = pallas_kernel.render, []
 
     def once(*args, **kwargs):
         devices.append(args[7])
@@ -199,7 +199,7 @@ def test_render_image_retries_the_whole_render(monkeypatch, caplog):
             raise torch.OutOfMemoryError("CUDA out of memory")
         return real(*args, **kwargs)
 
-    monkeypatch.setattr(api, "render", once)
+    monkeypatch.setattr(pallas_kernel, "render", once)
     with caplog.at_level("WARNING", logger=resilience.__name__):
         got, got_stats = api.render_image(scene, cam, 32, 16, 2, 5,
                                           return_stats=True, device="cpu")

@@ -48,6 +48,7 @@ PAIRS = {
                       "pixel_st_grid"),
     "camera.controller": ("KeydownMap", "mouse_look", "set_camera_angles",
                           "set_fov", "update_position", "zoom"),
+    "core.ray": ("Ray",),
     "core.sampling": ("alphas_fixed32", "disk_from_uv", "fold",
                       "pixel_jitter", "r2_point", "random_in_unit_disk",
                       "random_in_unit_sphere", "random_unit_vector",
@@ -55,11 +56,12 @@ PAIRS = {
                       "unit_vector_from_uv"),
     "core.vec": ("cross", "degrees_to_radians", "dot", "length",
                  "length_squared", "mix", "near_zero", "near_zero_signed",
-                 "normalize", "reflect", "refract"),
+                 "normalize", "reflect", "refract", "vec3"),
     "interact.appstate": ("AppState", "adjusted_screen_dimensions",
                           "cameras_equal"),
     "interact.picking": ("CenterHit", "update_cursor_state"),
-    "parallel.sharding": ("make_sharded_step_fn", "render_image_sharded",
+    "parallel.sharding": ("make_mesh", "make_sharded_step_fn",
+                          "render_image_sharded",
                           "render_image_sharded_pallas",
                           "shard_render_state"),
     "progressive.state": ("RenderState", "init_render_state",
@@ -70,6 +72,7 @@ PAIRS = {
     "render.debug": ("render_aov",),
     "render.options": ("DebugParams", "TraceOptions",
                        "cluster_scan_enabled"),
+    "render.pallas_kernel": ("render_image_pallas",),
     "render.tracer": ("HitRecord", "background", "hit_world",
                       "render_image_jnp", "render_sample", "scatter",
                       "schlick", "trace_rays"),
