@@ -1,0 +1,4 @@
+"""Percent of the profiled renders' window in which no operation ran on
+the device."""
+
+from benchmark.readers import idle_share as read  # noqa: F401
