@@ -26,6 +26,7 @@ from raytracer_tpu_torch.render.options import (
 from raytracer_tpu_torch.render.rng import fold_in, key_data
 from raytracer_tpu_torch.render.tracer import render_image_jnp
 from raytracer_tpu_torch.scene.spheres import Scene
+from raytracer_tpu_torch.utils.profiling import span, wait
 from raytracer_tpu_torch.utils.resilience import retry_on_device_fault
 
 
@@ -174,7 +175,10 @@ def render_image(scene: Scene, camera, width: int, height: int, spp: int,
     fault (an allocation that failed) it runs again from its arguments,
     on the same device through the same kernels; a sticky fault raises
     ``DeviceContextLost`` (``utils/resilience.py``). On the card the render
-    ends in a synchronize, so the image is complete when it returns."""
+    ends in a synchronize, so the image is complete when it returns.
+
+    Each attempt is the span ``render_image`` of the registry in
+    ``utils/profiling.py``, its synchronize the wait ``sync``."""
     # imported here: pallas_kernel imports this module
     from raytracer_tpu_torch.render.pallas_kernel import render_image_pallas
 
@@ -187,21 +191,23 @@ def render_image(scene: Scene, camera, width: int, height: int, spp: int,
 
     @retry_on_device_fault
     def run():
-        if jnp:
-            image, segments = render_jnp(scene, dcam, width, height, spp,
-                                         key, opts, device, sample_offset,
-                                         debug)
-            out = ((image, segment_stats(segments, {})) if return_stats
-                   else image)
-        else:
-            out = render_image_pallas(scene, dcam, width, height, spp, key,
-                                      opts, debug, return_stats,
-                                      sample_offset=sample_offset,
-                                      device=device)
-        if device.type == "cuda":
-            # inside the retry's scope, so an asynchronous fault surfaces
-            # here
-            torch.cuda.synchronize(device)
-        return out
+        with span("render_image"):
+            if jnp:
+                image, segments = render_jnp(scene, dcam, width, height,
+                                             spp, key, opts, device,
+                                             sample_offset, debug)
+                out = ((image, segment_stats(segments, {})) if return_stats
+                       else image)
+            else:
+                out = render_image_pallas(scene, dcam, width, height, spp,
+                                          key, opts, debug, return_stats,
+                                          sample_offset=sample_offset,
+                                          device=device)
+            if device.type == "cuda":
+                # inside the retry's scope, so an asynchronous fault
+                # surfaces here
+                with wait("sync"):
+                    torch.cuda.synchronize(device)
+            return out
 
     return run()

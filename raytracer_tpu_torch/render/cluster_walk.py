@@ -64,7 +64,7 @@ from raytracer_tpu_torch.render.tables import (
     debug_uniforms,
     walk_layout,
 )
-from raytracer_tpu_torch.utils import cuda_build
+from raytracer_tpu_torch.utils import cuda_build, profiling
 
 LANES_TPU = 128  # the RNG's pixel id keeps the TPU's padded row width
 DRAWS_PER_BOUNCE = 8
@@ -195,8 +195,12 @@ cluster_walk.launches_by_variant = {}
 
 
 def reset_launch_counts():
+    """Zero this module's launch counters and empty the span registry
+    (``utils.profiling.reset_counters``): one window of counting for all
+    of the program's counters starts. ``flat_scan``'s counters stay."""
     cluster_walk.launches = 0
     cluster_walk.launches_by_variant = {}
+    profiling.reset_counters()
 
 
 def _lib():

@@ -52,7 +52,7 @@ from raytracer_tpu_torch.render.options import (
     TraceOptions,
 )
 from raytracer_tpu_torch.render.tables import FlatTables
-from raytracer_tpu_torch.utils import cuda_build
+from raytracer_tpu_torch.utils import cuda_build, profiling
 
 #: floats per sphere row (see ``tables.sphere_table``)
 ROW = 12
@@ -128,8 +128,12 @@ flat_scan.launches_by_variant = {}
 
 
 def reset_launch_counts():
+    """Zero this module's launch counters and empty the span registry
+    (``utils.profiling.reset_counters``): one window of counting for all
+    of the program's counters starts. ``cluster_walk``'s counters stay."""
     flat_scan.launches = 0
     flat_scan.launches_by_variant = {}
+    profiling.reset_counters()
 
 
 def _lib():

@@ -42,6 +42,13 @@ Segment totals are exact int64 sums of the kernel's per-lane counts;
 ``return_stats`` reports them rounded once to float32 under
 ``"segments"`` (as the JAX package does) and exactly under
 ``"segments_exact"``.
+
+The host phases are spans of the registry in ``utils/profiling.py``:
+``prep`` (every host step before the first launch: the kernel choice,
+its tables, the schedule and the first lane map),
+``launch`` (one chunk's enqueue), ``plan`` (the accumulation and re-plan
+after a chunk), ``finish``, and the waits ``segments`` of
+:func:`segment_stats`.
 """
 
 from __future__ import annotations
@@ -75,6 +82,7 @@ from raytracer_tpu_torch.render.tables import (
 )
 from raytracer_tpu_torch.scene.accel import ClusteredScene
 from raytracer_tpu_torch.scene.spheres import Scene
+from raytracer_tpu_torch.utils.profiling import span, wait
 
 
 def plan_from_cost(cost: torch.Tensor, width: int):
@@ -217,22 +225,26 @@ class KernelChoice:
         ``debug`` under ``opts.enable_debug``)."""
         if self.kernel == "cluster_walk":
             def launch(pixel_map, offset, cs, budget=None):
-                return cluster_walk(self.tables, pixel_map, kseed, offset, cs,
-                                    width, height, opts, budget, debug)
+                with span("launch"):
+                    return cluster_walk(self.tables, pixel_map, kseed,
+                                        offset, cs, width, height, opts,
+                                        budget, debug)
         else:
             def launch(pixel_map, offset, cs, budget=None):
-                return flat_scan(self.tables, pixel_map, kseed, offset, cs,
-                                 width, height, opts, self.g_full, budget,
-                                 debug)
+                with span("launch"):
+                    return flat_scan(self.tables, pixel_map, kseed, offset,
+                                     cs, width, height, opts, self.g_full,
+                                     budget, debug)
         return launch
 
 
 def permute_scene(scene: Scene, perm) -> Scene:
     """The scene's slots in the order of ``perm`` (numpy indices)."""
-    idx = upload(torch.as_tensor(np.asarray(perm, np.int64)),
-                 scene.center.device)
-    return Scene(**{f.name: getattr(scene, f.name)[idx]
-                    for f in dataclasses.fields(scene)})
+    with span("tables"):
+        idx = upload(torch.as_tensor(np.asarray(perm, np.int64)),
+                     scene.center.device)
+        return Scene(**{f.name: getattr(scene, f.name)[idx]
+                        for f in dataclasses.fields(scene)})
 
 
 def choose_kernel(scene: Scene, dcam: DerivedCamera, opts: TraceOptions,
@@ -279,25 +291,28 @@ def _render_adaptive(launch, sizes, width, height, opts, device):
     tol = opts.adaptive_tolerance
     track_chunks = opts.sampler == "stratified"
     acc, segs = launch(identity_map(width, height, device), 0, sizes[0])
-    segments = segs.sum(dtype=torch.int64)
-    inv, pixel_map, budget = plan_adaptive(acc, width, sizes[1], tol)
-    # between-chunk statistics start after the profile chunk, whose size
-    # differs; only the stratified sampler keeps them
-    cstats = torch.zeros((3, acc.shape[1]), dtype=torch.float32,
-                         device=device) if track_chunks else None
-    t975 = t975_table(device) if track_chunks else None
+    with span("plan"):
+        segments = segs.sum(dtype=torch.int64)
+        inv, pixel_map, budget = plan_adaptive(acc, width, sizes[1], tol)
+        # between-chunk statistics start after the profile chunk, whose
+        # size differs; only the stratified sampler keeps them
+        cstats = torch.zeros((3, acc.shape[1]), dtype=torch.float32,
+                             device=device) if track_chunks else None
+        t975 = t975_table(device) if track_chunks else None
     offset, spp = sizes[0], sum(sizes)
     for cs in sizes[1:]:
         if track_chunks:
             lsum_prev, n_prev = acc[0] + acc[1] + acc[2], acc[4]
         out, segs = launch(pixel_map, offset, cs, budget)
-        acc, segments = accumulate_sorted(out, segs, acc, segments, inv)
-        if track_chunks:
-            cstats = chunk_mean_stats(cstats, acc, lsum_prev, n_prev)
-        offset += cs
-        if offset < spp:
-            inv, pixel_map, budget = plan_adaptive(acc, width, cs, tol,
-                                                   cstats, t975)
+        with span("plan"):
+            acc, segments = accumulate_sorted(out, segs, acc, segments,
+                                              inv)
+            if track_chunks:
+                cstats = chunk_mean_stats(cstats, acc, lsum_prev, n_prev)
+            offset += cs
+            if offset < spp:
+                inv, pixel_map, budget = plan_adaptive(acc, width, cs, tol,
+                                                       cstats, t975)
     return acc, segments
 
 
@@ -332,9 +347,6 @@ def render_sums(scene: Scene, dcam: DerivedCamera, width: int, height: int,
             raise ValueError(f"rows must be a non-empty 1-D tensor, got "
                              f"shape {tuple(rows.shape)}")
         n_rows = rows.shape[0]
-    choice = choose_kernel(scene, dcam, opts, device, static_split,
-                           static_cluster, analyse)
-    kseed = kernel_seed_from_key(key)
 
     def launcher(opts):
         launch = choice.launcher(kseed, width, height, opts, debug)
@@ -343,42 +355,51 @@ def render_sums(scene: Scene, dcam: DerivedCamera, width: int, height: int,
         return lambda pixel_map, offset, cs, budget=None: launch(
             band_pixels(pixel_map, rows), offset, cs, budget)
 
-    launch = launcher(opts)
-    # the ORIGINAL slot count: the schedule must not see the padding
-    plan = schedule.render_schedule(spp, width * n_rows, scene.count, opts)
-    if opts.adaptive_tolerance > 0.0:
-        if sample_offset != 0:
-            # pixels stop at different sample counts, so no uniform base
-            # offset describes where a later render would resume
-            raise ValueError(
-                "adaptive_tolerance requires sample_offset == 0 "
-                "(per-pixel stop counts cannot resume from a uniform base)"
-            )
+    # every host step before the first launch
+    with span("prep"):
+        choice = choose_kernel(scene, dcam, opts, device, static_split,
+                               static_cluster, analyse)
+        kseed = kernel_seed_from_key(key)
+        launch = launcher(opts)
+        # the ORIGINAL slot count: the schedule must not see the padding
+        plan = schedule.render_schedule(spp, width * n_rows, scene.count,
+                                        opts)
+        if opts.adaptive_tolerance > 0.0:
+            if sample_offset != 0:
+                # pixels stop at different sample counts, so no uniform
+                # base offset describes where a later render would resume
+                raise ValueError(
+                    "adaptive_tolerance requires sample_offset == 0 (per-"
+                    "pixel stop counts cannot resume from a uniform base)"
+                )
+            if plan.adaptive is None:
+                # nothing could gate a later chunk, or the overlay is on.
+                # Render fixed spp through the four-row kernels
+                launch = launcher(dataclasses.replace(
+                    opts, adaptive_tolerance=0.0))
         if plan.adaptive is None:
-            # nothing could gate a later chunk, or the overlay is on.
-            # Render fixed spp through the four-row kernels
-            launch = launcher(dataclasses.replace(opts,
-                                                  adaptive_tolerance=0.0))
+            sizes, _ = schedule.chunk_schedule(spp, plan.chunk)
+            acc = torch.zeros((4, width * n_rows), dtype=torch.float32,
+                              device=device)
+            segments = torch.zeros((), dtype=torch.int64, device=device)
+            pixel_map, inv = identity_map(width, n_rows, device), None
     if plan.adaptive is not None:
         return _render_adaptive(launch, plan.adaptive, width, n_rows, opts,
                                 device)
-    sizes, _ = schedule.chunk_schedule(spp, plan.chunk)
-    acc = torch.zeros((4, width * n_rows), dtype=torch.float32,
-                      device=device)
-    segments = torch.zeros((), dtype=torch.int64, device=device)
     sort = plan.sort
-    pixel_map, inv = identity_map(width, n_rows, device), None
     offset = sample_offset
     for cs in sizes:
         out, segs = launch(pixel_map, offset, cs)
-        if inv is None:
-            acc = acc + out
-            segments = segments + segs.sum(dtype=torch.int64)
-        else:
-            acc, segments = accumulate_sorted(out, segs, acc, segments, inv)
-        offset += cs
-        if sort and offset < sample_offset + spp:
-            inv, pixel_map = plan_from_cost(acc[3], width)
+        with span("plan"):
+            if inv is None:
+                acc = acc + out
+                segments = segments + segs.sum(dtype=torch.int64)
+            else:
+                acc, segments = accumulate_sorted(out, segs, acc, segments,
+                                                  inv)
+            offset += cs
+            if sort and offset < sample_offset + spp:
+                inv, pixel_map = plan_from_cost(acc[3], width)
     return acc, segments
 
 
@@ -386,11 +407,13 @@ def finish(acc: torch.Tensor, width: int, height: int, spp: int,
            gamma: bool):
     """:func:`render_sums`' sums of ``height`` rows → ``(image, extra)``:
     the (height, W, 3) image and, for an adaptive render's six rows,
-    ``{'spp_map': (height, W) sample counts}``, else ``{}``."""
-    if acc.shape[0] == 6:
-        image, spp_map = finalize_adaptive(acc, width, height, gamma)
-        return image, {"spp_map": spp_map}
-    return finalize_flat(acc[:3], width, height, spp, gamma), {}
+    ``{'spp_map': (height, W) sample counts}``, else ``{}``. The span
+    ``finish``."""
+    with span("finish"):
+        if acc.shape[0] == 6:
+            image, spp_map = finalize_adaptive(acc, width, height, gamma)
+            return image, {"spp_map": spp_map}
+        return finalize_flat(acc[:3], width, height, spp, gamma), {}
 
 
 def render(scene: Scene, dcam: DerivedCamera, width: int, height: int,
@@ -417,11 +440,13 @@ def render(scene: Scene, dcam: DerivedCamera, width: int, height: int,
 def segment_stats(segments: torch.Tensor, extra: dict) -> dict:
     """The render's stats: segments rounded once to float32 (as the JAX
     package reports them) and exactly; an adaptive render's mean spp and
-    sample map."""
-    total = int(segments)
+    sample map. Each read waits for the device: the wait ``segments``."""
+    with wait("segments"):
+        total = int(segments)
     stats = {"segments": float(np.float32(total)), "segments_exact": total}
     if "spp_map" in extra:
         spp_map = extra["spp_map"]
-        stats["mean_spp"] = float(spp_map.mean(dtype=torch.float64))
+        with wait("segments"):
+            stats["mean_spp"] = float(spp_map.mean(dtype=torch.float64))
         stats["spp_map"] = spp_map
     return stats

@@ -21,6 +21,14 @@ from raytracer_tpu_torch.render.options import TraceOptions
 from raytracer_tpu_torch.render.tables import pad_spheres
 from raytracer_tpu_torch.scene import materials
 from raytracer_tpu_torch.scene.spheres import Scene
+from raytracer_tpu_torch.utils.profiling import span, wait
+
+
+def _host(t):
+    """``t`` as a host numpy array: a read that waits for the device, the
+    wait ``scene_read``."""
+    with wait("scene_read"):
+        return t.detach().cpu().numpy()
 
 
 def containable_flags(scene: Scene, dcam: DerivedCamera,
@@ -29,10 +37,11 @@ def containable_flags(scene: Scene, dcam: DerivedCamera,
     when ``opts.split_scan`` is off."""
     if not opts.split_scan:
         return None
-    c = scene.center.detach().cpu().numpy().astype(np.float64)
-    r = np.abs(scene.radius.detach().cpu().numpy().astype(np.float64))
-    act = scene.active.detach().cpu().numpy().astype(np.float64) > 0.0
-    mat = scene.material_type.detach().cpu().numpy()
+    c = _host(scene.center).astype(np.float64)
+    r = np.abs(_host(scene.radius).astype(np.float64))
+    act = _host(scene.active).astype(np.float64) > 0.0
+    mat = _host(scene.material_type)
+    # the derived camera lives on the host: its read waits for nothing
     cam = dcam.origin.detach().cpu().numpy().astype(np.float64)
     lens = float(dcam.lens_radius)
     # float32 hit points on sphere i wander off its surface by about
@@ -63,18 +72,20 @@ def containable_split(scene: Scene, dcam: DerivedCamera,
     analysis off, or every slot needing full logic. ``perm`` (a numpy
     index array, or None when the scene is already laid out so) puts the
     containable spheres first, stably; ``g_full`` counts the full-logic
-    slots in the JAX package's padding (a multiple of 8)."""
-    if scene.count <= 8:
-        return None
-    flags = containable_flags(scene, dcam, opts)
-    if flags is None:
-        return None
-    n_cont = int(flags.sum())
-    s_pad = pad_spheres(flags.shape[0])
-    g_full = min(s_pad, pad_spheres(max(1, n_cont)) if n_cont else 0)
-    if g_full >= s_pad:
-        return None
-    perm = np.argsort(~flags, kind="stable")
-    if np.array_equal(perm, np.arange(perm.shape[0])):
-        perm = None
-    return perm, g_full
+    slots in the JAX package's padding (a multiple of 8). The span
+    ``split``; its reads of the scene, the waits ``scene_read``."""
+    with span("split"):
+        if scene.count <= 8:
+            return None
+        flags = containable_flags(scene, dcam, opts)
+        if flags is None:
+            return None
+        n_cont = int(flags.sum())
+        s_pad = pad_spheres(flags.shape[0])
+        g_full = min(s_pad, pad_spheres(max(1, n_cont)) if n_cont else 0)
+        if g_full >= s_pad:
+            return None
+        perm = np.argsort(~flags, kind="stable")
+        if np.array_equal(perm, np.arange(perm.shape[0])):
+            perm = None
+        return perm, g_full

@@ -30,6 +30,7 @@ from raytracer_tpu_torch.render.options import (
 )
 from raytracer_tpu_torch.scene.accel import ClusteredScene, build_grid_clustered
 from raytracer_tpu_torch.scene.spheres import Scene
+from raytracer_tpu_torch.utils.profiling import span
 
 #: the packed visit key carries the cluster index in 7 mantissa bits
 MAX_CLUSTERS = 128
@@ -109,9 +110,12 @@ def cluster_partition(scene: Scene, opts: TraceOptions):
     renders the scene with the flat scan instead: no small-sphere
     clusters, or more clusters than the packed visit key can index. The
     caller decides first whether the cluster walk is wanted at all
-    (:func:`~raytracer_tpu_torch.render.options.cluster_scan_enabled`)."""
-    part = build_grid_clustered(scene, group=opts.cluster_group,
-                                partition=opts.cluster_partition)
+    (:func:`~raytracer_tpu_torch.render.options.cluster_scan_enabled`).
+    The span ``partition``; its read of the scene, the waits
+    ``scene_read``."""
+    with span("partition"):
+        part = build_grid_clustered(scene, group=opts.cluster_group,
+                                    partition=opts.cluster_partition)
     k = part.boxes.shape[0]
     if k == 0 or k > MAX_CLUSTERS:
         return None
@@ -227,9 +231,11 @@ def debug_uniforms(debug: DebugParams) -> tuple:
 
 
 def flat_tables(scene: Scene, dcam: DerivedCamera, device) -> FlatTables:
-    """The scene's and the camera's flat-scan tables, on ``device``."""
-    return FlatTables(camera=camera_uniforms(dcam),
-                      spheres=sphere_table(scene)).to(device)
+    """The scene's and the camera's flat-scan tables, on ``device``. The
+    span ``tables``."""
+    with span("tables"):
+        return FlatTables(camera=camera_uniforms(dcam),
+                          spheres=sphere_table(scene)).to(device)
 
 
 def cluster_tables(scene: Scene, boxes, uuid, n_global: int,
@@ -328,31 +334,33 @@ def walk_tables(part: ClusteredScene, dcam: DerivedCamera,
     the scene lives (the boxes and their parents on the host), written
     with the packed array into one buffer there, and uploaded in one
     copy; every table is a view of it. A scene on the host is packed in
-    numpy, without a PyTorch call."""
-    globals_, bounds, members, winner = cluster_tables(
-        part.scene, part.boxes, part.uuid, part.n_global, part.group
-    )
-    n_global, (k, group) = globals_.shape[0], members.shape[:2]
-    bounds = bounds.numpy()
-    tabs = {"camera": camera_uniforms(dcam), "globals": globals_,
-            "bounds": bounds, "members": members, "winner": winner,
-            "parents": parent_boxes(bounds)}
-    shapes = {"packed": (walk_layout(n_global, k, group).n_floats,),
-              **{name: tuple(t.shape) for name, t in tabs.items()}}
-    total = sum(math.prod(shape) for shape in shapes.values())
-    at = members.device
-    if all(t.device.type == "cpu" for t in (tabs["camera"], globals_,
-                                             members, winner)):
-        tabs = {name: np.asarray(t) for name, t in tabs.items()}
-        buf = np.zeros(total, np.float32)
-    else:
-        tabs = {name: torch.as_tensor(t).to(at) for name, t in tabs.items()}
-        buf = torch.zeros(total, dtype=torch.float32, device=at)
-    views = _views(buf, shapes)
-    pack_walk(views.pop("packed"), tabs["camera"], tabs["globals"],
-              tabs["parents"], tabs["bounds"], tabs["members"],
-              tabs["winner"])
-    for name, view in views.items():
-        view[...] = tabs[name]
-    flat = torch.from_numpy(buf) if isinstance(buf, np.ndarray) else buf
-    return WalkTables(**_views(upload(flat, device), shapes))
+    numpy, without a PyTorch call. The span ``tables``."""
+    with span("tables"):
+        globals_, bounds, members, winner = cluster_tables(
+            part.scene, part.boxes, part.uuid, part.n_global, part.group
+        )
+        n_global, (k, group) = globals_.shape[0], members.shape[:2]
+        bounds = bounds.numpy()
+        tabs = {"camera": camera_uniforms(dcam), "globals": globals_,
+                "bounds": bounds, "members": members, "winner": winner,
+                "parents": parent_boxes(bounds)}
+        shapes = {"packed": (walk_layout(n_global, k, group).n_floats,),
+                  **{name: tuple(t.shape) for name, t in tabs.items()}}
+        total = sum(math.prod(shape) for shape in shapes.values())
+        at = members.device
+        if all(t.device.type == "cpu" for t in (tabs["camera"], globals_,
+                                                 members, winner)):
+            tabs = {name: np.asarray(t) for name, t in tabs.items()}
+            buf = np.zeros(total, np.float32)
+        else:
+            tabs = {name: torch.as_tensor(t).to(at)
+                    for name, t in tabs.items()}
+            buf = torch.zeros(total, dtype=torch.float32, device=at)
+        views = _views(buf, shapes)
+        pack_walk(views.pop("packed"), tabs["camera"], tabs["globals"],
+                  tabs["parents"], tabs["bounds"], tabs["members"],
+                  tabs["winner"])
+        for name, view in views.items():
+            view[...] = tabs[name]
+        flat = torch.from_numpy(buf) if isinstance(buf, np.ndarray) else buf
+        return WalkTables(**_views(upload(flat, device), shapes))

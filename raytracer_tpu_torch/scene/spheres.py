@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from raytracer_tpu_torch.scene.materials import Material
+from raytracer_tpu_torch.utils.profiling import wait
 
 #: the selection id of "nothing selected" (the reference's
 #: NO_SELECTED_OBJECT_ID)
@@ -70,9 +71,13 @@ class Scene:
                         for f in dataclasses.fields(self)})
 
     def numpy(self) -> dict:
-        """The fields as host numpy arrays."""
-        return {f.name: getattr(self, f.name).detach().cpu().numpy()
-                for f in dataclasses.fields(self)}
+        """The fields as host numpy arrays; each field's read waits for
+        the device, the wait ``scene_read`` (``utils/profiling.py``)."""
+        out = {}
+        for f in dataclasses.fields(self):
+            with wait("scene_read"):
+                out[f.name] = getattr(self, f.name).detach().cpu().numpy()
+        return out
 
 
 def scene_from_numpy(center, radius, material_type, albedo, fuzz,

@@ -1,7 +1,16 @@
 """Performance telemetry of the port (counterpart of
 ``raytracer_tpu/utils/profiling.py``): Mrays/s accounting, a
-``torch.profiler`` trace, best-of-n timing, and the operation account that
-every kernel's bound reads.
+``torch.profiler`` trace, the render path's span registry, best-of-n
+timing, and the operation account that every kernel's bound reads.
+
+The span registry is the port's own: :func:`span` and :func:`wait` mark
+the host phases of a render (``render_image``, ``prep``, ``launch``,
+``plan``, ``finish``, ...) and the calls where the host blocks on the
+device. Each adds its host seconds and a count to a per-name table that
+:func:`counters` reads and :func:`reset_counters` clears (as does either
+kernel module's ``reset_launch_counts``). While a ``torch.profiler``
+records, each span is also the annotation ``rt::<name>``, so a
+:func:`device_trace` shows the host phases over the device's kernels.
 
 A "ray" is one live ray-bounce segment, counted exactly by the kernels'
 segment totals (W·H·spp·mean depth).
@@ -130,6 +139,75 @@ def device_trace(log_dir: str | None):
     with profile(activities=activities) as prof:
         yield
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+#: span name → [count, seconds] since the last :func:`reset_counters`
+_SPANS: dict = {}
+#: the name under which :func:`counters` reports every :func:`wait`
+WAITS = "waits"
+#: prefix of a span's profiler annotation
+SPAN_PREFIX = "rt::"
+
+
+class span:
+    """``with span(name):`` adds the block's host seconds
+    (``time.perf_counter``) and one count to ``name``'s entry of the
+    registry, also when the block raises. While a ``torch.profiler``
+    records, the block is also ``record_function("rt::" + name)``, nested
+    under the annotations open around it; otherwise no annotation is made.
+    The registry belongs to the process and is not locked: render from
+    one thread."""
+
+    __slots__ = ("name", "t0", "rec")
+    #: a wait also counts under :data:`WAITS`
+    waits = False
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self.rec = None
+        if torch._C._autograd._profiler_enabled():
+            self.rec = torch.profiler.record_function(SPAN_PREFIX
+                                                      + self.name)
+            self.rec.__enter__()
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        dt = time.perf_counter() - self.t0
+        if self.rec is not None:
+            self.rec.__exit__(*exc)
+        names = (self.name, WAITS) if self.waits else (self.name,)
+        for name in names:
+            entry = _SPANS.get(name)
+            if entry is None:
+                _SPANS[name] = [1, dt]
+            else:
+                entry[0] += 1
+                entry[1] += dt
+        return False
+
+
+class wait(span):
+    """A :class:`span` around one call in which the host blocks on the
+    device (a read back, a synchronize); it also counts one wait under
+    :data:`WAITS`. The count is of calls, whether or not the device was
+    still busy."""
+
+    __slots__ = ()
+    waits = True
+
+
+def counters() -> dict:
+    """A snapshot of the registry: span name → ``(count, seconds)``, and
+    under :data:`WAITS` the number of waits and their seconds."""
+    return {name: (c, s) for name, (c, s) in _SPANS.items()}
+
+
+def reset_counters() -> None:
+    """Empty the registry: a window of counting starts."""
+    _SPANS.clear()
 
 
 def device_name(device: torch.device) -> str:
