@@ -507,6 +507,39 @@ def crop_times(args, name: str, flat: bool = False) -> dict:
     return {"crop_ms": crop_ms, "plain_ms": plain_ms}
 
 
+def check_items(stratified: bool) -> None:
+    """The adaptive walk's one-sample items (``walk_ab.item_cases``):
+    on the cover's own re-planned launches (rr0, depth 50), with the
+    live lanes' samples just under the item scratch (items) and just over
+    it (whole lanes), with no live lane and one, and on a shuffled map
+    whose budgets run from 0 to the chunk's, every output row and the
+    segments bitwise the plain walk's
+    (of the map's live prefix, zeros past it), and the kernel's sample
+    counts those of the items and of every lane."""
+    from raytracer_tpu_torch.render import cluster_walk as cw
+    from raytracer_tpu_torch.scripts import walk_ab
+    from raytracer_tpu_torch.utils import profiling
+
+    name = "cluster_walk_adaptive" + ("_stratified" if stratified else "")
+    for case, args in walk_ab.item_cases(stratified).items():
+        profiling.reset_counters()
+        out_k, seg_k = cw.cluster_walk(*args)
+        got = profiling.counters()
+        out_p, seg_p = walk_ab.live_prefix_plain(args)
+        bitwise = torch.equal(out_k, out_p) and torch.equal(seg_k, seg_p)
+        items, every = walk_ab.expected_samples(args[8])
+        counted = (got.get("walk_item_samples", (0, 0.0))[0],
+                   got.get("walk_samples", (0, 0.0))[0])
+        print(f"[items {name} {case}] live end "
+              f"{int(cw.live_extent(args[8])[0])}, samples as items / all "
+              f"{counted[0]} / {counted[1]} (expected {items} / {every}), "
+              f"segments {int(seg_k.sum(dtype=torch.int64))}, all rows "
+              f"bitwise {bitwise}")
+        if not bitwise or counted != (items, every):
+            fail(f"{name} {case}: the items disagree with the plain walk "
+                 f"or with their counts")
+
+
 def phase_variants_vs_plain() -> dict:
     """The stratified, adaptive and adaptive + stratified instantiations
     against the plain version at a nonzero sample offset: on the crop
@@ -515,7 +548,7 @@ def phase_variants_vs_plain() -> dict:
     under a sorted map (descending cost of a profile chunk, converged
     pixels last) whose budget plane mixes 0 and the chunk's spp, as the
     re-plans give it. Sample counts must be equal and a lane without
-    budget all zeros."""
+    budget all zeros. Then the adaptive ones' items (:func:`check_items`)."""
     from raytracer_tpu_torch.render import cluster_walk as cw
     from raytracer_tpu_torch.render.rng import kernel_seed
 
@@ -549,6 +582,8 @@ def phase_variants_vs_plain() -> dict:
                         result["max_abs_err"], check_budget(label, got, budget))
                 if shape == "crop" and rr == 5:
                     result.update(crop_times(args, name))
+        if adaptive:
+            check_items(stratified)
         results[name] = result
     return results
 

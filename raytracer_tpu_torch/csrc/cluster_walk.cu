@@ -63,6 +63,20 @@
 //     between clusters (render/tables.py `walk_layout`): two 16-byte
 //     loads a box, one a member, and lanes of a warp that visit
 //     different clusters read different banks.
+//   - A narrow adaptive launch deals one-sample items (lane, sample),
+//     where a wide one deals whole lanes. After a re-plan only the hard
+//     pixels have budget (glass, crevices, paths of tens of bounces at
+//     rr0); as whole lanes each ran its chunk's samples one after another
+//     on one thread of a near-empty SM, and the launch lasted as long as
+//     its slowest lane's chain. As items they spread over the whole grid.
+//     The grain follows the input: items where every live lane's samples
+//     fit the item scratch (the launch's item_cap), whole lanes otherwise.
+//     An item
+//     keeps its sample's sums in the scratch; the one that completes its
+//     lane adds them in sample order, so every output stays bit for bit
+//     that of whole lanes. The live extent (one past the last lane with
+//     budget, and the largest budget) is worked out on the device before
+//     the launch; lanes past it are not dealt.
 //   - Registers, capped at 64 by the block size, spill: the box mask
 //     takes one word up to 32 clusters (a template parameter the
 //     launcher picks), and what only the tail reads is formed after the
@@ -78,6 +92,8 @@
 // Constants are the float32 roundings of the JAX package's Python
 // doubles, as hex literals.
 
+#include <algorithm>
+
 #include "common.cuh"
 
 namespace {
@@ -90,6 +106,16 @@ constexpr int kWalkThreads = 1024;
 constexpr int kParentFanout = 4;  // kd leaves per parent box
 constexpr int kBoxFloats = 8;     // [lo xyz, 0, hi xyz, 0]
 constexpr int kMaxWords = 4;      // MAX_CLUSTERS = 128 bits of box mask
+// An item's record in the scratch: r, g, b, sum of lum^2, walk
+// iterations, bounces. A lane's sums form only after its last sample, so
+// every item of a launch is kept until then. The scratch's capacity in
+// items is the launch's item_cap, which the wrapper sizes the scratch by
+// (render/cluster_walk.py ITEM_CAP: 2^22 items, 96 MiB, and 16 MiB of
+// per-lane counts; it holds every re-plan of the cover's adaptive render,
+// 1.5 M items at most at tolerance 0.2, with room for wider ones, and its
+// 4-spp profile launch, 3.84 M; a full 31-spp launch, 29.8 M, deals whole
+// lanes). A launch whose scratch has other rows is refused.
+constexpr int kItemRows = 6;
 
 struct Params {
   PathParams path;
@@ -104,8 +130,19 @@ struct Params {
   float* out;            // (4, n) rgb sums and walk iterations, lane order;
                          // (6, n) with sample count and sum of lum^2
   int* segs;             // (n,) completed bounces
-  int* next_lane;        // lanes taken past the grid's own, zeroed by the
+  int* next_lane;        // work taken past the grid's own, zeroed by the
                          // launch on its stream
+  // kAdaptive: the live extent [one past the last lane with budget, the
+  // largest budget] (null without a budget: [n, spp]); the item scratch,
+  // (kItemRows, item_cap): r, g, b, sum of lum^2, walk iterations,
+  // bounces (as int bits) of each item's sample; each lane's count of its
+  // items done (item_cap, zero between launches); the launch's counts of
+  // the samples run as items and of all samples (null: not counted)
+  const int* extent;
+  float* items;
+  int* lane_items;
+  unsigned long long* samples;
+  int item_cap;
   int n, n_global, k, group, n_parents, mstride;
   int off_glob, off_par, off_box, off_mem, off_win, n_floats;
   DebugUniforms dbg;     // kDebug: cursor point and selection
@@ -206,11 +243,175 @@ __device__ __forceinline__ void load_tables(float* smem, const float* src,
   __syncthreads();
 }
 
+// Work items (kAdaptive). The grid deals work indices w from its counter
+// (first_lane, next_lane). Where every live lane's items fit the scratch
+// (live end x largest budget <= item_cap), w is an item: sample
+// s = w % stride of lane j = w / stride; else w is a whole lane, as in
+// the other instantiations. Lanes past the live end have no budget:
+// none is dealt, and the blocks store their zeros as they finish. Thread
+// 0 of each block plans the deal from the live extent before the
+// tables' barrier; it sits in shared memory after the tables, beside the
+// block's counts of the samples it ran as items and in whole lanes.
+struct Deal {
+  int n_work;    // work indices dealt in all
+  int stride;    // items a lane holds (its largest budget), 0: whole lanes
+  int live_end;  // one past the last lane with budget
+};
+enum SampleCount { kItemSamples, kLaneSamples };
+// after the tables: the two sample counts (16 bytes), then the deal
+constexpr int kAdaptiveSmemBytes = 32;
+
+__device__ __forceinline__ unsigned long long* counts_of(const Params& p,
+                                                         float* smem) {
+  return reinterpret_cast<unsigned long long*>(smem + p.n_floats);
+}
+
+__device__ __forceinline__ Deal& deal_of(const Params& p, float* smem) {
+  return *reinterpret_cast<Deal*>(smem + p.n_floats + 4);
+}
+
+// Thread 0's plan of its block's deal, from the live extent ([n, spp]
+// without a budget).
+__device__ __forceinline__ void plan_deal(const Params& p, float* smem) {
+  unsigned long long* counts = counts_of(p, smem);
+  counts[kItemSamples] = counts[kLaneSamples] = 0ull;
+  // a budget without its extent: whole lanes, as its largest is unknown
+  const int live = p.extent != nullptr ? p.extent[0] : p.n;
+  const int stride = p.extent != nullptr ? p.extent[1]
+                     : p.budget == nullptr ? p.path.spp
+                                           : 0;
+  const bool items =
+      stride > 0 && (long long)live * stride <= p.item_cap;
+  Deal& d = deal_of(p, smem);
+  d.stride = items ? stride : 0;
+  d.n_work = items ? live * stride : live;
+  d.live_end = live;
+}
+
+// The work indices a thread may take: the deal's, or every lane of the
+// map.
+template <bool kAdaptive>
+__device__ __forceinline__ int work_end(const Params& p, float* smem) {
+  if constexpr (kAdaptive) return deal_of(p, smem).n_work;
+  return p.n;
+}
+
+// Item t: lane j's setup (lane_setup, which stores the zeros of a lane
+// without budget), then sample s, which is the item's only one (limit
+// s + 1); an item past its lane's budget has nothing to do.
+__device__ __forceinline__ bool item_setup(const Params& p, int stride, int t,
+                                           float& px, float& py,
+                                           uint32_t& pix, int& limit,
+                                           int& s) {
+  const int j = t / stride;
+  s = t - j * stride;
+  if (!lane_setup<true>(p.path, p.pixel_map, p.budget, p.out, p.segs, p.n, j,
+                        px, py, pix, limit))
+    return false;
+  if (s >= limit) return false;
+  limit = s + 1;
+  return true;
+}
+
+// The setup of work index w: an item, or a lane from its first sample.
+template <bool kAdaptive>
+__device__ __forceinline__ bool take(const Params& p, float* smem, int w,
+                                     float& px, float& py, uint32_t& pix,
+                                     int& limit, int& s) {
+  s = 0;
+  if constexpr (kAdaptive) {
+    const int stride = deal_of(p, smem).stride;
+    if (stride > 0) return item_setup(p, stride, w, px, py, pix, limit, s);
+  }
+  return lane_setup<kAdaptive>(p.path, p.pixel_map, p.budget, p.out, p.segs,
+                               p.n, w, px, py, pix, limit);
+}
+
+// Item t has run its sample: its sums, walk iterations and bounces go to
+// its column of the scratch, then it counts itself done in its lane. The
+// thread that completes the lane adds the lane's columns in sample order
+// from zero, as one thread running the lane's samples one after another
+// adds them (a sample contributes once, where its path ends; every other
+// bounce adds zeros), and writes the lane's rows as write_lane does.
+// Walk iterations and bounces are whole numbers, exact in any order.
+__device__ __forceinline__ void finish_item(const Params& p, float* smem,
+                                            int stride, int t,
+                                            const Sums& sums, float cost,
+                                            int nsegs) {
+  float* it = p.items;
+  const int cap = p.item_cap;
+  it[t] = sums.r;
+  it[cap + t] = sums.g;
+  it[2 * cap + t] = sums.b;
+  it[3 * cap + t] = sums.l2;
+  it[4 * cap + t] = cost;
+  it[5 * cap + t] = __int_as_float(nsegs);
+  atomicAdd(&counts_of(p, smem)[kItemSamples], 1ull);
+  const int j = t / stride;
+  const int budget = p.budget != nullptr ? p.budget[j] : p.path.spp;
+  __threadfence();  // the column before the count
+  if (atomicAdd(&p.lane_items[j], 1) != budget - 1) return;
+  __threadfence();
+  p.lane_items[j] = 0;  // as every launch finds it
+  Sums acc = {0.0f, 0.0f, 0.0f, 0.0f};
+  float lane_cost = 0.0f;
+  int lane_segs = 0;
+  // the other items' columns, read past the SM's L1 (ld.global.cg)
+  for (int q = j * stride, end = q + budget; q < end; ++q) {
+    acc.r = acc.r + __ldcg(it + q);
+    acc.g = acc.g + __ldcg(it + cap + q);
+    acc.b = acc.b + __ldcg(it + 2 * cap + q);
+    acc.l2 = acc.l2 + __ldcg(it + 3 * cap + q);
+    lane_cost = lane_cost + __ldcg(it + 4 * cap + q);
+    lane_segs += __float_as_int(__ldcg(it + 5 * cap + q));
+  }
+  const int n = p.n;
+  p.out[j] = acc.r;
+  p.out[n + j] = acc.g;
+  p.out[2 * n + j] = acc.b;
+  p.out[3 * n + j] = lane_cost;
+  p.out[4 * n + j] = (float)budget;  // every sample completed
+  p.out[5 * n + j] = acc.l2;
+  p.segs[j] = lane_segs;
+}
+
+// Work index w is done: an item's column, or a lane's rows.
+template <bool kAdaptive>
+__device__ __forceinline__ void finish(const Params& p, float* smem, int w,
+                                       const Sums& sums, float cost,
+                                       const Path& path, int segs) {
+  if constexpr (kAdaptive) {
+    const int stride = deal_of(p, smem).stride;
+    if (stride > 0) {
+      finish_item(p, smem, stride, w, sums, cost, segs);
+      return;
+    }
+    atomicAdd(&counts_of(p, smem)[kLaneSamples],
+              (unsigned long long)path.s);
+  }
+  write_lane<kAdaptive>(p.out, p.segs, p.n, w, sums, cost, path, segs);
+}
+
+// The end of an adaptive block: the zeros of its share of the lanes past
+// the live end, then its sample counts into the launch's (one atomic each).
+__device__ __forceinline__ void end_block(const Params& p, float* smem) {
+  const int stride = (int)(gridDim.x * blockDim.x);
+  for (int j = deal_of(p, smem).live_end +
+               (int)(blockIdx.x * blockDim.x + threadIdx.x);
+       j < p.n; j += stride) {
+    for (int c = 0; c < 6; ++c) p.out[c * p.n + j] = 0.0f;
+    p.segs[j] = 0;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0 && p.samples != nullptr) {
+    const unsigned long long* c = counts_of(p, smem);
+    atomicAdd(&p.samples[0], c[kItemSamples]);
+    atomicAdd(&p.samples[1], c[kItemSamples] + c[kLaneSamples]);
+  }
+}
+
 template <bool kAdaptive, bool kStratified, bool kDebug, int kWords>
-__global__ void __launch_bounds__(kWalkThreads, 1)
-    cluster_walk_kernel(Params p) {
-  extern __shared__ __align__(16) float smem[];
-  load_tables(smem, p.tables, p.n_floats);
+__device__ __forceinline__ void walk(const Params& p, float* smem) {
   const float* s_cam = smem;
   const float* s_glob = smem + p.off_glob;
   const float* s_par = smem + p.off_par;
@@ -219,23 +420,21 @@ __global__ void __launch_bounds__(kWalkThreads, 1)
   const float* s_win = smem + p.off_win;
   const uint32_t dps = 4u + (uint32_t)p.path.max_depth * kDrawsPerBounce;
 
-  // the lane's pixel, its hash and its sample limit; a lane without
-  // budget writes its zeros and the thread takes the next
+  // the work's pixel, its hash, its first sample and its sample limit;
+  // work without budget stores its zeros and the thread takes the next
   int lane = first_lane();
   float px, py;
   uint32_t pix;
   int limit;
   Path path;
   for (;;) {
-    if (lane >= p.n) return;
-    if (lane_setup<kAdaptive>(p.path, p.pixel_map, p.budget, p.out, p.segs,
-                              p.n, lane, px, py, pix, limit))
-      break;
+    if (lane >= work_end<kAdaptive>(p, smem)) return;
+    if (take<kAdaptive>(p, smem, lane, px, py, pix, limit, path.s)) break;
     lane = next_lane(p.next_lane);
   }
-  path.s = 0;
   path.i = 0;
-  gen_ray<kStratified>(s_cam, p.path, (uint32_t)p.path.sample_offset, dps, px,
+  gen_ray<kStratified>(s_cam, p.path,
+                       (uint32_t)(p.path.sample_offset + path.s), dps, px,
                        py, pix, path);
   path.cr = path.cg = path.cb = 1.0f;
   float bq = kFillQ, kl = kNegBig;  // best q, visited cursor (packed key)
@@ -374,21 +573,19 @@ __global__ void __launch_bounds__(kWalkThreads, 1)
     kl = kNegBig;
     if (next != kLaneDone) continue;
 
-    // the lane has taken its samples: write it, and go on with the next
-    // lane of the map that has any
-    write_lane<kAdaptive>(p.out, p.segs, p.n, lane, sums, cost, path, segs);
+    // the work has taken its samples: write it, and go on with the next
+    // work that has any
+    finish<kAdaptive>(p, smem, lane, sums, cost, path, segs);
     for (;;) {
       lane = next_lane(p.next_lane);
-      if (lane >= p.n) break;
-      if (lane_setup<kAdaptive>(p.path, p.pixel_map, p.budget, p.out,
-                                p.segs, p.n, lane, px, py, pix, limit))
-        break;
+      if (lane >= work_end<kAdaptive>(p, smem)) break;
+      if (take<kAdaptive>(p, smem, lane, px, py, pix, limit, path.s)) break;
     }
-    if (lane >= p.n) break;
-    path.s = 0;
+    if (lane >= work_end<kAdaptive>(p, smem)) break;
     path.i = 0;
-    gen_ray<kStratified>(s_cam, p.path, (uint32_t)p.path.sample_offset, dps,
-                         px, py, pix, path);
+    gen_ray<kStratified>(s_cam, p.path,
+                         (uint32_t)(p.path.sample_offset + path.s), dps, px,
+                         py, pix, path);
     path.cr = path.cg = path.cb = 1.0f;
     sums = {0.0f, 0.0f, 0.0f, 0.0f};
     cost = 0.0f;
@@ -397,6 +594,18 @@ __global__ void __launch_bounds__(kWalkThreads, 1)
 #ifdef RT_WALK_COUNTERS
   for (int c = 0; c < kNumCounters; ++c) atomicAdd(&g_counters[c], cnt[c]);
 #endif
+}
+
+template <bool kAdaptive, bool kStratified, bool kDebug, int kWords>
+__global__ void __launch_bounds__(kWalkThreads, 1)
+    cluster_walk_kernel(Params p) {
+  extern __shared__ __align__(16) float smem[];
+  if constexpr (kAdaptive) {
+    if (threadIdx.x == 0) plan_deal(p, smem);
+  }
+  load_tables(smem, p.tables, p.n_floats);
+  walk<kAdaptive, kStratified, kDebug, kWords>(p, smem);
+  if constexpr (kAdaptive) end_block(p, smem);
 }
 
 template <bool kAdaptive, bool kStratified, bool kDebug, int kWords>
@@ -448,22 +657,28 @@ cudaError_t launch(const Params& p, int blocks, size_t smem,
 
 // Launches the walk's <adaptive, stratified, debug> instantiation on
 // `stream`; returns the launch's cudaError_t (0 on success), and
-// cudaErrorInvalidValue for debug with adaptive, which has none, or for
-// tables that are not 16-byte aligned. The packed tables, map, budget
-// (null without one) and lane counter (one int) are device
-// pointers; the caller checks shapes and the tables' layout. The launch
-// zeroes the lane counter on `stream` first, so launches that share one
-// counter must share the stream. The cursor and the selection are read
-// with debug only.
+// cudaErrorInvalidValue for debug with adaptive, which has none, for
+// adaptive without its item scratch or with one of other than kItemRows
+// rows, or for tables that are not 16-byte aligned. The packed tables,
+// map, budget (null without one), lane counter (one int), live extent
+// (two ints, null without a budget), item scratch (item_rows x item_cap
+// floats), per-lane item counts (item_cap ints, all zero) and sample
+// counts (two, or null) are device pointers; the caller checks shapes
+// and the tables' layout. The launch zeroes the lane counter on `stream`
+// first, and leaves the item counts zero, so launches that share them
+// must share the stream. The cursor and the selection are read with
+// debug only.
 extern "C" int cluster_walk_launch(
     const float* tables, const int* pixel_map, const int* budget, float* out,
-    int* segs, int* next_lane, int adaptive, int stratified,
-    int debug, int n, int n_global, int k, int group, int n_parents,
-    int mstride, int off_glob, int off_par, int off_box, int off_mem,
-    int off_win, int n_floats, int wp, int seed, int sample_offset, int spp,
-    int max_depth, int rr_depth, int exhaust_black, int near_zero_guard,
-    float inv_w, float inv_h, float cursor_x, float cursor_y,
-    float cursor_z, float selected, void* stream) {
+    int* segs, int* next_lane, const int* extent, float* items,
+    int* lane_items, unsigned long long* samples, int adaptive, int stratified,
+    int debug, int item_rows, int item_cap, int n, int n_global, int k,
+    int group, int n_parents, int mstride, int off_glob, int off_par,
+    int off_box, int off_mem, int off_win, int n_floats, int wp, int seed,
+    int sample_offset, int spp, int max_depth, int rr_depth,
+    int exhaust_black, int near_zero_guard, float inv_w, float inv_h,
+    float cursor_x, float cursor_y, float cursor_z, float selected,
+    void* stream) {
   if (n <= 0) return 0;
   if (((uintptr_t)tables & 15u) != 0u || (n_floats & 3) != 0)
     return (int)cudaErrorInvalidValue;
@@ -476,6 +691,11 @@ extern "C" int cluster_walk_launch(
   p.out = out;
   p.segs = segs;
   p.next_lane = next_lane;
+  p.extent = extent;
+  p.items = items;
+  p.lane_items = lane_items;
+  p.samples = samples;
+  p.item_cap = item_cap;
   p.n = n;
   p.n_global = n_global;
   p.k = k;
@@ -489,24 +709,33 @@ extern "C" int cluster_walk_launch(
   p.off_win = off_win;
   p.n_floats = n_floats;
   p.dbg = {cursor_x, cursor_y, cursor_z, selected};
-  const size_t smem = sizeof(float) * (size_t)n_floats;
-  const int blocks = (n + kWalkThreads - 1) / kWalkThreads;
+  // adaptive: the deal and the sample counts after the tables, and a grid
+  // for every sample, as the items may go one a thread
+  const size_t smem = sizeof(float) * (size_t)n_floats +
+                      (adaptive ? (size_t)kAdaptiveSmemBytes : 0);
+  const long long work = adaptive ? (long long)n * std::max(spp, 1) : n;
+  const int blocks = (int)std::min<long long>(
+      (work + kWalkThreads - 1) / kWalkThreads, 1 << 20);
   cudaStream_t st = (cudaStream_t)stream;
   if (debug) {
     if (adaptive) return (int)cudaErrorInvalidValue;
     return (int)(stratified ? launch<false, true, true>(p, blocks, smem, st)
                             : launch<false, false, true>(p, blocks, smem, st));
   }
-  if (adaptive)
+  if (adaptive) {
+    if (items == nullptr || lane_items == nullptr ||
+        item_rows != kItemRows || item_cap < 0)
+      return (int)cudaErrorInvalidValue;
     return (int)(stratified ? launch<true, true, false>(p, blocks, smem, st)
                             : launch<true, false, false>(p, blocks, smem, st));
+  }
   return (int)(stratified ? launch<false, true, false>(p, blocks, smem, st)
                           : launch<false, false, false>(p, blocks, smem, st));
 }
 
 // The version of cluster_walk_launch's argument list, raised whenever it
 // changes: a caller binds only a library whose version it knows.
-extern "C" int cluster_walk_abi() { return 2; }
+extern "C" int cluster_walk_abi() { return 3; }
 
 #ifdef RT_WALK_COUNTERS
 // The counter build's totals since the last reset, into `host`

@@ -31,10 +31,16 @@ version tests every box on every walk iteration (:func:`box_keys`,
 Three compile-time switches of the kernel follow ``opts``. Adaptive
 (``adaptive_tolerance`` > 0): a lane samples up to its own ``budget``
 (the chunk's ``spp`` where no budget is given) and a lane whose budget is
-0 does nothing. Stratified (``sampler='stratified'``): the four camera
-draws, and on a sample's first bounce the diffuse direction and the
-glass roll, are the (sample_offset + s)-th point of the pixel's rotated
-Kronecker sequence; every other draw stays counter-hashed. Debug
+0 does nothing. On the card a narrow adaptive launch (every live lane's
+samples within ``ITEM_CAP``, as after a re-plan) deals one-sample items
+spread over the whole grid, a wide one whole lanes; the sums stay bit for
+bit those of whole lanes (:func:`live_extent` bounds the live lanes on
+the device, and the kernel counts the samples it runs each way under
+``SAMPLE_COUNTS`` in the span registry). Stratified
+(``sampler='stratified'``): the four camera draws, and on a sample's
+first bounce the diffuse direction and the glass roll, are the
+(sample_offset + s)-th point of the pixel's rotated Kronecker sequence;
+every other draw stays counter-hashed. Debug
 (``enable_debug``, K3): the overlay of the shared tail with the cursor
 and selection of ``debug`` (a :class:`DebugParams`, ``none()`` when
 omitted); the winner's uuid is column 10 of its winner row. It has no
@@ -71,7 +77,23 @@ DRAWS_PER_BOUNCE = 8
 FILLQ = 3e38
 #: the version of ``cluster_walk_launch``'s arguments that :func:`call`
 #: passes (``cluster_walk_abi`` in ``csrc/cluster_walk.cu``)
-ABI = 2
+ABI = 3
+#: the versions :func:`bind` and :func:`call` serve: ``ABI``, and 2 (a
+#: base revision's library, ``scripts/walk_ab.py``), which has no live
+#: extent, item scratch, sample counts or scratch shape
+ABIS = (2, ABI)
+#: items (lane, sample) an adaptive launch's scratch holds, which the
+#: launch passes to the kernel: a launch whose live lanes' samples fit
+#: runs one sample a thread, a wider one whole lanes. 2^22 holds every
+#: re-plan of the cover's adaptive render (1.5 M items at most) and its
+#: 4-spp profile launch (3.84 M) in 96 MiB
+ITEM_CAP = 1 << 22
+#: the scratch's rows, an item's record: r, g, b, sum of lum², walk
+#: iterations, bounces (the kernel refuses a launch with other rows)
+ITEM_ROWS = 6
+#: the kernel's counts of the samples it ran as items and of all samples,
+#: as the span registry reports them (``utils.profiling.counters``)
+SAMPLE_COUNTS = ("walk_item_samples", "walk_samples")
 NEG_BIG = -3e38
 #: the overlay's marker: a hit whose squared distance to the cursor is
 #: below this; the outline: the selected sphere where d·n > GRAZING
@@ -207,17 +229,19 @@ def _lib():
     return bind(cuda_build.load("cluster_walk"))
 
 
-def bind(lib: ctypes.CDLL):
+def bind(lib: ctypes.CDLL, abi: int = ABI):
     """``cluster_walk_launch`` of a loaded library, with its argument
-    types set; raises where the library's interface version is not
-    ``ABI``."""
+    types at launch interface ``abi`` (one of ``ABIS``) set; raises where
+    the library's interface version is not ``abi``."""
     fn = lib.cluster_walk_launch
     if fn.argtypes is None:
         got = cuda_build.abi(lib, "cluster_walk_abi")
-        if got != ABI:
+        if got != abi or abi not in ABIS:
             raise RuntimeError(f"cluster_walk library has launch interface "
-                               f"{got}, this wrapper passes {ABI}")
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 23
+                               f"{got}, this wrapper passes {abi}")
+        items = abi >= 3  # the adaptive launch's four pointers, two ints
+        fn.argtypes = ([ctypes.c_void_p] * (10 if items else 6)
+                       + [ctypes.c_int] * (25 if items else 23)
                        + [ctypes.c_float] * 6 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
@@ -235,10 +259,10 @@ def _launch(tables, pixel_map, seed, sample_offset, spp, width, height,
 
 
 def call(fn, tables, pixel_map, seed, sample_offset, spp, width, height,
-         opts, budget, uniforms):
-    """``(out, segs)`` of one launch of ``fn`` (a bound
-    ``cluster_walk_launch``) on the current stream, uncounted; raises on
-    the launch's CUDA error."""
+         opts, budget, uniforms, abi: int = ABI):
+    """``(out, segs)`` of one launch of ``fn`` (``cluster_walk_launch``
+    bound by :func:`bind` at launch interface ``abi``) on the current
+    stream, uncounted; raises on the launch's CUDA error."""
     n = pixel_map.shape[0]
     k, group = tables.members.shape[:2]
     n_global = tables.globals.shape[0]
@@ -254,12 +278,27 @@ def call(fn, tables, pixel_map, seed, sample_offset, spp, width, height,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         next_lane = _lane_counter(dev, stream)
+        # interface 3: the live extent, the item scratch and the sample
+        # counts (an adaptive launch's), and the scratch's shape. The
+        # extent is held until the launch is enqueued: freed before, its
+        # block could go to the next allocation on the stream (the
+        # counts' zeros) and be overwritten before the kernel reads it.
+        extent, ptrs, shape = None, (), ()
+        if abi >= 3:
+            ptrs, shape = (None,) * 4, (ITEM_ROWS, ITEM_CAP)
+            if adaptive:
+                if budget is not None:
+                    extent = live_extent(budget)
+                ptrs = (None if extent is None else extent.data_ptr(),
+                        *(t.data_ptr() for t in _item_scratch(dev, stream)),
+                        profiling.device_counts(dev, SAMPLE_COUNTS)
+                        .data_ptr())
         err = fn(
             tables.packed.data_ptr(), pixel_map.data_ptr(),
             None if budget is None else budget.data_ptr(),
-            out.data_ptr(), segs.data_ptr(), next_lane.data_ptr(),
+            out.data_ptr(), segs.data_ptr(), next_lane.data_ptr(), *ptrs,
             int(adaptive), int(opts.sampler == "stratified"),
-            int(uniforms is not None),
+            int(uniforms is not None), *shape,
             n, n_global, k, group, lay.n_parents, lay.mstride, lay.off_glob,
             lay.off_par, lay.off_box, lay.off_mem, lay.off_win, lay.n_floats,
             padded_width(width), int(seed), int(sample_offset), int(spp),
@@ -270,6 +309,36 @@ def call(fn, tables, pixel_map, seed, sample_offset, spp, width, height,
         )
     cuda_build.check_launch("cluster_walk", err)
     return out, segs
+
+
+def live_extent(budget: torch.Tensor) -> torch.Tensor:
+    """(2,) int32 on ``budget``'s device: one past the last lane whose
+    budget is positive (0 where none is), and the largest budget (0 for
+    an empty map). Worked out on the device, without a read back."""
+    n = budget.shape[0]
+    if n == 0:
+        return torch.zeros((2,), dtype=torch.int32, device=budget.device)
+    ramp = torch.arange(1, n + 1, dtype=torch.int32, device=budget.device)
+    end = torch.where(budget > 0, ramp, 0).amax()
+    return torch.stack([end, budget.amax()])
+
+
+_ITEM_SCRATCH = {}
+
+
+def _item_scratch(dev: torch.device, stream: int):
+    """The adaptive launches' item scratch for ``stream`` on ``dev``:
+    (ITEM_ROWS, ITEM_CAP) float32, and the lanes' counts of their items
+    done, ITEM_CAP int32 that every launch leaves zero (launches on one
+    stream run one after another)."""
+    key = (dev.index, stream)
+    if key not in _ITEM_SCRATCH:
+        _ITEM_SCRATCH[key] = (
+            torch.empty((ITEM_ROWS, ITEM_CAP), dtype=torch.float32,
+                        device=dev),
+            torch.zeros((ITEM_CAP,), dtype=torch.int32, device=dev),
+        )
+    return _ITEM_SCRATCH[key]
 
 
 _LANE_COUNTERS = {}

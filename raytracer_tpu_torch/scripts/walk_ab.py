@@ -189,57 +189,13 @@ def parent_csrc(root: Path = ROOT) -> Path | None:
     return None if tree is None else tree / CSRC_REL
 
 
-def bind_v1(lib: ctypes.CDLL):
-    """``cluster_walk_launch`` at launch interface version 1: the camera
-    and the four scene tables, map, budget, out, segs; 15 ints, 6 floats,
-    stream."""
-    fn = lib.cluster_walk_launch
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 15
-                       + [ctypes.c_float] * 6 + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    return fn
-
-
-def call_v1(fn, tables, pixel_map, seed, sample_offset, spp, width,
-            height, opts, budget, uniforms):
-    """One launch of a version-1 library on the current stream."""
-    n = pixel_map.shape[0]
-    k, group = tables.members.shape[:2]
-    adaptive = opts.adaptive_tolerance > 0.0
-    out = torch.empty((6 if adaptive else 4, n), dtype=torch.float32,
-                      device=pixel_map.device)
-    segs = torch.empty((n,), dtype=torch.int32, device=pixel_map.device)
-    err = fn(
-        tables.camera.data_ptr(), tables.globals.data_ptr(),
-        tables.bounds.data_ptr(), tables.members.data_ptr(),
-        tables.winner.data_ptr(), pixel_map.data_ptr(),
-        None if budget is None else budget.data_ptr(),
-        out.data_ptr(), segs.data_ptr(),
-        int(adaptive), int(opts.sampler == "stratified"),
-        int(uniforms is not None),
-        n, tables.globals.shape[0], k, group, cw.padded_width(width),
-        int(seed), int(sample_offset), int(spp),
-        opts.max_depth, opts.russian_roulette_depth,
-        int(opts.exhaust_black), int(opts.near_zero_guard),
-        float(np.float32(1.0 / width)), float(np.float32(1.0 / height)),
-        *(uniforms or (0.0,) * 4),
-        torch.cuda.current_stream().cuda_stream,
-    )
-    cuda_build.check_launch("old cluster_walk", err)
-    return out, segs
-
-
 def walk_caller(lib: ctypes.CDLL):
     """``call(*case)`` for a walk library, chosen by the launch interface
     version it exports; None for a version no binder here knows."""
     version = cuda_build.abi(lib, "cluster_walk_abi")
-    if version == cw.ABI:
-        fn = cw.bind(lib)
-        return lambda *a: cw.call(fn, *a)
-    if version == 1:
-        fn = bind_v1(lib)
-        return lambda *a: call_v1(fn, *a)
+    if version in cw.ABIS:
+        fn = cw.bind(lib, version)
+        return lambda *a: cw.call(fn, *a, abi=version)
     print(f"[walk A/B] a walk library with launch interface {version}: no "
           "binder for it here, left out")
     return None
@@ -483,6 +439,109 @@ def adaptive_launches(tabs, count: int, w: int, h: int, spp: int, opts,
 
     megakernel._render_adaptive(launch, sizes, w, h, opts, device)
     return seen
+
+
+#: the item checks' launches of the cover's adaptive render (1-based) at
+#: the benchmark cell's settings (1200x800, 500 spp cap, depth 50, rr0,
+#: tolerance 0.2): its widest re-plan, one from the middle of the tail,
+#: and its last (no lane left)
+ITEM_LAUNCHES = (4, 9, 17)
+#: the capacity cases: the cover at 640x400, depth 12, rr5, a chunk of 31
+#: spp at sample offset 66, on a seeded shuffle of the identity map
+CAP_W, CAP_H, CAP_SPP, CAP_OFFSET = 640, 400, 31, 66
+#: the shuffled case's live lanes: budgets from 0 to the chunk's
+SHUFFLED_LIVE = 4096
+
+
+def item_cases(stratified: bool, device="cuda") -> dict:
+    """Case name → :func:`~raytracer_tpu_torch.render.cluster_walk.
+    cluster_walk`'s arguments for K1a (K1a+K1s when ``stratified``) around
+    its one-sample items: the cover's own re-planned launches
+    (``ITEM_LAUNCHES``), the whole frame at the same settings with the
+    fewest samples a lane that overflow the item scratch (whole lanes at
+    the main path's shape), live lanes whose samples fill the item
+    scratch to just under ``ITEM_CAP`` (items) and just over it (whole
+    lanes), none live, one live, and a shuffled map whose first
+    ``SHUFFLED_LIVE`` lanes take budgets from 0 to the chunk's."""
+    from raytracer_tpu_torch.camera.camera import derive_camera
+    from raytracer_tpu_torch.render import tables
+    from raytracer_tpu_torch.render.options import TraceOptions
+    from raytracer_tpu_torch.render.rng import kernel_seed
+    from raytracer_tpu_torch.scene import presets
+
+    sampler = "stratified" if stratified else "random"
+    seed = kernel_seed(0)
+    scene, cam, w, h, spp, depth = presets.get_config("cover")
+    opts = TraceOptions(max_depth=depth, russian_roulette_depth=0,
+                        sampler=sampler, adaptive_tolerance=0.2)
+    tabs = tables.walk_tables(tables.cluster_partition(scene, opts),
+                              derive_camera(cam), device)
+    seen = adaptive_launches(tabs, scene.count, w, h, spp, opts, seed,
+                             device)
+    got = {}
+    for j in ITEM_LAUNCHES:
+        lane_map, offset, cs, budget = seen[min(j, len(seen)) - 1]
+        got[f"launch {j}"] = (tabs, lane_map, seed, offset, cs, w, h, opts,
+                              budget, None)
+    # the first sorted chunk's map (every lane live), each lane one sample
+    # past what the scratch holds for the frame
+    lane_map, offset, cs, _ = seen[1]
+    whole = min(cw.ITEM_CAP // (w * h) + 1, cs)
+    got["whole lanes"] = (tabs, lane_map, seed, offset, cs, w, h, opts,
+                          torch.full((w * h,), whole, dtype=torch.int32,
+                                     device=device), None)
+    scene, cam, *_ = presets.get_config("cover", CAP_W, CAP_H)
+    opts = TraceOptions(max_depth=12, russian_roulette_depth=5,
+                        sampler=sampler, adaptive_tolerance=0.2)
+    tabs = tables.walk_tables(tables.cluster_partition(scene, opts),
+                              derive_camera(cam), device)
+    n = CAP_W * CAP_H
+    g = torch.Generator(device="cpu").manual_seed(4)
+    pmap = cw.identity_map(CAP_W, CAP_H, device)[
+        torch.randperm(n, generator=g).to(device)].contiguous()
+    lanes = torch.arange(n)
+    fit = cw.ITEM_CAP // CAP_SPP  # live lanes whose samples fit
+    for label, live in (("under cap", fit), ("over cap", fit + 1),
+                        ("none live", 0), ("one live", 1)):
+        if live > n:
+            raise ValueError(f"{label}: {live} live lanes, the map has {n}")
+        budget = torch.where(lanes < live, CAP_SPP, 0)
+        got[label] = (tabs, pmap, seed, CAP_OFFSET, CAP_SPP, CAP_W, CAP_H,
+                      opts, budget.to(torch.int32).to(device), None)
+    budget = torch.where(lanes < SHUFFLED_LIVE,
+                         torch.randint(0, CAP_SPP + 1, (n,), generator=g), 0)
+    got["shuffled"] = (tabs, pmap, seed, CAP_OFFSET, CAP_SPP, CAP_W, CAP_H,
+                       opts, budget.to(torch.int32).to(device), None)
+    return got
+
+
+def live_prefix_plain(args):
+    """The plain walk of a budgeted launch (:func:`~raytracer_tpu_torch.
+    render.cluster_walk.cluster_walk`'s arguments) on the lanes up to its
+    live end alone, and zeros past it: what the plain walk gives for the
+    whole map, as each lane's sums are its own and a lane without budget
+    reads zero."""
+    tabs, pmap, seed, offset, cs, w, h, opts, budget, debug = args
+    n = pmap.shape[0]
+    end = int(cw.live_extent(budget)[0])
+    out = torch.zeros((6, n), dtype=torch.float32, device=pmap.device)
+    segs = torch.zeros((n,), dtype=torch.int32, device=pmap.device)
+    if end:
+        o, s = cw.cluster_walk_plain(tabs, pmap[:end].contiguous(), seed,
+                                     offset, cs, w, h, opts,
+                                     budget[:end].contiguous(), debug)
+        out[:, :end] = o
+        segs[:end] = s
+    return out, segs
+
+
+def expected_samples(budget) -> tuple:
+    """(samples run as items, all samples) of an adaptive launch under
+    ``budget``: all of them run as items where the live end times the
+    largest budget is within ``ITEM_CAP``, none otherwise."""
+    end, most = (int(v) for v in cw.live_extent(budget).tolist())
+    every = int(budget.clamp_min(0).to(torch.int64).sum())
+    return (every if end * most <= cw.ITEM_CAP else 0), every
 
 
 def budgeted(lane_map, n_spp: int, device):

@@ -8,9 +8,13 @@ the host phases of a render (``render_image``, ``prep``, ``launch``,
 ``plan``, ``finish``, ...) and the calls where the host blocks on the
 device. Each adds its host seconds and a count to a per-name table that
 :func:`counters` reads and :func:`reset_counters` clears (as does either
-kernel module's ``reset_launch_counts``). While a ``torch.profiler``
-records, each span is also the annotation ``rt::<name>``, so a
-:func:`device_trace` shows the host phases over the device's kernels.
+kernel module's ``reset_launch_counts``). Kernels count on the device
+into :func:`device_counts` (the cluster walk's adaptive launches: the
+samples they ran as one-sample items, ``walk_item_samples``, and all
+their samples, ``walk_samples``), which :func:`counters` reads too.
+While a ``torch.profiler`` records, each span is also the annotation
+``rt::<name>``, so a :func:`device_trace` shows the host phases over the
+device's kernels.
 
 A "ray" is one live ray-bounce segment, counted exactly by the kernels'
 segment totals (W·H·spp·mean depth).
@@ -199,15 +203,45 @@ class wait(span):
     waits = True
 
 
+#: (names, device index) → the int64 counts that kernels add on the device
+_DEVICE_COUNTS: dict = {}
+
+
+def device_counts(device: torch.device, names: tuple) -> torch.Tensor:
+    """The registry's int64 counts ``names`` on ``device``, one a name, in
+    a buffer that lives as long as the process: a kernel adds to them
+    there, and :func:`counters` reads them as ``(count, 0.0)`` entries
+    (summed over devices), which a render never waits for."""
+    key = (tuple(names), device.index)
+    buf = _DEVICE_COUNTS.get(key)
+    if buf is None:
+        buf = _DEVICE_COUNTS[key] = torch.zeros((len(names),),
+                                                dtype=torch.int64,
+                                                device=device)
+    return buf
+
+
 def counters() -> dict:
     """A snapshot of the registry: span name → ``(count, seconds)``, and
-    under :data:`WAITS` the number of waits and their seconds."""
-    return {name: (c, s) for name, (c, s) in _SPANS.items()}
+    under :data:`WAITS` the number of waits and their seconds. The
+    devices' counts (:func:`device_counts`) join it where any is nonzero:
+    reading them waits for the device."""
+    got = {name: (c, s) for name, (c, s) in _SPANS.items()}
+    totals = {}
+    for (names, _), buf in _DEVICE_COUNTS.items():
+        for name, v in zip(names, buf.tolist()):
+            totals[name] = totals.get(name, 0) + v
+    if any(totals.values()):
+        got.update((name, (v, 0.0)) for name, v in totals.items())
+    return got
 
 
 def reset_counters() -> None:
-    """Empty the registry: a window of counting starts."""
+    """Empty the registry and zero the devices' counts: a window of
+    counting starts."""
     _SPANS.clear()
+    for buf in _DEVICE_COUNTS.values():
+        buf.zero_()
 
 
 def device_name(device: torch.device) -> str:

@@ -6,6 +6,11 @@ which the port's machine need not have):
     python -m pytest --noconftest tests/test_torch_gpu.py -m gpu
 """
 
+import subprocess
+import sys
+import weakref
+from pathlib import Path
+
 import pytest
 import torch
 
@@ -20,6 +25,8 @@ from raytracer_tpu_torch.scene import presets
 from raytracer_tpu_torch.scripts import bench_bf16_chain as bc
 from raytracer_tpu_torch.scripts import bench_scan_layout as bs
 from raytracer_tpu_torch.scripts import probe_gather as pg
+from raytracer_tpu_torch.scripts import walk_ab
+from raytracer_tpu_torch.utils import profiling
 
 pytestmark = pytest.mark.gpu
 
@@ -126,6 +133,131 @@ def test_walk_instantiation_bitwise_on_card(card, adaptive, stratified,
     out_p, seg_p = cw.cluster_walk_plain(*args)
     assert torch.equal(out_k, out_p)
     assert torch.equal(seg_k, seg_p)
+
+
+@pytest.fixture(scope="module")
+def item_cases():
+    """``walk_ab.item_cases`` for K1a and K1a+K1s, built once for the
+    module (each runs the cover's adaptive render at 1200x800)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return {stratified: walk_ab.item_cases(stratified)
+            for stratified in (False, True)}
+
+
+ITEM_CASES = [f"launch {j}" for j in walk_ab.ITEM_LAUNCHES] + [
+    "whole lanes", "under cap", "over cap", "none live", "one live",
+    "shuffled"]
+
+
+@pytest.mark.parametrize("case", ITEM_CASES)
+@pytest.mark.parametrize("stratified", [False, True],
+                         ids=["K1a", "K1a+K1s"])
+def test_adaptive_walk_items_bitwise_on_card(item_cases, stratified, case):
+    """A narrow adaptive launch deals one-sample items, a wide one whole
+    lanes: every output row, the segments and their total bit for bit
+    those of the plain walk, on the cover's own re-planned launches, on
+    its whole frame at their settings with samples past the item scratch
+    (whole lanes), with the live lanes' samples just under the item
+    scratch (items) and just over it (whole lanes), with no live lane and
+    one, and on a shuffled
+    map whose budgets run from 0 to the chunk's; the kernel's sample
+    counts are those of the items and of every lane."""
+    args = item_cases[stratified][case]
+    budget = args[8]
+    profiling.reset_counters()
+    out_k, seg_k = cw.cluster_walk(*args)
+    got = profiling.counters()
+    out_p, seg_p = walk_ab.live_prefix_plain(args)
+    assert torch.equal(out_k, out_p)
+    assert torch.equal(seg_k, seg_p)
+    assert int(seg_k.sum(dtype=torch.int64)) == int(
+        seg_p.sum(dtype=torch.int64))
+    items, every = walk_ab.expected_samples(budget)
+    if every == 0:
+        assert "walk_samples" not in got
+    else:
+        assert got["walk_item_samples"] == (items, 0.0)
+        assert got["walk_samples"] == (every, 0.0)
+    if case == "under cap":
+        assert items == every > 0
+    if case in ("whole lanes", "over cap"):
+        assert items == 0 < every
+
+
+# a process whose first adaptive launch has a budget
+FIRST_LAUNCH = """
+import sys
+import torch
+from raytracer_tpu_torch.camera.camera import derive_camera
+from raytracer_tpu_torch.render import cluster_walk as cw, tables
+from raytracer_tpu_torch.render.options import TraceOptions
+from raytracer_tpu_torch.scene import presets
+
+dev = torch.device("cuda")
+w, h, spp = 64, 32, 8
+scene, cam, *_ = presets.get_config("cover", w, h)
+opts = TraceOptions(max_depth=12, russian_roulette_depth=5,
+                    adaptive_tolerance=0.2, sampler=sys.argv[1])
+tabs = tables.walk_tables(tables.cluster_partition(scene, opts),
+                          derive_camera(cam), dev)
+g = torch.Generator().manual_seed(3)
+budget = torch.randint(0, spp + 1, (w * h,), generator=g)
+args = (tabs, cw.identity_map(w, h, dev), 9, 6, spp, w, h, opts,
+        budget.to(torch.int32).to(dev), None)
+out_k, seg_k = cw.cluster_walk(*args)
+out_p, seg_p = cw.cluster_walk_plain(*args)
+print("live", int((out_k[4] > 0).sum()), "bitwise",
+      torch.equal(out_k, out_p) and torch.equal(seg_k, seg_p))
+"""
+
+
+@pytest.mark.parametrize("sampler", ["random", "stratified"])
+def test_budgeted_adaptive_launch_first_in_a_process_on_card(card, sampler):
+    """A fresh process whose first adaptive launch has a budget (so the
+    launch also makes the sample counts' buffer and the item scratch
+    after working out the live extent) runs its items bit for bit the
+    plain walk."""
+    root = Path(__file__).resolve().parents[1]
+    proc = subprocess.run([sys.executable, "-c", FIRST_LAUNCH, sampler],
+                          cwd=root, capture_output=True, text=True,
+                          timeout=600)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    words = proc.stdout.split()
+    assert words[-2:] == ["bitwise", "True"], proc.stdout
+    assert int(words[1]) > 0
+
+
+def test_live_extent_held_through_the_launch_on_card(card, monkeypatch):
+    """The live extent an adaptive launch reads is alive when the launch
+    is enqueued: freed before, the caching allocator may give its block
+    to the next allocation on the stream (a process's first sample
+    counts are zeros), which overwrites it before the kernel reads it."""
+    made = []
+    real_extent = cw.live_extent
+
+    def extent(budget):
+        t = real_extent(budget)
+        made.append(weakref.ref(t))
+        return t
+
+    monkeypatch.setattr(cw, "live_extent", extent)
+    launch = cw._lib()
+    held = []
+
+    def fn(*args):
+        t = made[-1]()
+        held.append(t is not None and t.data_ptr() == args[6])
+        return launch(*args)
+
+    tabs, ident, opts = walk_inputs(card, adaptive=True)
+    budget = torch.randint(0, SPP + 1, (W * H,), dtype=torch.int32,
+                           generator=torch.Generator().manual_seed(2))
+    args = (tabs, ident, 9, 6, SPP, W, H, opts, budget.to(card), None)
+    out_k, seg_k = cw.call(fn, *args)
+    assert held == [True]
+    out_p, seg_p = cw.cluster_walk_plain(*args)
+    assert torch.equal(out_k, out_p) and torch.equal(seg_k, seg_p)
 
 
 @pytest.mark.parametrize("group", [8, 4])

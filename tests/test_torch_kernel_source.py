@@ -328,6 +328,59 @@ def test_flat_persistent_grid_in_source():
     assert fs.ABI == 2
 
 
+def _body(src: str, head: str) -> str:
+    """The function of ``src`` that starts at ``head``, to its closing
+    brace at the line's start."""
+    start = src.index(head)
+    return src[start:src.index("\n}\n", start)]
+
+
+def test_walk_items_only_under_adaptive_in_source():
+    """The one-sample items, their scratch and the sample counts are
+    compiled only into the adaptive instantiations: the kernel plans its
+    deal and ends its block under ``kAdaptive``, and the helpers that
+    take and finish work reach the items only in their ``if constexpr
+    (kAdaptive)`` branch, so the other instantiations deal whole lanes as
+    before. The kernel's item capacity is the one the wrapper passes and
+    sizes the scratch by, whose rows are the ones an item stores."""
+    kernel = _body(WALK, "    cluster_walk_kernel(Params p) {")
+    assert ("if constexpr (kAdaptive) {\n    if (threadIdx.x == 0) "
+            "plan_deal(p, smem);\n  }") in kernel
+    assert "if constexpr (kAdaptive) end_block(p, smem);" in kernel
+    assert "walk<kAdaptive, kStratified, kDebug, kWords>(p, smem);" in kernel
+    for head, reach in (("bool take(", "item_setup(p,"),
+                        ("void finish(", "finish_item(p,"),
+                        ("int work_end(", "deal_of(p, smem)")):
+        body = _body(WALK, "__device__ __forceinline__ " + head)
+        assert body.index("if constexpr (kAdaptive)") < body.index(reach)
+    walk = _body(WALK, "__device__ __forceinline__ void walk(")
+    for name in ("item_setup", "finish_item", "counts_of", "p.items",
+                 "p.lane_items", "p.samples"):
+        assert name not in walk, name
+    assert "take<kAdaptive>(p, smem, lane" in walk
+    assert "finish<kAdaptive>(p, smem, lane" in walk
+    # the capacity is the launch's, which the wrapper sizes the scratch
+    # by: the kernel has none of its own; an item stores the kernel's
+    # rows, and a launch with a scratch of other rows is refused
+    assert "kItemCap" not in WALK
+    assert ("(long long)live * stride <= p.item_cap;"
+            in _body(WALK, "__device__ __forceinline__ void plan_deal("))
+    finish_item = _body(WALK, "__device__ __forceinline__ void finish_item(")
+    assert "const int cap = p.item_cap;" in finish_item
+    stores = re.findall(r"it\[(?:(\d) \* )?(cap \+ )?t\] = ", finish_item)
+    rows = re.search(r"constexpr int kItemRows = (\d+);", WALK)
+    assert len(stores) == int(rows.group(1)) == cw.ITEM_ROWS
+    assert "item_rows != kItemRows || item_cap < 0" in WALK
+    # only the adaptive launch carries the scratch, the extent and the
+    # counts, and the extra shared memory
+    assert ("(adaptive ? (size_t)kAdaptiveSmemBytes : 0)" in WALK)
+    assert "if (items == nullptr || lane_items == nullptr ||" in WALK
+    wrapper = inspect.getsource(cw.call)
+    assert "if adaptive:" in wrapper and "_item_scratch(dev, stream)" in wrapper
+    assert "profiling.device_counts(dev, SAMPLE_COUNTS)" in wrapper
+    assert "(ITEM_ROWS, ITEM_CAP)" in wrapper
+
+
 @pytest.mark.parametrize("source, symbol, module", [
     ("cluster_walk", "cluster_walk_abi", cw), ("flat_scan", "flat_scan_abi",
                                                fs)])

@@ -10,6 +10,9 @@
 - the scene's analysis counts one wait a field it reads back, and none
   for the camera, which lives on the host;
 - either kernel module's ``reset_launch_counts`` empties the registry;
+- counts a kernel adds on a device (``device_counts``) join the registry's
+  snapshot while any is nonzero, summed over devices, and a reset zeroes
+  them;
 - under ``torch.profiler`` the spans are ``rt::`` annotations nested in
   ``rt::render_image``; with no profiler recording none is made;
 - the six readers (``benchmark/program_counters.py``) are listed for
@@ -152,6 +155,30 @@ def test_reset_launch_counts_empties_the_registry(module):
     assert profiling.counters() == {}
     # the launcher, named as its module, carries the launch counters
     assert getattr(module, module.__name__.rsplit(".", 1)[1]).launches == 0
+
+
+def test_device_counts_join_the_registry(monkeypatch):
+    """The walk's sample counts live in a buffer a kernel adds to (here
+    on the CPU, one a device index); the snapshot reads them as
+    ``(count, 0.0)`` while any is nonzero, and a reset zeroes them."""
+    monkeypatch.setattr(profiling, "_DEVICE_COUNTS", {})
+    names = cluster_walk.SAMPLE_COUNTS
+    buf = profiling.device_counts(torch.device("cpu"), names)
+    assert buf.dtype == torch.int64 and buf.tolist() == [0, 0]
+    assert profiling.device_counts(torch.device("cpu"), names) is buf
+    assert profiling.counters() == {}
+    buf += torch.tensor([31, 93])
+    other = profiling.device_counts(torch.device("cpu", 1), names)
+    other += torch.tensor([0, 7])
+    with profiling.span("render_image"):
+        pass
+    got = profiling.counters()
+    assert got["walk_item_samples"] == (31, 0.0)
+    assert got["walk_samples"] == (100, 0.0)
+    assert got["render_image"][0] == 1
+    profiling.reset_counters()
+    assert buf.tolist() == [0, 0] and other.tolist() == [0, 0]
+    assert profiling.counters() == {}
 
 
 def test_spans_nest_under_render_image_in_the_profiler(tmp_path):

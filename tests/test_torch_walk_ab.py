@@ -5,7 +5,8 @@ budget, the launch arguments of every case at a tiny size (the adaptive
 walk's from its render's own re-plans), the binding of a library by its
 launch interface version, which revision the A/B holds the tree against,
 and the flat scan's form sweep: its scenes, its cases and the cut it
-reads."""
+reads. Also the adaptive walk's item checks (their cases at a tiny size,
+the plain walk of a map's live prefix) and the launcher's live extent."""
 
 import shutil
 import subprocess
@@ -188,12 +189,13 @@ class FakeLib:
             setattr(self, f"{kernel}_abi", lambda: version)
 
 
-@pytest.mark.parametrize("version, n_args", [(cw.ABI, 36), (None, 31),
-                                             (cw.ABI + 1, None)])
+@pytest.mark.parametrize("version, n_args", [(cw.ABI, 42), (2, 36),
+                                             (None, None), (cw.ABI + 1, None)])
 def test_walk_library_bound_by_its_interface_version(version, n_args):
-    """The current interface through ``cluster_walk.bind``, a library
-    without a version through version 1's argument list, and an unknown
-    version not at all."""
+    """The current interface (with the live extent, the item scratch, the
+    sample counts and the scratch's shape) and version 2 through
+    ``cluster_walk.bind``; a library without a version (version 1, older
+    than any base revision) and an unknown version not at all."""
     lib = FakeLib("cluster_walk", version)
     call = walk_ab.walk_caller(lib)
     if n_args is None:
@@ -330,3 +332,80 @@ def test_extra_builds_are_the_defined_builds():
         "RT_FLAT_BATCHED_MIN=1024",)
     assert walk_ab.DEFINED_BUILDS["flat_scan"]["batched"] == (
         "RT_FLAT_BATCHED_MIN=1",)
+
+
+@pytest.mark.parametrize("budget, want", [
+    ([31, 31, 31, 0, 0, 0, 0], [3, 31]),
+    ([0, 5, 0, 31, 0, 2, 0, 0], [6, 31]),
+    ([0, 0, 0, 0], [0, 0]),
+    ([], [0, 0]),
+], ids=["sorted", "shuffled", "all_dead", "empty"])
+def test_live_extent(budget, want):
+    """One past the last lane with budget, and the largest budget: a
+    re-plan's map (live lanes first), a shuffled one with budget-0 lanes
+    inside its live prefix, one with no live lane, an empty one."""
+    got = cw.live_extent(torch.tensor(budget, dtype=torch.int32))
+    assert got.dtype == torch.int32 and got.shape == (2,)
+    assert got.tolist() == want
+
+
+@pytest.fixture(scope="module")
+def tiny_items():
+    """``walk_ab.item_cases`` (K1a) at the tiny size with an item scratch
+    of 20 lanes of 31 samples, and each case's expected sample counts
+    under that scratch."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    with pytest.MonkeyPatch.context() as mp:
+        _tiny(mp)
+        mp.setattr(walk_ab, "CAP_W", 32)
+        mp.setattr(walk_ab, "CAP_H", 16)
+        mp.setattr(walk_ab, "SHUFFLED_LIVE", 100)
+        mp.setattr(cw, "ITEM_CAP", 31 * 20)
+        cases = walk_ab.item_cases(False, "cpu")
+        counts = {name: walk_ab.expected_samples(args[8])
+                  for name, args in cases.items()}
+    torch.set_num_threads(n)
+    return cases, counts
+
+
+def test_item_cases_run_both_grains(tiny_items):
+    cases, counts = tiny_items
+    assert list(cases) == [f"launch {j}" for j in walk_ab.ITEM_LAUNCHES] + [
+        "whole lanes", "under cap", "over cap", "none live", "one live",
+        "shuffled"]
+    ends = {name: int(cw.live_extent(args[8])[0])
+            for name, args in cases.items()}
+    assert (ends["whole lanes"], ends["under cap"], ends["over cap"],
+            ends["none live"], ends["one live"]) == (32 * 16, 20, 21, 0, 1)
+    # items where the live lanes' samples fit the scratch, whole lanes
+    # past it: the whole frame takes 2 samples a lane (1024 > 620)
+    assert cases["whole lanes"][8].unique().tolist() == [2]
+    assert counts["whole lanes"] == (0, 32 * 16 * 2)
+    assert counts["under cap"] == (20 * 31, 20 * 31)
+    assert counts["over cap"] == (0, 21 * 31)
+    assert counts["none live"] == (0, 0) and counts["one live"] == (31, 31)
+    budget = cases["shuffled"][8]
+    assert int(budget[ends["shuffled"]:].abs().sum()) == 0
+    inside = budget[:ends["shuffled"]]
+    assert (inside == 0).any() and ((inside > 0) & (inside < 31)).any()
+    for name, args in cases.items():
+        tabs, lane_map, _, _, spp, w, h, opts, budget, _ = args
+        assert opts.adaptive_tolerance > 0.0 and budget is not None
+        cw._check(tabs, lane_map, w, h, spp, opts, budget)
+        if name.startswith("launch"):
+            assert opts.russian_roulette_depth == 0
+
+
+@pytest.mark.parametrize("case", ["launch 4", "whole lanes", "under cap",
+                                  "over cap", "none live", "one live",
+                                  "shuffled"])
+def test_live_prefix_plain_is_the_whole_maps(tiny_items, case):
+    """The card tests compare the kernel with the plain walk of the map's
+    live prefix, zeros past it: bit for bit the plain walk of the whole
+    map."""
+    args = tiny_items[0][case]
+    out, segs = walk_ab.live_prefix_plain(args)
+    want_out, want_segs = cw.cluster_walk_plain(*args)
+    assert torch.equal(out, want_out)
+    assert torch.equal(segs, want_segs)
