@@ -54,6 +54,15 @@ step and the interactive engine:
   unless the chain comes within 10 % of it) and the cover through the
   flat scan against both.
 
+The wide walk (``RT_WALK_WIDE``: partitions of 129 to 512 clusters,
+tables past shared memory): its six instantiations on the SPD
+sphereflake (7,382 slots, 462 clusters, 512x512, depth 50) on a grid of
+its pixels, and its adaptive ones on a sparse live set of the whole frame
+(whole lanes), bitwise their plain versions (``walk_ab.flake_check``);
+its counts of walk iterations and bounces those of its cost row and
+segments; two whole sphereflake renders at 500 spp through
+``render_image``, bitwise each other.
+
 Then the entry points a user starts the renderer from, each through the
 kernels:
 
@@ -283,14 +292,21 @@ def phase_build():
     from raytracer_tpu_torch.scripts import probe_ab, walk_ab
     from raytracer_tpu_torch.utils import cuda_build
 
+    from raytracer_tpu_torch.render import cluster_walk as cw
+
     names = ("cluster_walk", "flat_scan", *PROBE_SOURCES)
     old = walk_ab.parent_csrc()
     specs = ([(name, None, ()) for name in names]
+             + [("cluster_walk", None, (cw.WIDE_DEFINE,))]
              + walk_ab.extra_builds(old) + probe_ab.extra_builds(old))
     t0 = time.perf_counter()
     cuda_build.build_all(specs)
     extra = [f"{name} {' '.join(d) or 'base revision'}"
              for name, _, d in specs[len(names):]]
+    for line in cuda_build.build_log(
+            "cluster_walk", (cw.WIDE_DEFINE,)).splitlines():
+        if "registers" in line or "spill" in line or "nvcc took" in line:
+            print("[ptxas cluster_walk wide]", line.strip())
     print(f"[build] {', '.join(names)} and the A/B's {', '.join(extra)} "
           f"at once: {time.perf_counter() - t0:.1f} s")
     for name in names:
@@ -514,7 +530,7 @@ def check_items(stratified: bool) -> None:
     it (whole lanes), with no live lane and one, and on a shuffled map
     whose budgets run from 0 to the chunk's, every output row and the
     segments bitwise the plain walk's
-    (of the map's live prefix, zeros past it), and the kernel's sample
+    (of the map's lanes with budget, zeros elsewhere), and the kernel's sample
     counts those of the items and of every lane."""
     from raytracer_tpu_torch.render import cluster_walk as cw
     from raytracer_tpu_torch.scripts import walk_ab
@@ -525,7 +541,7 @@ def check_items(stratified: bool) -> None:
         profiling.reset_counters()
         out_k, seg_k = cw.cluster_walk(*args)
         got = profiling.counters()
-        out_p, seg_p = walk_ab.live_prefix_plain(args)
+        out_p, seg_p = walk_ab.live_lanes_plain(args)
         bitwise = torch.equal(out_k, out_p) and torch.equal(seg_k, seg_p)
         items, every = walk_ab.expected_samples(args[8])
         counted = (got.get("walk_item_samples", (0, 0.0))[0],
@@ -848,6 +864,55 @@ def phase_walk_ab(smi: str) -> dict:
                   f"{min(t['new']):.3f} ms (best of {len(t['new'])} in "
                   f"turns), x{min(t['old']) / min(t['new']):.3f} [{smi}]")
     return got
+
+
+def phase_wide_walk(smi: str) -> None:
+    """The wide walk on the SPD sphereflake: every instantiation bitwise
+    its plain version (``walk_ab.flake_check``), its iteration and bounce
+    counts its cost row's and segments' sums, and two whole renders
+    (512x512, 500 spp, depth 50) through ``render_image``, each launch
+    the wide walk's, bitwise each other."""
+    from raytracer_tpu_torch.render import cluster_walk as cw
+    from raytracer_tpu_torch.render.api import render_image
+    from raytracer_tpu_torch.render.options import TraceOptions
+    from raytracer_tpu_torch.scene import presets
+    from raytracer_tpu_torch.scripts import walk_ab
+    from raytracer_tpu_torch.utils import profiling
+
+    bad = [case for case, ok in walk_ab.flake_check().items() if not ok]
+    if bad:
+        fail(f"the wide walk disagrees with its plain version: {bad}")
+    args = walk_ab.flake_cases()["cluster_walk"]
+    profiling.reset_counters()
+    out, segs = cw.cluster_walk(*args)
+    got = profiling.counters()
+    want = (int(out[3].sum(dtype=torch.float64)),
+            int(segs.sum(dtype=torch.int64)))
+    counted = (got.get("walk_iterations", (0, 0.0))[0],
+               got.get("walk_segments", (0, 0.0))[0])
+    print(f"[wide counts] iterations / bounces {counted} (cost row and "
+          f"segments {want})")
+    if counted != want:
+        fail("the wide walk's counts disagree with its cost row or "
+             "segments")
+    scene = presets.sphereflake_scene().to("cuda")
+    cam = presets.sphereflake_camera(512, 512)
+    images = []
+    for _ in range(2):
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        img, st = render_image(scene, cam, 512, 512, 500, 3,
+                               TraceOptions(max_depth=50), None, True)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = dict(cw.cluster_walk.launches_by_variant)
+        print(f"[wide render] 512x512 500 spp d50: {dt:.3f} s, segments "
+              f"{st['segments_exact']}, launches {launches} [{smi}]")
+        if set(launches) != {"cluster_walk_wide"}:
+            fail(f"the sphereflake rendered through {launches}")
+        images.append(img)
+    if not torch.equal(images[0], images[1]):
+        fail("two sphereflake renders of one key differ")
 
 
 def phase_adaptive_alone(smi: str, stratified: bool) -> dict:
@@ -3592,6 +3657,7 @@ def main():
         "cluster_walk_adaptive": timed(phase_adaptive_alone, smi, False),
     }
     timed(phase_walk_ab, smi)
+    timed(phase_wide_walk, smi)
     depth = paths["cluster_walk"]["depth"]
     timed(phase_where_time_goes, smi, "rr5", trace_options(5, depth))
     timed(phase_where_time_goes, smi, "adaptive companion",

@@ -6,7 +6,8 @@
 // (launched by `_render_chunk_impl`) in its production configuration:
 // kd partition with box bounds, one cluster per walk step, packed visit
 // key, fused bounce-done test. Three template parameters give its six
-// instantiations (each built at two box-mask widths, below):
+// instantiations (each built at two box-mask widths, or as the wide walk
+// at kWide, below):
 //   kAdaptive   (the TPU kernel's `adaptive=True`): a lane samples up to
 //               its own budget (0 = its pixel has converged: the lane does
 //               nothing), and two more output rows carry the lane's
@@ -81,6 +82,29 @@
 //     takes one word up to 32 clusters (a template parameter the
 //     launcher picks), and what only the tail reads is formed after the
 //     walk.
+//
+// The wide walk (kWords = kWide), built with -DRT_WALK_WIDE into a library
+// of its own, takes partitions of 129 to 512 clusters, as the flat scan
+// takes no scene of more than 1022 slots. Its tables pass shared memory
+// (the 7,382 slots of the SPD sphereflake, 462 clusters: 470 KB), so:
+//   - only the hit-test tables sit in shared memory (camera, globals,
+//     boxes and members); a bounce reads its winner row once, from global
+//     memory (L2), when it completes;
+//   - the visit key holds the cluster index in its 9 low mantissa bits;
+//   - a fresh bounce tests a second level of boxes first, grandparents
+//     each over kParentFanout parents, then only the parents under those
+//     it enters, then the children of the parents entered, keeping the
+//     hit ones; each lane loops over its own hits, so a warp makes as
+//     many trips as its busiest lane, not as its lanes' hits together
+//     (an H100 at 700 W runs the sphereflake's 29-spp launch in 77.3 ms,
+//     against 91.1 for a pass that marked candidates, then tested them);
+//   - each thread's mask of hit boxes (a word per 32 clusters) lies in
+//     shared memory, word w of thread t at w * kWalkThreads + t, with a
+//     register of the words that hold bits;
+//   - it counts its lanes' walk iterations and completed bounces into
+//     the launch's counts (one atomic a block).
+// Its selection, visit order, tie rule and every output are those of the
+// flat walk with 9-bit keys, which its plain version runs.
 // The walk-iteration count (the cost row), the segments and every sum
 // are bit for bit those of the flat walk that tests every box every
 // iteration, one iteration a loop trip.
@@ -106,6 +130,15 @@ constexpr int kWalkThreads = 1024;
 constexpr int kParentFanout = 4;  // kd leaves per parent box
 constexpr int kBoxFloats = 8;     // [lo xyz, 0, hi xyz, 0]
 constexpr int kMaxWords = 4;      // MAX_CLUSTERS = 128 bits of box mask
+// the wide walk's kWords: its box mask in shared memory, up to
+// kWideMaxWords words (MAX_WIDE_CLUSTERS = 512), and its 9 key bits
+constexpr int kWide = 0;
+constexpr int kWideMaxWords = 16;
+constexpr int kWideKeyBits = 9;
+// the wide walk's shared memory after its tables: its four counts (two
+// adaptive sample counts, walk iterations, bounces) around the adaptive
+// deal, 48 bytes, then the masks
+constexpr int kWideExtraBytes = 48;
 // An item's record in the scratch: r, g, b, sum of lum^2, walk
 // iterations, bounces. A lane's sums form only after its last sample, so
 // every item of a launch is kept until then. The scratch's capacity in
@@ -146,6 +179,10 @@ struct Params {
   int n, n_global, k, group, n_parents, mstride;
   int off_glob, off_par, off_box, off_mem, off_win, n_floats;
   DebugUniforms dbg;     // kDebug: cursor point and selection
+  // the wide walk: grandparent boxes (after the parents at off_par), and
+  // mask words a thread; its n_floats is off_win, the part in shared
+  // memory, and its counts are four
+  int n_grand, n_words;
 };
 
 // Counters of the walk's structure, compiled in only with
@@ -178,8 +215,14 @@ __device__ unsigned long long g_counters[kNumCounters];
 #define RT_WARP_COUNT(c, pred) ((void)0)
 #endif
 
+// the low bits of a packed key that hold the cluster index: 7, or 9 in
+// the wide walk
+template <int kWords>
+constexpr int kKeyMask = kWords == kWide ? (1 << kWideKeyBits) - 1 : 127;
+
+template <int kWords>
 __device__ __forceinline__ float key_floor(float key) {
-  return __int_as_float(__float_as_int(key) & ~127);
+  return __int_as_float(__float_as_int(key) & ~kKeyMask<kWords>);
 }
 
 // direction reciprocal clamped away from zero: no slab product reaches inf
@@ -258,8 +301,12 @@ struct Deal {
   int live_end;  // one past the last lane with budget
 };
 enum SampleCount { kItemSamples, kLaneSamples };
-// after the tables: the two sample counts (16 bytes), then the deal
+// after the tables: the two sample counts (16 bytes), then the deal; the
+// wide walk's iteration and bounce counts follow at 32 bytes (its block's
+// counts 4 and 5), and go to the launch's counts 2 and 3
 constexpr int kAdaptiveSmemBytes = 32;
+enum WalkCount { kWalkIterations = 2, kWalkSegments = 3 };
+constexpr int kWalkCountsAt = 2;  // the block's: kWalkIterations + 2
 
 __device__ __forceinline__ unsigned long long* counts_of(const Params& p,
                                                          float* smem) {
@@ -268,6 +315,119 @@ __device__ __forceinline__ unsigned long long* counts_of(const Params& p,
 
 __device__ __forceinline__ Deal& deal_of(const Params& p, float* smem) {
   return *reinterpret_cast<Deal*>(smem + p.n_floats + 4);
+}
+
+// The wide walk's mask words of this thread: word w at w * kWalkThreads.
+__device__ __forceinline__ uint32_t* wide_mask(const Params& p,
+                                               float* smem) {
+  return reinterpret_cast<uint32_t*>(smem + p.n_floats +
+                                     kWideExtraBytes / 4) +
+         threadIdx.x;
+}
+
+// The wide walk's fresh bounce: the grandparents the ray enters, under
+// each the parents it enters, under each of those the children (kd
+// leaves) it hits. A missed box's children all miss (see the parents
+// above), so these are the boxes the flat walk's first iteration hits:
+// they go into the mask, and m0, m1 get the two nearest keys of them.
+// Each lane loops over its own hits, so a warp makes as many trips as
+// its busiest lane, not as the union of its lanes' hits. A word outside
+// `live` is never read: the bounce's first hit in it assigns it. Returns
+// the boxes it tested.
+__device__ __forceinline__ int wide_fresh(const Params& p,
+                                          const float* s_par,
+                                          const float* s_box,
+                                          uint32_t* mask, uint32_t& live,
+                                          float ox, float oy, float oz,
+                                          float ivx, float ivy, float ivz,
+                                          float a, float min_t_a, float& m0,
+                                          float& m1) {
+  live = 0u;
+  const float* s_grand = s_par + kBoxFloats * p.n_parents;
+  uint32_t grand = 0u;
+  for (int g = 0; g < p.n_grand; ++g) {
+    if (box_entry(s_grand + kBoxFloats * g, ox, oy, oz, ivx, ivy, ivz, a,
+                  min_t_a) < kFillQ)
+      grand |= 1u << g;
+  }
+  int tested = p.n_grand;
+  for (; grand != 0u; grand &= grand - 1u) {
+    const int q0 = kParentFanout * (__ffs(grand) - 1);
+    const int nq = min(kParentFanout, p.n_parents - q0);
+    uint32_t par = 0u;
+    for (int j = 0; j < nq; ++j) {
+      if (box_entry(s_par + kBoxFloats * (q0 + j), ox, oy, oz, ivx, ivy,
+                    ivz, a, min_t_a) < kFillQ)
+        par |= 1u << j;
+    }
+    tested += nq;
+    for (; par != 0u; par &= par - 1u) {
+      const int c0 = kParentFanout * (q0 + __ffs(par) - 1);
+      const int nc = min(kParentFanout, p.k - c0);
+      uint32_t run = 0u;
+      for (int c = c0; c < c0 + nc; ++c) {
+        const float qe = box_entry(s_box + kBoxFloats * c, ox, oy, oz, ivx,
+                                   ivy, ivz, a, min_t_a);
+        if (qe < kFillQ) {
+          run |= 1u << (c & 31);
+          const float key = __int_as_float(
+              (__float_as_int(qe) & ~kKeyMask<kWide>) | c);
+          if (key < m0) {
+            m1 = m0;
+            m0 = key;
+          } else if (key < m1) {
+            m1 = key;
+          }
+        }
+      }
+      tested += nc;
+      if (run != 0u) {
+        // a run of kParentFanout children lies in one word
+        const uint32_t word = 1u << (c0 >> 5);
+        uint32_t& m = mask[(c0 >> 5) * kWalkThreads];
+        m = (live & word) != 0u ? m | run : run;
+        live |= word;
+      }
+    }
+  }
+  return tested;
+}
+
+// The wide walk's slab test of its masked boxes: a missed one leaves the
+// mask, and m0, m1 get the two nearest keys of the hit ones. Returns the
+// boxes it tested.
+__device__ __forceinline__ int wide_test(const float* s_box, uint32_t* mask,
+                                          uint32_t& live, float ox,
+                                          float oy, float oz, float ivx,
+                                          float ivy, float ivz, float a,
+                                          float min_t_a, float& m0,
+                                          float& m1) {
+  int tested = 0;
+  for (uint32_t lw = live; lw != 0u; lw &= lw - 1u) {
+    const int j = __ffs(lw) - 1;
+    uint32_t bits = mask[j * kWalkThreads], kept = 0u;
+    while (bits != 0u) {
+      const int c = 32 * j + __ffs(bits) - 1;
+      bits &= bits - 1u;
+      ++tested;
+      const float qe = box_entry(s_box + kBoxFloats * c, ox, oy, oz, ivx,
+                                 ivy, ivz, a, min_t_a);
+      if (qe < kFillQ) {
+        kept |= 1u << (c & 31);
+        const float key = __int_as_float(
+            (__float_as_int(qe) & ~kKeyMask<kWide>) | c);
+        if (key < m0) {
+          m1 = m0;
+          m0 = key;
+        } else if (key < m1) {
+          m1 = key;
+        }
+      }
+    }
+    mask[j * kWalkThreads] = kept;
+    if (kept == 0u) live &= ~(1u << j);
+  }
+  return tested;
 }
 
 // Thread 0's plan of its block's deal, from the live extent ([n, spp]
@@ -410,14 +570,25 @@ __device__ __forceinline__ void end_block(const Params& p, float* smem) {
   }
 }
 
+// The wide walk's count of a finished work index's walk iterations and
+// bounces, into its block's.
+__device__ __forceinline__ void count_walk(const Params& p, float* smem,
+                                           float cost, int segs) {
+  unsigned long long* counts = counts_of(p, smem) + kWalkCountsAt;
+  atomicAdd(&counts[kWalkIterations], (unsigned long long)cost);
+  atomicAdd(&counts[kWalkSegments], (unsigned long long)segs);
+}
+
 template <bool kAdaptive, bool kStratified, bool kDebug, int kWords>
 __device__ __forceinline__ void walk(const Params& p, float* smem) {
+  constexpr bool kIsWide = kWords == kWide;
   const float* s_cam = smem;
   const float* s_glob = smem + p.off_glob;
   const float* s_par = smem + p.off_par;
   const float* s_box = smem + p.off_box;
   const float* s_mem = smem + p.off_mem;
-  const float* s_win = smem + p.off_win;
+  // the winner rows: in shared memory, or the wide walk's in global memory
+  const float* s_win = (kIsWide ? p.tables : smem) + p.off_win;
   const uint32_t dps = 4u + (uint32_t)p.path.max_depth * kDrawsPerBounce;
 
   // the work's pixel, its hash, its first sample and its sample limit;
@@ -439,7 +610,11 @@ __device__ __forceinline__ void walk(const Params& p, float* smem) {
   path.cr = path.cg = path.cb = 1.0f;
   float bq = kFillQ, kl = kNegBig;  // best q, visited cursor (packed key)
   int bs = 0;                       // winner slot
-  BoxMask<kWords> hits = {};        // boxes the bounce's ray hits, unvisited
+  // boxes the bounce's ray hits, unvisited: in registers, or the wide
+  // walk's in shared memory with the words that hold bits in `live`
+  BoxMask<kIsWide ? 1 : kWords> hits = {};
+  uint32_t* const mask = kIsWide ? wide_mask(p, smem) : nullptr;
+  uint32_t live = 0u;
   Sums sums = {0.0f, 0.0f, 0.0f, 0.0f};
   float cost = 0.0f;
   int segs = 0;
@@ -469,8 +644,9 @@ __device__ __forceinline__ void walk(const Params& p, float* smem) {
 #endif
 
       // the boxes to test: on a fresh bounce the children of the parents
-      // the ray enters, later the hit boxes not yet visited
-      BoxMask<kWords> cand = hits;
+      // the ray enters (in the wide walk, of those under the grandparents
+      // it enters), later the hit boxes not yet visited
+      BoxMask<kIsWide ? 1 : kWords> cand = hits;
       if (fresh) {
         // a fresh bounce seeds its best hit with exact global tests
         float g_best = kFillQ;
@@ -485,41 +661,56 @@ __device__ __forceinline__ void walk(const Params& p, float* smem) {
         }
         bq = g_best;
         bs = g_slot;
+        if constexpr (!kIsWide) {
 #pragma unroll
-        for (int j = 0; j < kWords; ++j) cand.w[j] = 0u;
-        for (int q = 0; q < p.n_parents; ++q) {
-          RT_COUNT(kSlabTests, 1u);
-          if (box_entry(s_par + kBoxFloats * q, ox, oy, oz, ivx, ivy, ivz, a,
-                        min_t_a) < kFillQ) {
-            const int c0 = kParentFanout * q;
-            const int nc = min(kParentFanout, p.k - c0);
-            mask_or(cand, c0 >> 5, ((1u << nc) - 1u) << (c0 & 31));
+          for (int j = 0; j < kWords; ++j) cand.w[j] = 0u;
+          for (int q = 0; q < p.n_parents; ++q) {
+            RT_COUNT(kSlabTests, 1u);
+            if (box_entry(s_par + kBoxFloats * q, ox, oy, oz, ivx, ivy, ivz,
+                          a, min_t_a) < kFillQ) {
+              const int c0 = kParentFanout * q;
+              const int nc = min(kParentFanout, p.k - c0);
+              mask_or(cand, c0 >> 5, ((1u << nc) - 1u) << (c0 & 31));
+            }
           }
         }
       }
 
       // slab test of the candidates in q-space, keeping the hit ones and
       // the two nearest packed keys (entry with 7 low bits floored |
-      // cluster); every hit key here lies beyond the cursor kl
+      // cluster, 9 in the wide walk); every hit key here lies beyond the
+      // cursor kl
       float m0 = INFINITY, m1 = INFINITY;
+      if constexpr (kIsWide) {
+        // a fresh bounce finds its hits under the grandparents, a later
+        // iteration re-tests the hits not yet visited
+        [[maybe_unused]] const int tested =
+            fresh ? wide_fresh(p, s_par, s_box, mask, live, ox, oy, oz, ivx,
+                               ivy, ivz, a, min_t_a, m0, m1)
+                  : wide_test(s_box, mask, live, ox, oy, oz, ivx, ivy, ivz,
+                              a, min_t_a, m0, m1);
+        RT_COUNT(kSlabTests, (unsigned long long)tested);
+      } else {
 #pragma unroll
-      for (int j = 0; j < kWords; ++j) {
-        uint32_t bits = cand.w[j];
-        hits.w[j] = 0u;
-        while (bits != 0u) {
-          const int c = 32 * j + __ffs(bits) - 1;
-          bits &= bits - 1u;
-          RT_COUNT(kSlabTests, 1u);
-          const float qe = box_entry(s_box + kBoxFloats * c, ox, oy, oz, ivx,
-                                     ivy, ivz, a, min_t_a);
-          if (qe < kFillQ) {
-            hits.w[j] |= 1u << (c & 31);
-            const float key = __int_as_float((__float_as_int(qe) & ~127) | c);
-            if (key < m0) {
-              m1 = m0;
-              m0 = key;
-            } else if (key < m1) {
-              m1 = key;
+        for (int j = 0; j < kWords; ++j) {
+          uint32_t bits = cand.w[j];
+          hits.w[j] = 0u;
+          while (bits != 0u) {
+            const int c = 32 * j + __ffs(bits) - 1;
+            bits &= bits - 1u;
+            RT_COUNT(kSlabTests, 1u);
+            const float qe = box_entry(s_box + kBoxFloats * c, ox, oy, oz,
+                                       ivx, ivy, ivz, a, min_t_a);
+            if (qe < kFillQ) {
+              hits.w[j] |= 1u << (c & 31);
+              const float key =
+                  __int_as_float((__float_as_int(qe) & ~127) | c);
+              if (key < m0) {
+                m1 = m0;
+                m0 = key;
+              } else if (key < m1) {
+                m1 = key;
+              }
             }
           }
         }
@@ -527,11 +718,11 @@ __device__ __forceinline__ void walk(const Params& p, float* smem) {
 
       // done when the nearest unvisited entry cannot beat the best, or the
       // list is exhausted; else visit it, then test the next one (fused)
-      bdone = (key_floor(m0) >= bq) | (m0 >= kFillFloor);
+      bdone = (key_floor<kWords>(m0) >= bq) | (m0 >= kFillFloor);
       RT_WARP_COUNT(kWarpVisit, !bdone);
       RT_COUNT(kLaneVisit, bdone ? 0u : 1u);
       if (!bdone) {
-        const int cidx = __float_as_int(m0) & 127;
+        const int cidx = __float_as_int(m0) & kKeyMask<kWords>;
         const float4* mb =
             reinterpret_cast<const float4*>(s_mem + 4 * cidx * p.mstride);
         for (int m = 0; m < p.group; ++m) {
@@ -544,9 +735,13 @@ __device__ __forceinline__ void walk(const Params& p, float* smem) {
             bs = p.n_global + cidx * p.group + m;
           }
         }
-        mask_clear(hits, cidx);
+        if constexpr (kIsWide) {
+          mask[(cidx >> 5) * kWalkThreads] &= ~(1u << (cidx & 31));
+        } else {
+          mask_clear(hits, cidx);
+        }
         kl = m0;
-        bdone = (key_floor(m1) >= bq) | (m1 >= kFillFloor);
+        bdone = (key_floor<kWords>(m1) >= bq) | (m1 >= kFillFloor);
       }
     } while (!bdone);
     ++segs;
@@ -575,6 +770,7 @@ __device__ __forceinline__ void walk(const Params& p, float* smem) {
 
     // the work has taken its samples: write it, and go on with the next
     // work that has any
+    if constexpr (kIsWide) count_walk(p, smem, cost, segs);
     finish<kAdaptive>(p, smem, lane, sums, cost, path, segs);
     for (;;) {
       lane = next_lane(p.next_lane);
@@ -596,6 +792,18 @@ __device__ __forceinline__ void walk(const Params& p, float* smem) {
 #endif
 }
 
+// The end of a wide block: its iteration and bounce counts into the
+// launch's (one atomic each).
+__device__ __forceinline__ void end_wide_block(const Params& p,
+                                               float* smem) {
+  __syncthreads();
+  if (threadIdx.x == 0 && p.samples != nullptr) {
+    const unsigned long long* c = counts_of(p, smem) + kWalkCountsAt;
+    atomicAdd(&p.samples[kWalkIterations], c[kWalkIterations]);
+    atomicAdd(&p.samples[kWalkSegments], c[kWalkSegments]);
+  }
+}
+
 template <bool kAdaptive, bool kStratified, bool kDebug, int kWords>
 __global__ void __launch_bounds__(kWalkThreads, 1)
     cluster_walk_kernel(Params p) {
@@ -603,9 +811,16 @@ __global__ void __launch_bounds__(kWalkThreads, 1)
   if constexpr (kAdaptive) {
     if (threadIdx.x == 0) plan_deal(p, smem);
   }
+  if constexpr (kWords == kWide) {
+    if (threadIdx.x == 0) {
+      unsigned long long* counts = counts_of(p, smem) + kWalkCountsAt;
+      counts[kWalkIterations] = counts[kWalkSegments] = 0ull;
+    }
+  }
   load_tables(smem, p.tables, p.n_floats);
   walk<kAdaptive, kStratified, kDebug, kWords>(p, smem);
   if constexpr (kAdaptive) end_block(p, smem);
+  if constexpr (kWords == kWide) end_wide_block(p, smem);
 }
 
 template <bool kAdaptive, bool kStratified, bool kDebug, int kWords>
@@ -642,15 +857,21 @@ cudaError_t launch_words(const Params& p, int blocks, size_t smem,
   return cudaGetLastError();
 }
 
-// the box mask's width from the partition: one word up to 32 clusters
+// the box mask's width from the partition: one word up to 32 clusters;
+// the wide walk's library holds the wide walk alone
 template <bool kAdaptive, bool kStratified, bool kDebug>
 cudaError_t launch(const Params& p, int blocks, size_t smem,
                    cudaStream_t stream) {
+#ifdef RT_WALK_WIDE
+  return launch_words<kAdaptive, kStratified, kDebug, kWide>(p, blocks, smem,
+                                                             stream);
+#else
   return p.k <= 32
              ? launch_words<kAdaptive, kStratified, kDebug, 1>(p, blocks,
                                                                smem, stream)
              : launch_words<kAdaptive, kStratified, kDebug, kMaxWords>(
                    p, blocks, smem, stream);
+#endif
 }
 
 }  // namespace
@@ -659,12 +880,15 @@ cudaError_t launch(const Params& p, int blocks, size_t smem,
 // `stream`; returns the launch's cudaError_t (0 on success), and
 // cudaErrorInvalidValue for debug with adaptive, which has none, for
 // adaptive without its item scratch or with one of other than kItemRows
-// rows, or for tables that are not 16-byte aligned. The packed tables,
-// map, budget (null without one), lane counter (one int), live extent
-// (two ints, null without a budget), item scratch (item_rows x item_cap
-// floats), per-lane item counts (item_cap ints, all zero) and sample
-// counts (two, or null) are device pointers; the caller checks shapes
-// and the tables' layout. The launch zeroes the lane counter on `stream`
+// rows, for tables that are not 16-byte aligned, and for a partition of
+// more clusters than the library's walk takes (the narrow walk's 128;
+// the wide walk's 129 to 512). The packed tables, map, budget (null
+// without one), lane counter (one int), live extent (two ints, null
+// without a budget), item scratch (item_rows x item_cap floats),
+// per-lane item counts (item_cap ints, all zero) and counts (two sample
+// counts, or null; in the wide walk four, never null: the sample counts,
+// walk iterations and bounces) are device pointers; the caller checks
+// shapes and the tables' layout. The launch zeroes the lane counter on `stream`
 // first, and leaves the item counts zero, so launches that share them
 // must share the stream. The cursor and the selection are read with
 // debug only.
@@ -709,10 +933,24 @@ extern "C" int cluster_walk_launch(
   p.off_win = off_win;
   p.n_floats = n_floats;
   p.dbg = {cursor_x, cursor_y, cursor_z, selected};
+#ifdef RT_WALK_WIDE
+  // the wide walk: its hit-test tables (all before the winner rows), its
+  // counts and deal, and its threads' masks
+  if (k <= 32 * kMaxWords || k > 32 * kWideMaxWords || samples == nullptr)
+    return (int)cudaErrorInvalidValue;
+  p.n_floats = off_win;
+  p.n_grand = (n_parents + kParentFanout - 1) / kParentFanout;
+  p.n_words = (k + 31) / 32;
+  const size_t smem = sizeof(float) * (size_t)off_win + kWideExtraBytes +
+                      sizeof(uint32_t) * (size_t)p.n_words * kWalkThreads;
+#else
+  if (k > 32 * kMaxWords) return (int)cudaErrorInvalidValue;
+  p.n_grand = p.n_words = 0;
   // adaptive: the deal and the sample counts after the tables, and a grid
   // for every sample, as the items may go one a thread
   const size_t smem = sizeof(float) * (size_t)n_floats +
                       (adaptive ? (size_t)kAdaptiveSmemBytes : 0);
+#endif
   const long long work = adaptive ? (long long)n * std::max(spp, 1) : n;
   const int blocks = (int)std::min<long long>(
       (work + kWalkThreads - 1) / kWalkThreads, 1 << 20);

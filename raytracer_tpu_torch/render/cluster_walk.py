@@ -45,6 +45,16 @@ every other draw stays counter-hashed. Debug
 and selection of ``debug`` (a :class:`DebugParams`, ``none()`` when
 omitted); the winner's uuid is column 10 of its winner row. It has no
 adaptive instantiation: the wrappers refuse debug with adaptive.
+
+A partition of more than ``MAX_CLUSTERS`` clusters (up to
+``MAX_WIDE_CLUSTERS``) takes the wide walk: the same kernel source built
+with ``RT_WALK_WIDE`` into a library of its own, so the narrow walk's
+instantiations and build stay as they are. Its visit key holds the
+cluster index in 9 bits (``tables.key_bits``), and the plain version
+packs its keys the same way; it culls through a second level of boxes,
+keeps each thread's mask of hit boxes in shared memory, and reads the
+winner rows from global memory. It counts its lanes' walk iterations
+and completed bounces (``WIDE_COUNTS`` in the span registry).
 """
 
 from __future__ import annotations
@@ -64,10 +74,12 @@ from raytracer_tpu_torch.render.options import (
     TraceOptions,
 )
 from raytracer_tpu_torch.render.tables import (
-    MAX_CLUSTERS,
-    PARENT_FANOUT,
+    MAX_WIDE_CLUSTERS,
     WalkTables,
     debug_uniforms,
+    is_wide,
+    key_bits,
+    walk_fits,
     walk_layout,
 )
 from raytracer_tpu_torch.utils import cuda_build, profiling
@@ -94,17 +106,27 @@ ITEM_ROWS = 6
 #: the kernel's counts of the samples it ran as items and of all samples,
 #: as the span registry reports them (``utils.profiling.counters``)
 SAMPLE_COUNTS = ("walk_item_samples", "walk_samples")
+#: the wide walk's counts: those, then its lanes' walk iterations and
+#: completed bounces (every launch of it, adaptive or not)
+WIDE_COUNTS = SAMPLE_COUNTS + ("walk_iterations", "walk_segments")
+#: the define that builds ``csrc/cluster_walk.cu`` as the wide walk
+WIDE_DEFINE = "RT_WALK_WIDE"
 NEG_BIG = -3e38
 #: the overlay's marker: a hit whose squared distance to the cursor is
 #: below this; the outline: the selected sphere where d·n > GRAZING
 CURSOR_R2 = 0.01
 GRAZING = -0.05
-#: float32 3e38 with the 7 key bits cleared: a selection at or above it is
-#: a miss or an exhausted list
-FILL_FLOOR = float(
-    np.int32(np.float32(FILLQ).view(np.int32) & ~np.int32(127))
-    .view(np.float32)
-)
+
+
+def fill_floor(bits: int = 7) -> float:
+    """float32 3e38 with the ``bits`` low key bits cleared: a selection at
+    or above it is a miss or an exhausted list."""
+    return float(np.int32(np.float32(FILLQ).view(np.int32)
+                          & ~np.int32((1 << bits) - 1)).view(np.float32))
+
+
+#: the narrow walk's (7 key bits)
+FILL_FLOOR = fill_floor(7)
 
 
 def padded_width(width: int) -> int:
@@ -125,9 +147,10 @@ def variant_suffix(opts: TraceOptions) -> str:
             + ("_debug" if opts.enable_debug else ""))
 
 
-def variant_name(opts: TraceOptions) -> str:
-    """The kernel instantiation that serves ``opts``."""
-    return "cluster_walk" + variant_suffix(opts)
+def variant_name(opts: TraceOptions, wide: bool = False) -> str:
+    """The kernel instantiation that serves ``opts`` (in the wide walk
+    when ``wide``)."""
+    return "cluster_walk" + ("_wide" if wide else "") + variant_suffix(opts)
 
 
 def _check(tables: WalkTables, pixel_map: torch.Tensor, width: int,
@@ -136,16 +159,20 @@ def _check(tables: WalkTables, pixel_map: torch.Tensor, width: int,
                           "parents", "packed"), pixel_map.device)
     k, group = tables.members.shape[:2]
     n_global = tables.globals.shape[0]
+    lay = walk_layout(n_global, k, group)
     if (tables.camera.shape != (19,) or tables.globals.shape[1:] != (4,)
             or tables.bounds.shape != (k, 6)
             or tables.members.shape[2:] != (4,)
             or tables.winner.shape != (n_global + k * group, 11)
-            or tables.parents.shape != (-(-k // PARENT_FANOUT), 6)
-            or tables.packed.shape != (
-                walk_layout(n_global, k, group).n_floats,)):
+            or tables.parents.shape != (lay.n_parents + lay.n_grand, 6)
+            or tables.packed.shape != (lay.n_floats,)):
         raise ValueError("inconsistent walk table shapes")
-    if not 1 <= k <= MAX_CLUSTERS:
-        raise ValueError(f"cluster count {k} outside [1, {MAX_CLUSTERS}]")
+    if not walk_fits(n_global, k, group):
+        raise ValueError(
+            f"a partition of {k} clusters of {group} slots beside "
+            f"{n_global} globals: the walk takes 1 to {MAX_WIDE_CLUSTERS} "
+            "clusters, and past 128 only while the wide walk's shared "
+            "memory fits a block")
     check_chunk_args(pixel_map, width, height, spp, opts, budget)
 
 
@@ -225,8 +252,11 @@ def reset_launch_counts():
     profiling.reset_counters()
 
 
-def _lib():
-    return bind(cuda_build.load("cluster_walk"))
+def _lib(wide: bool = False):
+    """The narrow walk's library, or with ``wide`` the wide walk's; each
+    is built at its first use."""
+    return bind(cuda_build.load("cluster_walk",
+                                (WIDE_DEFINE,) if wide else ()))
 
 
 def bind(lib: ctypes.CDLL, abi: int = ABI):
@@ -249,10 +279,11 @@ def bind(lib: ctypes.CDLL, abi: int = ABI):
 
 def _launch(tables, pixel_map, seed, sample_offset, spp, width, height,
             opts, budget, uniforms):
-    out, segs = call(_lib(), tables, pixel_map, seed, sample_offset, spp,
-                     width, height, opts, budget, uniforms)
+    wide = is_wide(tables.members.shape[0])
+    out, segs = call(_lib(wide), tables, pixel_map, seed, sample_offset,
+                     spp, width, height, opts, budget, uniforms)
     cluster_walk.launches += 1
-    name = variant_name(opts)
+    name = variant_name(opts, wide)
     by_variant = cluster_walk.launches_by_variant
     by_variant[name] = by_variant.get(name, 0) + 1
     return out, segs
@@ -261,8 +292,9 @@ def _launch(tables, pixel_map, seed, sample_offset, spp, width, height,
 def call(fn, tables, pixel_map, seed, sample_offset, spp, width, height,
          opts, budget, uniforms, abi: int = ABI):
     """``(out, segs)`` of one launch of ``fn`` (``cluster_walk_launch``
-    bound by :func:`bind` at launch interface ``abi``) on the current
-    stream, uncounted; raises on the launch's CUDA error."""
+    bound by :func:`bind` at launch interface ``abi``, of the narrow or
+    the wide walk's library as the tables' cluster count asks) on the
+    current stream, uncounted; raises on the launch's CUDA error."""
     n = pixel_map.shape[0]
     k, group = tables.members.shape[:2]
     n_global = tables.globals.shape[0]
@@ -283,16 +315,21 @@ def call(fn, tables, pixel_map, seed, sample_offset, spp, width, height,
         # extent is held until the launch is enqueued: freed before, its
         # block could go to the next allocation on the stream (the
         # counts' zeros) and be overwritten before the kernel reads it.
+        # The wide walk counts on every launch, into WIDE_COUNTS.
         extent, ptrs, shape = None, (), ()
         if abi >= 3:
             ptrs, shape = (None,) * 4, (ITEM_ROWS, ITEM_CAP)
+            wide = is_wide(k)
+            if adaptive or wide:
+                counts = profiling.device_counts(
+                    dev, WIDE_COUNTS if wide else SAMPLE_COUNTS).data_ptr()
+                ptrs = (None, None, None, counts)
             if adaptive:
                 if budget is not None:
                     extent = live_extent(budget)
                 ptrs = (None if extent is None else extent.data_ptr(),
                         *(t.data_ptr() for t in _item_scratch(dev, stream)),
-                        profiling.device_counts(dev, SAMPLE_COUNTS)
-                        .data_ptr())
+                        counts)
         err = fn(
             tables.packed.data_ptr(), pixel_map.data_ptr(),
             None if budget is None else budget.data_ptr(),
@@ -446,8 +483,8 @@ def _inv_dir(d: torch.Tensor) -> torch.Tensor:
                              torch.clamp_max(d, -1e-12))
 
 
-def _key_floor(key: torch.Tensor) -> torch.Tensor:
-    return (key.view(torch.int32) & -128).view(torch.float32)
+def _key_floor(key: torch.Tensor, bits: int = 7) -> torch.Tensor:
+    return (key.view(torch.int32) & -(1 << bits)).view(torch.float32)
 
 
 @dataclasses.dataclass
@@ -710,12 +747,12 @@ def bounce_tail(st: PathState, lanes: Lanes, win, bq: torch.Tensor,
     return scat_cont
 
 
-def box_keys(ray, boxes: torch.Tensor) -> torch.Tensor:
+def box_keys(ray, boxes: torch.Tensor, bits: int = 7) -> torch.Tensor:
     """(n, K) packed visit keys of each lane's ray (``ray`` = (ox, oy, oz,
     dx, dy, dz, a, o_dot_d, o_dot_o, min_t_a), each (n,)) against the
-    (K, 6) ``boxes``: the slab test's entry q = t·|d|² with its 7 low bits
-    floored, OR the box's index; a missed box's key is at least
-    FILL_FLOOR."""
+    (K, 6) ``boxes``: the slab test's entry q = t·|d|² with its ``bits``
+    low bits floored, OR the box's index; a missed box's key is at least
+    ``fill_floor(bits)``."""
     ox, oy, oz, dx, dy, dz, a, _, _, min_t_a = ray
     tn = tf = None
     for j, (o_, d_) in enumerate(((ox, dx), (oy, dy), (oz, dz))):
@@ -732,7 +769,7 @@ def box_keys(ray, boxes: torch.Tensor) -> torch.Tensor:
     qe = torch.where(hitb, qn_q, FILLQ)
     idx = torch.arange(boxes.shape[0], device=boxes.device,
                        dtype=torch.int32)
-    return ((qe.view(torch.int32) & -128) | idx).view(torch.float32)
+    return ((qe.view(torch.int32) & -(1 << bits)) | idx).view(torch.float32)
 
 
 def select_two(keys: torch.Tensor, kl: torch.Tensor):
@@ -751,12 +788,15 @@ def cluster_walk_plain(tables: WalkTables, pixel_map: torch.Tensor,
                        debug: DebugParams | None = None):
     """The cluster walk as masked tensor code: every lane runs the same
     regeneration loop, one walk iteration per pass, ``while`` any lane is
-    alive. The arithmetic and its order are the kernel's."""
+    alive. The arithmetic and its order are the kernel's, the visit keys
+    packed as the narrow or the wide walk packs them."""
     dev = pixel_map.device
     f32 = torch.float32
     n = pixel_map.shape[0]
     n_global = tables.globals.shape[0]
-    group = tables.members.shape[1]
+    k, group = tables.members.shape[:2]
+    bits = key_bits(k)
+    floor = fill_floor(bits)
     glob = [list(g.unbind(0)) for g in tables.globals]
     lanes, st = lane_setup(tables.camera, pixel_map, seed, sample_offset,
                            spp, width, height, opts, budget, debug)
@@ -788,11 +828,11 @@ def cluster_walk_plain(tables: WalkTables, pixel_map: torch.Tensor,
         bs = torch.where(fresh, g_slot, bs)
 
         # slab test of every cluster box, in q-space
-        m0, m1 = select_two(box_keys(ray, tables.bounds), kl)
+        m0, m1 = select_two(box_keys(ray, tables.bounds, bits), kl)
 
-        imm_done = (_key_floor(m0) >= bq) | (m0 >= FILL_FLOOR)
+        imm_done = (_key_floor(m0, bits) >= bq) | (m0 >= floor)
         u_live = alive & ~imm_done
-        cidx = (m0.view(torch.int32) & 127).to(torch.int64)
+        cidx = (m0.view(torch.int32) & ((1 << bits) - 1)).to(torch.int64)
         mem = tables.members[cidx]
         qm = _exact_q(mem[..., 0], mem[..., 1], mem[..., 2], mem[..., 3],
                       *(_col(t) for t in ray))
@@ -801,7 +841,7 @@ def cluster_walk_plain(tables: WalkTables, pixel_map: torch.Tensor,
         bq = torch.where(upd, qmin, bq)
         bs = torch.where(upd, n_global + cidx * group + mfirst, bs)
         kl = torch.where(u_live, m0, kl)
-        new_done = u_live & ((_key_floor(m1) >= bq) | (m1 >= FILL_FLOOR))
+        new_done = u_live & ((_key_floor(m1, bits) >= bq) | (m1 >= floor))
         bdone = imm_done | new_done
         ab = alive & bdone
         st.segs += ab.to(torch.int32)

@@ -51,7 +51,7 @@ from raytracer_tpu_torch.render.options import (
     DebugParams,
     TraceOptions,
 )
-from raytracer_tpu_torch.render.tables import FlatTables
+from raytracer_tpu_torch.render.tables import MAX_WIDE_CLUSTERS, FlatTables
 from raytracer_tpu_torch.utils import cuda_build, profiling
 
 #: floats per sphere row (see ``tables.sphere_table``)
@@ -62,6 +62,10 @@ MAX_SMEM_BYTES = 48 * 1024
 #: the version of ``flat_scan_launch``'s arguments that :func:`call`
 #: passes (``flat_scan_abi`` in ``csrc/flat_scan.cu``)
 ABI = 2
+
+
+#: the most slots whose table fits ``MAX_SMEM_BYTES``
+MAX_SLOTS = (MAX_SMEM_BYTES // 4 - 20) // ROW
 
 
 def smem_bytes(slots: int) -> int:
@@ -90,8 +94,11 @@ def _check(tables: FlatTables, pixel_map: torch.Tensor, width: int,
         raise ValueError(
             f"the flat scan's table of {slots} slots needs "
             f"{smem_bytes(slots)} bytes of shared memory per block, over "
-            f"the {MAX_SMEM_BYTES} a block has by default; render such a "
-            "scene with the cluster walk (cluster_scan=True)"
+            f"the {MAX_SMEM_BYTES} a block has by default: it takes at most "
+            f"{MAX_SLOTS} slots. A larger scene renders only through the "
+            "cluster walk (cluster_scan 'auto' or True), where its kd "
+            f"partition has 1 to {MAX_WIDE_CLUSTERS} clusters whose tables "
+            "fit a block's 227 KiB of shared memory"
         )
     if g_full is not None and not 0 <= g_full:
         raise ValueError(f"g_full must be >= 0, got {g_full}")

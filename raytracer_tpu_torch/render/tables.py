@@ -10,8 +10,13 @@ gone: the tables are plain row-major float32 arrays that the kernels load
 into shared memory once per block and index directly. The cluster walk's
 kernel reads them packed into one array laid out as its shared memory
 (:func:`walk_layout`, :func:`pack_walk`), with one level of parent boxes
-over its kd leaves (:func:`parent_boxes`). Tables are built where the
-scene lives and then uploaded (:func:`upload`).
+over its kd leaves (:func:`parent_boxes`). A partition of more than
+``MAX_CLUSTERS`` clusters takes the wide walk: a second level of boxes
+over the parents (:func:`hierarchy_boxes`), a 9-bit cluster index in the
+visit key (:func:`key_bits`), and only the hit-test tables in shared
+memory, the winner rows read from global memory
+(:func:`wide_smem_bytes`). Tables are built where the scene lives and
+then uploaded (:func:`upload`).
 """
 
 from __future__ import annotations
@@ -34,8 +39,19 @@ from raytracer_tpu_torch.utils.profiling import span
 
 #: the packed visit key carries the cluster index in 7 mantissa bits
 MAX_CLUSTERS = 128
-#: kd leaves under one parent box of the walk's culled box test
+#: the wide walk's key carries it in 9: partitions of up to 512 clusters
+MAX_WIDE_CLUSTERS = 512
+#: kd leaves under one parent box of the walk's culled box test, and
+#: parents under one grandparent box of the wide walk's
 PARENT_FANOUT = 4
+#: threads of a walk block: the wide walk keeps each one's mask of hit
+#: boxes in shared memory, a word per 32 clusters
+WALK_THREADS = 1024
+#: shared memory a block of the walk may opt in to on the H100 (227 KiB)
+MAX_WALK_SMEM_BYTES = 232448
+#: bytes of the wide walk's shared memory between its tables and its
+#: masks: four sample, iteration and bounce counts and the adaptive deal
+WIDE_EXTRA_BYTES = 48
 #: floats of a box in the packed tables: [lo xyz, 0, hi xyz, 0]
 BOX_FLOATS = 8
 #: floats of the camera's 19 uniforms in the packed tables
@@ -105,19 +121,52 @@ def sphere_table(scene: Scene) -> torch.Tensor:
     ).to(torch.float32).contiguous()
 
 
+def key_bits(k: int) -> int:
+    """Low mantissa bits of the packed visit key that hold the cluster
+    index, for a partition of ``k`` clusters: 7 up to ``MAX_CLUSTERS``,
+    as the JAX package packs it, and 9 in the wide walk."""
+    return 7 if k <= MAX_CLUSTERS else 9
+
+
+def is_wide(k: int) -> bool:
+    """Whether a partition of ``k`` clusters takes the wide walk."""
+    return k > MAX_CLUSTERS
+
+
+def wide_smem_bytes(lay: "WalkLayout") -> int:
+    """Shared memory of one block of the wide walk: the hit-test tables
+    (everything before the winner rows), the counts and deal, and a
+    mask word per 32 clusters for each of its threads."""
+    words = -(-lay.k // 32)
+    return 4 * lay.off_win + WIDE_EXTRA_BYTES + 4 * words * WALK_THREADS
+
+
+def walk_fits(n_global: int, k: int, group: int) -> bool:
+    """Whether the walk takes a partition of ``k`` clusters of ``group``
+    slots beside ``n_global`` globals: up to ``MAX_CLUSTERS`` clusters (the
+    narrow walk, which holds all its tables in shared memory), and up to
+    ``MAX_WIDE_CLUSTERS`` where the wide walk's shared memory fits a
+    block."""
+    if not 1 <= k <= MAX_WIDE_CLUSTERS:
+        return False
+    return not is_wide(k) or wide_smem_bytes(
+        walk_layout(n_global, k, group)) <= MAX_WALK_SMEM_BYTES
+
+
 def cluster_partition(scene: Scene, opts: TraceOptions):
-    """The kd partition of ``scene``, or None where the JAX package
-    renders the scene with the flat scan instead: no small-sphere
-    clusters, or more clusters than the packed visit key can index. The
-    caller decides first whether the cluster walk is wanted at all
+    """The kd partition of ``scene``, or None where the scene renders with
+    the flat scan instead: no small-sphere clusters, or a partition the
+    walk cannot take (:func:`walk_fits`). Up to ``MAX_CLUSTERS`` clusters
+    this is the JAX package's choice; past it the JAX package takes its
+    flat scan, and the port its wide walk. The caller decides first
+    whether the cluster walk is wanted at all
     (:func:`~raytracer_tpu_torch.render.options.cluster_scan_enabled`).
     The span ``partition``; its read of the scene, the waits
     ``scene_read``."""
     with span("partition"):
         part = build_grid_clustered(scene, group=opts.cluster_group,
                                     partition=opts.cluster_partition)
-    k = part.boxes.shape[0]
-    if k == 0 or k > MAX_CLUSTERS:
+    if not walk_fits(part.n_global, part.boxes.shape[0], part.group):
         return None
     return part
 
@@ -162,7 +211,7 @@ class WalkTables:
     bounds: torch.Tensor  # (K, 6) member AABBs [lo xyz, hi xyz]
     members: torch.Tensor  # (K, group, 4) [cx, cy, cz, k1]
     winner: torch.Tensor  # (slots, 11) [c xyz, 1/r, mat, albedo, fuzz, ior, uuid]
-    parents: torch.Tensor  # (ceil(K / PARENT_FANOUT), 6), see parent_boxes
+    parents: torch.Tensor  # (n_boxes, 6), see hierarchy_boxes
     packed: torch.Tensor  # (walk_layout(...).n_floats,), see pack_walk
 
     def to(self, device) -> "WalkTables":
@@ -272,6 +321,19 @@ def parent_boxes(bounds: np.ndarray) -> np.ndarray:
     return np.concatenate([runs[..., :3].min(1), runs[..., 3:].max(1)], 1)
 
 
+def hierarchy_boxes(bounds: np.ndarray) -> np.ndarray:
+    """The boxes over a partition's (K, 6) kd leaves that the walk's
+    culled box test reads: the parents (:func:`parent_boxes`), and for a
+    wide partition (:func:`is_wide`) after them the grandparents, each
+    over a run of PARENT_FANOUT parents. The span ``hierarchy`` times the
+    grandparents."""
+    parents = parent_boxes(bounds)
+    if not is_wide(bounds.shape[0]):
+        return parents
+    with span("hierarchy"):
+        return np.concatenate([parents, parent_boxes(parents)])
+
+
 def member_stride(group: int) -> int:
     """float4 rows from one cluster's members to the next in the packed
     tables: ``group`` made odd, so the same member of clusters a warp
@@ -282,10 +344,13 @@ def member_stride(group: int) -> int:
 @dataclasses.dataclass(frozen=True)
 class WalkLayout:
     """Offsets (in floats, each a multiple of 4) of the packed walk
-    tables: camera at 0, then globals, parent boxes, boxes, members (a
-    cluster every ``mstride`` float4 rows) and winner rows."""
+    tables: camera at 0, then globals, parent boxes (and a wide
+    partition's grandparents after them), boxes, members (a cluster every
+    ``mstride`` float4 rows) and winner rows."""
 
     n_parents: int
+    n_grand: int  # grandparent boxes: 0 but in the wide walk
+    k: int
     mstride: int
     off_glob: int
     off_par: int
@@ -297,15 +362,16 @@ class WalkLayout:
 
 def walk_layout(n_global: int, k: int, group: int) -> WalkLayout:
     n_par = -(-k // PARENT_FANOUT)
+    n_grand = -(-n_par // PARENT_FANOUT) if is_wide(k) else 0
     mstride = member_stride(group)
     off_glob = CAMERA_FLOATS
     off_par = off_glob + 4 * n_global
-    off_box = off_par + BOX_FLOATS * n_par
+    off_box = off_par + BOX_FLOATS * (n_par + n_grand)
     off_mem = off_box + BOX_FLOATS * k
     off_win = off_mem + 4 * k * mstride
     end = off_win + 11 * (n_global + k * group)
-    return WalkLayout(n_par, mstride, off_glob, off_par, off_box, off_mem,
-                      off_win, -(-end // 4) * 4)
+    return WalkLayout(n_par, n_grand, k, mstride, off_glob, off_par,
+                      off_box, off_mem, off_win, -(-end // 4) * 4)
 
 
 def pack_walk(out, camera, globals_, parents, bounds, members, winner):
@@ -317,8 +383,8 @@ def pack_walk(out, camera, globals_, parents, bounds, members, winner):
     lay = walk_layout(globals_.shape[0], k, group)
     out[:19] = camera
     out[lay.off_glob:lay.off_par] = globals_.reshape(-1)
-    for off, n, boxes in ((lay.off_par, lay.n_parents, parents),
-                          (lay.off_box, k, bounds)):
+    for off, n, boxes in ((lay.off_par, lay.n_parents + lay.n_grand,
+                           parents), (lay.off_box, k, bounds)):
         rows = out[off:off + BOX_FLOATS * n].reshape(n, BOX_FLOATS)
         rows[:, :3] = boxes[:, :3]
         rows[:, 4:7] = boxes[:, 3:]
@@ -331,7 +397,7 @@ def pack_walk(out, camera, globals_, parents, bounds, members, winner):
 def walk_tables(part: ClusteredScene, dcam: DerivedCamera,
                 device) -> WalkTables:
     """The partition's and the camera's tables on ``device``: built where
-    the scene lives (the boxes and their parents on the host), written
+    the scene lives (the boxes and their hierarchy on the host), written
     with the packed array into one buffer there, and uploaded in one
     copy; every table is a view of it. A scene on the host is packed in
     numpy, without a PyTorch call. The span ``tables``."""
@@ -343,7 +409,7 @@ def walk_tables(part: ClusteredScene, dcam: DerivedCamera,
         bounds = bounds.numpy()
         tabs = {"camera": camera_uniforms(dcam), "globals": globals_,
                 "bounds": bounds, "members": members, "winner": winner,
-                "parents": parent_boxes(bounds)}
+                "parents": hierarchy_boxes(bounds)}
         shapes = {"packed": (walk_layout(n_global, k, group).n_floats,),
                   **{name: tuple(t.shape) for name, t in tabs.items()}}
         total = sum(math.prod(shape) for shape in shapes.values())

@@ -28,25 +28,51 @@ class ClusteredScene:
     uuid: np.ndarray  # (slots,) int32: slot → original index, -1 padding
 
 
-def _kd_chunks(idx, centers, radii, group):
+def _kd_leaves(idx, centers, radii, group):
     """Balanced recursive median bisection of sphere indices into
     ceil(n/group) leaves of <= group members each, split along the
-    longest axis of the member AABB."""
-    idx = np.asarray(idx, np.int64)
-    n = len(idx)
-    if n <= group:
-        return [list(idx)]
-    lo = (centers[idx] - np.abs(radii[idx])[:, None]).min(axis=0)
-    hi = (centers[idx] + np.abs(radii[idx])[:, None]).max(axis=0)
-    axis = int(np.argmax(hi - lo))
-    leaves = -(-n // group)
-    l_left = leaves // 2
-    n_left = int(round(n * l_left / leaves))
-    n_left = max(n - (leaves - l_left) * group,
-                 min(l_left * group, n_left))
-    order = idx[np.argsort(centers[idx, axis], kind="stable")]
-    return (_kd_chunks(order[:n_left], centers, radii, group)
-            + _kd_chunks(order[n_left:], centers, radii, group))
+    longest axis of the member AABB: a node of n > group members, in the
+    order its parent left them, sorts them stably by centre along that
+    axis and gives its first half of its leaves' worth to the left child.
+    Worked out a level of the tree at a time, every node of the level at
+    once (one sort keyed by node, then centre). Returns ``(order,
+    sizes)``: the leaves' members one leaf after another, the leaves in
+    the recursion's depth-first order, and each leaf's size."""
+    order = np.asarray(idx, np.int64).copy()
+    r = np.abs(radii)[:, None]
+    lo_pt, hi_pt = centers - r, centers + r
+    start = np.zeros(1, np.int64)
+    end = np.array([len(order)], np.int64)
+    leaf_start, leaf_end = [], []
+    while start.size:
+        n = end - start
+        leaf = n <= group
+        leaf_start.append(start[leaf])
+        leaf_end.append(end[leaf])
+        start, end, n = start[~leaf], end[~leaf], n[~leaf]
+        if not start.size:
+            break
+        node = np.repeat(np.arange(start.size), n)
+        first = np.cumsum(n) - n
+        pos = start[node] + np.arange(node.size) - first[node]
+        members = order[pos]
+        lo = np.minimum.reduceat(lo_pt[members], first, axis=0)
+        hi = np.maximum.reduceat(hi_pt[members], first, axis=0)
+        axis = np.argmax(hi - lo, axis=1)
+        leaves = -(-n // group)
+        l_left = leaves // 2
+        n_left = np.round(n * l_left / leaves).astype(np.int64)
+        n_left = np.maximum(n - (leaves - l_left) * group,
+                            np.minimum(l_left * group, n_left))
+        # lexsort is stable: ties keep the order the parent left them in
+        order[pos] = members[np.lexsort((centers[members, axis[node]],
+                                         node))]
+        split = start + n_left
+        start, end = np.concatenate([start, split]), np.concatenate(
+            [split, end])
+    leaf_start = np.concatenate(leaf_start)
+    sizes = (np.concatenate(leaf_end) - leaf_start)[np.argsort(leaf_start)]
+    return order, sizes
 
 
 def build_grid_clustered(scene: Scene, cell_size: float = 2.0,
@@ -69,26 +95,27 @@ def build_grid_clustered(scene: Scene, cell_size: float = 2.0,
     big = (np.abs(radii) > big_radius) & active
     small = active & ~big
 
-    order = list(np.where(big)[0])
+    order = np.where(big)[0]
     n_global = len(order)
-    chunks = ([] if not small.any()
-              else _kd_chunks(np.where(small)[0], centers, radii, group))
+    members, sizes = (_kd_leaves(np.where(small)[0], centers, radii, group)
+                      if small.any() else (np.zeros(0, np.int64),
+                                           np.zeros(0, np.int64)))
 
-    boxes = []
-    slots = []  # original index or -1 per padded slot
-    for chunk in chunks:
-        pts = centers[chunk]
-        rs = np.abs(radii[chunk])
-        lo = (pts - rs[:, None]).min(axis=0)
-        hi = (pts + rs[:, None]).max(axis=0)
-        # widen by an absolute+relative margin so float32 rounding cannot
-        # shave a member surface
-        lo = lo - (1e-4 + 1e-4 * np.abs(lo))
-        hi = hi + (1e-4 + 1e-4 * np.abs(hi))
-        boxes.append((*lo.astype(np.float32), *hi.astype(np.float32)))
-        slots.extend(list(chunk) + [-1] * (group - len(chunk)))
+    # each leaf's member AABB, widened by an absolute+relative margin so
+    # float32 rounding cannot shave a member surface
+    first = np.cumsum(sizes) - sizes
+    rs = np.abs(radii[members])[:, None]
+    lo = np.minimum.reduceat(centers[members] - rs, first, axis=0)
+    hi = np.maximum.reduceat(centers[members] + rs, first, axis=0)
+    lo = lo - (1e-4 + 1e-4 * np.abs(lo))
+    hi = hi + (1e-4 + 1e-4 * np.abs(hi))
+    boxes = np.concatenate([lo, hi], axis=1).astype(np.float32)
+    # the leaves padded to group slots: original index, -1 for padding
+    slots = np.full(len(sizes) * group, -1, np.int64)
+    leaf = np.repeat(np.arange(len(sizes)), sizes)
+    slots[leaf * group + np.arange(len(members)) - first[leaf]] = members
 
-    uuid = np.array(order + slots, dtype=np.int32)
+    uuid = np.concatenate([order, slots]).astype(np.int32)
     live = uuid >= 0
 
     def take(name, fill=0.0):
@@ -108,7 +135,7 @@ def build_grid_clustered(scene: Scene, cell_size: float = 2.0,
     )
     return ClusteredScene(
         scene=new_scene,
-        boxes=np.array(boxes, np.float32).reshape(-1, 6),
+        boxes=boxes.reshape(-1, 6),
         n_global=n_global,
         group=group,
         uuid=uuid,

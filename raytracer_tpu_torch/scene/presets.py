@@ -2,7 +2,9 @@
 ``raytracer_tpu/scene/presets.py``): the reference demo scene and the
 BASELINE configs from *Ray Tracing in One Weekend*. The cover scene is
 drawn from ``np.random.default_rng(seed)`` exactly as the JAX package
-draws it, so both packages build equal arrays."""
+draws it, so both packages build equal arrays. The port alone has the
+SPD sphereflake (:func:`sphereflake_scene`), a scene past the flat scan
+and past a 128-cluster partition."""
 
 from __future__ import annotations
 
@@ -124,6 +126,83 @@ def cover_camera(width: int, height: int) -> CameraConfig:
         origin=tuple(lookfrom), yaw=yaw, pitch=pitch,
         fov=math.radians(20.0), aperture=0.1, focus_distance=10.0,
         aspect_ratio=width / height,
+    )
+
+
+def _rotation(axis, angle: float) -> np.ndarray:
+    """The 3x3 rotation about the unit ``axis`` by ``angle`` (right-hand
+    rule), Rodrigues' formula."""
+    k = np.asarray(axis, np.float64)
+    cross = np.array([[0.0, -k[2], k[1]], [k[2], 0.0, -k[0]],
+                      [-k[1], k[0], 0.0]])
+    return (np.eye(3) + math.sin(angle) * cross
+            + (1.0 - math.cos(angle)) * cross @ cross)
+
+
+def sphereflake_directions() -> np.ndarray:
+    """(9, 3) unit directions of a sphereflake sphere's children, as the
+    SPD's ``balls.c`` makes them: three vectors turned about (1, -1, 0)
+    by asin(2/sqrt(6)), then each turned about z by 0, 120 and 240
+    degrees. Six lie on the equator (azimuths 15 + 60m degrees), three
+    at elevation 54.74 degrees (azimuths 45, 165, 285)."""
+    d = 1.0 / math.sqrt(2.0)
+    tilt = _rotation((d, -d, 0.0), math.asin(2.0 / math.sqrt(6.0)))
+    base = [tilt @ np.array(t) for t in ((d, d, 0.0), (d, 0.0, -d),
+                                         (0.0, d, -d))]
+    return np.array([_rotation((0.0, 0.0, 1.0), 2.0 * math.pi * k / 3.0)
+                     @ t for k in range(3) for t in base])
+
+
+def _flake(depth: int, center, radius: float, direction, dirs, out):
+    """``balls.c``'s recursion: the sphere, then (at depth > 0) its nine
+    children of a third its radius, tangent to it, along ``dirs`` turned
+    from +z onto ``direction``, depth first."""
+    out.append((center, radius))
+    if depth == 0:
+        return
+    z = np.array([0.0, 0.0, 1.0])
+    if direction[2] >= 1.0:
+        turn = np.eye(3)
+    elif direction[2] <= -1.0:
+        turn = _rotation((0.0, 1.0, 0.0), math.pi)
+    else:
+        axis = np.cross(z, direction)
+        turn = _rotation(axis / np.linalg.norm(axis),
+                         math.acos(float(z @ direction)))
+    for o in dirs:
+        w = turn @ o
+        _flake(depth - 1, center + w * (4.0 * radius / 3.0), radius / 3.0,
+               w, dirs, out)
+
+
+def sphereflake_scene(size_factor: int = 4) -> Scene:
+    """Eric Haines' SPD sphereflake (``balls``, "A Proposal for Standard
+    Graphics Environments", IEEE CG&A, Nov. 1987) at ``size_factor``: a
+    sphere of radius 0.5 at the origin and (9^(n+1) - 1) / 8 spheres in
+    all, 7,381 at 4. The flake's spheres are mirrors (metal, fuzz 0,
+    albedo (1.0, 0.9, 0.7)); slot 0 stands for the SPD's floor polygon at
+    z = -0.5: a diffuse sphere of radius 1000 under it, albedo (1.0,
+    0.75, 0.33)."""
+    m, d = Material.metal, Material.diffuse
+    balls = []
+    _flake(size_factor, np.zeros(3), 0.5, np.array([0.0, 0.0, 1.0]),
+           sphereflake_directions(), balls)
+    flake = m((1.0, 0.9, 0.7), fuzz=0.0)
+    return make_scene(
+        [((0.0, 0.0, -1000.5), 1000.0, d((1.0, 0.75, 0.33)))]
+        + [(tuple(c), r, flake) for c, r in balls])
+
+
+def sphereflake_camera(width: int, height: int) -> CameraConfig:
+    """The SPD's view of the sphereflake: lookfrom (2.1, 1.3, 1.7) to the
+    origin, +z up, a 45 degree field of view, a pinhole focused at the
+    origin's distance."""
+    lookfrom = np.array([2.1, 1.3, 1.7])
+    yaw, pitch = yaw_pitch_from_lookat(lookfrom, np.zeros(3))
+    return CameraConfig.create(
+        origin=tuple(lookfrom), yaw=yaw, pitch=pitch,
+        fov=math.radians(45.0), aperture=0.0, focus_distance=2.9983,
+        aspect_ratio=width / height, vup=(0.0, 0.0, 1.0),
     )
 
 

@@ -28,9 +28,12 @@ one whose version no binder here knows is left out, never called.
    0.2), with the lane map and budget its own re-plans gave them: the
    first sorted chunk, where every lane has budget, and one from the
    middle of the tail, where few have; K3 on K1 and on K1s on a 1280x720
-   frame, 1 spp, depth 8 (the engine's), the cursor at the centre's hit.
-   Every output row and the segments must be bitwise equal to the
-   current build's.
+   frame, 1 spp, depth 8 (the engine's), the cursor at the centre's hit;
+   and K1 on a scene of exactly 128 clusters (``random_scene``), the most
+   the narrow walk takes. Every output row and the segments must be
+   bitwise equal to the current build's, and the SASS of every narrow
+   instantiation the base revision's, instruction for instruction
+   (:func:`sass_listings`).
 3. Times them in turns (old, new, then the reverse order, and again) by
    CUDA events around one launch each.
 4. The counter build on the same inputs: warp trips and the SIMT
@@ -60,6 +63,10 @@ one whose version no binder here knows is left out, never called.
    cover thinned to each of ``FORM_SLOTS`` spheres (:func:`thinned_cover`),
    the two form builds bitwise and timed in turns; the smallest size from
    which the batched form is the faster at every size measured.
+
+7. The wide walk (``RT_WALK_WIDE``, partitions of 129 to 512 clusters):
+   its six instantiations on the SPD sphereflake (:func:`flake_cases`)
+   bitwise against their plain versions, and its ``-Xptxas -v``.
 
 Writes everything to ``<out>/walk_ab.json`` as well, and the SASS
 listings, gzipped, under ``<out>/sass/`` (``--out``, ``build/walk_ab`` by
@@ -298,6 +305,31 @@ def _sass_class(op: str) -> str:
     return "other"
 
 
+#: the file hash in an anonymous namespace's mangled name, which differs
+#: between two revisions of a source even where their code is the same
+_ANON_HASH = re.compile(r"_GLOBAL__N__[0-9a-f]{8}_\d+_\w+?_cu_[0-9a-f]{8}")
+
+
+def _sass_text(lib: Path) -> str | None:
+    """``cuobjdump -sass`` of ``lib``, or None where the tool is missing."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    return subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True).stdout
+
+
+def _functions(text: str, kernel: str) -> dict:
+    """Mangled name, its anonymous namespace's file hash dropped → the
+    listing of each function of ``kernel`` in the SASS ``text``."""
+    got = {}
+    for chunk in text.split("Function : ")[1:]:
+        name = chunk.splitlines()[0].strip()
+        if kernel in name:
+            got[_ANON_HASH.sub("", name)] = chunk
+    return got
+
+
 def sass_report(lib: Path, dump: Path | None = None,
                 kernel: str = "cluster_walk_kernel") -> dict:
     """Per instantiation of ``kernel`` (``<a,s,d,w>`` for the walk,
@@ -307,11 +339,9 @@ def sass_report(lib: Path, dump: Path | None = None,
     the flat scan's loops). The whole listing goes to ``dump`` where one
     is given (gzipped where its name ends in ``.gz``). Empty where
     ``cuobjdump`` is missing."""
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    if not os.path.exists(tool):
+    text = _sass_text(lib)
+    if text is None:
         return {}
-    text = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
-                          text=True).stdout
     if dump is not None:
         dump.parent.mkdir(parents=True, exist_ok=True)
         if dump.suffix == ".gz":
@@ -319,10 +349,7 @@ def sass_report(lib: Path, dump: Path | None = None,
         else:
             dump.write_text(text)
     report = {}
-    for chunk in text.split("Function : ")[1:]:
-        name = chunk.splitlines()[0].strip()
-        if kernel not in name:
-            continue
+    for name, chunk in _functions(text, kernel).items():
         inst = "<" + ",".join(re.findall(r"L[bi](\d+)E", name)) + ">"
         insns = [(int(m.group(1), 16), m.group(2), m.group(3))
                  for m in map(_SASS_INSN.search, chunk.splitlines()) if m]
@@ -415,6 +442,12 @@ def cases(device="cuda") -> dict:
                               derive_camera(cam), device)
     got[f"cluster_walk {tabs.bounds.shape[0]} clusters"] = (
         tabs, pmap, seed, sizes[0], sizes[-1], w, h, opts, None, None)
+    # the narrow walk's largest partition, on the cover's camera
+    opts = TraceOptions(max_depth=depth, russian_roulette_depth=5)
+    tabs = tables.walk_tables(tables.cluster_partition(
+        random_scene(FULL_NARROW_SPHERES), opts), derive_camera(cam), device)
+    got[f"cluster_walk {tabs.bounds.shape[0]} clusters"] = (
+        tabs, pmap, seed, sizes[0], sizes[-1], w, h, opts, None, None)
     return got
 
 
@@ -440,6 +473,18 @@ def adaptive_launches(tabs, count: int, w: int, h: int, spp: int, opts,
     megakernel._render_adaptive(launch, sizes, w, h, opts, device)
     return seen
 
+
+#: the narrow walk's largest partition: 2048 small spheres in clusters of
+#: 16 (and a ground sphere, a global)
+FULL_NARROW_SPHERES = 2048
+#: the wide walk's checks: the SPD sphereflake (462 clusters) at its
+#: 512x512, depth 50; a 64x64 grid of its pixels (every FLAKE_STRIDE-th of
+#: each row and column) takes FLAKE_SPP samples from sample FLAKE_OFFSET
+FLAKE_STRIDE, FLAKE_SPP, FLAKE_OFFSET = 8, 3, 5
+#: its whole-lane adaptive case: every FLAKE_SPARSE-th lane of the whole
+#: frame, and the last, live with FLAKE_WHOLE samples, so the live end
+#: times the largest budget passes ITEM_CAP
+FLAKE_SPARSE, FLAKE_WHOLE = 128, 17
 
 #: the item checks' launches of the cover's adaptive render (1-based) at
 #: the benchmark cell's settings (1200x800, 500 spp cap, depth 50, rr0,
@@ -515,24 +560,119 @@ def item_cases(stratified: bool, device="cuda") -> dict:
     return got
 
 
-def live_prefix_plain(args):
-    """The plain walk of a budgeted launch (:func:`~raytracer_tpu_torch.
-    render.cluster_walk.cluster_walk`'s arguments) on the lanes up to its
-    live end alone, and zeros past it: what the plain walk gives for the
-    whole map, as each lane's sums are its own and a lane without budget
-    reads zero."""
+def random_scene(n_small: int, seed: int = 0):
+    """A ground sphere of radius 1000 under ``n_small`` seeded spheres of
+    radius 0.05-0.2 in a 16 x 1 x 16 slab, of the three materials:
+    ``n_small`` / 16 clusters of the default group."""
+    from raytracer_tpu_torch.scene.spheres import scene_from_numpy
+
+    g = np.random.default_rng(seed)
+    n = n_small + 1
+    center = np.concatenate([[[0.0, -1000.0, 0.0]], g.uniform(
+        (-8.0, 0.0, -8.0), (8.0, 1.0, 8.0), (n_small, 3))])
+    radius = np.concatenate([[1000.0], g.uniform(0.05, 0.2, n_small)])
+    mat = np.concatenate([[0], g.integers(0, 3, n_small)])
+    return scene_from_numpy(
+        center=center.astype(np.float32), radius=radius.astype(np.float32),
+        material_type=mat.astype(np.int32),
+        albedo=g.uniform(0.1, 1.0, (n, 3)).astype(np.float32),
+        fuzz=np.where(mat == 1, g.uniform(0.0, 0.5, n), 0.0).astype(
+            np.float32),
+        refraction_index=np.where(mat == 2, 1.5, 0.0).astype(np.float32),
+        active=np.ones(n, np.float32))
+
+
+def flake_cases(device="cuda") -> dict:
+    """Case name → :func:`~raytracer_tpu_torch.render.cluster_walk.
+    cluster_walk`'s arguments for the wide walk on the SPD sphereflake at
+    its 512x512 and depth 50, from sample ``FLAKE_OFFSET``: each of the
+    six instantiations on a grid of the frame's pixels, the adaptive ones
+    under a seeded budget from 0 to ``FLAKE_SPP`` (one-sample items), the
+    debug ones with the cursor at the centre's hit; and the adaptive
+    ones on the whole frame with a sparse live set whose extent passes
+    the item scratch (whole lanes)."""
+    from raytracer_tpu_torch.camera.camera import derive_camera
+    from raytracer_tpu_torch.render import tables
+    from raytracer_tpu_torch.render.options import TraceOptions
+    from raytracer_tpu_torch.render.rng import kernel_seed
+    from raytracer_tpu_torch.scene import presets
+
+    w = h = 512
+    scene = presets.sphereflake_scene()
+    cam = presets.sphereflake_camera(w, h)
+    seed = kernel_seed(0)
+    ident = cw.identity_map(w, h, device)
+    grid = ident.reshape(h, w, 2)[::FLAKE_STRIDE, ::FLAKE_STRIDE]
+    grid = grid.reshape(-1, 2).contiguous()
+    g = torch.Generator(device="cpu").manual_seed(6)
+    part = None
+    got = {}
+    for name, (adaptive, stratified, debug) in VARIANTS.items():
+        opts = TraceOptions(max_depth=50,
+                            sampler="stratified" if stratified else "random",
+                            adaptive_tolerance=0.2 if adaptive else 0.0,
+                            enable_debug=debug)
+        if part is None:
+            part = tables.cluster_partition(scene, opts)
+        tabs = tables.walk_tables(part, derive_camera(cam), device)
+        dbg = engine_debug(scene, cam, device) if debug else None
+        budget = None
+        if adaptive:
+            budget = torch.randint(0, FLAKE_SPP + 1, (grid.shape[0],),
+                                   generator=g).to(torch.int32).to(device)
+            lanes = torch.arange(w * h)
+            live = (lanes % FLAKE_SPARSE == 0) | (lanes == w * h - 1)
+            got[name + " whole lanes"] = (
+                tabs, ident, seed, FLAKE_OFFSET, FLAKE_WHOLE, w, h, opts,
+                torch.where(live, FLAKE_WHOLE, 0).to(torch.int32).to(device),
+                None)
+        got[name] = (tabs, grid, seed, FLAKE_OFFSET, FLAKE_SPP, w, h, opts,
+                     budget, dbg)
+    return got
+
+
+def live_lanes_plain(args):
+    """The plain walk of a launch (:func:`~raytracer_tpu_torch.render.
+    cluster_walk.cluster_walk`'s arguments) on its lanes with budget
+    alone (every lane without a budget), zeros elsewhere: what the plain
+    walk gives for the whole map, as each lane's sums are its own and a
+    lane without budget reads zero, at the cost of the live lanes
+    alone."""
     tabs, pmap, seed, offset, cs, w, h, opts, budget, debug = args
+    if budget is None:
+        return cw.cluster_walk_plain(*args)
     n = pmap.shape[0]
-    end = int(cw.live_extent(budget)[0])
+    live = torch.nonzero(budget > 0).flatten()
     out = torch.zeros((6, n), dtype=torch.float32, device=pmap.device)
     segs = torch.zeros((n,), dtype=torch.int32, device=pmap.device)
-    if end:
-        o, s = cw.cluster_walk_plain(tabs, pmap[:end].contiguous(), seed,
+    if live.numel():
+        o, s = cw.cluster_walk_plain(tabs, pmap[live].contiguous(), seed,
                                      offset, cs, w, h, opts,
-                                     budget[:end].contiguous(), debug)
-        out[:, :end] = o
-        segs[:end] = s
+                                     budget[live].contiguous(), debug)
+        out[:, live] = o
+        segs[live] = s
     return out, segs
+
+
+def flake_check(device="cuda") -> dict:
+    """Step 7: the wide walk's cases bitwise against their plain
+    versions, each printed; case name → equal. Prints the wide build's
+    ``-Xptxas -v`` first."""
+    cw._lib(True)  # built at first use
+    for inst, line in ptxas_report(cuda_build.build_log(
+            "cluster_walk", (cw.WIDE_DEFINE,))):
+        print(f"[ptxas wide {inst}] {line}")
+    same = {}
+    for name, args in flake_cases(device).items():
+        out_k, seg_k = cw.cluster_walk(*args)
+        out_p, seg_p = live_lanes_plain(args)
+        rows = [bool(torch.equal(out_k[r], out_p[r]))
+                for r in range(out_k.shape[0])]
+        same[name] = all(rows) and bool(torch.equal(seg_k, seg_p))
+        print(f"[wide {name}] kernel vs plain: rows {rows}, segments "
+              f"{torch.equal(seg_k, seg_p)} (total "
+              f"{int(seg_k.sum(dtype=torch.int64))})")
+    return same
 
 
 def expected_samples(budget) -> tuple:
@@ -933,6 +1073,29 @@ def flat_ab(old: Path | None, repeats: int, smi: str,
     return result
 
 
+def sass_listings(lib: Path, kernel: str = "cluster_walk_kernel") -> dict:
+    """Mangled name (as :func:`_functions` keys it) → the instructions of
+    each function of ``kernel`` in ``lib``'s SASS, without their addresses
+    and encodings: two builds compiled the same code where these are
+    equal. Empty where ``cuobjdump`` is missing."""
+    text = _sass_text(lib)
+    if text is None:
+        return {}
+    return {name: [_ANON_HASH.sub("", m.group(2) + m.group(3)) for m in
+                   map(_SASS_INSN.search, chunk.splitlines()) if m]
+            for name, chunk in _functions(text, kernel).items()}
+
+
+def sass_equal(old: Path, new: Path) -> dict:
+    """Per function of the base revision's walk: its SASS the current
+    build's, instruction for instruction; printed."""
+    a, b = sass_listings(old), sass_listings(new)
+    same = {name: b.get(name) == insns for name, insns in a.items()}
+    for name, ok in same.items():
+        print(f"[sass equal] {name}: {ok} ({len(a[name])} instructions)")
+    return same
+
+
 def run(old: Path | None, repeats: int, smi: str,
         out: Path = OUT_DIR) -> dict:
     """Steps 1-4 of the module docstring, the SASS listings under
@@ -940,6 +1103,8 @@ def run(old: Path | None, repeats: int, smi: str,
     paths = _builds("cluster_walk", old)
     result = {"smi": smi, "ptxas": _print_ptxas("", paths),
               "sass": _print_sass("", paths, "cluster_walk_kernel", out)}
+    if "old" in paths:
+        result["sass_equal"] = sass_equal(paths["old"], paths["new"])
     calls = _callers(paths, walk_caller)
     args_by_name = cases()
     same = bitwise(calls, args_by_name, "new")
@@ -965,6 +1130,9 @@ def main(argv=None) -> dict:
     result["flat"] = flat_ab(old, a.repeats, smi, a.out)
     result["bitwise"].update(
         {f"flat {k}": ok for k, ok in result["flat"]["bitwise"].items()})
+    result["wide"] = flake_check()
+    result["bitwise"].update(
+        {f"wide {k}": ok for k, ok in result["wide"].items()})
     a.out.mkdir(parents=True, exist_ok=True)
     (a.out / "walk_ab.json").write_text(json.dumps(result, default=str))
     bad = [k for k, ok in result["bitwise"].items() if not ok]

@@ -39,7 +39,7 @@ NVCC_FLAGS = [
 ]
 
 _lock = threading.Lock()
-_loaded: dict[str, ctypes.CDLL] = {}
+_loaded: dict[tuple, ctypes.CDLL] = {}
 
 
 def nvcc_path() -> str:
@@ -119,9 +119,9 @@ def build_all(specs) -> list:
         return list(pool.map(lambda spec: build(*spec), specs))
 
 
-def build_log(name: str) -> str:
+def build_log(name: str, defines=()) -> str:
     """nvcc's ``-Xptxas -v`` report of the built library."""
-    return Path(str(library_path(name)) + ".log").read_text()
+    return Path(str(library_path(name, defines=defines)) + ".log").read_text()
 
 
 class CudaLaunchError(RuntimeError):
@@ -161,9 +161,11 @@ def abi(lib: ctypes.CDLL, symbol: str) -> int:
     return int(fn())
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+def load(name: str, defines=()) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu`` built with the extra
+    ``-D`` ``defines``, built on first use."""
+    key = (name, tuple(defines))
     with _lock:
-        if name not in _loaded:
-            _loaded[name] = ctypes.CDLL(str(build(name)))
-        return _loaded[name]
+        if key not in _loaded:
+            _loaded[key] = ctypes.CDLL(str(build(name, defines=defines)))
+        return _loaded[key]

@@ -168,7 +168,7 @@ def test_adaptive_walk_items_bitwise_on_card(item_cases, stratified, case):
     profiling.reset_counters()
     out_k, seg_k = cw.cluster_walk(*args)
     got = profiling.counters()
-    out_p, seg_p = walk_ab.live_prefix_plain(args)
+    out_p, seg_p = walk_ab.live_lanes_plain(args)
     assert torch.equal(out_k, out_p)
     assert torch.equal(seg_k, seg_p)
     assert int(seg_k.sum(dtype=torch.int64)) == int(
@@ -278,6 +278,93 @@ def test_walk_bitwise_past_32_clusters_on_card(card, group, stratified):
     out_p, seg_p = cw.cluster_walk_plain(*args)
     assert torch.equal(out_k, out_p)
     assert torch.equal(seg_k, seg_p)
+
+
+@pytest.fixture(scope="module")
+def flake_cases():
+    """``walk_ab.flake_cases``: the wide walk on the SPD sphereflake,
+    built once for the module."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return walk_ab.flake_cases()
+
+
+FLAKE_CASES = list(walk_ab.VARIANTS) + [
+    f"{name} whole lanes" for name, (adaptive, _, _) in
+    walk_ab.VARIANTS.items() if adaptive]
+
+
+@pytest.mark.parametrize("case", FLAKE_CASES)
+def test_wide_walk_bitwise_on_card(flake_cases, case):
+    """The wide walk (462 clusters: 9 key bits, grandparent boxes, masks
+    in shared memory, winner rows in global memory): each instantiation
+    on a grid of the sphereflake's 512x512 at depth 50, and the adaptive
+    ones on a sparse live set of the whole frame (whole lanes), every
+    output row and segment count bit for bit its plain version's."""
+    args = flake_cases[case]
+    before = cw.cluster_walk.launches_by_variant.get("cluster_walk_wide"
+                                                     + cw.variant_suffix(
+                                                         args[7]), 0)
+    out_k, seg_k = cw.cluster_walk(*args)
+    out_p, seg_p = walk_ab.live_lanes_plain(args)
+    assert torch.equal(out_k, out_p)
+    assert torch.equal(seg_k, seg_p)
+    assert cw.cluster_walk.launches_by_variant[
+        "cluster_walk_wide" + cw.variant_suffix(args[7])] == before + 1
+
+
+def test_wide_walk_counts_iterations_and_bounces_on_card(flake_cases):
+    """The wide walk's device counts are its cost row's and its
+    segments' sums."""
+    args = flake_cases["cluster_walk"]
+    profiling.reset_counters()
+    out, segs = cw.cluster_walk(*args)
+    got = profiling.counters()
+    assert got["walk_iterations"][0] == int(out[3].sum(dtype=torch.float64))
+    assert got["walk_segments"][0] == int(segs.sum(dtype=torch.int64))
+    assert got["walk_segments"][0] > args[1].shape[0]
+
+
+def test_sphereflake_renders_through_the_wide_walk_on_card(card):
+    """``render_image`` with its default options renders the sphereflake
+    on the card through the wide walk alone, deterministically."""
+    scene = presets.sphereflake_scene()
+    cam = presets.sphereflake_camera(64, 48)
+    cw.reset_launch_counts()
+    a, sa = api.render_image(scene, cam, 64, 48, 12, 2, TraceOptions(),
+                             return_stats=True)
+    b, sb = api.render_image(scene, cam, 64, 48, 12, 2, TraceOptions(),
+                             return_stats=True)
+    assert set(cw.cluster_walk.launches_by_variant) == {"cluster_walk_wide"}
+    assert torch.equal(a, b) and sa["segments_exact"] == sb["segments_exact"]
+    assert torch.isfinite(a).all() and sa["segments_exact"] > 64 * 48 * 12
+
+
+def test_narrow_walk_at_128_clusters_unchanged_on_card(card):
+    """A scene of exactly 128 clusters, the most the narrow walk takes,
+    renders bit for bit as the base revision's walk renders it, and as
+    its plain version (7 key bits)."""
+    old = walk_ab.parent_csrc()
+    if old is None:
+        pytest.skip("the base revision's sources are not in this checkout")
+    import ctypes
+
+    from raytracer_tpu_torch.utils import cuda_build
+
+    scene = walk_ab.random_scene(walk_ab.FULL_NARROW_SPHERES)
+    _, cam, *_ = presets.get_config("cover", W, H)
+    opts = TraceOptions(max_depth=12, russian_roulette_depth=5)
+    tabs = tables.walk_tables(tables.cluster_partition(scene, opts),
+                              derive_camera(cam), card)
+    assert tabs.bounds.shape[0] == 128 == tables.MAX_CLUSTERS
+    args = (tabs, cw.identity_map(W, H, card), 9, 6, SPP, W, H, opts)
+    out_k, seg_k = cw.cluster_walk(*args)
+    base = walk_ab.walk_caller(ctypes.CDLL(str(cuda_build.build(
+        "cluster_walk", old))))
+    out_b, seg_b = base(*args, None, None)
+    out_p, seg_p = cw.cluster_walk_plain(*args)
+    assert torch.equal(out_k, out_b) and torch.equal(seg_k, seg_b)
+    assert torch.equal(out_k, out_p) and torch.equal(seg_k, seg_p)
 
 
 def test_adaptive_render_runs_the_kernel(card):

@@ -265,7 +265,7 @@ def test_walk_culls_boxes_in_source():
     fresh = WALK[WALK.index("if (fresh) {"):WALK.index("float m0 = INFINITY")]
     assert "box_entry(s_par + kBoxFloats * q" in fresh
     assert "mask_or(cand, c0 >> 5, ((1u << nc) - 1u) << (c0 & 31));" in fresh
-    assert "BoxMask<kWords> cand = hits;" in WALK
+    assert "BoxMask<kIsWide ? 1 : kWords> cand = hits;" in WALK
     loop = WALK[WALK.index("float m0 = INFINITY"):
                 WALK.index("} while (!bdone);")]
     assert "box_entry(s_box + kBoxFloats * c" in loop
@@ -377,7 +377,8 @@ def test_walk_items_only_under_adaptive_in_source():
     assert "if (items == nullptr || lane_items == nullptr ||" in WALK
     wrapper = inspect.getsource(cw.call)
     assert "if adaptive:" in wrapper and "_item_scratch(dev, stream)" in wrapper
-    assert "profiling.device_counts(dev, SAMPLE_COUNTS)" in wrapper
+    assert ("profiling.device_counts(\n                    dev, WIDE_COUNTS "
+            "if wide else SAMPLE_COUNTS)") in wrapper
     assert "(ITEM_ROWS, ITEM_CAP)" in wrapper
 
 
@@ -396,11 +397,83 @@ def test_launch_interface_version_in_source(source, symbol, module):
 def test_winner_slot_and_key_layout_in_source():
     """The winner slot indexes the reordered scene as n_global +
     cidx·group + m, and the packed key ORs the cluster index into the 7
-    cleared low bits of the entry's bit pattern."""
+    cleared low bits of the entry's bit pattern (9 in the wide walk); the
+    cluster index reads back from the key's bits of the walk's width."""
     assert "bs = p.n_global + cidx * p.group + m;" in SOURCE
     assert "(__float_as_int(qe) & ~127) | c" in SOURCE
-    assert "__float_as_int(m0) & 127" in SOURCE
+    assert "(__float_as_int(qe) & ~kKeyMask<kWide>) | c" in SOURCE
+    assert "__float_as_int(m0) & kKeyMask<kWords>" in SOURCE
+    assert ("constexpr int kKeyMask = kWords == kWide ? (1 << kWideKeyBits) "
+            "- 1 : 127;") in WALK
     assert tables.MAX_CLUSTERS == 128
+    assert tables.key_bits(tables.MAX_CLUSTERS) == 7
+    assert tables.key_bits(tables.MAX_CLUSTERS + 1) == 9
+    assert tables.key_bits(tables.MAX_WIDE_CLUSTERS) == 9
+
+
+def test_wide_walk_in_source():
+    """The wide walk (``RT_WALK_WIDE``, a library of its own): its
+    constants agree with the host's (512 clusters in 16 mask words, 9 key
+    bits, 48 bytes of counts and deal before the masks), its library
+    instantiates the wide walk alone and the narrow one the narrow walk
+    alone, it reads its winner rows from global memory, culls through
+    the grandparents after the parents, keeps its masks in shared memory
+    a word per 32 clusters, and counts iterations and bounces at the
+    indices the wrapper reads them."""
+    consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", WALK))
+    assert int(consts["kWide"]) == 0
+    assert int(consts["kWideMaxWords"]) * 32 == tables.MAX_WIDE_CLUSTERS
+    assert int(consts["kWideKeyBits"]) == tables.key_bits(
+        tables.MAX_WIDE_CLUSTERS)
+    assert int(consts["kWideExtraBytes"]) == tables.WIDE_EXTRA_BYTES
+    assert int(consts["kWalkThreads"]) == tables.WALK_THREADS
+    assert cw.WIDE_DEFINE == "RT_WALK_WIDE"
+    launch = WALK[WALK.index("cudaError_t launch(const Params& p"):
+                  WALK.index("}  // namespace")]
+    wide, narrow = launch.split("#else")
+    assert "launch_words<kAdaptive, kStratified, kDebug, kWide>(" in wide
+    assert "kMaxWords" not in wide and "kWide" not in narrow
+    assert "#ifdef RT_WALK_WIDE" in launch
+    assert ("const float* s_win = (kIsWide ? p.tables : smem) + p.off_win;"
+            in WALK)
+    fresh = _body(WALK, "__device__ __forceinline__ int wide_fresh(")
+    assert "s_par + kBoxFloats * p.n_parents;" in fresh
+    # grandparents, then the parents under each entered one, then the
+    # leaves under each entered parent, each lane over its own hits
+    order = [fresh.index(t) for t in (
+        "s_grand + kBoxFloats * g", "for (; grand != 0u; grand &= grand - 1u)",
+        "s_par + kBoxFloats * (q0 + j)", "for (; par != 0u; par &= par - 1u)",
+        "s_box + kBoxFloats * c")]
+    assert order == sorted(order)
+    assert "(__float_as_int(qe) & ~kKeyMask<kWide>) | c" in fresh
+    # a word outside `live` holds what an earlier lane or launch left:
+    # the bounce's first hit in it assigns it, later ones add to it
+    assert "uint32_t& m = mask[(c0 >> 5) * kWalkThreads];" in fresh
+    assert "m = (live & word) != 0u ? m | run : run;" in fresh
+    assert "live = 0u;" in fresh
+    test = _body(WALK, "__device__ __forceinline__ int wide_test(")
+    assert "for (uint32_t lw = live; lw != 0u; lw &= lw - 1u) {" in test
+    assert "mask[j * kWalkThreads] = kept;" in test
+    walk = _body(WALK, "__device__ __forceinline__ void walk(")
+    assert ("fresh ? wide_fresh(p, s_par, s_box, mask, live, ox, oy, oz, "
+            "ivx,") in walk
+    host = WALK[WALK.index('extern "C" int cluster_walk_launch('):]
+    assert "p.n_floats = off_win;" in host
+    assert "p.n_words = (k + 31) / 32;" in host
+    assert "sizeof(uint32_t) * (size_t)p.n_words * kWalkThreads" in host
+    assert "k <= 32 * kMaxWords || k > 32 * kWideMaxWords" in host
+    # the block's counts lie after the deal (32 bytes in), the launch's
+    # at 2 and 3 of WIDE_COUNTS
+    assert "enum WalkCount { kWalkIterations = 2, kWalkSegments = 3 };" in WALK
+    assert "constexpr int kWalkCountsAt = 2;" in WALK
+    assert WALK.count("counts_of(p, smem) + kWalkCountsAt") == 3
+    assert 8 * (int(consts["kWalkCountsAt"]) + 3) + 8 <= int(
+        consts["kWideExtraBytes"])
+    assert "p.n_floats + 4" in _body(
+        WALK, "__device__ __forceinline__ Deal& deal_of(")
+    assert cw.WIDE_COUNTS[2:] == ("walk_iterations", "walk_segments")
+    assert cw.WIDE_COUNTS[:2] == cw.SAMPLE_COUNTS
+    assert "if constexpr (kIsWide) count_walk(p, smem, cost, segs);" in walk
 
 
 def test_debug_overlay_in_source_and_plain_twin():

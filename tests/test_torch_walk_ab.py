@@ -6,11 +6,13 @@ walk's from its render's own re-plans), the binding of a library by its
 launch interface version, which revision the A/B holds the tree against,
 and the flat scan's form sweep: its scenes, its cases and the cut it
 reads. Also the adaptive walk's item checks (their cases at a tiny size,
-the plain walk of a map's live prefix) and the launcher's live extent."""
+the plain walk of a map's lanes with budget) and the launcher's live
+extent."""
 
 import shutil
 import subprocess
 import types
+from pathlib import Path
 
 import pytest
 import torch
@@ -57,6 +59,27 @@ def test_ptxas_report_names_each_instantiation():
     assert [inst for inst, _ in rows] == ["<0,1,0,1>", "<0,1,0,1>"]
     assert "56 bytes spill stores" in rows[0][1]
     assert "Used 64 registers" in rows[1][1]
+
+
+@pytest.mark.parametrize("edit, same", [
+    (("52d8d6be_15_cluster_walk_cu_5c4f9ae6",
+      "0aa1c2d3_15_cluster_walk_cu_77e0b1c2"), True),
+    (("FADD R3, R2, R1", "FMUL R3, R2, R1"), False)],
+    ids=["file_hash", "instruction"])
+def test_sass_equal_reads_past_the_file_hash(monkeypatch, tmp_path, edit,
+                                             same):
+    """Two revisions of a source name their anonymous namespace by the
+    file's hash: the same code compares equal, another instruction
+    not."""
+    old = SASS.replace("_ZN12_GLOBAL__N_1", "_ZN48_GLOBAL__N__52d8d6be_15_"
+                       "cluster_walk_cu_5c4f9ae6")
+    listings = {"old": old, "new": old.replace(*edit)}
+    monkeypatch.setattr(walk_ab.os.path, "exists", lambda path: True)
+    monkeypatch.setattr(walk_ab.subprocess, "run", lambda cmd, **k:
+                        types.SimpleNamespace(stdout=listings[
+                            Path(cmd[-1]).stem]))
+    got = walk_ab.sass_equal(tmp_path / "old.so", tmp_path / "new.so")
+    assert list(got.values()) == [same]
 
 
 def test_sass_report_finds_the_walk_and_its_loops(monkeypatch, tmp_path):
@@ -131,7 +154,7 @@ def test_walk_cases_cover_the_six_instantiations(walk_cases):
     assert sorted(n for n in got if n.endswith(" tail")) == [
         "cluster_walk_adaptive tail", "cluster_walk_adaptive_stratified tail"]
     wide = [n for n in got if n.endswith(" clusters")]
-    assert len(wide) == 1 and got[wide[0]][0].bounds.shape[0] > 32
+    assert [got[n][0].bounds.shape[0] for n in wide] == [61, 128]
     for name, args in got.items():
         tabs, lane_map, _, _, spp, w, h, opts, budget, uniforms = args
         assert cw.variant_name(opts) == name.split(" ")[0]
@@ -400,12 +423,12 @@ def test_item_cases_run_both_grains(tiny_items):
 @pytest.mark.parametrize("case", ["launch 4", "whole lanes", "under cap",
                                   "over cap", "none live", "one live",
                                   "shuffled"])
-def test_live_prefix_plain_is_the_whole_maps(tiny_items, case):
+def test_live_lanes_plain_is_the_whole_maps(tiny_items, case):
     """The card tests compare the kernel with the plain walk of the map's
-    live prefix, zeros past it: bit for bit the plain walk of the whole
-    map."""
+    lanes with budget, zeros elsewhere: bit for bit the plain walk of the
+    whole map."""
     args = tiny_items[0][case]
-    out, segs = walk_ab.live_prefix_plain(args)
+    out, segs = walk_ab.live_lanes_plain(args)
     want_out, want_segs = cw.cluster_walk_plain(*args)
     assert torch.equal(out, want_out)
     assert torch.equal(segs, want_segs)

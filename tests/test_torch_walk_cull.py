@@ -13,7 +13,12 @@ runs only on the card):
   flags, visit order and winner, trip by trip, on seeded rays over the
   cover's and the demo's tables, and the cover's in clusters of 4 (121,
   the kernel's four-word mask): camera rays, rays from inside boxes, and
-  axis-parallel rays.
+  axis-parallel rays;
+- the wide walk's (the SPD sphereflake's 462 clusters): its grandparent
+  boxes hold their parents exactly, its layout fits a block's shared
+  memory, and its selection (grandparents, then the parents under those
+  entered, then their children; 9-bit keys) equals the flat one with the
+  same keys.
 """
 
 import numpy as np
@@ -38,31 +43,46 @@ def one_torch_thread():
 
 
 def scene_tables(name: str, group: int = 16):
-    scene, cam, *_ = presets.get_config(name, 64, 32)
+    if name == "flake":
+        scene, cam = (presets.sphereflake_scene(),
+                      presets.sphereflake_camera(64, 32))
+    else:
+        scene, cam, *_ = presets.get_config(name, 64, 32)
     opts = TraceOptions(cluster_scan=True, cluster_group=group)
     part = tables.cluster_partition(scene, opts)
     return tables.walk_tables(part, derive_camera(cam), "cpu")
 
 
 @pytest.fixture(scope="module", params=[("cover", 16), ("demo", 16),
-                                        ("cover", 4)],
-                ids=["cover", "demo", "cover_121_clusters"])
+                                        ("cover", 4), ("flake", 16)],
+                ids=["cover", "demo", "cover_121_clusters",
+                     "flake_462_clusters"])
 def tabs(request):
     return scene_tables(*request.param)
 
 
+def levels(tabs):
+    """(parents, grandparents) of the tables: the wide walk's second
+    level follows its parents in ``tabs.parents``; (0, 6) elsewhere."""
+    n_par = -(-tabs.bounds.shape[0] // tables.PARENT_FANOUT)
+    return tabs.parents[:n_par], tabs.parents[n_par:]
+
+
 def test_parents_hold_their_children_exactly(tabs):
     k = tabs.bounds.shape[0]
-    par = tabs.parents
-    assert par.shape == (-(-k // tables.PARENT_FANOUT), 6)
-    assert par.dtype == torch.float32
-    for p in range(par.shape[0]):
-        kids = tabs.bounds[p * tables.PARENT_FANOUT:
-                           (p + 1) * tables.PARENT_FANOUT]
-        assert torch.equal(par[p, :3], kids[:, :3].amin(0))
-        assert torch.equal(par[p, 3:], kids[:, 3:].amax(0))
-        assert bool((par[p, :3] <= kids[:, :3]).all())
-        assert bool((par[p, 3:] >= kids[:, 3:]).all())
+    n_par = -(-k // tables.PARENT_FANOUT)
+    n_grand = -(-n_par // tables.PARENT_FANOUT) if tables.is_wide(k) else 0
+    assert tabs.parents.shape == (n_par + n_grand, 6)
+    assert tabs.parents.dtype == torch.float32
+    par, grand = levels(tabs)
+    for boxes, under in ((par, tabs.bounds), (grand, par)):
+        for p in range(boxes.shape[0]):
+            kids = under[p * tables.PARENT_FANOUT:
+                         (p + 1) * tables.PARENT_FANOUT]
+            assert torch.equal(boxes[p, :3], kids[:, :3].amin(0))
+            assert torch.equal(boxes[p, 3:], kids[:, 3:].amax(0))
+            assert bool((boxes[p, :3] <= kids[:, :3]).all())
+            assert bool((boxes[p, 3:] >= kids[:, 3:]).all())
 
 
 def test_packed_tables_read_back(tabs):
@@ -108,7 +128,7 @@ def test_tables_upload_in_one_copy(tabs):
     assert torch.equal(tabs.packed, tables.pack_walk(
         torch.zeros_like(tabs.packed), tabs.camera, tabs.globals,
         tabs.parents, tabs.bounds, tabs.members, tabs.winner))
-    assert np.array_equal(tables.parent_boxes(tabs.bounds.numpy()),
+    assert np.array_equal(tables.hierarchy_boxes(tabs.bounds.numpy()),
                           tabs.parents.numpy())
     moved = tabs.to("meta")
     base = moved.packed._base
@@ -125,19 +145,24 @@ def test_tables_upload_in_one_copy(tabs):
 
 
 @pytest.mark.parametrize("n_global, k, group", [
-    (0, 1, 1), (4, 31, 16), (3, 33, 8), (5, 128, 16), (1, 7, 5)])
+    (0, 1, 1), (4, 31, 16), (3, 33, 8), (5, 128, 16), (1, 7, 5),
+    (1, 462, 16), (0, 129, 16), (2, 512, 16)])
 def test_walk_layout_sections(n_global, k, group):
     """The sections follow one another without overlap, each 16-byte
     aligned; members lie an odd number of float4 rows apart, so the same
     member of eight consecutive clusters falls in eight different 16-byte
-    bank groups; the largest partition fits a block's shared memory."""
+    bank groups; the largest partition fits a block's shared memory: the
+    narrow walk's whole tables, the wide walk's hit-test tables with its
+    counts and masks."""
     lay = tables.walk_layout(n_global, k, group)
     n_par = -(-k // tables.PARENT_FANOUT)
-    assert lay.n_parents == n_par
+    n_grand = -(-n_par // tables.PARENT_FANOUT) if k > 128 else 0
+    assert (lay.n_parents, lay.n_grand, lay.k) == (n_par, n_grand, k)
     assert lay.mstride % 2 == 1 and group <= lay.mstride <= group + 1
     assert lay.off_glob == tables.CAMERA_FLOATS
     assert lay.off_par == lay.off_glob + 4 * n_global
-    assert lay.off_box == lay.off_par + tables.BOX_FLOATS * n_par
+    assert lay.off_box == lay.off_par + tables.BOX_FLOATS * (n_par
+                                                             + n_grand)
     assert lay.off_mem == lay.off_box + tables.BOX_FLOATS * k
     assert lay.off_win == lay.off_mem + 4 * k * lay.mstride
     slots = n_global + k * group
@@ -145,7 +170,13 @@ def test_walk_layout_sections(n_global, k, group):
         lay.off_win + 11 * slots + 4)
     assert lay.n_floats % 4 == 0
     assert len({(c * lay.mstride) % 8 for c in range(8)}) == 8
-    assert 4 * lay.n_floats <= 227 * 1024
+    if k <= tables.MAX_CLUSTERS:
+        assert 4 * lay.n_floats <= 227 * 1024
+    else:
+        assert tables.wide_smem_bytes(lay) == (
+            4 * lay.off_win + 48 + 4 * -(-k // 32) * 1024)
+        assert tables.wide_smem_bytes(lay) <= 227 * 1024
+        assert tables.walk_fits(n_global, k, group)
 
 
 def seeded_rays(tabs, seed: int):
@@ -195,6 +226,8 @@ def walk_bounce(tabs, ray, culled: bool):
     n = ray[0].shape[0]
     k, group = tabs.members.shape[:2]
     n_global = tabs.globals.shape[0]
+    bits = tables.key_bits(k)
+    floor = cw.fill_floor(bits)
     bq = torch.full((n,), cw.FILLQ)
     bs = torch.zeros(n, dtype=torch.int64)
     for gi in range(n_global):
@@ -204,7 +237,7 @@ def walk_bounce(tabs, ray, culled: bool):
         bs = torch.where(upd, gi, bs)
     kl = torch.full((n,), cw.NEG_BIG)
     live = torch.ones(n, dtype=torch.bool)
-    keys = cw.box_keys(ray, tabs.bounds)  # the same bits on every trip
+    keys = cw.box_keys(ray, tabs.bounds, bits)  # the same on every trip
     hits = None
     trips = []
     while bool(live.any()):
@@ -212,19 +245,25 @@ def walk_bounce(tabs, ray, culled: bool):
             m0, m1 = cw.select_two(keys, kl)
         else:
             if hits is None:
-                entered = cw.box_keys(ray, tabs.parents) < cw.FILL_FLOOR
+                par, grand = levels(tabs)
+                entered = cw.box_keys(ray, par, bits) < floor
+                if grand.shape[0]:
+                    # the wide walk tests parents under grandparents hit
+                    entered &= (cw.box_keys(ray, grand, bits) < floor
+                                ).repeat_interleave(
+                        tables.PARENT_FANOUT, 1)[:, :par.shape[0]]
                 cand = entered.repeat_interleave(tables.PARENT_FANOUT,
                                                  1)[:, :k]
             else:
                 cand = hits
-            hits = cand & (keys < cw.FILL_FLOOR)
+            hits = cand & (keys < floor)
             sel = torch.where(hits, keys, float("inf"))
             m0 = sel.min(1).values
             m1 = torch.where(sel > m0[:, None], sel, float("inf")).min(
                 1).values
-        done0 = (cw._key_floor(m0) >= bq) | (m0 >= cw.FILL_FLOOR)
+        done0 = (cw._key_floor(m0, bits) >= bq) | (m0 >= floor)
         visit = live & ~done0
-        cidx = (m0.view(torch.int32) & 127).to(torch.int64)
+        cidx = (m0.view(torch.int32) & ((1 << bits) - 1)).to(torch.int64)
         mem = tabs.members[cidx.clamp_max(k - 1)]
         qm = cw._exact_q(mem[..., 0], mem[..., 1], mem[..., 2], mem[..., 3],
                          *(t[:, None] for t in ray))
@@ -236,8 +275,8 @@ def walk_bounce(tabs, ray, culled: bool):
             hits = hits & ~(visit[:, None] & (
                 torch.arange(k)[None, :] == cidx[:, None]))
         kl = torch.where(visit, m0, kl)
-        done = done0 | (visit & ((cw._key_floor(m1) >= bq)
-                                 | (m1 >= cw.FILL_FLOOR)))
+        done = done0 | (visit & ((cw._key_floor(m1, bits) >= bq)
+                                 | (m1 >= floor)))
         trips.append((m0, m1, live.clone(), done & live, cidx, visit))
         live = live & ~done
     return trips, bq, bs
@@ -247,12 +286,20 @@ def walk_bounce(tabs, ray, culled: bool):
 def test_culled_selection_equals_the_flat_one(tabs, seed):
     o, d = seeded_rays(tabs, seed)
     ray = ray_terms(o, d)
-    # the cull is exact: a ray that hits a box enters its parent
-    kid_hit = cw.box_keys(ray, tabs.bounds) < cw.FILL_FLOOR
-    par_hit = cw.box_keys(ray, tabs.parents) < cw.FILL_FLOOR
+    # the cull is exact: a ray that hits a box enters its parent (and a
+    # parent it enters, its grandparent)
     k = tabs.bounds.shape[0]
-    assert not (kid_hit & ~par_hit.repeat_interleave(
-        tables.PARENT_FANOUT, 1)[:, :k]).any()
+    bits = tables.key_bits(k)
+    floor = cw.fill_floor(bits)
+    par, grand = levels(tabs)
+    kid_hit = cw.box_keys(ray, tabs.bounds, bits) < floor
+    par_hit = cw.box_keys(ray, par, bits) < floor
+    grand_hit = cw.box_keys(ray, grand, bits) < floor
+    for hit, above, n in ((kid_hit, par_hit, k),
+                          (par_hit, grand_hit, par.shape[0])):
+        if above.shape[1]:
+            assert not (hit & ~above.repeat_interleave(
+                tables.PARENT_FANOUT, 1)[:, :n]).any()
     flat, bq_f, bs_f = walk_bounce(tabs, ray, culled=False)
     cull, bq_c, bs_c = walk_bounce(tabs, ray, culled=True)
     assert len(flat) == len(cull)
@@ -263,9 +310,9 @@ def test_culled_selection_equals_the_flat_one(tabs, seed):
         assert torch.equal(vf, vc) and torch.equal(cf[vf], cc[vc])
         for mf, mc in ((m0f, m0c), (m1f, m1c)):
             # a key of a missed box and no key at all end a bounce alike
-            real = lf & (mf < cw.FILL_FLOOR)
+            real = lf & (mf < floor)
             assert torch.equal(mf[real], mc[real])
-            assert bool((mc[lf & ~real] >= cw.FILL_FLOOR).all())
+            assert bool((mc[lf & ~real] >= floor).all())
         visits += int(vf.sum())
     assert torch.equal(bq_f, bq_c) and torch.equal(bs_f, bs_c)
     assert visits > 0
