@@ -868,10 +868,11 @@ def phase_walk_ab(smi: str) -> dict:
 
 def phase_wide_walk(smi: str) -> None:
     """The wide walk on the SPD sphereflake: every instantiation bitwise
-    its plain version (``walk_ab.flake_check``), its iteration and bounce
-    counts its cost row's and segments' sums, and two whole renders
-    (512x512, 500 spp, depth 50) through ``render_image``, each launch
-    the wide walk's, bitwise each other."""
+    its plain version (``walk_ab.flake_check``), the base revision's build
+    and its overflow build (``walk_ab.wide_ab``, with its counters), its
+    iteration and bounce counts its cost row's and segments' sums, and
+    two whole renders (512x512, 500 spp, depth 50) through
+    ``render_image``, each launch the wide walk's, bitwise each other."""
     from raytracer_tpu_torch.render import cluster_walk as cw
     from raytracer_tpu_torch.render.api import render_image
     from raytracer_tpu_torch.render.options import TraceOptions
@@ -882,6 +883,23 @@ def phase_wide_walk(smi: str) -> None:
     bad = [case for case, ok in walk_ab.flake_check().items() if not ok]
     if bad:
         fail(f"the wide walk disagrees with its plain version: {bad}")
+    # the list against the base revision's sweep, the overflow build, and
+    # the counters (slab tests, the list's high-water mark, sweeps)
+    ab = walk_ab.wide_ab(walk_ab.parent_csrc(), WALK_AB_REPEATS, smi)
+    bad = [case for case, ok in ab["bitwise"].items() if not ok]
+    if bad:
+        fail(f"the wide walk's builds disagree: {bad}")
+    for name, c in ab["counters"].items():
+        print(f"[wide counters {name}] slab tests a bounce "
+              f"{c['slab_tests_per_bounce']:.2f}, list high-water mark "
+              f"{c['list_peak_mean']:.2f} (most {c['list_peak_max']}), "
+              f"swept {100 * c['sweep_share']:.4f} %, SIMT trip "
+              f"{c['simt_trip']:.3f} visit {c['simt_visit']:.3f}")
+        if not (c["cost_row_equal"] and c["segs_equal"]):
+            fail(f"{name}: the wide counter build disagrees with its cost "
+                 "row or segments")
+        if name.startswith("list8") and not c["sweeps"]:
+            fail(f"{name}: the overflow build swept no bounce")
     args = walk_ab.flake_cases()["cluster_walk"]
     profiling.reset_counters()
     out, segs = cw.cluster_walk(*args)

@@ -52,11 +52,12 @@
 //     (Aila and Laine's while-while), so the warp runs the tail once a
 //     bounce with its lanes together; the tail (common.cuh) draws the
 //     diffuse and metal vectors in one place for the same reason.
-//   - One block of 1024 threads an SM, so one copy of the tables an SM,
-//     loaded once; the grid is persistent (as many blocks as fit at
-//     once), and a thread whose lane has taken its samples takes the
-//     next lane of the map (a warp-aggregated atomic on a counter): lanes
-//     stay busy until the map runs out, in the map's cost-descending
+//   - One block an SM (1024 threads; the wide walk's 256, below), so one
+//     copy of the tables an SM, loaded once; the grid is persistent (as
+//     many blocks as fit at once), and a thread whose lane has taken its
+//     samples takes the next lane of the map (a warp-aggregated atomic on
+//     a counter): lanes stay busy until the map runs out, in the map's
+//     cost-descending
 //     order. The grid's first lanes go out a warp's 32 at a time to the
 //     blocks in turn, so every SM starts on the map's head: its costliest
 //     lanes, and after an adaptive re-plan the only lanes with budget.
@@ -91,23 +92,49 @@
 //     boxes and members); a bounce reads its winner row once, from global
 //     memory (L2), when it completes;
 //   - the visit key holds the cluster index in its 9 low mantissa bits;
-//   - a fresh bounce tests a second level of boxes first, grandparents
-//     each over kParentFanout parents, then only the parents under those
-//     it enters, then the children of the parents entered, keeping the
-//     hit ones; each lane loops over its own hits, so a warp makes as
-//     many trips as its busiest lane, not as its lanes' hits together
-//     (an H100 at 700 W runs the sphereflake's 29-spp launch in 77.3 ms,
-//     against 91.1 for a pass that marked candidates, then tested them);
-//   - each thread's mask of hit boxes (a word per 32 clusters) lies in
-//     shared memory, word w of thread t at w * kWalkThreads + t, with a
-//     register of the words that hold bits;
-//   - it counts its lanes' walk iterations and completed bounces into
-//     the launch's counts (one atomic a block).
+//   - the boxes form a 4-ary tree over the kd leaves up to the root:
+//     parents and grandparents in shared memory, the levels past them
+//     (a third, a fourth of one or two boxes, the root) after the
+//     winner rows in global memory;
+//   - a bounce walks the tree nearest first. Each thread keeps a short
+//     list of pending entries in its shared-memory words (word w of
+//     thread t at w * kWalkThreads + t), in order of their packed keys,
+//     the nearest last. The bounce starts with the fourth level's boxes,
+//     the third-level ones under those it enters, and puts the hit
+//     grandparents under those into the list (nearly every ray that
+//     meets the scene enters the top levels); then it takes the nearest
+//     entry until one's floored key is at or beyond the best: a box's hit
+//     children go into the list, a kd leaf is visited. A box's four
+//     children are tested together and their hits merged into the list
+//     in one pass. A key is slab-tested once, when its box goes in,
+//     and kept. A box's entry is never past its children's (the
+//     monotone rounding above), so the leaves come off in ascending key
+//     order, the flat walk's visits and order; a box is keyed one bucket
+//     (512 ulps) below its entry, so at an equal floored entry it comes
+//     off before any leaf, and a leaf under it with a smaller cluster
+//     index before a leaf already listed;
+//   - a lane expands boxes until its nearest entry is a leaf, then the
+//     warp visits together (Aila and Laine's while-while again);
+//   - a bounce whose list would pass its capacity (the mask's words and
+//     every word a thread's share of the block's shared memory leaves:
+//     85 on the sphereflake) starts over as the sweep that came before
+//     the list, in the same words used as a mask of hit boxes: every
+//     grandparent, the parents under those entered, their children,
+//     then the hit ones re-tested each iteration (an H100 at 700 W ran
+//     the sphereflake's 29-spp launch in 77.3 ms that way, 70.2 slab
+//     tests a bounce); so the walk is exact for any scene;
+//   - a block of 256 threads, not 1024: 80 registers a thread, and
+//     fewer warps to an SM, whose lanes stay together more (the SIMT of
+//     the tail rose 0.52 → 0.88; the sweep ran faster so too);
+//   - it counts its lanes' walk iterations, completed bounces and
+//     bounces that swept into the launch's counts (one atomic a block,
+//     and one shared-memory atomic a sweep).
 // Its selection, visit order, tie rule and every output are those of the
 // flat walk with 9-bit keys, which its plain version runs.
 // The walk-iteration count (the cost row), the segments and every sum
 // are bit for bit those of the flat walk that tests every box every
-// iteration, one iteration a loop trip.
+// iteration, one iteration a loop trip: a bounce of v visits makes
+// max(1, v) iterations there, and the wide walk counts that.
 //
 // The RNG, ray generation and the bounce tail live in common.cuh, shared
 // with the flat scan (flat_scan.cu). Numerics follow the plain PyTorch
@@ -124,9 +151,17 @@ namespace {
 
 using namespace rt;
 
-// one block of 1024 threads an SM: one copy of the tables an SM, and
-// ptxas keeps the kernel within 64 registers a thread (32 warps an SM)
+// one block an SM: one copy of the tables an SM. The narrow walk's block
+// of 1024 threads keeps ptxas within 64 registers a thread (32 warps an
+// SM). The wide walk's is a quarter of that, at 80 registers a thread:
+// an H100 at 700 W ran the sphereflake's 29-spp launch in 55.2 ms at 256
+// threads, 56.2 at 192, 57.5 at 320, 67.4 at 1024 (its sweep 65.2 at
+// 256, 77.5 at 1024)
+#ifdef RT_WALK_WIDE
+constexpr int kWalkThreads = 256;
+#else
 constexpr int kWalkThreads = 1024;
+#endif
 constexpr int kParentFanout = 4;  // kd leaves per parent box
 constexpr int kBoxFloats = 8;     // [lo xyz, 0, hi xyz, 0]
 constexpr int kMaxWords = 4;      // MAX_CLUSTERS = 128 bits of box mask
@@ -137,8 +172,19 @@ constexpr int kWideMaxWords = 16;
 constexpr int kWideKeyBits = 9;
 // the wide walk's shared memory after its tables: its four counts (two
 // adaptive sample counts, walk iterations, bounces) around the adaptive
-// deal, 48 bytes, then the masks
+// deal and its block's count of sweeps, 48 bytes, then the masks
 constexpr int kWideExtraBytes = 48;
+// the shared memory a block may opt in to (227 KiB on the H100): the wide
+// walk's lists take what its tables, counts and masks leave of it
+constexpr int kMaxWalkSmemBytes = 232448;
+// A list entry of the wide walk is a packed key: a kd leaf's is its
+// entry's bits floored to a bucket | cluster, as the flat walk's; a box's
+// carries kListBox and its index among the listed levels (parents from
+// 0, then grandparents) in a bucket one below its entry's. Entries order
+// by their bits without kListBox.
+constexpr uint32_t kListBox = 0x80000000u;
+constexpr uint32_t kBucket = 1u << kWideKeyBits;
+constexpr uint32_t kOrderFloor = ~kListBox & ~(kBucket - 1u);
 // An item's record in the scratch: r, g, b, sum of lum^2, walk
 // iterations, bounces. A lane's sums form only after its last sample, so
 // every item of a launch is kept until then. The scratch's capacity in
@@ -181,8 +227,11 @@ struct Params {
   DebugUniforms dbg;     // kDebug: cursor point and selection
   // the wide walk: grandparent boxes (after the parents at off_par), and
   // mask words a thread; its n_floats is off_win, the part in shared
-  // memory, and its counts are four
+  // memory, and its counts are five. The third and fourth levels' boxes
+  // (then the root's), from off_top in global memory; the list's
+  // capacity in words a thread.
   int n_grand, n_words;
+  int n_l3, n_l4, off_top, list_cap;
 };
 
 // Counters of the walk's structure, compiled in only with
@@ -199,6 +248,16 @@ enum WalkCounter {
   kWarpTail,       // warp runs of the bounce tail
   kLaneTail,       // lane runs of the bounce tail (completed bounces)
   kSlabTests,      // boxes slab-tested, parents included
+  // the wide walk's list, where a trip is a pass of its loop (a visit, or
+  // the pass that ends the bounce) and kLaneTrips its cost row's
+  kLanePasses,     // passes of a lane
+  kWarpExpand,     // boxes expanded: warp steps where some lane expands
+  kLaneExpand,     // boxes a lane expanded
+  kListInserts,    // entries put into the list
+  kListMoves,      // entries moved to make room
+  kListPeak,       // the bounces' high-water marks, summed
+  kListPeakMax,    // the highest high-water mark (an atomicMax)
+  kSweeps,         // bounces whose list overflowed, swept instead
   kNumCounters
 };
 
@@ -302,10 +361,11 @@ struct Deal {
 };
 enum SampleCount { kItemSamples, kLaneSamples };
 // after the tables: the two sample counts (16 bytes), then the deal; the
-// wide walk's iteration and bounce counts follow at 32 bytes (its block's
-// counts 4 and 5), and go to the launch's counts 2 and 3
+// wide walk's count of sweeps after the deal (at 28 bytes, 32 bits),
+// its iteration and bounce counts at 32 bytes (its block's counts 4 and
+// 5); they go to the launch's counts 4, 2 and 3
 constexpr int kAdaptiveSmemBytes = 32;
-enum WalkCount { kWalkIterations = 2, kWalkSegments = 3 };
+enum WalkCount { kWalkIterations = 2, kWalkSegments = 3, kWalkSweeps = 4 };
 constexpr int kWalkCountsAt = 2;  // the block's: kWalkIterations + 2
 
 __device__ __forceinline__ unsigned long long* counts_of(const Params& p,
@@ -317,12 +377,18 @@ __device__ __forceinline__ Deal& deal_of(const Params& p, float* smem) {
   return *reinterpret_cast<Deal*>(smem + p.n_floats + 4);
 }
 
-// The wide walk's mask words of this thread: word w at w * kWalkThreads.
+// The wide walk's mask words of this thread, which hold its list: word w
+// at w * kWalkThreads.
 __device__ __forceinline__ uint32_t* wide_mask(const Params& p,
                                                float* smem) {
   return reinterpret_cast<uint32_t*>(smem + p.n_floats +
                                      kWideExtraBytes / 4) +
          threadIdx.x;
+}
+
+// The wide walk's block count of bounces that swept, after the deal.
+__device__ __forceinline__ uint32_t* sweeps_of(const Params& p, float* smem) {
+  return reinterpret_cast<uint32_t*>(smem + p.n_floats + 7);
 }
 
 // The wide walk's fresh bounce: the grandparents the ray enters, under
@@ -428,6 +494,229 @@ __device__ __forceinline__ int wide_test(const float* s_box, uint32_t* mask,
     if (kept == 0u) live &= ~(1u << j);
   }
   return tested;
+}
+
+// The best of the exact global tests, which a wide bounce starts from
+// (the narrow walk's loop keeps its own copies of this and of
+// visit_cluster, so that its code stays the base's instruction for
+// instruction).
+__device__ __forceinline__ void global_best(const Params& p,
+                                            const float* s_glob, float ox,
+                                            float oy, float oz, float dx,
+                                            float dy, float dz, float a,
+                                            float o_dot_d, float o_dot_o,
+                                            float min_t_a, float& bq,
+                                            int& bs) {
+  float g_best = kFillQ;
+  int g_slot = 0;
+  for (int g = 0; g < p.n_global; ++g) {
+    float q = exact_q(s_glob + 4 * g, ox, oy, oz, dx, dy, dz, a, o_dot_d,
+                      o_dot_o, min_t_a);
+    if (q < g_best) {
+      g_best = q;
+      g_slot = g;
+    }
+  }
+  bq = g_best;
+  bs = g_slot;
+}
+
+// The exact tests of cluster cidx's members against the best hit.
+__device__ __forceinline__ void visit_cluster(const Params& p,
+                                              const float* s_mem, int cidx,
+                                              float ox, float oy, float oz,
+                                              float dx, float dy, float dz,
+                                              float a, float o_dot_d,
+                                              float o_dot_o, float min_t_a,
+                                              float& bq, int& bs) {
+  const float4* mb =
+      reinterpret_cast<const float4*>(s_mem + 4 * cidx * p.mstride);
+  for (int m = 0; m < p.group; ++m) {
+    const float4 c4 = mb[m];
+    const float c[4] = {c4.x, c4.y, c4.z, c4.w};
+    float q =
+        exact_q(c, ox, oy, oz, dx, dy, dz, a, o_dot_d, o_dot_o, min_t_a);
+    if (q < bq) {
+      bq = q;
+      bs = p.n_global + cidx * p.group + m;
+    }
+  }
+}
+
+// The list entry of a hit box (a kd leaf, or with `box` a box of a listed
+// level) of index id, entered at qe.
+__device__ __forceinline__ uint32_t list_entry(float qe, int id, bool box) {
+  const uint32_t b = (uint32_t)__float_as_int(qe) & ~(kBucket - 1u);
+  return box ? kListBox | (b - kBucket) | (uint32_t)id : b | (uint32_t)id;
+}
+
+// An entry's order: its key without kListBox.
+__device__ __forceinline__ uint32_t list_order(uint32_t e) {
+  return e & ~kListBox;
+}
+
+// Tests the run of nc (1 to kParentFanout) boxes from index `first` at
+// `rows` (a kd leaf's row, or a listed level's, the index its id), and
+// merges the hit ones into the list as entries of kind `box`. The list
+// holds len entries in order, the nearest last, and `head`, the nearest,
+// in a register too (anything where len is 0); both are updated. The
+// four tests are unrolled, so their loads go out together (a run shorter
+// than four tests its last box again and drops the result), and the hits,
+// sorted in registers, go in with one pass from the list's end: each entry
+// nearer than a hit moves up once. false where the list would pass `cap`.
+// `tested` and `moved` count the boxes tested and the entries moved.
+__device__ __forceinline__ bool expand_run(const float* rows, int first,
+                                           int nc, bool box, uint32_t* list,
+                                           int& len, uint32_t& head, int cap,
+                                           float ox, float oy, float oz,
+                                           float ivx, float ivy, float ivz,
+                                           float a, float min_t_a,
+                                           int& tested, int& moved) {
+  tested += nc;
+  uint32_t h[kParentFanout];
+#pragma unroll
+  for (int j = 0; j < kParentFanout; ++j) {
+    const int c = first + min(j, nc - 1);
+    const float qe = box_entry(rows + kBoxFloats * c, ox, oy, oz, ivx, ivy,
+                               ivz, a, min_t_a);
+    h[j] = j < nc && qe < kFillQ ? list_entry(qe, c, box) : ~0u;
+  }
+  // a sorting network, nearest first; the missed (~0u) last. The run's
+  // entries are of one kind, so their bits order as their orders do.
+  uint32_t h0 = h[0], h1 = h[1], h2 = h[2], h3 = h[3], t;
+  t = min(h0, h1), h1 = max(h0, h1), h0 = t;
+  t = min(h2, h3), h3 = max(h2, h3), h2 = t;
+  t = min(h0, h2), h2 = max(h0, h2), h0 = t;
+  t = min(h1, h3), h3 = max(h1, h3), h1 = t;
+  t = min(h1, h2), h2 = max(h1, h2), h1 = t;
+  const int hits = (int)(h0 != ~0u) + (int)(h1 != ~0u) + (int)(h2 != ~0u) +
+                   (int)(h3 != ~0u);
+  if (hits == 0) return true;
+  if (len + hits > cap) return false;
+  int i = len - 1;
+  uint32_t f = head;  // list[i] while i >= 0
+  const uint32_t top =
+      i >= 0 && list_order(f) < list_order(h0) ? f : h0;
+  for (int w = len + hits - 1, k = 0; k < hits; --w) {
+    if (i >= 0 && list_order(f) < list_order(h0)) {
+      list[w * kWalkThreads] = f;
+      ++moved;
+      --i;
+      f = i >= 0 ? list[i * kWalkThreads] : 0u;
+    } else {
+      list[w * kWalkThreads] = h0;
+      h0 = h1;
+      h1 = h2;
+      h2 = h3;
+      ++k;
+    }
+  }
+  len += hits;
+  head = top;
+  return true;
+}
+
+// The start of a wide bounce's list: the fourth level's boxes (one or
+// two; after the third level's in global memory); under each one the ray
+// enters, its third-level children; and under each of those it enters,
+// its grandparents, the hit ones into the list. The levels above the
+// grandparents are few, and nearly every ray that meets the scene enters
+// them, so they are expanded at once rather than through the list.
+// false where the list overflowed.
+__device__ __forceinline__ bool wide_top(const Params& p, const float* s_par,
+                                         uint32_t* list, int& len,
+                                         uint32_t& head, float ox, float oy,
+                                         float oz, float ivx, float ivy,
+                                         float ivz, float a, float min_t_a,
+                                         int& tested, int& moved) {
+  const float* top = p.tables + p.off_top;
+  for (int t = 0; t < p.n_l4; ++t) {
+    ++tested;
+    if (box_entry(top + kBoxFloats * (p.n_l3 + t), ox, oy, oz, ivx, ivy,
+                  ivz, a, min_t_a) >= kFillQ)
+      continue;
+    const int c0 = kParentFanout * t;
+    const int nc = min(kParentFanout, p.n_l3 - c0);
+    tested += nc;
+    float q[kParentFanout];
+#pragma unroll
+    for (int j = 0; j < kParentFanout; ++j)
+      q[j] = box_entry(top + kBoxFloats * (c0 + min(j, nc - 1)), ox, oy, oz,
+                       ivx, ivy, ivz, a, min_t_a);
+#pragma unroll
+    for (int j = 0; j < kParentFanout; ++j) {
+      if (j >= nc || q[j] >= kFillQ) continue;
+      // its grandparents, listed after the parents
+      const int g0 = kParentFanout * (c0 + j);
+      if (!expand_run(s_par, p.n_parents + g0,
+                      min(kParentFanout, p.n_grand - g0), true, list, len,
+                      head, p.list_cap, ox, oy, oz, ivx, ivy, ivz, a,
+                      min_t_a, tested, moved))
+        return false;
+    }
+  }
+  return true;
+}
+
+// Expands the box entry e, which the list no longer holds: merges its hit
+// children into the list. A grandparent's children are parents, a
+// parent's kd leaves, all in shared memory. false where the list
+// overflowed.
+__device__ __forceinline__ bool wide_expand(const Params& p,
+                                            const float* s_par,
+                                            const float* s_box,
+                                            uint32_t* list, int& len,
+                                            uint32_t& head, uint32_t e,
+                                            float ox, float oy, float oz,
+                                            float ivx, float ivy, float ivz,
+                                            float a, float min_t_a,
+                                            int& tested, int& moved) {
+  const int u = (int)(e & (kBucket - 1u));
+  const bool leaves = u < p.n_parents;
+  const int first = kParentFanout * (leaves ? u : u - p.n_parents);
+  const int end = leaves ? p.k : p.n_parents;
+  return expand_run(leaves ? s_box : s_par, first,
+                    min(kParentFanout, end - first), !leaves, list, len,
+                    head, p.list_cap, ox, oy, oz, ivx, ivy, ivz, a, min_t_a,
+                    tested, moved);
+}
+
+// The sweep a bounce falls back to where its list overflowed, over the
+// same words used as a mask: from the globals' best, every box the ray
+// crosses (wide_fresh), then nearest first, each later iteration
+// re-testing the hit boxes not yet visited (wide_test). Returns its
+// visits; `tested` counts the boxes tested.
+__device__ __forceinline__ int wide_sweep(const Params& p,
+                                          const float* s_glob,
+                                          const float* s_par,
+                                          const float* s_box,
+                                          const float* s_mem,
+                                          uint32_t* mask, float ox,
+                                          float oy, float oz, float dx,
+                                          float dy, float dz, float ivx,
+                                          float ivy, float ivz, float a,
+                                          float o_dot_d, float o_dot_o,
+                                          float min_t_a, float& bq, int& bs,
+                                          int& tested) {
+  global_best(p, s_glob, ox, oy, oz, dx, dy, dz, a, o_dot_d, o_dot_o,
+              min_t_a, bq, bs);
+  uint32_t live;
+  float m0 = INFINITY, m1 = INFINITY;
+  tested += wide_fresh(p, s_par, s_box, mask, live, ox, oy, oz, ivx, ivy,
+                       ivz, a, min_t_a, m0, m1);
+  int visits = 0;
+  while ((key_floor<kWide>(m0) < bq) & (m0 < kFillFloor)) {
+    const int cidx = __float_as_int(m0) & kKeyMask<kWide>;
+    visit_cluster(p, s_mem, cidx, ox, oy, oz, dx, dy, dz, a, o_dot_d,
+                  o_dot_o, min_t_a, bq, bs);
+    mask[(cidx >> 5) * kWalkThreads] &= ~(1u << (cidx & 31));
+    ++visits;
+    if ((key_floor<kWide>(m1) >= bq) | (m1 >= kFillFloor)) break;
+    m0 = m1 = INFINITY;
+    tested += wide_test(s_box, mask, live, ox, oy, oz, ivx, ivy, ivz, a,
+                        min_t_a, m0, m1);
+  }
+  return visits;
 }
 
 // Thread 0's plan of its block's deal, from the live extent ([n, spp]
@@ -610,11 +899,10 @@ __device__ __forceinline__ void walk(const Params& p, float* smem) {
   path.cr = path.cg = path.cb = 1.0f;
   float bq = kFillQ, kl = kNegBig;  // best q, visited cursor (packed key)
   int bs = 0;                       // winner slot
-  // boxes the bounce's ray hits, unvisited: in registers, or the wide
-  // walk's in shared memory with the words that hold bits in `live`
+  // boxes the bounce's ray hits, unvisited, in registers; the wide
+  // walk's pending list (or its sweep's mask) in shared memory
   BoxMask<kIsWide ? 1 : kWords> hits = {};
   uint32_t* const mask = kIsWide ? wide_mask(p, smem) : nullptr;
-  uint32_t live = 0u;
   Sums sums = {0.0f, 0.0f, 0.0f, 0.0f};
   float cost = 0.0f;
   int segs = 0;
@@ -630,38 +918,139 @@ __device__ __forceinline__ void walk(const Params& p, float* smem) {
     const float o_dot_o = dot3(ox, oy, oz, ox, oy, oz);
     const float min_t_a = kMinT * a;
     const float ivx = inv_dir(dx), ivy = inv_dir(dy), ivz = inv_dir(dz);
-    bool bdone;
-    do {
-      cost += 1.0f;
-      const bool fresh = kl < kFresh;
+    if constexpr (kIsWide) {
+      // --- the wide walk's bounce: its clusters nearest first from the
+      // pending list, or the sweep where the list overflows ---
+      [[maybe_unused]] int tested = 0, moved = 0;
 #ifdef RT_WALK_COUNTERS
-      const unsigned act_ = __activemask();
-      const bool leader_ = (int)(threadIdx.x & 31) == __ffs(act_) - 1;
-      RT_COUNT(kWarpTrips, leader_ ? 1u : 0u);
-      RT_COUNT(kLaneTrips, 1u);
-      RT_WARP_COUNT(kWarpFresh, fresh);
-      RT_COUNT(kLaneFresh, fresh ? 1u : 0u);
+      {
+        const unsigned act_ = __activemask();
+        const bool leader_ = (int)(threadIdx.x & 31) == __ffs(act_) - 1;
+        RT_WARP_COUNT(kWarpFresh, true);
+        RT_COUNT(kLaneFresh, 1u);
+      }
+      int peak = 0;
+#endif
+      global_best(p, s_glob, ox, oy, oz, dx, dy, dz, a, o_dot_d, o_dot_o,
+                  min_t_a, bq, bs);
+      int len = 0;
+      uint32_t head = 0u;  // the list's nearest entry, while len > 0
+      // a box keyed a bucket below its entry needs entries past the
+      // lowest buckets: a ray whose least entry (min_t_a) lies there, of
+      // a degenerate direction, sweeps
+      bool over = (uint32_t)__float_as_int(min_t_a) < 2u * kBucket ||
+                  !wide_top(p, s_par, mask, len, head, ox, oy, oz, ivx, ivy,
+                            ivz, a, min_t_a, tested, moved);
+#ifdef RT_WALK_COUNTERS
+      peak = len;
+#endif
+      int visits = 0;
+      while (!over) {
+#ifdef RT_WALK_COUNTERS
+        {
+          const unsigned act_ = __activemask();
+          const bool leader_ = (int)(threadIdx.x & 31) == __ffs(act_) - 1;
+          RT_COUNT(kWarpTrips, leader_ ? 1u : 0u);
+          RT_COUNT(kLanePasses, 1u);
+        }
+#endif
+        // the lane expands boxes until its nearest entry is a kd leaf or
+        // the bounce is done
+        bool leaf = false;
+        while (len > 0) {
+          const uint32_t e = head;
+          if (__int_as_float(e & kOrderFloor) >= bq) break;
+          if ((e & kListBox) == 0u) {
+            leaf = true;
+            break;
+          }
+          --len;
+          if (len > 0) head = mask[(len - 1) * kWalkThreads];
+#ifdef RT_WALK_COUNTERS
+          const int ins_ = len;
+          {
+            const unsigned act_ = __activemask();
+            const bool leader_ = (int)(threadIdx.x & 31) == __ffs(act_) - 1;
+            RT_WARP_COUNT(kWarpExpand, true);
+            RT_COUNT(kLaneExpand, 1u);
+          }
+#endif
+          over = !wide_expand(p, s_par, s_box, mask, len, head, e, ox, oy,
+                              oz, ivx, ivy, ivz, a, min_t_a, tested, moved);
+#ifdef RT_WALK_COUNTERS
+          RT_COUNT(kListInserts, (unsigned long long)(len - ins_));
+          peak = max(peak, len);
+#endif
+          if (over) break;
+        }
+        if (!leaf) break;
+        // the warp's lanes with a leaf visit it together
+#ifdef RT_WALK_COUNTERS
+        {
+          const unsigned act_ = __activemask();
+          const bool leader_ = (int)(threadIdx.x & 31) == __ffs(act_) - 1;
+          RT_WARP_COUNT(kWarpVisit, true);
+          RT_COUNT(kLaneVisit, 1u);
+        }
+#endif
+        const int cidx = (int)(head & (kBucket - 1u));
+        --len;
+        if (len > 0) head = mask[(len - 1) * kWalkThreads];
+        ++visits;
+        visit_cluster(p, s_mem, cidx, ox, oy, oz, dx, dy, dz, a, o_dot_d,
+                      o_dot_o, min_t_a, bq, bs);
+      }
+      if (over) {
+        // the list overflowed: the bounce starts over as the sweep
+        atomicAdd(sweeps_of(p, smem), 1u);
+        visits = wide_sweep(p, s_glob, s_par, s_box, s_mem, mask, ox, oy,
+                            oz, dx, dy, dz, ivx, ivy, ivz, a, o_dot_d,
+                            o_dot_o, min_t_a, bq, bs, tested);
+#ifdef RT_WALK_COUNTERS
+        RT_COUNT(kSweeps, 1u);
+        RT_COUNT(kLaneVisit, (unsigned long long)visits);
+#endif
+      }
+      // the flat walk's iterations: one a visit, at least one
+      cost += (float)max(visits, 1);
+#ifdef RT_WALK_COUNTERS
+      RT_COUNT(kLaneTrips, (unsigned long long)max(visits, 1));
+      RT_COUNT(kSlabTests, (unsigned long long)tested);
+      RT_COUNT(kListMoves, (unsigned long long)moved);
+      RT_COUNT(kListPeak, (unsigned long long)peak);
+      cnt[kListPeakMax] = max(cnt[kListPeakMax], (unsigned long long)peak);
+#endif
+    } else {
+      bool bdone;
+      do {
+        cost += 1.0f;
+        const bool fresh = kl < kFresh;
+#ifdef RT_WALK_COUNTERS
+        const unsigned act_ = __activemask();
+        const bool leader_ = (int)(threadIdx.x & 31) == __ffs(act_) - 1;
+        RT_COUNT(kWarpTrips, leader_ ? 1u : 0u);
+        RT_COUNT(kLaneTrips, 1u);
+        RT_WARP_COUNT(kWarpFresh, fresh);
+        RT_COUNT(kLaneFresh, fresh ? 1u : 0u);
 #endif
 
-      // the boxes to test: on a fresh bounce the children of the parents
-      // the ray enters (in the wide walk, of those under the grandparents
-      // it enters), later the hit boxes not yet visited
-      BoxMask<kIsWide ? 1 : kWords> cand = hits;
-      if (fresh) {
-        // a fresh bounce seeds its best hit with exact global tests
-        float g_best = kFillQ;
-        int g_slot = 0;
-        for (int g = 0; g < p.n_global; ++g) {
-          float q = exact_q(s_glob + 4 * g, ox, oy, oz, dx, dy, dz, a, o_dot_d,
-                            o_dot_o, min_t_a);
-          if (q < g_best) {
-            g_best = q;
-            g_slot = g;
+        // the boxes to test: on a fresh bounce the children of the parents
+        // the ray enters, later the hit boxes not yet visited
+        BoxMask<kIsWide ? 1 : kWords> cand = hits;
+        if (fresh) {
+          // a fresh bounce seeds its best hit with exact global tests
+          float g_best = kFillQ;
+          int g_slot = 0;
+          for (int g = 0; g < p.n_global; ++g) {
+            float q = exact_q(s_glob + 4 * g, ox, oy, oz, dx, dy, dz, a,
+                              o_dot_d, o_dot_o, min_t_a);
+            if (q < g_best) {
+              g_best = q;
+              g_slot = g;
+            }
           }
-        }
-        bq = g_best;
-        bs = g_slot;
-        if constexpr (!kIsWide) {
+          bq = g_best;
+          bs = g_slot;
 #pragma unroll
           for (int j = 0; j < kWords; ++j) cand.w[j] = 0u;
           for (int q = 0; q < p.n_parents; ++q) {
@@ -674,23 +1063,11 @@ __device__ __forceinline__ void walk(const Params& p, float* smem) {
             }
           }
         }
-      }
 
-      // slab test of the candidates in q-space, keeping the hit ones and
-      // the two nearest packed keys (entry with 7 low bits floored |
-      // cluster, 9 in the wide walk); every hit key here lies beyond the
-      // cursor kl
-      float m0 = INFINITY, m1 = INFINITY;
-      if constexpr (kIsWide) {
-        // a fresh bounce finds its hits under the grandparents, a later
-        // iteration re-tests the hits not yet visited
-        [[maybe_unused]] const int tested =
-            fresh ? wide_fresh(p, s_par, s_box, mask, live, ox, oy, oz, ivx,
-                               ivy, ivz, a, min_t_a, m0, m1)
-                  : wide_test(s_box, mask, live, ox, oy, oz, ivx, ivy, ivz,
-                              a, min_t_a, m0, m1);
-        RT_COUNT(kSlabTests, (unsigned long long)tested);
-      } else {
+        // slab test of the candidates in q-space, keeping the hit ones and
+        // the two nearest packed keys (entry with 7 low bits floored |
+        // cluster); every hit key here lies beyond the cursor kl
+        float m0 = INFINITY, m1 = INFINITY;
 #pragma unroll
         for (int j = 0; j < kWords; ++j) {
           uint32_t bits = cand.w[j];
@@ -714,36 +1091,32 @@ __device__ __forceinline__ void walk(const Params& p, float* smem) {
             }
           }
         }
-      }
 
-      // done when the nearest unvisited entry cannot beat the best, or the
-      // list is exhausted; else visit it, then test the next one (fused)
-      bdone = (key_floor<kWords>(m0) >= bq) | (m0 >= kFillFloor);
-      RT_WARP_COUNT(kWarpVisit, !bdone);
-      RT_COUNT(kLaneVisit, bdone ? 0u : 1u);
-      if (!bdone) {
-        const int cidx = __float_as_int(m0) & kKeyMask<kWords>;
-        const float4* mb =
-            reinterpret_cast<const float4*>(s_mem + 4 * cidx * p.mstride);
-        for (int m = 0; m < p.group; ++m) {
-          const float4 c4 = mb[m];
-          const float c[4] = {c4.x, c4.y, c4.z, c4.w};
-          float q = exact_q(c, ox, oy, oz, dx, dy, dz, a, o_dot_d, o_dot_o,
-                            min_t_a);
-          if (q < bq) {
-            bq = q;
-            bs = p.n_global + cidx * p.group + m;
+        // done when the nearest unvisited entry cannot beat the best, or the
+        // list is exhausted; else visit it, then test the next one (fused)
+        bdone = (key_floor<kWords>(m0) >= bq) | (m0 >= kFillFloor);
+        RT_WARP_COUNT(kWarpVisit, !bdone);
+        RT_COUNT(kLaneVisit, bdone ? 0u : 1u);
+        if (!bdone) {
+          const int cidx = __float_as_int(m0) & kKeyMask<kWords>;
+          const float4* mb =
+              reinterpret_cast<const float4*>(s_mem + 4 * cidx * p.mstride);
+          for (int m = 0; m < p.group; ++m) {
+            const float4 c4 = mb[m];
+            const float c[4] = {c4.x, c4.y, c4.z, c4.w};
+            float q = exact_q(c, ox, oy, oz, dx, dy, dz, a, o_dot_d, o_dot_o,
+                              min_t_a);
+            if (q < bq) {
+              bq = q;
+              bs = p.n_global + cidx * p.group + m;
+            }
           }
-        }
-        if constexpr (kIsWide) {
-          mask[(cidx >> 5) * kWalkThreads] &= ~(1u << (cidx & 31));
-        } else {
           mask_clear(hits, cidx);
+          kl = m0;
+          bdone = (key_floor<kWords>(m1) >= bq) | (m1 >= kFillFloor);
         }
-        kl = m0;
-        bdone = (key_floor<kWords>(m1) >= bq) | (m1 >= kFillFloor);
-      }
-    } while (!bdone);
+      } while (!bdone);
+    }
     ++segs;
 #ifdef RT_WALK_COUNTERS
     {
@@ -788,12 +1161,17 @@ __device__ __forceinline__ void walk(const Params& p, float* smem) {
     segs = 0;
   }
 #ifdef RT_WALK_COUNTERS
-  for (int c = 0; c < kNumCounters; ++c) atomicAdd(&g_counters[c], cnt[c]);
+  for (int c = 0; c < kNumCounters; ++c) {
+    if (c == kListPeakMax)
+      atomicMax(&g_counters[c], cnt[c]);
+    else
+      atomicAdd(&g_counters[c], cnt[c]);
+  }
 #endif
 }
 
-// The end of a wide block: its iteration and bounce counts into the
-// launch's (one atomic each).
+// The end of a wide block: its iteration, bounce and sweep counts into
+// the launch's (one atomic each).
 __device__ __forceinline__ void end_wide_block(const Params& p,
                                                float* smem) {
   __syncthreads();
@@ -801,6 +1179,8 @@ __device__ __forceinline__ void end_wide_block(const Params& p,
     const unsigned long long* c = counts_of(p, smem) + kWalkCountsAt;
     atomicAdd(&p.samples[kWalkIterations], c[kWalkIterations]);
     atomicAdd(&p.samples[kWalkSegments], c[kWalkSegments]);
+    atomicAdd(&p.samples[kWalkSweeps],
+              (unsigned long long)*sweeps_of(p, smem));
   }
 }
 
@@ -815,6 +1195,7 @@ __global__ void __launch_bounds__(kWalkThreads, 1)
     if (threadIdx.x == 0) {
       unsigned long long* counts = counts_of(p, smem) + kWalkCountsAt;
       counts[kWalkIterations] = counts[kWalkSegments] = 0ull;
+      *sweeps_of(p, smem) = 0u;
     }
   }
   load_tables(smem, p.tables, p.n_floats);
@@ -886,12 +1267,14 @@ cudaError_t launch(const Params& p, int blocks, size_t smem,
 // without one), lane counter (one int), live extent (two ints, null
 // without a budget), item scratch (item_rows x item_cap floats),
 // per-lane item counts (item_cap ints, all zero) and counts (two sample
-// counts, or null; in the wide walk four, never null: the sample counts,
-// walk iterations and bounces) are device pointers; the caller checks
-// shapes and the tables' layout. The launch zeroes the lane counter on `stream`
-// first, and leaves the item counts zero, so launches that share them
-// must share the stream. The cursor and the selection are read with
-// debug only.
+// counts, or null; in the wide walk five, never null: the sample counts,
+// walk iterations, bounces and sweeps) are device pointers; the caller
+// checks shapes and the tables' layout. The wide walk's tables end with
+// its levels past the grandparents, after the winner rows (a launch whose
+// n_floats leaves no room for them is refused). The launch zeroes the
+// lane counter on `stream` first, and leaves the item counts zero, so
+// launches that share them must share the stream. The cursor and the
+// selection are read with debug only.
 extern "C" int cluster_walk_launch(
     const float* tables, const int* pixel_map, const int* budget, float* out,
     int* segs, int* next_lane, const int* extent, float* items,
@@ -935,17 +1318,37 @@ extern "C" int cluster_walk_launch(
   p.dbg = {cursor_x, cursor_y, cursor_z, selected};
 #ifdef RT_WALK_WIDE
   // the wide walk: its hit-test tables (all before the winner rows), its
-  // counts and deal, and its threads' masks
+  // counts and deal, and its threads' masks; then as many more words a
+  // thread for its list as the block's shared memory holds
   if (k <= 32 * kMaxWords || k > 32 * kWideMaxWords || samples == nullptr)
     return (int)cudaErrorInvalidValue;
   p.n_floats = off_win;
   p.n_grand = (n_parents + kParentFanout - 1) / kParentFanout;
   p.n_words = (k + 31) / 32;
-  const size_t smem = sizeof(float) * (size_t)off_win + kWideExtraBytes +
+  // the levels past the grandparents after the winner rows: the third
+  // level, the fourth (one or two boxes), and over two the root
+  p.n_l3 = (p.n_grand + kParentFanout - 1) / kParentFanout;
+  p.n_l4 = (p.n_l3 + kParentFanout - 1) / kParentFanout;
+  p.off_top = (off_win + 11 * (n_global + k * group) + 3) / 4 * 4;
+  const int n_top = p.n_l3 + p.n_l4 + (p.n_l4 > 1 ? 1 : 0);
+  if (n_floats < p.off_top + kBoxFloats * n_top)
+    return (int)cudaErrorInvalidValue;
+  const size_t need = sizeof(float) * (size_t)off_win + kWideExtraBytes +
                       sizeof(uint32_t) * (size_t)p.n_words * kWalkThreads;
+  const size_t word = sizeof(uint32_t) * kWalkThreads;
+  p.list_cap = p.n_words + (need < kMaxWalkSmemBytes
+                                ? (int)((kMaxWalkSmemBytes - need) / word)
+                                : 0);
+#ifdef RT_WALK_LIST_CAP
+  // a test build's smaller list, so that bounces overflow into the sweep
+  p.list_cap = std::min(p.list_cap, RT_WALK_LIST_CAP);
+#endif
+  const size_t smem =
+      need + word * (size_t)std::max(p.list_cap - p.n_words, 0);
 #else
   if (k > 32 * kMaxWords) return (int)cudaErrorInvalidValue;
   p.n_grand = p.n_words = 0;
+  p.n_l3 = p.n_l4 = p.off_top = p.list_cap = 0;
   // adaptive: the deal and the sample counts after the tables, and a grid
   // for every sample, as the items may go one a thread
   const size_t smem = sizeof(float) * (size_t)n_floats +

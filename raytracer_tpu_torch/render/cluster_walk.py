@@ -51,10 +51,12 @@ A partition of more than ``MAX_CLUSTERS`` clusters (up to
 with ``RT_WALK_WIDE`` into a library of its own, so the narrow walk's
 instantiations and build stay as they are. Its visit key holds the
 cluster index in 9 bits (``tables.key_bits``), and the plain version
-packs its keys the same way; it culls through a second level of boxes,
-keeps each thread's mask of hit boxes in shared memory, and reads the
-winner rows from global memory. It counts its lanes' walk iterations
-and completed bounces (``WIDE_COUNTS`` in the span registry).
+packs its keys the same way; it finds a bounce's clusters nearest
+first, from a short ordered list of pending boxes of the whole box tree
+in each thread's shared memory (a bounce whose list overflows sweeps the
+boxes instead), and reads the winner rows from global memory. It counts
+its lanes' walk iterations, completed bounces and sweeps
+(``WIDE_COUNTS`` in the span registry).
 """
 
 from __future__ import annotations
@@ -107,8 +109,10 @@ ITEM_ROWS = 6
 #: as the span registry reports them (``utils.profiling.counters``)
 SAMPLE_COUNTS = ("walk_item_samples", "walk_samples")
 #: the wide walk's counts: those, then its lanes' walk iterations and
-#: completed bounces (every launch of it, adaptive or not)
-WIDE_COUNTS = SAMPLE_COUNTS + ("walk_iterations", "walk_segments")
+#: completed bounces (every launch of it, adaptive or not), and the
+#: bounces whose pending list overflowed and that swept the boxes instead
+WIDE_COUNTS = SAMPLE_COUNTS + ("walk_iterations", "walk_segments",
+                               "walk_sweeps")
 #: the define that builds ``csrc/cluster_walk.cu`` as the wide walk
 WIDE_DEFINE = "RT_WALK_WIDE"
 NEG_BIG = -3e38
@@ -164,7 +168,8 @@ def _check(tables: WalkTables, pixel_map: torch.Tensor, width: int,
             or tables.bounds.shape != (k, 6)
             or tables.members.shape[2:] != (4,)
             or tables.winner.shape != (n_global + k * group, 11)
-            or tables.parents.shape != (lay.n_parents + lay.n_grand, 6)
+            or tables.parents.shape != (
+                lay.n_parents + lay.n_grand + lay.n_top, 6)
             or tables.packed.shape != (lay.n_floats,)):
         raise ValueError("inconsistent walk table shapes")
     if not walk_fits(n_global, k, group):

@@ -11,12 +11,14 @@ into shared memory once per block and index directly. The cluster walk's
 kernel reads them packed into one array laid out as its shared memory
 (:func:`walk_layout`, :func:`pack_walk`), with one level of parent boxes
 over its kd leaves (:func:`parent_boxes`). A partition of more than
-``MAX_CLUSTERS`` clusters takes the wide walk: a second level of boxes
-over the parents (:func:`hierarchy_boxes`), a 9-bit cluster index in the
-visit key (:func:`key_bits`), and only the hit-test tables in shared
-memory, the winner rows read from global memory
-(:func:`wide_smem_bytes`). Tables are built where the scene lives and
-then uploaded (:func:`upload`).
+``MAX_CLUSTERS`` clusters takes the wide walk: levels of boxes over the
+parents up to the root (:func:`hierarchy_boxes`), a 9-bit cluster index
+in the visit key (:func:`key_bits`), and only the hit-test tables in
+shared memory, the winner rows and the levels past the grandparents read
+from global memory (:func:`wide_smem_bytes`); its threads' pending lists
+take the rest of a block's shared memory (:func:`wide_list_capacity`).
+Tables are built where the scene lives and then uploaded
+(:func:`upload`).
 """
 
 from __future__ import annotations
@@ -44,9 +46,13 @@ MAX_WIDE_CLUSTERS = 512
 #: kd leaves under one parent box of the walk's culled box test, and
 #: parents under one grandparent box of the wide walk's
 PARENT_FANOUT = 4
-#: threads of a walk block: the wide walk keeps each one's mask of hit
-#: boxes in shared memory, a word per 32 clusters
+#: threads of a narrow walk block, and the most a walk block has: the
+#: wide walk's admission (:func:`wide_smem_bytes`) counts a mask of hit
+#: boxes in shared memory for each, a word per 32 clusters
 WALK_THREADS = 1024
+#: threads of a wide walk block, each with its mask words and its pending
+#: list in shared memory (:func:`wide_list_capacity`)
+WIDE_WALK_THREADS = 256
 #: shared memory a block of the walk may opt in to on the H100 (227 KiB)
 MAX_WALK_SMEM_BYTES = 232448
 #: bytes of the wide walk's shared memory between its tables and its
@@ -134,11 +140,25 @@ def is_wide(k: int) -> bool:
 
 
 def wide_smem_bytes(lay: "WalkLayout") -> int:
-    """Shared memory of one block of the wide walk: the hit-test tables
-    (everything before the winner rows), the counts and deal, and a
-    mask word per 32 clusters for each of its threads."""
+    """Shared memory by which the walk admits a wide partition
+    (:func:`walk_fits`): the hit-test tables (everything before the
+    winner rows), the counts and deal, and a mask word per 32 clusters
+    for each of ``WALK_THREADS`` threads. A wide walk block, of
+    ``WIDE_WALK_THREADS``, needs no more."""
     words = -(-lay.k // 32)
     return 4 * lay.off_win + WIDE_EXTRA_BYTES + 4 * words * WALK_THREADS
+
+
+def wide_list_capacity(lay: "WalkLayout") -> int:
+    """Entries of a thread's pending list in the wide walk: its mask
+    words, and every further word a thread's share of the
+    ``MAX_WALK_SMEM_BYTES`` a block may hold leaves after the tables,
+    the counts and the ``WIDE_WALK_THREADS`` threads' mask words
+    (``csrc/cluster_walk.cu`` works it out alike)."""
+    words = -(-lay.k // 32)
+    need = 4 * lay.off_win + WIDE_EXTRA_BYTES + 4 * words * WIDE_WALK_THREADS
+    spare = MAX_WALK_SMEM_BYTES - need
+    return words + max(spare, 0) // (4 * WIDE_WALK_THREADS)
 
 
 def walk_fits(n_global: int, k: int, group: int) -> bool:
@@ -324,14 +344,31 @@ def parent_boxes(bounds: np.ndarray) -> np.ndarray:
 def hierarchy_boxes(bounds: np.ndarray) -> np.ndarray:
     """The boxes over a partition's (K, 6) kd leaves that the walk's
     culled box test reads: the parents (:func:`parent_boxes`), and for a
-    wide partition (:func:`is_wide`) after them the grandparents, each
-    over a run of PARENT_FANOUT parents. The span ``hierarchy`` times the
-    grandparents."""
+    wide partition (:func:`is_wide`) after them each level over the one
+    below (a box over each run of PARENT_FANOUT), up to the root: the
+    grandparents, then (:func:`upper_levels`) the levels the wide walk
+    reads from global memory. The span ``hierarchy`` times the levels
+    past the parents."""
     parents = parent_boxes(bounds)
     if not is_wide(bounds.shape[0]):
         return parents
     with span("hierarchy"):
-        return np.concatenate([parents, parent_boxes(parents)])
+        levels = [parents]
+        while levels[-1].shape[0] > 1:
+            levels.append(parent_boxes(levels[-1]))
+        return np.concatenate(levels)
+
+
+def upper_levels(k: int) -> list:
+    """Box counts of the wide walk's levels past the grandparents of a
+    partition of ``k`` clusters, up to the root (one box), lowest first;
+    [] for a narrow partition."""
+    if not is_wide(k):
+        return []
+    n = [-(-k // PARENT_FANOUT)]
+    while n[-1] > 1:
+        n.append(-(-n[-1] // PARENT_FANOUT))
+    return n[2:]
 
 
 def member_stride(group: int) -> int:
@@ -346,7 +383,10 @@ class WalkLayout:
     """Offsets (in floats, each a multiple of 4) of the packed walk
     tables: camera at 0, then globals, parent boxes (and a wide
     partition's grandparents after them), boxes, members (a cluster every
-    ``mstride`` float4 rows) and winner rows."""
+    ``mstride`` float4 rows) and winner rows; in the wide walk then its
+    levels past the grandparents up to the root (``n_top`` boxes at
+    ``off_top``, lowest level first), which it reads from global
+    memory."""
 
     n_parents: int
     n_grand: int  # grandparent boxes: 0 but in the wide walk
@@ -358,6 +398,8 @@ class WalkLayout:
     off_mem: int
     off_win: int
     n_floats: int
+    n_top: int = 0  # boxes past the grandparents: 0 but in the wide walk
+    off_top: int = 0
 
 
 def walk_layout(n_global: int, k: int, group: int) -> WalkLayout:
@@ -369,9 +411,11 @@ def walk_layout(n_global: int, k: int, group: int) -> WalkLayout:
     off_box = off_par + BOX_FLOATS * (n_par + n_grand)
     off_mem = off_box + BOX_FLOATS * k
     off_win = off_mem + 4 * k * mstride
-    end = off_win + 11 * (n_global + k * group)
+    end = -(-(off_win + 11 * (n_global + k * group)) // 4) * 4
+    n_top = sum(upper_levels(k))
     return WalkLayout(n_par, n_grand, k, mstride, off_glob, off_par,
-                      off_box, off_mem, off_win, -(-end // 4) * 4)
+                      off_box, off_mem, off_win, end + BOX_FLOATS * n_top,
+                      n_top, end if n_top else 0)
 
 
 def pack_walk(out, camera, globals_, parents, bounds, members, winner):
@@ -383,8 +427,10 @@ def pack_walk(out, camera, globals_, parents, bounds, members, winner):
     lay = walk_layout(globals_.shape[0], k, group)
     out[:19] = camera
     out[lay.off_glob:lay.off_par] = globals_.reshape(-1)
-    for off, n, boxes in ((lay.off_par, lay.n_parents + lay.n_grand,
-                           parents), (lay.off_box, k, bounds)):
+    n_low = lay.n_parents + lay.n_grand
+    for off, n, boxes in ((lay.off_par, n_low, parents[:n_low]),
+                          (lay.off_box, k, bounds),
+                          (lay.off_top, lay.n_top, parents[n_low:])):
         rows = out[off:off + BOX_FLOATS * n].reshape(n, BOX_FLOATS)
         rows[:, :3] = boxes[:, :3]
         rows[:, 4:7] = boxes[:, 3:]

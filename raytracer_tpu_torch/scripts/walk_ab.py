@@ -64,9 +64,19 @@ one whose version no binder here knows is left out, never called.
    the two form builds bitwise and timed in turns; the smallest size from
    which the batched form is the faster at every size measured.
 
-7. The wide walk (``RT_WALK_WIDE``, partitions of 129 to 512 clusters):
-   its six instantiations on the SPD sphereflake (:func:`flake_cases`)
-   bitwise against their plain versions, and its ``-Xptxas -v``.
+7. The wide walk (``RT_WALK_WIDE``, partitions of 129 to 512 clusters,
+   K1w): its six instantiations on the SPD sphereflake (:func:`flake_cases`)
+   bitwise against their plain versions (:func:`flake_check`); then
+   (:func:`wide_ab`) the base revision's wide build, the current one, its
+   counter build and a build whose pending list holds
+   ``TEST_LIST_CAP`` entries (``-DRT_WALK_LIST_CAP``, so that bounces
+   overflow into the sweep), bitwise on those cases and on the
+   benchmark cell's 29-spp launch (:func:`flake_launch`), timed in turns,
+   with ``-Xptxas -v``, the SASS loops, and the counters: slab tests a
+   completed bounce, the list's high-water mark (mean and highest), the
+   share of bounces that swept, the list's inserts and moves a bounce,
+   and the SIMT efficiency of a pass of the bounce loop, of a box
+   expansion, of a visit and of the tail.
 
 Writes everything to ``<out>/walk_ab.json`` as well, and the SASS
 listings, gzipped, under ``<out>/sass/`` (``--out``, ``build/walk_ab`` by
@@ -99,9 +109,13 @@ PARENT_DIR = ROOT / "build" / "walk_parent"
 OUT_DIR = ROOT / "build" / "walk_ab"
 PACKAGE_REL = "raytracer_tpu_torch"
 CSRC_REL = f"{PACKAGE_REL}/csrc"
+#: the walk counter build's totals (``WalkCounter`` in cluster_walk.cu);
+#: from ``lane_passes`` on the wide walk's list alone
 COUNTERS = ("warp_trips", "lane_trips", "warp_fresh", "lane_fresh",
             "warp_visit", "lane_visit", "warp_tail", "lane_tail",
-            "slab_tests")
+            "slab_tests", "lane_passes", "warp_expand", "lane_expand",
+            "list_inserts", "list_moves", "list_peak", "list_peak_max",
+            "sweeps")
 #: the flat counter build's totals (``FlatCounter`` in flat_scan.cu), then
 #: a histogram of the active lanes of a warp trip, 0..32
 FLAT_COUNTERS = ("warp_trips", "lane_trips", "warp_slots", "lane_slots",
@@ -485,6 +499,21 @@ FLAKE_STRIDE, FLAKE_SPP, FLAKE_OFFSET = 8, 3, 5
 #: frame, and the last, live with FLAKE_WHOLE samples, so the live end
 #: times the largest budget passes ITEM_CAP
 FLAKE_SPARSE, FLAKE_WHOLE = 128, 17
+#: the case name of the benchmark cell's own launch (:func:`flake_launch`)
+FLAKE_LAUNCH = "29 spp sorted"
+#: the list capacity of the wide walk's overflow build
+#: (``-DRT_WALK_LIST_CAP``): near the sphereflake's lists' usual
+#: high-water marks (about 5, at most 21 of the main build's 85), so that
+#: about a fifth of its bounces, some at their start, overflow into the
+#: sweep
+TEST_LIST_CAP = 8
+#: the wide walk's builds besides the base revision's
+WIDE_BUILDS = {
+    "new": (cw.WIDE_DEFINE,),
+    "counters": (cw.WIDE_DEFINE, "RT_WALK_COUNTERS"),
+    "list8": (cw.WIDE_DEFINE, "RT_WALK_COUNTERS",
+              f"RT_WALK_LIST_CAP={TEST_LIST_CAP}"),
+}
 
 #: the item checks' launches of the cover's adaptive render (1-based) at
 #: the benchmark cell's settings (1200x800, 500 spp cap, depth 50, rr0,
@@ -631,6 +660,43 @@ def flake_cases(device="cuda") -> dict:
     return got
 
 
+def flake_launch(device="cuda") -> tuple:
+    """:func:`~raytracer_tpu_torch.render.cluster_walk.cluster_walk`'s
+    arguments for the benchmark cell flake-offline's own launch of the
+    wide walk: the sphereflake at 512x512, depth 50, no roulette, a
+    29-spp chunk of its 500 after the 7-spp profile launch, on the lane
+    map sorted by that launch's cost (``megakernel.plan_from_cost``), as
+    ``render_image`` makes it."""
+    from raytracer_tpu_torch.camera.camera import derive_camera
+    from raytracer_tpu_torch.render import schedule, tables
+    from raytracer_tpu_torch.render.megakernel import plan_from_cost
+    from raytracer_tpu_torch.render.options import TraceOptions
+    from raytracer_tpu_torch.render.rng import kernel_seed
+    from raytracer_tpu_torch.scene import presets
+
+    w = h = 512
+    scene = presets.sphereflake_scene()
+    cam = presets.sphereflake_camera(w, h)
+    opts = TraceOptions(max_depth=50, russian_roulette_depth=0,
+                        exhaust_black=False, near_zero_guard=False)
+    tabs = tables.walk_tables(tables.cluster_partition(scene, opts),
+                              derive_camera(cam), device)
+    plan = schedule.render_schedule(500, w * h, scene.count, opts)
+    sizes, _ = schedule.chunk_schedule(500, plan.chunk)
+    seed = kernel_seed(0)
+    out0, _ = cw.cluster_walk(tabs, cw.identity_map(w, h, device), seed, 0,
+                              sizes[0], w, h, opts)
+    _, pmap = plan_from_cost(out0[3], w)
+    return (tabs, pmap, seed, sizes[0], sizes[1], w, h, opts, None, None)
+
+
+def launch_args(args) -> tuple:
+    """A case of :func:`~raytracer_tpu_torch.render.cluster_walk.
+    cluster_walk` (its debug parameters last) as :func:`walk_caller`'s
+    ``call`` takes it (the overlay's uniforms last)."""
+    return (*args[:9], cw.overlay(args[7], args[9]))
+
+
 def live_lanes_plain(args):
     """The plain walk of a launch (:func:`~raytracer_tpu_torch.render.
     cluster_walk.cluster_walk`'s arguments) on its lanes with budget
@@ -766,9 +832,12 @@ def counters(lib: ctypes.CDLL, args_by_name: dict) -> dict:
         c = dict(zip(COUNTERS, (int(v) for v in buf)))
         k = args[0].members.shape[0]
         bounces = max(c["lane_tail"], 1)
+        # a trip of the wide walk's list is a pass of its bounce loop
+        passes = c["lane_passes"] or c["lane_trips"]
         got[name] = {
             **c,
-            "simt_trip": c["lane_trips"] / max(32 * c["warp_trips"], 1),
+            "simt_trip": passes / max(32 * c["warp_trips"], 1),
+            "simt_expand": c["lane_expand"] / max(32 * c["warp_expand"], 1),
             "simt_fresh": c["lane_fresh"] / max(32 * c["warp_fresh"], 1),
             "simt_visit": c["lane_visit"] / max(32 * c["warp_visit"], 1),
             "simt_tail": c["lane_tail"] / max(32 * c["warp_tail"], 1),
@@ -776,6 +845,10 @@ def counters(lib: ctypes.CDLL, args_by_name: dict) -> dict:
             "visits_per_bounce": c["lane_visit"] / bounces,
             "slab_tests_per_bounce": c["slab_tests"] / bounces,
             "flat_slab_tests_per_bounce": k * c["lane_trips"] / bounces,
+            "list_peak_mean": c["list_peak"] / bounces,
+            "list_inserts_per_bounce": c["list_inserts"] / bounces,
+            "list_moves_per_bounce": c["list_moves"] / bounces,
+            "sweep_share": c["sweeps"] / bounces,
             "cost_row_equal": int(out[3].sum(dtype=torch.float64))
             == c["lane_trips"],
             "segs_equal": int(segs.sum(dtype=torch.int64)) == c["lane_tail"],
@@ -1096,6 +1169,37 @@ def sass_equal(old: Path, new: Path) -> dict:
     return same
 
 
+def wide_ab(old: Path | None, repeats: int, smi: str,
+            out: Path = OUT_DIR) -> dict:
+    """Step 7's A/B of the wide walk: the base revision's wide build (where
+    there is one), the current one and ``WIDE_BUILDS``' others, bitwise on
+    :func:`flake_cases` and :func:`flake_launch`, the base and current
+    builds timed in turns, ``-Xptxas -v`` and the SASS loops, and both
+    counter builds' counts."""
+    builds = {"old": (old, (cw.WIDE_DEFINE,))} if old is not None else {}
+    builds.update({b: (cuda_build.CSRC_DIR, d)
+                   for b, d in WIDE_BUILDS.items()})
+    paths = dict(zip(builds, cuda_build.build_all(
+        ("cluster_walk", *b) for b in builds.values())))
+    result = {"ptxas": _print_ptxas("wide ", paths),
+              "sass": _print_sass("wide_", paths, "cluster_walk_kernel",
+                                  out)}
+    calls = _callers({b: p for b, p in paths.items() if b != "counters"},
+                     walk_caller)
+    args_by_name = {name: launch_args(args) for name, args in {
+        **flake_cases(),
+        f"cluster_walk {FLAKE_LAUNCH}": flake_launch()}.items()}
+    same = bitwise(calls, args_by_name, "new")
+    result["bitwise"] = {f"{n} {b}": ok for (n, b), ok in same.items()}
+    timed = {b: calls[b] for b in ("old", "new") if b in calls}
+    result["times"] = time_in_turns(timed, args_by_name, repeats, smi)
+    result["counters"] = {
+        f"{b} {n}": c for b in ("counters", "list8")
+        for n, c in counters(ctypes.CDLL(str(paths[b])),
+                             args_by_name).items()}
+    return result
+
+
 def run(old: Path | None, repeats: int, smi: str,
         out: Path = OUT_DIR) -> dict:
     """Steps 1-4 of the module docstring, the SASS listings under
@@ -1133,12 +1237,19 @@ def main(argv=None) -> dict:
     result["wide"] = flake_check()
     result["bitwise"].update(
         {f"wide {k}": ok for k, ok in result["wide"].items()})
+    result["wide_ab"] = wide_ab(old, a.repeats, smi, a.out)
+    result["bitwise"].update(
+        {f"wide {k}": ok for k, ok in result["wide_ab"]["bitwise"].items()})
     a.out.mkdir(parents=True, exist_ok=True)
     (a.out / "walk_ab.json").write_text(json.dumps(result, default=str))
     bad = [k for k, ok in result["bitwise"].items() if not ok]
     bad += [f"{name} counters" for name, c in {
-        **result["counters"], **result["flat"]["counters"]}.items()
+        **result["counters"], **result["flat"]["counters"],
+        **result["wide_ab"]["counters"]}.items()
         if not (c["cost_row_equal"] and c["segs_equal"])]
+    bad += [f"{name}: no bounce swept" for name, c in
+            result["wide_ab"]["counters"].items()
+            if name.startswith("list8") and not c["sweeps"]]
     if bad:
         raise SystemExit(f"walk_ab: builds disagree: {bad}")
     return result

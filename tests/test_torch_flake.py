@@ -111,8 +111,9 @@ def test_sphereflake_directions():
 def test_default_options_choose_the_wide_walk(flake):
     """``cluster_scan='auto'`` takes the walk for 7,382 slots: 462
     clusters and the floor as its one global, past the narrow walk's 128,
-    so the wide walk's layout (grandparents, shared memory without the
-    winner rows) and 9 key bits; the flat scan is never asked."""
+    so the wide walk's layout (the box levels up to the root, shared
+    memory without the winner rows, a list of 85 entries a thread) and 9
+    key bits; the flat scan is never asked."""
     opts = TraceOptions()
     assert opts.cluster_scan == "auto"
     choice = megakernel.choose_kernel(
@@ -125,8 +126,11 @@ def test_default_options_choose_the_wide_walk(flake):
     assert tables.is_wide(k) and tables.key_bits(k) == 9
     lay = tables.walk_layout(1, k, group)
     assert (lay.n_parents, lay.n_grand) == (116, 29)
-    assert tabs.parents.shape == (145, 6)
+    # the levels past the grandparents up to the root: 8, 2, 1
+    assert tables.upper_levels(k) == [8, 2, 1] and lay.n_top == 11
+    assert tabs.parents.shape == (156, 6)
     assert tables.wide_smem_bytes(lay) <= tables.MAX_WALK_SMEM_BYTES
+    assert tables.wide_list_capacity(lay) == 85
     assert 4 * lay.n_floats > tables.MAX_WALK_SMEM_BYTES
     assert cw.variant_name(opts, True) == "cluster_walk_wide"
 

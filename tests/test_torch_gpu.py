@@ -315,7 +315,7 @@ def test_wide_walk_bitwise_on_card(flake_cases, case):
 
 def test_wide_walk_counts_iterations_and_bounces_on_card(flake_cases):
     """The wide walk's device counts are its cost row's and its
-    segments' sums."""
+    segments' sums, and it counts its bounces that swept."""
     args = flake_cases["cluster_walk"]
     profiling.reset_counters()
     out, segs = cw.cluster_walk(*args)
@@ -323,6 +323,65 @@ def test_wide_walk_counts_iterations_and_bounces_on_card(flake_cases):
     assert got["walk_iterations"][0] == int(out[3].sum(dtype=torch.float64))
     assert got["walk_segments"][0] == int(segs.sum(dtype=torch.int64))
     assert got["walk_segments"][0] > args[1].shape[0]
+    assert 0 <= got["walk_sweeps"][0] < got["walk_segments"][0]
+
+
+def _wide_build(csrc, defines):
+    """``call(*case)`` of the wide walk built from ``csrc`` with
+    ``defines``, and the device counts it adds to: ``(out, segs,
+    counts)``."""
+    import ctypes
+
+    from raytracer_tpu_torch.utils import cuda_build
+
+    call = walk_ab.walk_caller(ctypes.CDLL(str(cuda_build.build(
+        "cluster_walk", csrc, defines))))
+
+    def run(*args):
+        profiling.reset_counters()
+        out, segs = call(*walk_ab.launch_args(args))
+        got = profiling.counters()
+        return out, segs, {name: got.get(name, (0, 0.0))[0]
+                           for name in cw.WIDE_COUNTS}
+
+    return run
+
+
+@pytest.mark.parametrize("case", FLAKE_CASES)
+def test_wide_walk_bitwise_the_base_revision_on_card(flake_cases, case):
+    """Each of the wide walk's instantiations on the sphereflake, bit for
+    bit as the base revision's wide walk (its box sweep) runs it: every
+    output row (the cost row and an adaptive launch's sample counts
+    among them), the segments, and the launch's sample, iteration and
+    bounce counts."""
+    old = walk_ab.parent_csrc()
+    if old is None:
+        pytest.skip("the base revision's sources are not in this checkout")
+    args = flake_cases[case]
+    out_b, seg_b, cnt_b = _wide_build(old, (cw.WIDE_DEFINE,))(*args)
+    out_k, seg_k, cnt_k = _wide_build(None, (cw.WIDE_DEFINE,))(*args)
+    assert torch.equal(out_k, out_b) and torch.equal(seg_k, seg_b)
+    assert {n: cnt_k[n] for n in cw.WIDE_COUNTS[:4]} == {
+        n: cnt_b[n] for n in cw.WIDE_COUNTS[:4]}
+    assert cnt_k["walk_segments"] == int(seg_k.sum(dtype=torch.int64))
+
+
+@pytest.mark.parametrize("case", FLAKE_CASES)
+def test_wide_walk_list_overflow_sweeps_bitwise_on_card(flake_cases, case):
+    """A build whose pending list holds ``walk_ab.TEST_LIST_CAP`` entries
+    (``-DRT_WALK_LIST_CAP``, a test build) overflows on a share of its
+    bounces, some at their start, which start over as the sweep: it
+    counts them, and every output row, the segments and the counts stay
+    bit for bit the main build's."""
+    args = flake_cases[case]
+    out_k, seg_k, cnt_k = _wide_build(None, (cw.WIDE_DEFINE,))(*args)
+    out_o, seg_o, cnt_o = _wide_build(None, walk_ab.WIDE_BUILDS["list8"])(
+        *args)
+    assert torch.equal(out_o, out_k) and torch.equal(seg_o, seg_k)
+    assert {n: cnt_o[n] for n in cw.WIDE_COUNTS[:4]} == {
+        n: cnt_k[n] for n in cw.WIDE_COUNTS[:4]}
+    assert cnt_o["walk_sweeps"] > cnt_k["walk_sweeps"]
+    assert cnt_o["walk_sweeps"] > cnt_o["walk_segments"] // 100
 
 
 def test_sphereflake_renders_through_the_wide_walk_on_card(card):

@@ -76,6 +76,9 @@ EXPECTED_U32 = {
     **{f"kAB0Fix{d}": pk._AB0_FIX[d] for d in range(3)},
     "kRotCamera": 0xFFFFFFFC,
     "kRotBounce0": 0xFFFFFFF8,
+    # the wide walk's box bit of a list entry: the sign bit, which a
+    # positive float key leaves free
+    "kListBox": 0x80000000,
 }
 
 
@@ -262,11 +265,12 @@ def test_walk_culls_boxes_in_source():
     assert "launch_words<kAdaptive, kStratified, kDebug, kMaxWords>(" in WALK
     assert int(consts["kWalkThreads"]) == 1024
     assert "__launch_bounds__(kWalkThreads, 1)" in WALK
-    fresh = WALK[WALK.index("if (fresh) {"):WALK.index("float m0 = INFINITY")]
+    at = WALK.index("if (fresh) {")  # the narrow walk's loop
+    fresh = WALK[at:WALK.index("float m0 = INFINITY", at)]
     assert "box_entry(s_par + kBoxFloats * q" in fresh
     assert "mask_or(cand, c0 >> 5, ((1u << nc) - 1u) << (c0 & 31));" in fresh
     assert "BoxMask<kIsWide ? 1 : kWords> cand = hits;" in WALK
-    loop = WALK[WALK.index("float m0 = INFINITY"):
+    loop = WALK[WALK.index("float m0 = INFINITY", at):
                 WALK.index("} while (!bdone);")]
     assert "box_entry(s_box + kBoxFloats * c" in loop
     assert "hits.w[j] |= 1u << (c & 31);" in loop
@@ -416,10 +420,11 @@ def test_wide_walk_in_source():
     constants agree with the host's (512 clusters in 16 mask words, 9 key
     bits, 48 bytes of counts and deal before the masks), its library
     instantiates the wide walk alone and the narrow one the narrow walk
-    alone, it reads its winner rows from global memory, culls through
-    the grandparents after the parents, keeps its masks in shared memory
-    a word per 32 clusters, and counts iterations and bounces at the
-    indices the wrapper reads them."""
+    alone, it reads its winner rows from global memory, its sweep (the
+    fallback of a list that overflows) culls through the grandparents
+    after the parents, keeps its masks in shared memory a word per 32
+    clusters, and it counts iterations, bounces and sweeps at the indices
+    the wrapper reads them."""
     consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", WALK))
     assert int(consts["kWide"]) == 0
     assert int(consts["kWideMaxWords"]) * 32 == tables.MAX_WIDE_CLUSTERS
@@ -455,25 +460,152 @@ def test_wide_walk_in_source():
     assert "for (uint32_t lw = live; lw != 0u; lw &= lw - 1u) {" in test
     assert "mask[j * kWalkThreads] = kept;" in test
     walk = _body(WALK, "__device__ __forceinline__ void walk(")
-    assert ("fresh ? wide_fresh(p, s_par, s_box, mask, live, ox, oy, oz, "
-            "ivx,") in walk
+    sweep = _body(WALK, "__device__ __forceinline__ int wide_sweep(")
+    assert ("tested += wide_fresh(p, s_par, s_box, mask, live, ox, oy, oz, "
+            "ivx, ivy,") in sweep
+    assert "tested += wide_test(s_box, mask, live, ox, oy, oz," in sweep
     host = WALK[WALK.index('extern "C" int cluster_walk_launch('):]
     assert "p.n_floats = off_win;" in host
     assert "p.n_words = (k + 31) / 32;" in host
     assert "sizeof(uint32_t) * (size_t)p.n_words * kWalkThreads" in host
     assert "k <= 32 * kMaxWords || k > 32 * kWideMaxWords" in host
     # the block's counts lie after the deal (32 bytes in), the launch's
-    # at 2 and 3 of WIDE_COUNTS
-    assert "enum WalkCount { kWalkIterations = 2, kWalkSegments = 3 };" in WALK
+    # at 2 and 3 of WIDE_COUNTS (the enum is checked with the sweeps')
     assert "constexpr int kWalkCountsAt = 2;" in WALK
     assert WALK.count("counts_of(p, smem) + kWalkCountsAt") == 3
     assert 8 * (int(consts["kWalkCountsAt"]) + 3) + 8 <= int(
         consts["kWideExtraBytes"])
     assert "p.n_floats + 4" in _body(
         WALK, "__device__ __forceinline__ Deal& deal_of(")
-    assert cw.WIDE_COUNTS[2:] == ("walk_iterations", "walk_segments")
+    assert cw.WIDE_COUNTS[2:4] == ("walk_iterations", "walk_segments")
     assert cw.WIDE_COUNTS[:2] == cw.SAMPLE_COUNTS
     assert "if constexpr (kIsWide) count_walk(p, smem, cost, segs);" in walk
+    # the sweep's count: 32 bits after the deal (28 bytes in), the
+    # launch's fifth
+    assert "enum WalkCount { kWalkIterations = 2, kWalkSegments = 3, " \
+        "kWalkSweeps = 4 };" in WALK
+    assert cw.WIDE_COUNTS[4] == "walk_sweeps"
+    assert "smem + p.n_floats + 7" in _body(
+        WALK, "__device__ __forceinline__ uint32_t* sweeps_of(")
+    assert "atomicAdd(sweeps_of(p, smem), 1u);" in walk
+
+
+def test_wide_walk_list_in_source():
+    """The wide walk's bounce: the globals' best, the list started from
+    the fourth level (global memory, after the winner rows) down to the
+    hit grandparents, then each pass expanding boxes until the nearest
+    entry is a kd leaf or at the best, a visit, and the flat walk's
+    iterations (one a visit, at least one) into the cost row; an
+    overflow starts the bounce over as the sweep. A box is keyed a bucket
+    below its entry, with the box bit; a run of children is tested
+    unrolled and its hits merged into the list (the nearest entry last,
+    and in a register); the children are the next level's in shared
+    memory. The narrow walk's loop has no trace of it."""
+    consts = dict(re.findall(r"constexpr uint32_t (k\w+) = ([^;]+);", WALK))
+    assert consts["kListBox"] == "0x80000000u"
+    assert consts["kBucket"] == "1u << kWideKeyBits"
+    assert consts["kOrderFloor"] == "~kListBox & ~(kBucket - 1u)"
+    entry = _body(WALK, "__device__ __forceinline__ uint32_t list_entry(")
+    assert ("return box ? kListBox | (b - kBucket) | (uint32_t)id : b | "
+            "(uint32_t)id;") in entry
+    run = _body(WALK, "__device__ __forceinline__ bool expand_run(")
+    assert "if (len + hits > cap) return false;" in run
+    assert "const int c = first + min(j, nc - 1);" in run
+    assert "h[j] = j < nc && qe < kFillQ ? list_entry(qe, c, box) : ~0u;" \
+        in run
+    assert run.count("t = min(") == 5  # the four hits sorted
+    assert "if (i >= 0 && list_order(f) < list_order(h0)) {" in run
+    assert "head = top;" in run
+    top = _body(WALK, "__device__ __forceinline__ bool wide_top(")
+    assert "const float* top = p.tables + p.off_top;" in top
+    assert "top + kBoxFloats * (p.n_l3 + t)" in top
+    assert "expand_run(s_par, p.n_parents + g0," in top
+    expand = _body(WALK, "__device__ __forceinline__ bool wide_expand(")
+    assert "return expand_run(leaves ? s_box : s_par, first," in expand
+    sweep = _body(WALK, "__device__ __forceinline__ int wide_sweep(")
+    order = [sweep.index(t) for t in ("global_best(", "wide_fresh(",
+                                      "visit_cluster(", "wide_test(")]
+    assert order == sorted(order)
+    walk = _body(WALK, "__device__ __forceinline__ void walk(")
+    wide, narrow = walk.split("    } else {\n", 1)
+    for t in ("if (__int_as_float(e & kOrderFloor) >= bq) break;",
+              "if ((e & kListBox) == 0u) {", "const uint32_t e = head;",
+              "over = !wide_expand(", "visit_cluster(p, s_mem, cidx,",
+              "visits = wide_sweep(", "cost += (float)max(visits, 1);",
+              "if (len > 0) head = mask[(len - 1) * kWalkThreads];"):
+        assert t in wide, t
+    assert wide.index("wide_top(") < wide.index("while (!over) {")
+    for t in ("wide_", "kListBox", "list_"):
+        assert t not in narrow.split("} while (!bdone);")[0], t
+
+
+def test_wide_list_capacity_matches_the_tables():
+    """The kernel's list capacity (its mask words, and every word a
+    thread's share of the block's 232,448 bytes leaves) is
+    ``tables.wide_list_capacity``, the sphereflake's 85 in a block of
+    256 threads; the levels past the grandparents lie where
+    ``tables.walk_layout`` puts them; and the shared memory by which the
+    walk admits a wide partition, ``tables.wide_smem_bytes``, is what it
+    was before the list for every partition of 129 to 512 clusters (so
+    the same scenes take the wide walk), and never below what the
+    kernel's block needs."""
+    consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", WALK))
+    assert int(consts["kMaxWalkSmemBytes"]) == tables.MAX_WALK_SMEM_BYTES
+    wide, narrow = WALK.split("#ifdef RT_WALK_WIDE\n", 1)[1].split(
+        "#else\n", 1)
+    assert "constexpr int kWalkThreads = 256;" in wide
+    assert narrow.startswith("constexpr int kWalkThreads = 1024;")
+    assert (tables.WIDE_WALK_THREADS, tables.WALK_THREADS) == (256, 1024)
+    host = WALK[WALK.index('extern "C" int cluster_walk_launch('):]
+    for t in ("p.n_l3 = (p.n_grand + kParentFanout - 1) / kParentFanout;",
+              "p.n_l4 = (p.n_l3 + kParentFanout - 1) / kParentFanout;",
+              "p.off_top = (off_win + 11 * (n_global + k * group) + 3) / 4 "
+              "* 4;",
+              "const int n_top = p.n_l3 + p.n_l4 + (p.n_l4 > 1 ? 1 : 0);",
+              "if (n_floats < p.off_top + kBoxFloats * n_top)",
+              "const size_t need = sizeof(float) * (size_t)off_win + "
+              "kWideExtraBytes +",
+              "sizeof(uint32_t) * (size_t)p.n_words * kWalkThreads;",
+              "const size_t word = sizeof(uint32_t) * kWalkThreads;",
+              "p.list_cap = p.n_words + (need < kMaxWalkSmemBytes",
+              "? (int)((kMaxWalkSmemBytes - need) / word)",
+              "need + word * (size_t)std::max(p.list_cap - p.n_words, 0);"):
+        assert t in host, t
+
+    def kernel_side(n_global, k, group):
+        """The launcher's arithmetic, from its arguments."""
+        lay = tables.walk_layout(n_global, k, group)
+        n_grand = -(-lay.n_parents // 4)
+        n_l3 = -(-n_grand // 4)
+        n_l4 = -(-n_l3 // 4)
+        off_top = (lay.off_win + 11 * (n_global + k * group) + 3) // 4 * 4
+        n_top = n_l3 + n_l4 + (1 if n_l4 > 1 else 0)
+        words = (k + 31) // 32
+        need = 4 * lay.off_win + 48 + 4 * words * 256
+        cap = words + ((232448 - need) // 1024 if need < 232448 else 0)
+        return n_top, off_top, need, cap
+
+    for n_global, group in ((1, 16), (0, 8), (3, 24)):
+        for k in range(129, 513):
+            lay = tables.walk_layout(n_global, k, group)
+            n_top, off_top, need, cap = kernel_side(n_global, k, group)
+            assert (lay.n_top, lay.off_top) == (n_top, off_top)
+            assert lay.n_floats == off_top + 8 * n_top
+            assert tables.wide_list_capacity(lay) == cap
+            # before the list: the hit-test tables up to the winner rows
+            # (camera, globals, parents and grandparents, leaves, members
+            # at their odd stride), the counts and deal, a mask word per
+            # 32 clusters a thread
+            n_par = -(-k // 4)
+            mstride = group | 1
+            off_win = (20 + 4 * n_global + 8 * (n_par + -(-n_par // 4))
+                       + 8 * k + 4 * k * mstride)
+            assert tables.wide_smem_bytes(lay) == (
+                4 * off_win + 48 + 4 * -(-k // 32) * 1024)
+            assert need <= tables.wide_smem_bytes(lay)
+    flake = tables.walk_layout(1, 462, 16)
+    assert tables.wide_smem_bytes(flake) == 206672
+    assert tables.wide_list_capacity(flake) == 15 + 70
 
 
 def test_debug_overlay_in_source_and_plain_twin():

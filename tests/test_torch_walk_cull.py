@@ -14,11 +14,17 @@ runs only on the card):
   cover's and the demo's tables, and the cover's in clusters of 4 (121,
   the kernel's four-word mask): camera rays, rays from inside boxes, and
   axis-parallel rays;
-- the wide walk's (the SPD sphereflake's 462 clusters): its grandparent
-  boxes hold their parents exactly, its layout fits a block's shared
-  memory, and its selection (grandparents, then the parents under those
-  entered, then their children; 9-bit keys) equals the flat one with the
-  same keys.
+- the wide walk's (the SPD sphereflake's 462 clusters): each level of
+  boxes up to the root holds the one below exactly, its layout fits a
+  block's shared memory, and its selection (grandparents, then the
+  parents under those entered, then their children; 9-bit keys) equals
+  the flat one with the same keys;
+- a plain model of the wide walk's pending list (:func:`list_bounce`:
+  the levels past the grandparents expanded at the bounce's start down
+  to the hit grandparents, then the nearest entry taken each step, a box
+  expanded into its hit children, a kd leaf visited) takes the flat
+  walk's clusters in the flat walk's order and ends at its key, on the
+  same rays; a box and a leaf of one floored entry come off box first.
 """
 
 import numpy as np
@@ -65,17 +71,37 @@ def levels(tabs):
     """(parents, grandparents) of the tables: the wide walk's second
     level follows its parents in ``tabs.parents``; (0, 6) elsewhere."""
     n_par = -(-tabs.bounds.shape[0] // tables.PARENT_FANOUT)
-    return tabs.parents[:n_par], tabs.parents[n_par:]
+    n_grand = -(-n_par // tables.PARENT_FANOUT) if tables.is_wide(
+        tabs.bounds.shape[0]) else 0
+    return tabs.parents[:n_par], tabs.parents[n_par:n_par + n_grand]
+
+
+def all_levels(tabs) -> list:
+    """Every level of boxes in ``tabs.parents``, lowest first: the
+    parents, and in the wide walk the grandparents and the levels past
+    them up to the root."""
+    k = tabs.bounds.shape[0]
+    counts = [-(-k // tables.PARENT_FANOUT)]
+    if tables.is_wide(k):
+        counts += [-(-counts[0] // tables.PARENT_FANOUT),
+                   *tables.upper_levels(k)]
+    ends = np.cumsum([0] + counts)
+    return [tabs.parents[a:b] for a, b in zip(ends[:-1], ends[1:])]
 
 
 def test_parents_hold_their_children_exactly(tabs):
     k = tabs.bounds.shape[0]
     n_par = -(-k // tables.PARENT_FANOUT)
     n_grand = -(-n_par // tables.PARENT_FANOUT) if tables.is_wide(k) else 0
-    assert tabs.parents.shape == (n_par + n_grand, 6)
+    n_top = sum(tables.upper_levels(k))
+    assert tabs.parents.shape == (n_par + n_grand + n_top, 6)
     assert tabs.parents.dtype == torch.float32
-    par, grand = levels(tabs)
-    for boxes, under in ((par, tabs.bounds), (grand, par)):
+    boxes_by_level = all_levels(tabs)
+    # the wide walk's levels run up to the root, one box
+    assert boxes_by_level[-1].shape[0] == (1 if tables.is_wide(k)
+                                           else n_par)
+    unders = [tabs.bounds] + boxes_by_level[:-1]
+    for boxes, under in zip(boxes_by_level, unders):
         for p in range(boxes.shape[0]):
             kids = under[p * tables.PARENT_FANOUT:
                          (p + 1) * tables.PARENT_FANOUT]
@@ -99,8 +125,11 @@ def test_packed_tables_read_back(tabs):
     assert torch.equal(
         flat[lay.off_glob:lay.off_glob + 4 * n_global].reshape(-1, 4),
         tabs.globals)
-    for off, boxes in ((lay.off_par, tabs.parents),
-                       (lay.off_box, tabs.bounds)):
+    n_low = lay.n_parents + lay.n_grand
+    assert lay.n_top == tabs.parents.shape[0] - n_low
+    for off, boxes in ((lay.off_par, tabs.parents[:n_low]),
+                       (lay.off_box, tabs.bounds),
+                       (lay.off_top, tabs.parents[n_low:])):
         rows = flat[off:off + tables.BOX_FLOATS * boxes.shape[0]].reshape(
             -1, tables.BOX_FLOATS)
         assert torch.equal(rows[:, :3], boxes[:, :3])
@@ -113,6 +142,9 @@ def test_packed_tables_read_back(tabs):
     assert torch.equal(
         flat[lay.off_win:lay.off_win + 11 * slots].reshape(slots, 11),
         tabs.winner)
+    # the wide walk's levels past the grandparents follow the winner rows
+    assert lay.off_top == (lay.n_floats - tables.BOX_FLOATS * lay.n_top
+                           if lay.n_top else 0)
     # the plain members read back the same parameters from the padded rows
     cidx = torch.arange(k).repeat_interleave(group)
     m = torch.arange(group).repeat(k)
@@ -166,9 +198,13 @@ def test_walk_layout_sections(n_global, k, group):
     assert lay.off_mem == lay.off_box + tables.BOX_FLOATS * k
     assert lay.off_win == lay.off_mem + 4 * k * lay.mstride
     slots = n_global + k * group
-    assert lay.off_win + 11 * slots <= lay.n_floats < (
-        lay.off_win + 11 * slots + 4)
-    assert lay.n_floats % 4 == 0
+    # the wide walk's levels past the grandparents after the winner rows
+    n_top = sum(tables.upper_levels(k))
+    assert lay.n_top == n_top and (k > 128) == (n_top > 0)
+    end = lay.off_top if n_top else lay.n_floats
+    assert lay.off_win + 11 * slots <= end < lay.off_win + 11 * slots + 4
+    assert lay.n_floats == end + tables.BOX_FLOATS * n_top
+    assert lay.n_floats % 4 == 0 and end % 4 == 0
     assert len({(c * lay.mstride) % 8 for c in range(8)}) == 8
     if k <= tables.MAX_CLUSTERS:
         assert 4 * lay.n_floats <= 227 * 1024
@@ -320,3 +356,226 @@ def test_culled_selection_equals_the_flat_one(tabs, seed):
     # with more than one box a bounce of several trips
     assert len(flat) >= min(k, 2)
     assert bool((bq_f < cw.FILLQ).any()) and bool((bq_f == cw.FILLQ).any())
+
+
+#: the wide walk's list entries (csrc/cluster_walk.cu): a box's carries
+#: this bit; its order is the entry without it
+LIST_BOX = 1 << 31
+ORDER = LIST_BOX - 1
+BUCKET = 1 << 9  # one floored step of a 9-bit key
+
+
+def entry_bits(ray, boxes: torch.Tensor) -> np.ndarray:
+    """(n, len(boxes)) int64: each box's slab entry with its 9 low bits
+    floored, as the kernel's keys hold it, or -1 where the ray misses."""
+    keys = cw.box_keys(ray, boxes, 9)
+    bits = keys.view(torch.int32).to(torch.int64) & ~(BUCKET - 1)
+    return torch.where(keys < cw.fill_floor(9), bits, -1).numpy()
+
+
+def list_bounce(leaf, upper, counts, bq, visit, cap, box_lower=True):
+    """The wide walk's bounce as its pending list runs it, for one ray:
+    ``leaf`` the kd leaves' floored entry bits (-1: missed), ``upper`` the
+    same for each level of boxes, lowest first (parents, grandparents,
+    then the levels up to the root), ``counts`` their sizes, ``bq`` the
+    best q's bits after the globals and ``visit(c, bq)`` the member tests
+    of cluster c (returning the new best's bits). The levels past the
+    grandparents are expanded at the start: the fourth level's boxes,
+    under each one entered its third-level children, and under each of
+    those entered its grandparents, whose hit ones go into the list.
+    Then the nearest entry comes off each step until one's floored key is
+    at or beyond the best: a box's hit children go in, a leaf is visited.
+    A box's entry is keyed one bucket below its own (``box_lower``) and
+    carries its index among the levels in the list (parents, then
+    grandparents). Returns (clusters visited in order, best bits, slab
+    tests, the list's high-water mark), or None where the list would
+    pass ``cap``. The kernel merges a box's hit children into the list in
+    one pass where this model puts them in one by one: they take the
+    same order."""
+    n1, n2, n3, n4 = counts[1:5]
+    k = counts[0]
+    lst = []  # descending order: the nearest entry last
+    tested = peak = 0
+
+    def insert(e):
+        nonlocal peak
+        if len(lst) == cap:
+            raise OverflowError
+        j = len(lst)
+        while j > 0 and (lst[j - 1] & ORDER) < (e & ORDER):
+            j -= 1
+        lst.insert(j, e)
+        peak = max(peak, len(lst))
+
+    def box(bits, uid):
+        return LIST_BOX | ((bits - BUCKET) if box_lower else bits) | uid
+
+    try:
+        for t in range(n4):
+            tested += 1
+            if upper[3][t] < 0:
+                continue
+            for j in range(4 * t, min(4 * t + 4, n3)):
+                tested += 1
+                if upper[2][j] < 0:
+                    continue
+                for g in range(4 * j, min(4 * j + 4, n2)):
+                    tested += 1
+                    if upper[1][g] >= 0:
+                        insert(box(upper[1][g], n1 + g))
+        visits = []
+        while True:
+            head = None
+            while lst:
+                e = lst[-1]
+                if e & ORDER & ~(BUCKET - 1) >= bq:
+                    break
+                if not e & LIST_BOX:
+                    head = e
+                    break
+                lst.pop()
+                u = e & (BUCKET - 1)
+                if u < n1:  # a parent: its kd leaves
+                    first, end, bits = 4 * u, k, leaf
+                else:  # a grandparent: its parents
+                    first, end, bits = 4 * (u - n1), n1, upper[0]
+                for c in range(first, min(first + 4, end)):
+                    tested += 1
+                    if bits[c] >= 0:
+                        insert(bits[c] | c if bits is leaf
+                               else box(bits[c], c))
+            if head is None:
+                return visits, bq, tested, peak
+            lst.pop()
+            visits.append(head & (BUCKET - 1))
+            bq = visit(visits[-1], bq)
+    except OverflowError:
+        return None
+
+
+def f32_bits(x: torch.Tensor) -> np.ndarray:
+    return x.contiguous().view(torch.int32).to(torch.int64).numpy()
+
+
+@pytest.fixture(scope="module")
+def flake_tabs():
+    return scene_tables("flake")
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_list_order_equals_the_flat_walk(flake_tabs, seed):
+    """On the sphereflake's partition (462 clusters, 9-bit keys), the
+    list visits each ray's clusters of the flat walk, in its order, and
+    ends where it ends: the same best and winner, the same walk
+    iterations (the flat walk's: one a visit, at least one), and the
+    first unvisited hit leaf's key the flat walk's last one. Its list
+    stays within the kernel's capacity (``tables.wide_list_capacity``),
+    and it tests fewer boxes than the sweep of every box the ray
+    crosses."""
+    tabs = flake_tabs
+    k, group = tabs.members.shape[:2]
+    n_global = tabs.globals.shape[0]
+    o, d = seeded_rays(tabs, seed)
+    ray = ray_terms(o, d)
+    flat, bq_f, bs_f = walk_bounce(tabs, ray, culled=False)
+    n = o.shape[0]
+    # the flat walk per ray: its visits in order, its iterations, and the
+    # key that ended it (m0, or m1 after a visit)
+    floor = cw.fill_floor(9)
+    seq = [[] for _ in range(n)]
+    trips = np.zeros(n, np.int64)
+    end_key = np.full(n, -1, np.int64)
+    for m0, m1, live, done, cidx, visit in flat:
+        trips += live.numpy()
+        for r in torch.nonzero(visit).flatten().tolist():
+            seq[r].append(int(cidx[r]))
+        last = torch.where(visit, m1, m0)
+        keyed = done & (last < floor)
+        end_key[keyed.numpy()] = f32_bits(last)[keyed.numpy()]
+    # the inputs of the list: entry bits of every level, the globals'
+    # best, and each cluster's member test
+    lvls = all_levels(tabs)
+    counts = [k] + [b.shape[0] for b in lvls]
+    assert counts[3:] == tables.upper_levels(k) and counts[-1] == 1
+    leaf = entry_bits(ray, tabs.bounds)
+    upper = [entry_bits(ray, b) for b in lvls]
+    bq0 = torch.full((n,), cw.FILLQ)
+    bs0 = torch.zeros(n, dtype=torch.int64)
+    for gi in range(n_global):
+        q = cw._exact_q(*tabs.globals[gi].unbind(0), *ray)
+        upd = q < bq0
+        bq0 = torch.where(upd, q, bq0)
+        bs0 = torch.where(upd, gi, bs0)
+    mem = tabs.members
+    qm = cw._exact_q(mem[None, ..., 0], mem[None, ..., 1], mem[None, ..., 2],
+                     mem[None, ..., 3], *(t[:, None, None] for t in ray))
+    qmin, mfirst = cw._first_min(qm)
+    qmin_bits = f32_bits(qmin)
+    cap = tables.wide_list_capacity(tables.walk_layout(n_global, k, group))
+    assert cap == 85
+    bq_l = f32_bits(bq0)
+    bs_l = bs0.numpy().copy()
+    tests, peaks = [], []
+    for r in range(n):
+        best = {"bs": int(bs_l[r])}
+
+        def visit(c, bq, r=r, best=best):
+            if qmin_bits[r, c] < bq:
+                best["bs"] = n_global + c * group + int(mfirst[r, c])
+                return int(qmin_bits[r, c])
+            return bq
+
+        got = list_bounce(leaf[r], [u[r] for u in upper], counts,
+                          int(bq_l[r]), visit, cap)
+        assert got is not None, f"ray {r}: the list passed {cap}"
+        visits, bq, tested, peak = got
+        assert visits == seq[r]
+        assert max(1, len(visits)) == trips[r]
+        assert bq == f32_bits(bq_f)[r] and best["bs"] == int(bs_f[r])
+        # the first hit leaf not visited: the key that ended the flat walk
+        rest = [int(leaf[r, c]) | c for c in range(k)
+                if leaf[r, c] >= 0 and c not in visits]
+        assert min(rest, default=-1) == end_key[r]
+        tests.append(tested)
+        peaks.append(peak)
+    # the sweep tested every grandparent, the parents under the entered
+    # ones and the leaves under the entered parents
+    par, grand = levels(tabs)
+    sweep = (grand.shape[0]
+             + 4 * (upper[1] >= 0).sum(1)
+             + 4 * ((upper[0] >= 0).sum(1)))
+    assert np.mean(tests) < 0.8 * np.mean(sweep)
+    assert max(peaks) <= cap
+    print(f"slab tests a bounce: list {np.mean(tests):.2f}, sweep "
+          f"{np.mean(sweep):.2f}; list high-water mark mean "
+          f"{np.mean(peaks):.2f}, max {max(peaks)}")
+
+
+def test_list_keys_a_box_below_leaves_of_its_bucket():
+    """A box and a leaf of one floored entry: the box comes off first, so
+    a leaf under it with a smaller cluster index is visited before the
+    leaf already in the list, as the flat walk orders them. Keyed at its
+    own bucket, the box (its index 33 among the levels) would come off
+    after leaf 20 and the order break. The tree: 129 clusters (parents
+    33, grandparents 9, then 3, 1); a ray that enters the first
+    grandparent (leaves 0-15) and the second (16-31) at one bucket F, and
+    the parents and leaves 3 and 20 at F too, the second grandparent's
+    path one bucket earlier above them."""
+    counts = [129, 33, 9, 3, 1]
+    f = 0x3F800000  # 1.0
+    leaf = np.full(129, -1, np.int64)
+    upper = [np.full(n, -1, np.int64) for n in counts[1:]]
+    upper[3][0] = upper[2][0] = f - 3 * BUCKET  # the top of the tree
+    upper[1][1] = upper[0][5] = f - BUCKET  # over leaf 20
+    upper[1][0] = upper[0][0] = f  # over leaf 3
+    leaf[3] = leaf[20] = f
+    no_hit = lambda c, bq: bq  # noqa: E731
+    inf = 0x7F800000
+    visits, _, _, _ = list_bounce(leaf, upper, counts, inf, no_hit, 21)
+    assert visits == [3, 20]  # the flat order: f | 3 before f | 20
+    visits, _, _, _ = list_bounce(leaf, upper, counts, inf, no_hit, 21,
+                                  box_lower=False)
+    assert visits == [20, 3]
+    # a best at the bucket's floor ends the bounce before either leaf
+    visits, _, _, _ = list_bounce(leaf, upper, counts, f, no_hit, 21)
+    assert visits == []
