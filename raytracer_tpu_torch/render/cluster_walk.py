@@ -92,10 +92,6 @@ FILLQ = 3e38
 #: the version of ``cluster_walk_launch``'s arguments that :func:`call`
 #: passes (``cluster_walk_abi`` in ``csrc/cluster_walk.cu``)
 ABI = 3
-#: the versions :func:`bind` and :func:`call` serve: ``ABI``, and 2 (a
-#: base revision's library, ``scripts/walk_ab.py``), which has no live
-#: extent, item scratch, sample counts or scratch shape
-ABIS = (2, ABI)
 #: items (lane, sample) an adaptive launch's scratch holds, which the
 #: launch passes to the kernel: a launch whose live lanes' samples fit
 #: runs one sample a thread, a wider one whole lanes. 2^22 holds every
@@ -264,19 +260,17 @@ def _lib(wide: bool = False):
                                 (WIDE_DEFINE,) if wide else ()))
 
 
-def bind(lib: ctypes.CDLL, abi: int = ABI):
+def bind(lib: ctypes.CDLL):
     """``cluster_walk_launch`` of a loaded library, with its argument
-    types at launch interface ``abi`` (one of ``ABIS``) set; raises where
-    the library's interface version is not ``abi``."""
+    types set; raises where the library's interface version is not
+    ``ABI``."""
     fn = lib.cluster_walk_launch
     if fn.argtypes is None:
         got = cuda_build.abi(lib, "cluster_walk_abi")
-        if got != abi or abi not in ABIS:
+        if got != ABI:
             raise RuntimeError(f"cluster_walk library has launch interface "
-                               f"{got}, this wrapper passes {abi}")
-        items = abi >= 3  # the adaptive launch's four pointers, two ints
-        fn.argtypes = ([ctypes.c_void_p] * (10 if items else 6)
-                       + [ctypes.c_int] * (25 if items else 23)
+                               f"{got}, this wrapper passes {ABI}")
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 25
                        + [ctypes.c_float] * 6 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
@@ -295,11 +289,11 @@ def _launch(tables, pixel_map, seed, sample_offset, spp, width, height,
 
 
 def call(fn, tables, pixel_map, seed, sample_offset, spp, width, height,
-         opts, budget, uniforms, abi: int = ABI):
+         opts, budget, uniforms):
     """``(out, segs)`` of one launch of ``fn`` (``cluster_walk_launch``
-    bound by :func:`bind` at launch interface ``abi``, of the narrow or
-    the wide walk's library as the tables' cluster count asks) on the
-    current stream, uncounted; raises on the launch's CUDA error."""
+    bound by :func:`bind`, of the narrow or the wide walk's library as
+    the tables' cluster count asks) on the current stream, uncounted;
+    raises on the launch's CUDA error."""
     n = pixel_map.shape[0]
     k, group = tables.members.shape[:2]
     n_global = tables.globals.shape[0]
@@ -315,26 +309,25 @@ def call(fn, tables, pixel_map, seed, sample_offset, spp, width, height,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         next_lane = _lane_counter(dev, stream)
-        # interface 3: the live extent, the item scratch and the sample
-        # counts (an adaptive launch's), and the scratch's shape. The
-        # extent is held until the launch is enqueued: freed before, its
-        # block could go to the next allocation on the stream (the
-        # counts' zeros) and be overwritten before the kernel reads it.
-        # The wide walk counts on every launch, into WIDE_COUNTS.
-        extent, ptrs, shape = None, (), ()
-        if abi >= 3:
-            ptrs, shape = (None,) * 4, (ITEM_ROWS, ITEM_CAP)
-            wide = is_wide(k)
-            if adaptive or wide:
-                counts = profiling.device_counts(
-                    dev, WIDE_COUNTS if wide else SAMPLE_COUNTS).data_ptr()
-                ptrs = (None, None, None, counts)
-            if adaptive:
-                if budget is not None:
-                    extent = live_extent(budget)
-                ptrs = (None if extent is None else extent.data_ptr(),
-                        *(t.data_ptr() for t in _item_scratch(dev, stream)),
-                        counts)
+        # the live extent, the item scratch and the sample counts (an
+        # adaptive launch's), and the scratch's shape. The extent is held
+        # until the launch is enqueued: freed before, its block could go
+        # to the next allocation on the stream (the counts' zeros) and be
+        # overwritten before the kernel reads it. The wide walk counts on
+        # every launch, into WIDE_COUNTS.
+        extent = None
+        ptrs, shape = (None,) * 4, (ITEM_ROWS, ITEM_CAP)
+        wide = is_wide(k)
+        if adaptive or wide:
+            counts = profiling.device_counts(
+                dev, WIDE_COUNTS if wide else SAMPLE_COUNTS).data_ptr()
+            ptrs = (None, None, None, counts)
+        if adaptive:
+            if budget is not None:
+                extent = live_extent(budget)
+            ptrs = (None if extent is None else extent.data_ptr(),
+                    *(t.data_ptr() for t in _item_scratch(dev, stream)),
+                    counts)
         err = fn(
             tables.packed.data_ptr(), pixel_map.data_ptr(),
             None if budget is None else budget.data_ptr(),

@@ -11,9 +11,9 @@ from it, else ``HEAD``'s parent (:func:`base_revision`). Its package is
 unpacked with ``git archive`` into ``build/walk_parent/<commit>``, and
 ``build/walk_parent/BASE`` names it, so that a copy of the tree without
 its history (``.git``) still finds it. Without either, the old builds are
-left out. A base library is bound by the launch interface version it
-exports (``cluster_walk_abi``, ``flat_scan_abi``; none is version 1);
-one whose version no binder here knows is left out, never called.
+left out. A base library is bound only where it exports the launch
+interface the current wrappers pass (``cluster_walk_abi``,
+``flat_scan_abi``); one at any other version is left out, never called.
 
 1. Builds, one ``nvcc`` each and all at once: the base revision, the
    current source, and the current source with ``-DRT_WALK_COUNTERS``;
@@ -22,7 +22,7 @@ one whose version no binder here knows is left out, never called.
    loop (a backward branch) its body's instructions by class.
 2. Runs every build on the same inputs at the main path's shapes: K1 and
    K1s on one 153-spp sorted chunk of the cover at 1200x800, depth 50,
-   roulette from bounce 5 (``chip_smoke.py``'s kernel-alone chunk), and K1
+   roulette from bounce 5 (the fixed render's second chunk), and K1
    there with the cover in clusters of 8 (61: the wide box mask); K1a
    and K1a+K1s on two launches of the cover's adaptive render (tolerance
    0.2), with the lane map and budget its own re-plans gave them: the
@@ -211,59 +211,15 @@ def parent_csrc(root: Path = ROOT) -> Path | None:
 
 
 def walk_caller(lib: ctypes.CDLL):
-    """``call(*case)`` for a walk library, chosen by the launch interface
-    version it exports; None for a version no binder here knows."""
+    """``call(*case)`` for a walk library at the launch interface
+    :func:`cluster_walk.call` passes; None for any other version."""
     version = cuda_build.abi(lib, "cluster_walk_abi")
-    if version in cw.ABIS:
-        fn = cw.bind(lib, version)
-        return lambda *a: cw.call(fn, *a, abi=version)
+    if version == cw.ABI:
+        fn = cw.bind(lib)
+        return lambda *a: cw.call(fn, *a)
     print(f"[walk A/B] a walk library with launch interface {version}: no "
           "binder for it here, left out")
     return None
-
-
-def bind_flat_v1(lib: ctypes.CDLL):
-    """``flat_scan_launch`` at launch interface version 1: camera, sphere
-    table, map, budget, out, segs; 15 ints, 6 floats, stream (no lane
-    counter: one thread a lane)."""
-    fn = lib.flat_scan_launch
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 15
-                       + [ctypes.c_float] * 6 + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    return fn
-
-
-def call_flat_v1(fn, tables, pixel_map, seed, sample_offset, spp, width,
-                 height, opts, g_full, budget, uniforms):
-    """One launch of a version-1 flat-scan library on the current
-    stream."""
-    from raytracer_tpu_torch.render import flat_scan as fs
-
-    n = pixel_map.shape[0]
-    adaptive = opts.adaptive_tolerance > 0.0
-    split = fs.is_split(tables, g_full)
-    slots = tables.spheres.shape[0]
-    out = torch.empty((6 if adaptive else 4, n), dtype=torch.float32,
-                      device=pixel_map.device)
-    segs = torch.empty((n,), dtype=torch.int32, device=pixel_map.device)
-    err = fn(
-        tables.camera.data_ptr(), tables.spheres.data_ptr(),
-        pixel_map.data_ptr(),
-        None if budget is None else budget.data_ptr(),
-        out.data_ptr(), segs.data_ptr(),
-        int(adaptive), int(opts.sampler == "stratified"), int(split),
-        int(uniforms is not None),
-        n, slots, g_full if split else slots, cw.padded_width(width),
-        int(seed), int(sample_offset), int(spp),
-        opts.max_depth, opts.russian_roulette_depth,
-        int(opts.exhaust_black), int(opts.near_zero_guard),
-        float(np.float32(1.0 / width)), float(np.float32(1.0 / height)),
-        *(uniforms or (0.0,) * 4),
-        torch.cuda.current_stream().cuda_stream,
-    )
-    cuda_build.check_launch("old flat_scan", err)
-    return out, segs
 
 
 def flat_caller(lib: ctypes.CDLL):
@@ -274,9 +230,6 @@ def flat_caller(lib: ctypes.CDLL):
     if version == fs.ABI:
         fn = fs.bind(lib)
         return lambda *a: fs.call(fn, *a)
-    if version == 1:
-        fn = bind_flat_v1(lib)
-        return lambda *a: call_flat_v1(fn, *a)
     print(f"[walk A/B] a flat-scan library with launch interface {version}: "
           "no binder for it here, left out")
     return None

@@ -1,7 +1,7 @@
 """Performance telemetry of the port (counterpart of
 ``raytracer_tpu/utils/profiling.py``): Mrays/s accounting, a
 ``torch.profiler`` trace, the render path's span registry, best-of-n
-timing, and the operation account that every kernel's bound reads.
+timing, and the flat scan's operation account.
 
 The span registry is the port's own: :func:`span` and :func:`wait` mark
 the host phases of a render (``render_image``, ``prep``, ``launch``,
@@ -19,11 +19,15 @@ device's kernels.
 A "ray" is one live ray-bounce segment, counted exactly by the kernels'
 segment totals (W·H·spp·mean depth).
 
-The account counts, per unit of work, the operations each kernel source
-does, a product and a sum as one each (the kernels are built with
-``-fmad=false``, so none is fused) and a transcendental as one. A bound
-is the larger of operations over a rate and bytes over ``HBM_RATE``; two
-rates divide the operations:
+The roofline of a render is ``benchmark/roofline.py``'s: it charges only
+the work every implementation must do, so a kernel that searches less
+cannot lower its own bound. The benchmark reads it as ``walk_roofline``
+and ``flat_roofline``. What stays here is the flat scan's account, which
+the roofline script (:mod:`raytracer_tpu_torch.scripts.roofline`, the
+counterpart of the JAX package's ``scripts/roofline.py``) reads: per unit
+of work, the operations the source does, a product and a sum as one each
+(the kernels are built with ``-fmad=false``, so none is fused) and a
+transcendental as one. Two rates divide them:
 
 - ``FP32_FLOP_PEAK``, NVIDIA's data-sheet float32 rate outside the tensor
   cores (H100 SXM), which counts a fused multiply-add as two operations;
@@ -46,15 +50,9 @@ import time
 import torch
 
 # operations the kernel source does per unit of work, transcendentals
-# counted as one: per walk iteration (ray dot products, direction
-# reciprocals, done tests), per cluster box per iteration (slab test,
-# key packing, two-key extraction), per member sphere tested (exact
-# quadratic and update), per completed bounce besides the globals
-# (winner lookup, normal, scatter draws and arithmetic, roulette,
-# accumulation), per global sphere tested at a bounce's start, and per
-# sample (camera ray)
-OPS_ITER, OPS_BOX, OPS_MEMBER, OPS_BOUNCE, OPS_GLOBAL, OPS_SAMPLE = (
-    40, 37, 30, 150, 30, 90)
+# counted as one: per completed bounce (winner lookup, normal, scatter
+# draws and arithmetic, roulette, accumulation) and per sample (camera ray)
+OPS_BOUNCE, OPS_SAMPLE = 150, 90
 # the adaptive instantiation adds, per completed bounce, the luminance
 # (two sums, a product), its square and the sum of squares
 OPS_BOUNCE_ADAPTIVE = 5
@@ -68,9 +66,10 @@ OPS_SAMPLE_STRATIFIED = 4 - 26
 # the flat scan (flat_scan.cu), per loop trip (one bounce): the ray's dot
 # products, reciprocal and counters; per slot its discriminant (two dot
 # products, the quadratic's half b and discriminant, its sign test); K2s's
-# self-test of the last-hit slot. The tail and the camera ray are the
-# walk's. A slot's root logic (a root, the roots' selects, the running
-# minimum) is counted on no slot: only a slot whose discriminant is not
+# self-test of the last-hit slot. The tail and the camera ray are
+# OPS_BOUNCE's and OPS_SAMPLE's. A slot's root logic (a root, the roots'
+# selects, the running minimum) is counted on no slot: only a slot whose
+# discriminant is not
 # negative needs it (a negative one's candidate is 3e38, which never wins:
 # flat_scan.cu's early rejection), and that share is the data's (0.004 of
 # the cover's lane slots, 0.2 of the demo frame's), so the bound errs low
@@ -84,9 +83,6 @@ OPS_BOUNCE_DEBUG = 22
 
 #: H100 SXM data sheet, float32 outside the tensor cores, an FMA as two
 FP32_FLOP_PEAK = 67e12
-#: bf16 outside the tensor cores: two elements per instruction (the
-#: Hopper architecture white paper's 133.8 TFLOP/s for the SXM part)
-BF16_FLOP_PEAK = 2 * FP32_FLOP_PEAK
 #: H100 SXM data sheet, bf16 on the tensor cores, dense (the one-hot
 #: product's MMAs)
 BF16_TC_PEAK = 989e12
@@ -94,7 +90,6 @@ BF16_TC_PEAK = 989e12
 #: serves a clock (32 banks: one warp-wide load without conflict, or one
 #: broadcast)
 FP32_LANES, SMEM_WORDS = 128, 32
-HBM_RATE = 3.35e12  # bytes/s, H100 SXM
 
 
 def mrays_per_sec(segments: float, seconds: float) -> float:
@@ -322,21 +317,6 @@ def _events_seconds(fn, calls: int, device: torch.device):
     return start.elapsed_time(end) / 1e3 / calls, got
 
 
-def walk_ops(tabs, adaptive, stratified, iters, nsegs, samples,
-             debug=False) -> float:
-    """Operations of one cluster-walk launch (K1 and its variants) from
-    its measured walk iterations, segments and samples."""
-    k, group = tabs.members.shape[:2]
-    n_global = tabs.globals.shape[0]
-    return (iters * (OPS_ITER + OPS_BOX * k)
-            + (iters - nsegs) * OPS_MEMBER * group
-            + nsegs * (OPS_BOUNCE + OPS_GLOBAL * n_global
-                       + (OPS_BOUNCE_ADAPTIVE if adaptive else 0))
-            + (nsegs - samples) * (OPS_BOUNCE_DEBUG if debug else 0)
-            + samples * (OPS_SAMPLE
-                         + (OPS_SAMPLE_STRATIFIED if stratified else 0)))
-
-
 def flat_scan_ops(slots) -> int:
     """The flat scan's operations per segment (one loop trip): the trip's
     own and every slot's discriminant."""
@@ -355,45 +335,3 @@ def flat_ops(slots, g_full, adaptive, stratified, nsegs, samples,
                                    + (OPS_BOUNCE_DEBUG if debug else 0))
             + samples * (OPS_SAMPLE
                          + (OPS_SAMPLE_STRATIFIED if stratified else 0)))
-
-
-def bound_pair(ops: float, nbytes: float, rate: float = FP32_FLOP_PEAK):
-    """(operations ms, bytes ms) of the least time: the bound is the
-    larger."""
-    return ops / rate * 1e3, nbytes / HBM_RATE * 1e3
-
-
-def walk_bound(tabs, adaptive, stratified, n_lanes, iters, nsegs, samples,
-               debug=False):
-    """Least time for the work these inputs needed, as (operations ms,
-    bytes ms) at ``FP32_FLOP_PEAK``: the bound is the larger. Operations
-    from the measured walk iterations, segments and samples; bytes from
-    the tables, map, budget and outputs."""
-    rows = 6 if adaptive else 4
-    nbytes = (sum(t.numel() * 4 for t in (tabs.camera, tabs.globals,
-                                          tabs.bounds, tabs.members,
-                                          tabs.winner))
-              + n_lanes * 4 * (2 + (1 if adaptive else 0) + rows + 1))
-    return bound_pair(walk_ops(tabs, adaptive, stratified, iters, nsegs,
-                               samples, debug), nbytes)
-
-
-def flat_bound(tabs, g_full, adaptive, stratified, n_lanes, nsegs, samples,
-               debug=False):
-    """The flat scan's least time, as (operations ms, bytes ms) at
-    ``FP32_FLOP_PEAK``."""
-    rows = 6 if adaptive else 4
-    nbytes = ((tabs.camera.numel() + tabs.spheres.numel()) * 4
-              + n_lanes * 4 * (2 + (1 if adaptive else 0) + rows + 1))
-    return bound_pair(flat_ops(tabs.spheres.shape[0], g_full, adaptive,
-                               stratified, nsegs, samples, debug), nbytes)
-
-
-def bound_by(ops_ms: float, bytes_ms: float) -> str:
-    return "operations" if ops_ms >= bytes_ms else "bytes"
-
-
-def issue_bound_ms(pair, line: float) -> float:
-    """The bound of an (operations ms, bytes ms) pair at
-    ``FP32_FLOP_PEAK`` restated at an instruction ``line`` (a second)."""
-    return max(pair[0] * FP32_FLOP_PEAK / line, pair[1])

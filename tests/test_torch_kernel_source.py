@@ -381,7 +381,7 @@ def test_walk_items_only_under_adaptive_in_source():
     assert "if (items == nullptr || lane_items == nullptr ||" in WALK
     wrapper = inspect.getsource(cw.call)
     assert "if adaptive:" in wrapper and "_item_scratch(dev, stream)" in wrapper
-    assert ("profiling.device_counts(\n                    dev, WIDE_COUNTS "
+    assert ("profiling.device_counts(\n                dev, WIDE_COUNTS "
             "if wide else SAMPLE_COUNTS)") in wrapper
     assert "(ITEM_ROWS, ITEM_CAP)" in wrapper
 

@@ -1,6 +1,6 @@
 """The port's card probes (``raytracer_tpu_torch/scripts/``) against the
 TPU microbenchmarks in ``scripts/``, whose Pallas kernels run here in
-interpret mode, and the op account of ``utils/profiling.py``.
+interpret mode, and the flat scan's op account in ``utils/profiling.py``.
 
 The scripts are not a package: each is loaded by path. Their kernels run
 unedited: ``pallas_call`` is wrapped to add ``interpret=True``, the
@@ -397,9 +397,9 @@ def test_roofline_needs_a_card_unless_the_cpu_is_named():
 
 def _old_flat_ops(slots, g_full, adaptive, stratified, nsegs, samples,
                   debug):
-    """``chip_smoke.flat_bound``'s operations, written out: a slot's
-    discriminant on every slot and its root logic on none (the account's
-    one form since the scan's early rejection)."""
+    """``profiling.flat_ops``, written out: a slot's discriminant on every
+    slot and its root logic on none (the account's one form since the
+    scan's early rejection)."""
     split = g_full is not None and g_full < slots
     return (nsegs * (23 + 18 * slots + 150
                      + (5 if adaptive else 0))
@@ -412,32 +412,11 @@ def _old_flat_ops(slots, g_full, adaptive, stratified, nsegs, samples,
     (False, False, False), (True, True, False), (False, True, True)])
 def test_flat_account_unchanged_by_the_move(g_full, adaptive, stratified,
                                             debug):
-    tabs = types.SimpleNamespace(camera=torch.zeros(19),
-                                 spheres=torch.zeros((487, 12)))
-    nsegs, samples, lanes = 123457, 40000, 9600
-    ops_ms, bytes_ms = profiling.flat_bound(tabs, g_full, adaptive,
-                                            stratified, lanes, nsegs,
-                                            samples, debug)
-    want = _old_flat_ops(487, g_full, adaptive, stratified, nsegs, samples,
-                         debug)
-    assert ops_ms == want / 67e12 * 1e3
-    rows = 6 if adaptive else 4
-    assert bytes_ms == ((19 + 487 * 12) * 4 + lanes * 4 * (
-        2 + (1 if adaptive else 0) + rows + 1)) / 3.35e12 * 1e3
-
-
-def test_walk_account_unchanged_by_the_move():
-    tabs = types.SimpleNamespace(
-        camera=torch.zeros(19), globals=torch.zeros((3, 4)),
-        bounds=torch.zeros((2, 6, 8)), members=torch.zeros((5, 8, 4)),
-        winner=torch.zeros((43, 11)))
-    iters, nsegs, samples = 1000.0, 300, 100
-    ops_ms, _ = profiling.walk_bound(tabs, True, True, 64, iters, nsegs,
-                                     samples, True)
-    want = (iters * (40 + 37 * 5) + (iters - nsegs) * 30 * 8
-            + nsegs * (150 + 30 * 3 + 5) + (nsegs - samples) * 22
-            + samples * (90 + 4 - 26))
-    assert ops_ms == want / 67e12 * 1e3
+    nsegs, samples = 123457, 40000
+    got = profiling.flat_ops(487, g_full, adaptive, stratified, nsegs,
+                             samples, debug)
+    assert got == _old_flat_ops(487, g_full, adaptive, stratified, nsegs,
+                                samples, debug)
 
 
 def _h100_lines(monkeypatch):
@@ -462,46 +441,23 @@ def _h100_lines(monkeypatch):
 
 
 def test_chip_smoke_reads_the_one_account(monkeypatch):
-    """chip_smoke.py imports the account and defines no operation count or
-    rate of its own; the issue line is read from the card (SMs x 128 x
-    the highest clock), half the data sheet's FMA-counted rate on an H100
-    within the clock's rounding."""
-    assert chip_smoke.walk_bound is profiling.walk_bound
-    assert chip_smoke.flat_bound is profiling.flat_bound
-    assert chip_smoke.card_lines is profiling.card_lines
+    """chip_smoke.py is the card's correctness run: it defines no
+    operation count, rate or timer of its own (the benchmark and the A/B
+    scripts take the times, ``benchmark/roofline.py`` the roofline). The
+    issue line the roofline script reads is read from the card (SMs x 128
+    x the highest clock), half the data sheet's FMA-counted rate on an
+    H100 within the clock's rounding."""
     src = inspect.getsource(chip_smoke)
-    assert not re.search(r"^(OPS_\w+|FP32_\w+|HBM_RATE)\b.*=", src, re.M)
+    assert not re.search(r"^(OPS_\w+|FP32_\w+|BF16_\w+|HBM_RATE)\b.*=", src,
+                         re.M)
+    for name in ("cuda_ms", "LaunchTimer", "device_profile"):
+        assert not hasattr(chip_smoke, name)
+        assert not re.search(rf"^(def|class) {name}\b", src, re.M)
     lines = _h100_lines(monkeypatch)
     assert lines["fp32"] == 132 * 128 * 1980e6
     assert lines["bf16"] == 2 * lines["fp32"]
     assert lines["smem_words"] == 132 * 32 * 1980e6
     assert abs(lines["fp32"] / (profiling.FP32_FLOP_PEAK / 2) - 1) < 0.002
-    pair = (2.0, 0.5)
-    assert profiling.issue_bound_ms(pair, lines["fp32"]) == (
-        2.0 * profiling.FP32_FLOP_PEAK / lines["fp32"])
-
-
-def test_probe_bound_names_the_resource_that_limits(monkeypatch):
-    """A card-filling gather (2^24 elements, 5000 trips) is bound by the
-    SMs' shared-memory words, not by its 3 index operations a trip; the
-    scan by its operations. ``bound_ms`` stays the data sheet's."""
-    lines = _h100_lines(monkeypatch)
-    monkeypatch.setattr(chip_smoke, "card_lines", lambda: lines)
-    n = (1 << 24) * 5000
-    got = chip_smoke.probe_bound(3 * n, 4 * (1 << 24), 67e12, lines["fp32"],
-                                 n)
-    assert got["issue_bound_by"] == "smem"
-    assert got["issue_bound_ms"] == got["smem_bound_ms"] == (
-        n / lines["smem_words"] * 1e3)
-    assert abs(got["issue_bound_ms"] - 10.03) < 0.01
-    assert got["issue_ops_ms"] == 3 * n / lines["fp32"] * 1e3
-    assert got["bound_by"] == "operations"
-    assert got["bound_ms"] == 3 * n / 67e12 * 1e3
-    rays = 1056 * 128 * 400
-    scan = chip_smoke.probe_bound(bs.probe_ops(512, 1056, 400), 0.0, 67e12,
-                                  lines["fp32"], 512 * rays)
-    assert scan["issue_bound_by"] == "operations"
-    assert scan["smem_bound_ms"] < scan["issue_bound_ms"] / 6
 
 
 def test_best_seconds_times_a_window_of_calls_on_a_card(monkeypatch):

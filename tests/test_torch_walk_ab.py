@@ -212,13 +212,14 @@ class FakeLib:
             setattr(self, f"{kernel}_abi", lambda: version)
 
 
-@pytest.mark.parametrize("version, n_args", [(cw.ABI, 42), (2, 36),
+@pytest.mark.parametrize("version, n_args", [(cw.ABI, 42), (2, None),
                                              (None, None), (cw.ABI + 1, None)])
 def test_walk_library_bound_by_its_interface_version(version, n_args):
     """The current interface (with the live extent, the item scratch, the
-    sample counts and the scratch's shape) and version 2 through
-    ``cluster_walk.bind``; a library without a version (version 1, older
-    than any base revision) and an unknown version not at all."""
+    sample counts and the scratch's shape) through ``cluster_walk.bind``;
+    version 2 (last exported before the item scratch), a library without
+    a version (version 1) and an unknown version not at all: each is left
+    out, and ``bind`` raises."""
     lib = FakeLib("cluster_walk", version)
     call = walk_ab.walk_caller(lib)
     if n_args is None:
@@ -233,19 +234,17 @@ def test_walk_library_bound_by_its_interface_version(version, n_args):
 @pytest.mark.parametrize("version", [None, 1, fs.ABI, fs.ABI + 1])
 def test_flat_library_bound_by_its_interface_version(version):
     """The current interface (with the persistent grid's lane counter)
-    through ``flat_scan.bind``, version 1 (one thread a lane) or a library
-    without a version through version 1's argument list, an unknown
-    version not at all."""
+    through ``flat_scan.bind``; version 1 (one thread a lane), a library
+    without a version and an unknown version not at all: each is left
+    out, and ``bind`` raises."""
     lib = FakeLib("flat_scan", version)
     call = walk_ab.flat_caller(lib)
-    if version == fs.ABI + 1:
+    if version != fs.ABI:
         assert call is None
         with pytest.raises(RuntimeError, match="launch interface"):
             fs.bind(FakeLib("flat_scan", version))
     else:
-        # version 1 without the lane counter, version 2 with it
-        assert callable(call) and len(lib.flat_scan_launch.argtypes) == (
-            29 if version == fs.ABI else 28)
+        assert callable(call) and len(lib.flat_scan_launch.argtypes) == 29
 
 
 def _commit(repo, text: str):
