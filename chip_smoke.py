@@ -27,6 +27,11 @@ step and the interactive engine:
   fixed spp with Russian roulette from bounce 5, then without; the same
   with the stratified sampler; the adaptive render (tolerance 0.2) with
   the stratified sampler, and with the random one;
+- the adaptive cover at the benchmark cell cover-adaptive's shape (no
+  roulette, 960,000 lanes, 17 chunks), each sampler, with the plain twin
+  of the re-plan chain (``csrc/adaptive_plan.cu``) stepped beside it and
+  bitwise after every step, and the render bitwise its launches
+  re-planned at full width;
 - the demo at 1920x1080, 8 spp, through K2, K2s and the cluster walk,
   which must agree bit for bit;
 - the cover through the flat scan (``cluster_scan=False``), split and
@@ -332,18 +337,21 @@ def kernel_and_plain(flat: bool):
     plain version of the cluster walk, or of the flat scan."""
     from raytracer_tpu_torch.render import cluster_walk as cw
     from raytracer_tpu_torch.render import flat_scan as fs
+    from raytracer_tpu_torch.scripts import walk_ab
 
     if flat:
         return fs.flat_scan, fs.flat_scan_plain
-    return cw.cluster_walk, cw.cluster_walk_plain
+    return walk_ab.walk, cw.cluster_walk_plain
 
 
 def reset_launch_counts():
+    from raytracer_tpu_torch.render import adaptive_plan
     from raytracer_tpu_torch.render import cluster_walk as cw
     from raytracer_tpu_torch.render import flat_scan as fs
 
     cw.reset_launch_counts()
     fs.reset_launch_counts()
+    adaptive_plan.CudaPlan.launches = 0
 
 
 def launch_counts() -> dict:
@@ -492,7 +500,7 @@ def check_items(stratified: bool) -> None:
     name = "cluster_walk_adaptive" + ("_stratified" if stratified else "")
     for case, args in walk_ab.item_cases(stratified).items():
         profiling.reset_counters()
-        out_k, seg_k = cw.cluster_walk(*args)
+        out_k, seg_k = walk_ab.walk(*args)
         got = profiling.counters()
         out_p, seg_p = walk_ab.live_lanes_plain(args)
         bitwise = torch.equal(out_k, out_p) and torch.equal(seg_k, seg_p)
@@ -559,14 +567,16 @@ def drive_path(label: str, kernel: str, opts, smi: str, golden, seeds,
                max_mad: float) -> dict:
     """One of the port's paths through ``render_image`` on the full
     cover: launch counts set to 0 just before the first render (seed 0)
-    and read just after it, then renders at ``seeds``; the last image is
-    held against the golden."""
+    and read just after it (the re-plan chain's too), then renders at
+    ``seeds``; the last image is held against the golden."""
+    from raytracer_tpu_torch.render import adaptive_plan
     from raytracer_tpu_torch.scene import presets
 
     scene, cam, w, h, spp, _ = presets.get_config("cover")
     reset_launch_counts()
     first, first_stats = render_once(scene, cam, w, h, spp, 0, opts)
     launches = launch_counts()
+    plan_launches = adaptive_plan.CudaPlan.launches
     print(f"[{label}] launches {launches} (first render)")
     if launches.get(kernel, 0) < 1 or set(launches) != {kernel}:
         fail(f"{label} did not run through {kernel} alone: {launches}")
@@ -584,7 +594,7 @@ def drive_path(label: str, kernel: str, opts, smi: str, golden, seeds,
         fail(f"{label} disagrees with the golden (mean|d| {mad}, limit "
              f"{max_mad}, nan pixels {nan})")
     return {"launches": launches[kernel], "first_image": first,
-            "first_stats": first_stats}
+            "first_stats": first_stats, "plan_launches": plan_launches}
 
 
 def phase_main_paths(smi: str, golden) -> None:
@@ -619,7 +629,8 @@ def phase_main_paths(smi: str, golden) -> None:
                 f"{stats['mean_spp'] / spp:.4f} of {spp}, spp_map min "
                 f"{lo:.0f} max {hi:.0f}, pixels at {spp} spp "
                 f"{float((spp_map == spp).float().mean()):.4f}, launches "
-                f"{got['launches']}, segments {stats['segments_exact']}")
+                f"{got['launches']}, re-plan chain launches "
+                f"{got['plan_launches']}, segments {stats['segments_exact']}")
         if stratified:
             d = (got["first_image"] - strat["first_image"]).abs().mean()
             line += (f", mean|d| vs the stratified fixed render of seed 0 "
@@ -628,12 +639,113 @@ def phase_main_paths(smi: str, golden) -> None:
         if got["launches"] != ADAPTIVE_LAUNCHES:
             fail(f"{label}: {got['launches']} launches, expected "
                  f"{ADAPTIVE_LAUNCHES}")
+        # a step of the chain after every chunk: 16 re-plans and the last
+        # chunk's fold
+        if got["plan_launches"] != ADAPTIVE_LAUNCHES:
+            fail(f"{label}: {got['plan_launches']} launches of the re-plan "
+                 f"chain, expected {ADAPTIVE_LAUNCHES}")
         if not (64 <= stats["mean_spp"] < spp) or lo < 64 or hi > spp:
             fail(f"{label}: sample counts out of range (mean "
                  f"{stats['mean_spp']}, min {lo}, max {hi})")
         if spp_map.shape != (h, w) or not torch.equal(spp_map,
                                                       spp_map.round()):
             fail(f"{label}: spp_map is not an (H, W) map of whole counts")
+
+
+def phase_adaptive_replans(smi: str) -> None:
+    """The re-plan chain (``csrc/adaptive_plan.cu``) at the shape of the
+    benchmark cell cover-adaptive: the cover at 1200x800, 500 spp, depth
+    50, no roulette, tolerance 0.2 (960,000 lanes: 235 tiles of sort keys,
+    the passes' grids at their cap, merge passes up to runs of 524,288;
+    the schedule [4] + [31] * 16), with the stratified and the random
+    sampler, through ``render_image``. After every step of the chain,
+    ``adaptive_plan.PlainPlan`` steps on the same chunk's outputs: the
+    sums, chunk statistics, exact segments, lane order, lane map, budgets
+    and live count must be bitwise. The render's sums and segments must be
+    bitwise those of the same launches re-planned at full width, as the
+    base revision re-planned them (``walk_ab.full_width_render``); the
+    chain's launches, counted from just before the render, 17: 16
+    re-plans and the last chunk's fold."""
+    from raytracer_tpu_torch.render import adaptive_plan, megakernel
+    from raytracer_tpu_torch.scene import presets
+    from raytracer_tpu_torch.scripts import walk_ab
+
+    scene, cam, w, h, spp, depth = presets.get_config("cover")
+    steps, renders = [], []
+
+    def same(a, b) -> bool:
+        return (a is None and b is None) or (
+            a is not None and b is not None and torch.equal(a, b))
+
+    class Twin(adaptive_plan.CudaPlan):
+        """The chain, with its plain twin stepped beside it."""
+
+        def __init__(self, acc, width, tol, stratified, n_steps):
+            self.plain = adaptive_plan.PlainPlan(acc.clone(), width, tol,
+                                                 stratified)
+            super().__init__(acc, width, tol, stratified, n_steps)
+
+        def step(self, out, segs, cs):
+            super().step(out, segs, cs)
+            self.plain.step(out, segs, cs)
+            bad = [name for name in ("acc", "stats", "segments", "order",
+                                     "pixel_map", "budget")
+                   if not same(getattr(self, name),
+                               getattr(self.plain, name))]
+            live = int(self.lives[min(self.index, len(self.lives) - 2)])
+            if live != self.plain.live:
+                bad.append(f"live {live} vs {self.plain.live}")
+            steps.append((live, bad))
+
+    def both(launch, sizes, width, height, opts, device):
+        got = real_render(launch, sizes, width, height, opts, device)
+        renders.append((sizes, got, walk_ab.full_width_render(
+            launch, sizes, width, height, opts, device)))
+        return got
+
+    real_start = adaptive_plan.start
+    real_render = megakernel._render_adaptive
+    adaptive_plan.start = Twin
+    megakernel._render_adaptive = both
+    try:
+        for stratified, seed in ((True, 7), (False, 2_147_483_659)):
+            label = ("adaptive re-plans at the cell's shape, "
+                     + ("stratified" if stratified else "random"))
+            opts = dataclasses.replace(
+                trace_options(0, depth, True, stratified),
+                exhaust_black=False, near_zero_guard=False)
+            steps.clear()
+            renders.clear()
+            reset_launch_counts()
+            _, stats = render_once(scene, cam, w, h, spp, seed, opts)
+            chain = adaptive_plan.CudaPlan.launches
+            (sizes, (acc, seg), (acc_r, seg_r)), = renders
+            sizes = list(sizes)
+            lives = [live for live, _ in steps[:-1]]
+            bad = [(k, b) for k, (_, b) in enumerate(steps) if b]
+            sums_equal = torch.equal(acc, acc_r)
+            print(f"[{label}] {w}x{h} {spp} spp d{depth} seed {seed}: "
+                  f"schedule {sizes[0]} + {sizes[1]} x {len(sizes) - 1}, "
+                  f"chain launches {chain}, live lanes after each re-plan "
+                  f"{lives}, steps unlike the plain twin {bad}; against the "
+                  f"full-width re-plans sums bitwise {sums_equal}, "
+                  f"segments {int(seg)} vs {int(seg_r)}, mean_spp "
+                  f"{stats['mean_spp']:.4f} [{smi}]")
+            if sizes != [4] + [31] * 16 or w * h != 960_000:
+                fail(f"{label}: not the cell's shape ({w}x{h}, {sizes})")
+            if chain != ADAPTIVE_LAUNCHES or len(steps) != ADAPTIVE_LAUNCHES:
+                fail(f"{label}: {chain} launches of the re-plan chain, "
+                     f"expected {ADAPTIVE_LAUNCHES}")
+            if bad:
+                fail(f"{label}: the chain differs from its plain twin {bad}")
+            if not sums_equal or int(seg) != int(seg_r):
+                fail(f"{label}: the render differs from the full-width "
+                     f"re-plans")
+            if not lives[0] == w * h > lives[-1]:
+                fail(f"{label}: the live set did not shrink: {lives}")
+    finally:
+        adaptive_plan.start = real_start
+        megakernel._render_adaptive = real_render
 
 
 def phase_walk_ab(smi: str) -> None:
@@ -2905,6 +3017,7 @@ def main():
     timed(phase_flat_vs_plain)
     golden = np.load(GOLDEN)["image"].astype(np.float64)
     timed(phase_main_paths, smi, golden)
+    timed(phase_adaptive_replans, smi)
     timed(phase_walk_ab, smi)
     timed(phase_wide_walk, smi)
     timed(phase_cross_kernel, smi)

@@ -225,10 +225,15 @@ def overlay(opts: TraceOptions, debug: DebugParams | None):
 def cluster_walk(tables: WalkTables, pixel_map: torch.Tensor, seed: int,
                  sample_offset: int, spp: int, width: int, height: int,
                  opts: TraceOptions, budget: torch.Tensor | None = None,
-                 debug: DebugParams | None = None):
+                 debug: DebugParams | None = None, *,
+                 extent: torch.Tensor | None = None):
     """One chunk of ``spp`` samples for every lane of ``pixel_map``;
     with ``budget`` (adaptive only), lane j takes ``budget[j]`` samples
-    instead; with ``opts.enable_debug``, the overlay of ``debug``."""
+    instead; with ``opts.enable_debug``, the overlay of ``debug``. On the
+    card a budget comes with its live extent ``extent`` (as
+    :func:`live_extent` gives it; an adaptive re-plan writes it into a
+    buffer it holds), on the device and held by the caller until the
+    launch is enqueued; the plain walk reads none."""
     _check(tables, pixel_map, width, height, spp, opts, budget)
     dev = pixel_map.device
     if dev.type == "cpu":
@@ -237,7 +242,7 @@ def cluster_walk(tables: WalkTables, pixel_map: torch.Tensor, seed: int,
     if dev.type != "cuda":
         raise ValueError(f"no cluster walk for device {dev}")
     return _launch(tables, pixel_map, seed, sample_offset, spp, width,
-                   height, opts, budget, overlay(opts, debug))
+                   height, opts, budget, overlay(opts, debug), extent)
 
 
 cluster_walk.launches = 0
@@ -253,11 +258,16 @@ def reset_launch_counts():
     profiling.reset_counters()
 
 
+def library(wide: bool = False) -> tuple:
+    """``(name, defines)`` of the narrow walk's library, or with ``wide``
+    the wide walk's, as ``cuda_build.load`` takes them."""
+    return ("cluster_walk", (WIDE_DEFINE,) if wide else ())
+
+
 def _lib(wide: bool = False):
     """The narrow walk's library, or with ``wide`` the wide walk's; each
     is built at its first use."""
-    return bind(cuda_build.load("cluster_walk",
-                                (WIDE_DEFINE,) if wide else ()))
+    return bind(cuda_build.load(*library(wide)))
 
 
 def bind(lib: ctypes.CDLL):
@@ -277,10 +287,10 @@ def bind(lib: ctypes.CDLL):
 
 
 def _launch(tables, pixel_map, seed, sample_offset, spp, width, height,
-            opts, budget, uniforms):
+            opts, budget, uniforms, extent):
     wide = is_wide(tables.members.shape[0])
     out, segs = call(_lib(wide), tables, pixel_map, seed, sample_offset,
-                     spp, width, height, opts, budget, uniforms)
+                     spp, width, height, opts, budget, uniforms, extent)
     cluster_walk.launches += 1
     name = variant_name(opts, wide)
     by_variant = cluster_walk.launches_by_variant
@@ -289,11 +299,16 @@ def _launch(tables, pixel_map, seed, sample_offset, spp, width, height,
 
 
 def call(fn, tables, pixel_map, seed, sample_offset, spp, width, height,
-         opts, budget, uniforms):
+         opts, budget, uniforms, extent=None):
     """``(out, segs)`` of one launch of ``fn`` (``cluster_walk_launch``
     bound by :func:`bind`, of the narrow or the wide walk's library as
     the tables' cluster count asks) on the current stream, uncounted;
-    raises on the launch's CUDA error."""
+    raises on the launch's CUDA error. ``extent``: the budget's live
+    extent (:func:`live_extent`), held by the caller until the launch is
+    enqueued; given exactly where ``budget`` is."""
+    if (budget is None) != (extent is None):
+        raise ValueError("a launch takes the live extent of its budget "
+                         "(live_extent(budget)), and only with a budget")
     n = pixel_map.shape[0]
     k, group = tables.members.shape[:2]
     n_global = tables.globals.shape[0]
@@ -310,12 +325,11 @@ def call(fn, tables, pixel_map, seed, sample_offset, spp, width, height,
         stream = torch.cuda.current_stream(dev).cuda_stream
         next_lane = _lane_counter(dev, stream)
         # the live extent, the item scratch and the sample counts (an
-        # adaptive launch's), and the scratch's shape. The extent is held
-        # until the launch is enqueued: freed before, its block could go
-        # to the next allocation on the stream (the counts' zeros) and be
-        # overwritten before the kernel reads it. The wide walk counts on
-        # every launch, into WIDE_COUNTS.
-        extent = None
+        # adaptive launch's), and the scratch's shape. The caller holds
+        # the extent until the launch is enqueued: freed before, its block
+        # could go to the next allocation on the stream (the counts'
+        # zeros) and be overwritten before the kernel reads it. The wide
+        # walk counts on every launch, into WIDE_COUNTS.
         ptrs, shape = (None,) * 4, (ITEM_ROWS, ITEM_CAP)
         wide = is_wide(k)
         if adaptive or wide:
@@ -323,8 +337,6 @@ def call(fn, tables, pixel_map, seed, sample_offset, spp, width, height,
                 dev, WIDE_COUNTS if wide else SAMPLE_COUNTS).data_ptr()
             ptrs = (None, None, None, counts)
         if adaptive:
-            if budget is not None:
-                extent = live_extent(budget)
             ptrs = (None if extent is None else extent.data_ptr(),
                     *(t.data_ptr() for t in _item_scratch(dev, stream)),
                     counts)

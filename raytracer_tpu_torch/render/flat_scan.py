@@ -143,8 +143,13 @@ def reset_launch_counts():
     profiling.reset_counters()
 
 
+#: ``(name, defines)`` of the flat scan's library, as ``cuda_build.load``
+#: takes them
+LIBRARY = ("flat_scan", ())
+
+
 def _lib():
-    return bind(cuda_build.load("flat_scan"))
+    return bind(cuda_build.load(*LIBRARY))
 
 
 def bind(lib: ctypes.CDLL):

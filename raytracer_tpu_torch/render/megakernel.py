@@ -1,9 +1,9 @@
 """Chunked render through the port's kernels (counterpart of the host
 orchestration in ``raytracer_tpu/render/pallas_kernel.py``:
 ``render_image_pallas``, ``_render_pallas``, ``_plan_from_cost``,
-``_plan_adaptive``, ``_accumulate_sorted``, ``_render_adaptive_profiled``,
+``_accumulate_sorted``, ``_render_adaptive_profiled``,
 ``_render_adaptive_scan``, ``_finalize_flat``, ``_finalize_adaptive``
-and ``_finalize``).
+and ``_finalize``; ``_plan_adaptive``'s is ``render/adaptive_plan.py``).
 
 :func:`choose_kernel` picks the kernel as the JAX package does: the
 cluster walk (K1) on a progressive session's static-cluster hint, or
@@ -30,8 +30,10 @@ and its sum of squared sample luminances. After every chunk it decides
 per pixel whether the confidence interval of the mean luminance meets
 the tolerance; converged pixels get budget 0 and sort last, so their
 lanes do nothing, and the image divides each pixel's sums by its own
-count. Budgets, maps and statistics are built on the device: the loop
-never waits for it.
+count. Each re-plan reads only the lanes that still sample
+(``render/adaptive_plan.py``; on the card a chain of kernels whose live
+count stays on the device): budgets, maps and statistics are built on
+the device, and the loop never waits for it.
 
 A band of image rows (the sharded renders of ``parallel/``) renders
 through the same loop: its lanes map to absolute pixels just before each
@@ -59,12 +61,15 @@ import numpy as np
 import torch
 
 from raytracer_tpu_torch.camera.camera import DerivedCamera
-from raytracer_tpu_torch.render import schedule
+from raytracer_tpu_torch.render import adaptive_plan, schedule
 from raytracer_tpu_torch.render.cluster_walk import (
     cluster_walk,
     identity_map,
+    is_wide,
     padded_width,
 )
+from raytracer_tpu_torch.render.cluster_walk import library as walk_library
+from raytracer_tpu_torch.render.flat_scan import LIBRARY as FLAT_LIBRARY
 from raytracer_tpu_torch.render.flat_scan import flat_scan
 from raytracer_tpu_torch.render.options import (
     DebugParams,
@@ -82,6 +87,7 @@ from raytracer_tpu_torch.render.tables import (
 )
 from raytracer_tpu_torch.scene.accel import ClusteredScene
 from raytracer_tpu_torch.scene.spheres import Scene
+from raytracer_tpu_torch.utils import cuda_build
 from raytracer_tpu_torch.utils.profiling import span, wait
 
 
@@ -93,70 +99,6 @@ def plan_from_cost(cost: torch.Tensor, width: int):
     inv = torch.argsort(order, stable=True)
     pixel_map = torch.stack([order % width, order // width], 1)
     return inv, pixel_map.to(torch.int32).contiguous()
-
-
-def plan_adaptive(acc: torch.Tensor, width: int, cs: int, tol: float,
-                  chunk_stats: torch.Tensor | None = None,
-                  t975: torch.Tensor | None = None):
-    """Adaptive variant of :func:`plan_from_cost`: ``(inv, pixel_map,
-    budget)`` with unconverged pixels first in descending cost, converged
-    ones last, and a lane-order sample budget (``cs``, or 0 for a
-    converged pixel).
-
-    ``acc`` rows: [r, g, b, cost, n, Σ lum²], cumulative. A pixel has
-    converged when n >= ``schedule.ADAPTIVE_MIN_N`` and the 95 % half-width
-    of its mean luminance is within tol · (mean + ``ADAPTIVE_ABS_FLOOR``).
-    The half-width is 1.96 · sqrt(var / n) from the per-sample variance.
-    With ``chunk_stats`` ([n_c, Σ m, Σ m²] per pixel, m a full chunk's mean
-    luminance; the stratified sampler only) and n_c >= 3 it is the smaller
-    of that and the Student-t interval on the between-chunk-mean variance,
-    which sees the stratification that the per-sample variance cannot.
-    ``t975`` is ``schedule.T975_BY_CHUNKS`` on ``acc``'s device."""
-    n = acc[4]
-    n_safe = torch.clamp_min(n, 1.0)
-    mean = (acc[0] + acc[1] + acc[2]) * (1.0 / 3.0) / n_safe
-    var = torch.clamp_min(acc[5] / n_safe - mean * mean, 0.0)
-    ci = 1.96 * torch.sqrt(var / n_safe)
-    if chunk_stats is not None:
-        if t975 is None:
-            t975 = t975_table(acc.device)
-        n_c = chunk_stats[0]
-        nc_safe = torch.clamp_min(n_c, 1.0)
-        m_mean = chunk_stats[1] / nc_safe
-        s2 = (torch.clamp_min(chunk_stats[2] / nc_safe - m_mean * m_mean, 0.0)
-              * nc_safe / torch.clamp_min(n_c - 1.0, 1.0))
-        t = t975[torch.clamp(n_c.to(torch.int64), 0, t975.shape[0] - 1)]
-        ci_c = t * torch.sqrt(s2 / nc_safe)
-        ci = torch.where(n_c >= 3.0, torch.minimum(ci, ci_c), ci)
-    converged = (n >= schedule.ADAPTIVE_MIN_N) & (
-        ci <= tol * (mean + schedule.ADAPTIVE_ABS_FLOOR)
-    )
-    key = torch.where(converged, 3e38, -acc[3])
-    order = torch.argsort(key, stable=True)
-    inv = torch.argsort(order, stable=True)
-    pixel_map = torch.stack([order % width, order // width], 1)
-    budget = torch.where(converged, 0, cs)[order].to(torch.int32)
-    return inv, pixel_map.to(torch.int32).contiguous(), budget.contiguous()
-
-
-def t975_table(device) -> torch.Tensor:
-    return torch.tensor(schedule.T975_BY_CHUNKS, dtype=torch.float32,
-                        device=device)
-
-
-def chunk_mean_stats(chunk_stats: torch.Tensor, acc: torch.Tensor,
-                     lsum_prev: torch.Tensor, n_prev: torch.Tensor):
-    """Add one chunk to the per-pixel between-chunk statistics [n_c, Σ m,
-    Σ m²]: m is the chunk's mean luminance, from the accumulator after the
-    chunk and its rgb sum and count before it; a pixel that took no
-    sample adds nothing."""
-    dn = acc[4] - n_prev
-    sampled = (dn > 0.0).to(torch.float32)
-    m_c = ((acc[0] + acc[1] + acc[2] - lsum_prev) * (1.0 / 3.0)
-           / torch.clamp_min(dn, 1.0))
-    return chunk_stats + torch.stack(
-        [sampled, m_c * sampled, m_c * m_c * sampled]
-    )
 
 
 def accumulate_sorted(out: torch.Tensor, segs: torch.Tensor,
@@ -220,22 +162,31 @@ class KernelChoice:
 
     def launcher(self, kseed: int, width: int, height: int,
                  opts: TraceOptions, debug: DebugParams | None = None):
-        """``launch(pixel_map, sample_offset, spp, budget=None) -> (out,
-        segs)``: one chunk through the chosen kernel (with the overlay of
-        ``debug`` under ``opts.enable_debug``)."""
+        """``launch(pixel_map, sample_offset, spp, budget=None,
+        extent=None) -> (out, segs)``: one chunk through the chosen kernel
+        (with the overlay of ``debug`` under ``opts.enable_debug``); the
+        walk takes the live extent of ``budget`` where it is given (the
+        flat scan deals every lane)."""
         if self.kernel == "cluster_walk":
-            def launch(pixel_map, offset, cs, budget=None):
+            def launch(pixel_map, offset, cs, budget=None, extent=None):
                 with span("launch"):
                     return cluster_walk(self.tables, pixel_map, kseed,
                                         offset, cs, width, height, opts,
-                                        budget, debug)
+                                        budget, debug, extent=extent)
         else:
-            def launch(pixel_map, offset, cs, budget=None):
+            def launch(pixel_map, offset, cs, budget=None, extent=None):
                 with span("launch"):
                     return flat_scan(self.tables, pixel_map, kseed, offset,
                                      cs, width, height, opts, self.g_full,
                                      budget, debug)
         return launch
+
+    def library(self) -> tuple:
+        """``(name, defines)`` of the chosen kernel's library, as
+        ``cuda_build.load`` takes them."""
+        if self.kernel == "cluster_walk":
+            return walk_library(is_wide(self.tables.members.shape[0]))
+        return FLAT_LIBRARY
 
 
 def permute_scene(scene: Scene, perm) -> Scene:
@@ -285,35 +236,23 @@ def choose_kernel(scene: Scene, dcam: DerivedCamera, opts: TraceOptions,
 
 def _render_adaptive(launch, sizes, width, height, opts, device):
     """The adaptive host loop: an identity-order profile chunk at full
-    budget, then equal sorted chunks, each followed by accumulation and a
-    new convergence decision. Returns the (6, H·W) accumulator and the
+    budget, then equal sorted chunks, each followed by the re-plan of
+    ``adaptive_plan`` (accumulation and a new convergence decision over
+    the lanes that had budget). Returns the (6, H·W) accumulator and the
     int64 segment total, both on the device."""
-    tol = opts.adaptive_tolerance
-    track_chunks = opts.sampler == "stratified"
     acc, segs = launch(identity_map(width, height, device), 0, sizes[0])
     with span("plan"):
-        segments = segs.sum(dtype=torch.int64)
-        inv, pixel_map, budget = plan_adaptive(acc, width, sizes[1], tol)
-        # between-chunk statistics start after the profile chunk, whose
-        # size differs; only the stratified sampler keeps them
-        cstats = torch.zeros((3, acc.shape[1]), dtype=torch.float32,
-                             device=device) if track_chunks else None
-        t975 = t975_table(device) if track_chunks else None
-    offset, spp = sizes[0], sum(sizes)
-    for cs in sizes[1:]:
-        if track_chunks:
-            lsum_prev, n_prev = acc[0] + acc[1] + acc[2], acc[4]
-        out, segs = launch(pixel_map, offset, cs, budget)
+        plans = adaptive_plan.start(acc, width, opts.adaptive_tolerance,
+                                    opts.sampler == "stratified", len(sizes))
+        plans.step(None, segs, sizes[1])
+    offset = sizes[0]
+    for i, cs in enumerate(sizes[1:], 2):
+        out, segs = launch(plans.pixel_map, offset, cs, plans.budget,
+                           plans.extent)
         with span("plan"):
-            acc, segments = accumulate_sorted(out, segs, acc, segments,
-                                              inv)
-            if track_chunks:
-                cstats = chunk_mean_stats(cstats, acc, lsum_prev, n_prev)
             offset += cs
-            if offset < spp:
-                inv, pixel_map, budget = plan_adaptive(acc, width, cs, tol,
-                                                       cstats, t975)
-    return acc, segments
+            plans.step(out, segs, sizes[i] if i < len(sizes) else None)
+    return plans.acc, plans.segments
 
 
 def band_pixels(pixel_map: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
@@ -352,8 +291,8 @@ def render_sums(scene: Scene, dcam: DerivedCamera, width: int, height: int,
         launch = choice.launcher(kseed, width, height, opts, debug)
         if rows is None:
             return launch
-        return lambda pixel_map, offset, cs, budget=None: launch(
-            band_pixels(pixel_map, rows), offset, cs, budget)
+        return lambda pixel_map, offset, cs, budget=None, extent=None: (
+            launch(band_pixels(pixel_map, rows), offset, cs, budget, extent))
 
     # every host step before the first launch
     with span("prep"):
@@ -377,6 +316,9 @@ def render_sums(scene: Scene, dcam: DerivedCamera, width: int, height: int,
                 # Render fixed spp through the four-row kernels
                 launch = launcher(dataclasses.replace(
                     opts, adaptive_tolerance=0.0))
+            elif device.type == "cuda":
+                # the re-plan's library compiles beside the kernel's
+                cuda_build.load_all([choice.library(), adaptive_plan.LIBRARY])
         if plan.adaptive is None:
             sizes, _ = schedule.chunk_schedule(spp, plan.chunk)
             acc = torch.zeros((4, width * n_rows), dtype=torch.float32,

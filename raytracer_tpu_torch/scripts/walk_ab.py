@@ -212,11 +212,12 @@ def parent_csrc(root: Path = ROOT) -> Path | None:
 
 def walk_caller(lib: ctypes.CDLL):
     """``call(*case)`` for a walk library at the launch interface
-    :func:`cluster_walk.call` passes; None for any other version."""
+    :func:`cluster_walk.call` passes (with the live extent of the case's
+    budget); None for any other version."""
     version = cuda_build.abi(lib, "cluster_walk_abi")
     if version == cw.ABI:
         fn = cw.bind(lib)
-        return lambda *a: cw.call(fn, *a)
+        return lambda *a: cw.call(fn, *a, extent_of(a[8]))
     print(f"[walk A/B] a walk library with launch interface {version}: no "
           "binder for it here, left out")
     return None
@@ -422,8 +423,9 @@ def adaptive_launches(tabs, count: int, w: int, h: int, spp: int, opts,
                       seed: int, device) -> list:
     """(lane map, sample offset, spp, budget) of every launch of the
     adaptive render of ``spp`` through the walk on ``tabs`` (of a scene of
-    ``count`` spheres), as its re-plans (``megakernel.plan_adaptive``)
-    gave them."""
+    ``count`` spheres), as its re-plans (``render/adaptive_plan.py``)
+    gave them: copies, since a re-plan rewrites its map and budget in
+    place."""
     from raytracer_tpu_torch.render import megakernel, schedule
 
     chunk = schedule.pick_chunk_spp(spp, w * h, count, opts.max_depth,
@@ -432,13 +434,45 @@ def adaptive_launches(tabs, count: int, w: int, h: int, spp: int, opts,
                                        opts.sort_pixels)
     seen = []
 
-    def launch(pixel_map, offset, cs, budget=None):
-        seen.append((pixel_map, offset, cs, budget))
+    def launch(pixel_map, offset, cs, budget=None, extent=None):
+        seen.append((pixel_map.clone(), offset, cs,
+                     None if budget is None else budget.clone()))
         return cw.cluster_walk(tabs, pixel_map, seed, offset, cs, w, h, opts,
-                               budget)
+                               budget, extent=extent)
 
     megakernel._render_adaptive(launch, sizes, w, h, opts, device)
     return seen
+
+
+def full_width_render(launch, sizes, width, height, opts, device):
+    """``megakernel._render_adaptive`` as the base revision ran it: after
+    every chunk a re-plan over every pixel (``accumulate_sorted``,
+    ``chunk_mean_stats``, ``plan_adaptive``, in tensor operations). The
+    live re-plans (``render/adaptive_plan.py``) must give its sums and
+    segments bit for bit. Returns ``(acc, segments)``."""
+    from raytracer_tpu_torch.render import adaptive_plan as ap
+    from raytracer_tpu_torch.render import megakernel as mk
+
+    tol = opts.adaptive_tolerance
+    track = opts.sampler == "stratified"
+    acc, segs = launch(mk.identity_map(width, height, device), 0, sizes[0])
+    segments = segs.sum(dtype=torch.int64)
+    inv, pixel_map, budget = ap.plan_adaptive(acc, width, sizes[1], tol)
+    cstats = (torch.zeros((3, acc.shape[1]), dtype=torch.float32,
+                          device=acc.device) if track else None)
+    offset, spp = sizes[0], sum(sizes)
+    for cs in sizes[1:]:
+        if track:
+            lsum_prev, n_prev = acc[0] + acc[1] + acc[2], acc[4]
+        out, segs = launch(pixel_map, offset, cs, budget, extent_of(budget))
+        acc, segments = mk.accumulate_sorted(out, segs, acc, segments, inv)
+        if track:
+            cstats = ap.chunk_mean_stats(cstats, acc, lsum_prev, n_prev)
+        offset += cs
+        if offset < spp:
+            inv, pixel_map, budget = ap.plan_adaptive(acc, width, cs, tol,
+                                                      cstats)
+    return acc, segments
 
 
 #: the narrow walk's largest partition: 2048 small spheres in clusters of
@@ -643,6 +677,20 @@ def flake_launch(device="cuda") -> tuple:
     return (tabs, pmap, seed, sizes[0], sizes[1], w, h, opts, None, None)
 
 
+def extent_of(budget):
+    """The live extent (``cluster_walk.live_extent``) that a walk launch
+    under ``budget`` takes on the card; None without a budget."""
+    return None if budget is None else cw.live_extent(budget)
+
+
+def walk(*args):
+    """:func:`~raytracer_tpu_torch.render.cluster_walk.cluster_walk` on a
+    case's arguments (the budget ninth, where there is one), with its
+    budget's live extent."""
+    return cw.cluster_walk(
+        *args, extent=extent_of(args[8] if len(args) > 8 else None))
+
+
 def launch_args(args) -> tuple:
     """A case of :func:`~raytracer_tpu_torch.render.cluster_walk.
     cluster_walk` (its debug parameters last) as :func:`walk_caller`'s
@@ -683,7 +731,7 @@ def flake_check(device="cuda") -> dict:
         print(f"[ptxas wide {inst}] {line}")
     same = {}
     for name, args in flake_cases(device).items():
-        out_k, seg_k = cw.cluster_walk(*args)
+        out_k, seg_k = walk(*args)
         out_p, seg_p = live_lanes_plain(args)
         rows = [bool(torch.equal(out_k[r], out_p[r]))
                 for r in range(out_k.shape[0])]
@@ -779,7 +827,7 @@ def counters(lib: ctypes.CDLL, args_by_name: dict) -> dict:
     for name, args in args_by_name.items():
         if read(buf, 1) != 0:
             raise RuntimeError("counter reset failed")
-        out, segs = cw.call(fn, *args)
+        out, segs = cw.call(fn, *args, extent_of(args[8]))
         if read(buf, 1) != 0:
             raise RuntimeError("counter read failed")
         c = dict(zip(COUNTERS, (int(v) for v in buf)))

@@ -164,8 +164,20 @@ def abi(lib: ctypes.CDLL, symbol: str) -> int:
 def load(name: str, defines=()) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu`` built with the extra
     ``-D`` ``defines``, built on first use."""
-    key = (name, tuple(defines))
+    lib = _loaded.get((name, tuple(defines)))
+    return lib if lib is not None else load_all([(name, defines)])[0]
+
+
+def load_all(specs) -> list:
+    """The loaded libraries of ``specs`` (``(name, defines)`` each, as
+    :func:`load` takes them), in order; those not built yet are built
+    together (:func:`build_all`), so that a render which needs several
+    waits for one compiler and not one after another."""
+    keys = [(name, tuple(defines)) for name, defines in specs]
     with _lock:
-        if key not in _loaded:
-            _loaded[key] = ctypes.CDLL(str(build(name, defines=defines)))
-        return _loaded[key]
+        todo = [key for key in dict.fromkeys(keys) if key not in _loaded]
+        if todo:
+            paths = build_all((name, None, defines) for name, defines in todo)
+            for key, path in zip(todo, paths):
+                _loaded[key] = ctypes.CDLL(str(path))
+        return [_loaded[key] for key in keys]

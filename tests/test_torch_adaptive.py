@@ -14,9 +14,12 @@ import torch
 
 from raytracer_tpu.render import pallas_kernel as pk
 from raytracer_tpu_torch import adaptive_state_from_numpy
-from raytracer_tpu_torch.render import api, megakernel, schedule
+from raytracer_tpu_torch.camera.camera import derive_camera
+from raytracer_tpu_torch.render import adaptive_plan, api, megakernel, schedule
 from raytracer_tpu_torch.render.options import TraceOptions
+from raytracer_tpu_torch.render.rng import key_data
 from raytracer_tpu_torch.scene import presets
+from raytracer_tpu_torch.scripts import walk_ab
 
 # a frame that is padded in both directions in the JAX package's pixel
 # space: rows of 256, and 40 rows are whole 8-row tiles
@@ -91,7 +94,7 @@ def test_plan_adaptive_matches(with_chunk_stats):
     seq_j, bud_j = jax_plan(acc_np, cs_np)
     acc, cstats = adaptive_state_from_numpy(acc_np, PW, PH, cs_np)
     assert acc.shape == (6, PW * PH)
-    inv, pmap, budget = megakernel.plan_adaptive(acc, PW, CS, TOL, cstats)
+    inv, pmap, budget = adaptive_plan.plan_adaptive(acc, PW, CS, TOL, cstats)
     assert pmap.dtype == torch.int32 and budget.dtype == torch.int32
     seq_p = (pmap[:, 1].to(torch.int64) * PW + pmap[:, 0]).numpy()
     bud_p = np.empty(PW * PH, np.int32)
@@ -114,8 +117,8 @@ def test_plan_adaptive_matches(with_chunk_stats):
 def test_chunk_stats_change_the_decision():
     acc_np, cs_np = seeded_state()
     acc, cstats = adaptive_state_from_numpy(acc_np, PW, PH, cs_np)
-    _, _, without = megakernel.plan_adaptive(acc, PW, CS, TOL)
-    _, _, with_cs = megakernel.plan_adaptive(acc, PW, CS, TOL, cstats)
+    _, _, without = adaptive_plan.plan_adaptive(acc, PW, CS, TOL)
+    _, _, with_cs = adaptive_plan.plan_adaptive(acc, PW, CS, TOL, cstats)
     # the smaller of two intervals can only converge more pixels
     assert int((with_cs == 0).sum()) > int((without == 0).sum())
 
@@ -134,7 +137,7 @@ def test_chunk_mean_ci_sees_stratification():
             torch.full((p,), n_c * mean),
             torch.full((p,), n_c * mean * mean + 1e-9),
         ])
-        budget = megakernel.plan_adaptive(acc, 128, cs, 0.05, stats)[2]
+        budget = adaptive_plan.plan_adaptive(acc, 128, cs, 0.05, stats)[2]
         return int(budget.sum())
 
     assert total_budget(None) == cs * p
@@ -313,21 +316,26 @@ def test_adaptive_strips_to_the_fixed_render(forced_chunks, case):
 
 def test_adaptive_sorted_plan_is_placement_only(forced_chunks, monkeypatch):
     """The plan only places pixels on lanes: an adaptive render whose
-    plans keep their budgets but leave every pixel on its own lane
-    (identity order) is bitwise the sorted one."""
+    re-plans keep every budget but place the live pixels, and the newly
+    converged ones, in the reverse of their sorted order is bitwise the
+    sorted one."""
     opts = options(adaptive_tolerance=0.1, sampler="stratified")
     a, sa = render(opts)
-    real = megakernel.plan_adaptive
+    real = adaptive_plan.plan_adaptive
+    placed = []
 
-    def identity_plan(acc, width, cs, tol, chunk_stats=None, t975=None):
+    def reversed_plan(acc, width, cs, tol, chunk_stats=None, t975=None):
         inv, pmap, budget = real(acc, width, cs, tol, chunk_stats, t975)
-        n = acc.shape[1]
-        ident = torch.arange(n)
-        return (ident, megakernel.identity_map(width, n // width, "cpu"),
-                budget[inv].contiguous())
+        n, live = len(budget), int((budget > 0).sum())
+        placed.append((n, live))
+        flip = torch.cat([torch.arange(live).flip(0),
+                          torch.arange(live, n).flip(0)])
+        return torch.argsort(flip)[inv], pmap[flip], budget[flip]
 
-    monkeypatch.setattr(megakernel, "plan_adaptive", identity_plan)
+    monkeypatch.setattr(adaptive_plan, "plan_adaptive", reversed_plan)
     b, sb = render(opts)
+    assert len(placed) == len(schedule.adaptive_schedule(SPP, 3, 0, True)) - 1
+    assert placed[0] == (W * H, W * H) and 0 < placed[-1][1] < placed[-1][0]
     assert torch.equal(a, b) and torch.equal(sa["spp_map"], sb["spp_map"])
     assert sa["segments_exact"] == sb["segments_exact"]
 
@@ -339,3 +347,154 @@ def test_stratified_fixed_render_sorted_equals_unsorted(forced_chunks):
     assert torch.equal(a, b) and sa == sb
     r, _ = render(options(), spp=7)
     assert not torch.equal(a, r)
+
+
+# --- the re-plan over the live lanes (render/adaptive_plan.py) -------------
+
+
+def parent_replan(acc, cstats, order, out, segs, cs, tol):
+    """The full-width re-plan after one chunk, as the render made it before
+    it read only the live lanes: ``accumulate_sorted``, ``chunk_mean_stats``
+    and ``plan_adaptive`` over every pixel. Returns ``(acc, cstats,
+    segments, pixel_map, budget)``."""
+    inv = torch.argsort(order.to(torch.int64))
+    lsum_prev, n_prev = acc[0] + acc[1] + acc[2], acc[4]
+    acc, segments = megakernel.accumulate_sorted(
+        out, segs, acc, torch.zeros((), dtype=torch.int64), inv)
+    if cstats is not None:
+        cstats = adaptive_plan.chunk_mean_stats(cstats, acc, lsum_prev, n_prev)
+    _, pixel_map, budget = adaptive_plan.plan_adaptive(acc, PW, cs, tol, cstats)
+    return acc, cstats, segments, pixel_map, budget
+
+
+REPLAN_CASES = {
+    # case: (sampler, tolerance)
+    "random": ("random", TOL),
+    "stratified": ("stratified", TOL),
+    "ties": ("random", TOL),
+    "all_live": ("stratified", 1e-9),
+    "all_converge": ("stratified", 1e9),
+    "none_live": ("random", 1e9),
+}
+
+
+def replan_state(case):
+    """A seeded state before a re-plan: the accumulator and chunk
+    statistics of ``seeded_state``, the previous plan (its unconverged
+    pixels on lanes [0, L) in a seeded order, the converged ones after
+    them) and the chunk's lane-order sums (zeros past L)."""
+    sampler, tol = REPLAN_CASES[case]
+    acc_np, cs_np = seeded_state()
+    acc, cstats = adaptive_state_from_numpy(acc_np, PW, PH, cs_np)
+    if sampler == "random":
+        cstats = None
+    n = acc.shape[1]
+    if case == "none_live":
+        acc[4] += schedule.ADAPTIVE_MIN_N
+    if case == "all_converge":
+        # one sample short of the minimum: every pixel live, until this
+        # chunk's samples
+        acc[4] = schedule.ADAPTIVE_MIN_N - 1.0
+    if case == "ties":
+        acc[3] = 100.0
+    inv, _, budget = adaptive_plan.plan_adaptive(acc, PW, CS, tol, cstats)
+    before = budget[inv] == 0
+    g = torch.Generator().manual_seed(7)
+    live = torch.nonzero(~before).flatten()
+    done = torch.nonzero(before).flatten()
+    order = torch.cat([live[torch.randperm(len(live), generator=g)],
+                       done[torch.randperm(len(done), generator=g)]])
+    lanes = len(live)
+    on = (torch.arange(n) < lanes).to(torch.float32)
+    mean = torch.rand(n, generator=g)
+    cost = (torch.full((n,), 7.0) if case == "ties"
+            else torch.randint(1, 40, (n,), generator=g).to(torch.float32))
+    out = torch.stack([CS * mean * 0.9, CS * mean * 1.1, CS * mean,
+                       CS * cost, torch.full((n,), float(CS)),
+                       CS * (mean * mean + 0.01 * torch.rand(n, generator=g))])
+    out = (out * on).contiguous()
+    segs = (torch.randint(1, 500, (n,), generator=g, dtype=torch.int32)
+            * on.to(torch.int32))
+    return (acc, cstats, order.to(torch.int32), lanes, out, segs, sampler,
+            tol)
+
+
+def plain_replan(acc, cstats, order, lanes, out, segs, sampler, tol):
+    """``adaptive_plan.PlainPlan`` set to the previous plan, stepped once."""
+    plans = adaptive_plan.PlainPlan(acc.clone(), PW, tol,
+                                    sampler == "stratified")
+    if cstats is not None:
+        plans.stats = cstats.clone()
+    plans.order = order.clone()
+    o = order.to(torch.int64)
+    plans.pixel_map = torch.stack([o % PW, o // PW], 1).to(torch.int32)
+    plans.budget = torch.where(torch.arange(len(order)) < lanes, CS,
+                               0).to(torch.int32)
+    plans.live = lanes
+    plans.step(out, segs, CS)
+    return plans
+
+
+@pytest.mark.parametrize("case", list(REPLAN_CASES))
+def test_live_replan_matches_the_full_width_replan(case):
+    """One re-plan over the lanes that had budget against the full-width
+    one on seeded states: the sums, chunk statistics and exact segments
+    bitwise; the live prefix of the lane map and its budgets equal; the
+    map a permutation with budget 0 past the live count. Cases: the
+    random and stratified samplers, ties in cost, every pixel live
+    before and after, every live pixel converging, none live."""
+    acc, cstats, order, lanes, out, segs, sampler, tol = replan_state(case)
+    plans = plain_replan(acc, cstats, order, lanes, out, segs, sampler, tol)
+    acc_r, cstats_r, seg_r, pmap_r, bud_r = parent_replan(
+        acc.clone(), None if cstats is None else cstats.clone(), order, out,
+        segs, CS, tol)
+    assert torch.equal(plans.acc, acc_r)
+    assert (plans.stats is None) == (cstats_r is None)
+    if cstats_r is not None:
+        assert torch.equal(plans.stats, cstats_r)
+    assert int(plans.segments) == int(seg_r)
+    live = int((bud_r > 0).sum())
+    assert plans.live == live
+    assert torch.equal(plans.pixel_map[:live], pmap_r[:live])
+    assert torch.equal(plans.budget[:live], bud_r[:live])
+    assert (plans.budget[live:] == 0).all()
+    pix = plans.pixel_map[:, 1].to(torch.int64) * PW + plans.pixel_map[:, 0]
+    assert torch.equal(torch.sort(pix).values, torch.arange(PW * PH))
+    assert torch.equal(plans.order.to(torch.int64), pix)
+    n = PW * PH
+    want = {"all_live": (n, n), "all_converge": (0, n),
+            "none_live": (0, 0)}.get(case)
+    if want is None:
+        assert 0 < live < lanes < n
+    else:
+        assert (live, lanes) == want
+
+
+@pytest.mark.parametrize("sampler, band", [
+    ("random", False), ("stratified", False), ("stratified", True)],
+    ids=["random", "stratified", "band"])
+def test_adaptive_render_matches_the_full_width_loop(forced_chunks,
+                                                     monkeypatch, sampler,
+                                                     band):
+    """A whole adaptive render (and a band of rows) through the live
+    re-plans against the same launches re-planned at full width: the
+    sums and the exact segments bitwise."""
+    got = []
+    real = megakernel._render_adaptive
+
+    def both(launch, sizes, width, height, opts, device):
+        new = real(launch, sizes, width, height, opts, device)
+        got.append((new, walk_ab.full_width_render(launch, sizes, width,
+                                                   height, opts, device)))
+        return new
+
+    monkeypatch.setattr(megakernel, "_render_adaptive", both)
+    scene, cam, *_ = presets.get_config("cover", W, H)
+    rows = torch.arange(5, 21) if band else None
+    opts = options(adaptive_tolerance=0.1, sampler=sampler)
+    megakernel.render_sums(scene, derive_camera(cam), W, H, SPP,
+                           key_data(3), opts, "cpu", rows=rows)
+    ((acc, seg), (acc_r, seg_r)), = got
+    assert acc.shape == (6, W * (16 if band else H))
+    assert torch.equal(acc, acc_r) and int(seg) == int(seg_r)
+    assert 4.0 <= float(acc[4].min()) < float(acc[4].max()) <= SPP

@@ -8,7 +8,6 @@ which the port's machine need not have):
 
 import subprocess
 import sys
-import weakref
 from pathlib import Path
 
 import pytest
@@ -17,7 +16,14 @@ import torch
 from raytracer_tpu_torch.camera.camera import derive_camera
 from raytracer_tpu_torch.progressive import state as pstate
 from raytracer_tpu_torch.progressive import step as pstep
-from raytracer_tpu_torch.render import api, megakernel, pallas_kernel, tables
+from raytracer_tpu_torch.render import (
+    adaptive_plan,
+    api,
+    megakernel,
+    pallas_kernel,
+    schedule,
+    tables,
+)
 from raytracer_tpu_torch.render import cluster_walk as cw
 from raytracer_tpu_torch.render import flat_scan as fs
 from raytracer_tpu_torch.render.options import DebugParams, TraceOptions
@@ -82,7 +88,7 @@ def test_variant_matches_plain_on_card(card, adaptive, stratified):
         budget = (torch.where(torch.rand(W * H, generator=g) < 0.4, 0, SPP)
                   .to(torch.int32).to(card))
     args = (tabs, ident, 9, 6, SPP, W, H, opts, budget)
-    out_k, seg_k = cw.cluster_walk(*args)
+    out_k, seg_k = walk_ab.walk(*args)
     out_p, seg_p = cw.cluster_walk_plain(*args)
     assert out_k.shape == out_p.shape == (6 if adaptive else 4, W * H)
     d = (out_k[:3] - out_p[:3]).abs().amax(0)
@@ -129,7 +135,7 @@ def test_walk_instantiation_bitwise_on_card(card, adaptive, stratified,
         _, point, sel = update_cursor_state(scene.to(card), cam)
         dbg = DebugParams(point, sel)
     args = (tabs, ident, 9, 6, SPP, W, H, opts, budget, dbg)
-    out_k, seg_k = cw.cluster_walk(*args)
+    out_k, seg_k = walk_ab.walk(*args)
     out_p, seg_p = cw.cluster_walk_plain(*args)
     assert torch.equal(out_k, out_p)
     assert torch.equal(seg_k, seg_p)
@@ -166,7 +172,7 @@ def test_adaptive_walk_items_bitwise_on_card(item_cases, stratified, case):
     args = item_cases[stratified][case]
     budget = args[8]
     profiling.reset_counters()
-    out_k, seg_k = cw.cluster_walk(*args)
+    out_k, seg_k = walk_ab.walk(*args)
     got = profiling.counters()
     out_p, seg_p = walk_ab.live_lanes_plain(args)
     assert torch.equal(out_k, out_p)
@@ -205,7 +211,7 @@ g = torch.Generator().manual_seed(3)
 budget = torch.randint(0, spp + 1, (w * h,), generator=g)
 args = (tabs, cw.identity_map(w, h, dev), 9, 6, spp, w, h, opts,
         budget.to(torch.int32).to(dev), None)
-out_k, seg_k = cw.cluster_walk(*args)
+out_k, seg_k = cw.cluster_walk(*args, extent=cw.live_extent(args[8]))
 out_p, seg_p = cw.cluster_walk_plain(*args)
 print("live", int((out_k[4] > 0).sum()), "bitwise",
       torch.equal(out_k, out_p) and torch.equal(seg_k, seg_p))
@@ -216,8 +222,8 @@ print("live", int((out_k[4] > 0).sum()), "bitwise",
 def test_budgeted_adaptive_launch_first_in_a_process_on_card(card, sampler):
     """A fresh process whose first adaptive launch has a budget (so the
     launch also makes the sample counts' buffer and the item scratch
-    after working out the live extent) runs its items bit for bit the
-    plain walk."""
+    after its caller worked out the live extent) runs its items bit for
+    bit the plain walk."""
     root = Path(__file__).resolve().parents[1]
     proc = subprocess.run([sys.executable, "-c", FIRST_LAUNCH, sampler],
                           cwd=root, capture_output=True, text=True,
@@ -228,34 +234,32 @@ def test_budgeted_adaptive_launch_first_in_a_process_on_card(card, sampler):
     assert int(words[1]) > 0
 
 
-def test_live_extent_held_through_the_launch_on_card(card, monkeypatch):
-    """The live extent an adaptive launch reads is alive when the launch
-    is enqueued: freed before, the caching allocator may give its block
-    to the next allocation on the stream (a process's first sample
-    counts are zeros), which overwrites it before the kernel reads it."""
-    made = []
-    real_extent = cw.live_extent
-
-    def extent(budget):
-        t = real_extent(budget)
-        made.append(weakref.ref(t))
-        return t
-
-    monkeypatch.setattr(cw, "live_extent", extent)
+def test_live_extent_held_through_the_launch_on_card(card):
+    """The live extent an adaptive launch reads is the one its caller
+    holds until the launch is enqueued (freed before, the caching
+    allocator may give its block to the next allocation on the stream,
+    which overwrites it before the kernel reads it): the launch passes
+    that tensor, and refuses a budget without one, or one without a
+    budget, rather than work one out that it would free."""
     launch = cw._lib()
-    held = []
+    seen = []
 
     def fn(*args):
-        t = made[-1]()
-        held.append(t is not None and t.data_ptr() == args[6])
+        seen.append(args[6])
         return launch(*args)
 
     tabs, ident, opts = walk_inputs(card, adaptive=True)
     budget = torch.randint(0, SPP + 1, (W * H,), dtype=torch.int32,
                            generator=torch.Generator().manual_seed(2))
     args = (tabs, ident, 9, 6, SPP, W, H, opts, budget.to(card), None)
-    out_k, seg_k = cw.call(fn, *args)
-    assert held == [True]
+    extent = cw.live_extent(args[8])
+    out_k, seg_k = cw.call(fn, *args, extent)
+    assert seen == [extent.data_ptr()]
+    with pytest.raises(ValueError, match="live extent"):
+        cw.call(fn, *args)
+    with pytest.raises(ValueError, match="live extent"):
+        cw.call(fn, *args[:8], None, None, extent)
+    assert len(seen) == 1
     out_p, seg_p = cw.cluster_walk_plain(*args)
     assert torch.equal(out_k, out_p) and torch.equal(seg_k, seg_p)
 
@@ -305,7 +309,7 @@ def test_wide_walk_bitwise_on_card(flake_cases, case):
     before = cw.cluster_walk.launches_by_variant.get("cluster_walk_wide"
                                                      + cw.variant_suffix(
                                                          args[7]), 0)
-    out_k, seg_k = cw.cluster_walk(*args)
+    out_k, seg_k = walk_ab.walk(*args)
     out_p, seg_p = walk_ab.live_lanes_plain(args)
     assert torch.equal(out_k, out_p)
     assert torch.equal(seg_k, seg_p)
@@ -1014,7 +1018,7 @@ def test_band_kernel_matches_plain_on_card(card, kernel):
     if kernel.startswith("cluster_walk"):
         tabs, _, opts = walk_inputs(card, 5, adaptive, adaptive)
         args = (tabs, band, 9, 6, 2, W, H, opts, budget)
-        kernel_fn, plain_fn = cw.cluster_walk, cw.cluster_walk_plain
+        kernel_fn, plain_fn = walk_ab.walk, cw.cluster_walk_plain
     else:
         scene, cam, *_ = presets.get_config("cover", W, H)
         opts = TraceOptions(max_depth=12, russian_roulette_depth=5,
@@ -1135,3 +1139,190 @@ def test_render_image_pallas_is_render_image_on_card(card, adaptive):
     assert stats["segments_exact"] == want_stats["segments_exact"]
     if adaptive:
         assert torch.equal(stats["spp_map"], want_stats["spp_map"])
+
+
+# --- the adaptive re-plan over the live lanes (csrc/adaptive_plan.cu) -------
+
+
+def _plan_state(plans):
+    """A plan's state as CPU tensors, and the live count of its newest
+    plan."""
+    live = (plans.live if plans.extent is None
+            else int(plans.lives[min(plans.index, len(plans.lives) - 2)]))
+    got = {name: getattr(plans, name).cpu() for name in (
+        "acc", "segments", "order", "pixel_map", "budget")}
+    if plans.stats is not None:
+        got["stats"] = plans.stats.cpu()
+    return got, live
+
+
+@pytest.mark.parametrize("w, h", [(64, 32), (200, 90)],
+                         ids=["one_tile", "merged_tiles"])
+@pytest.mark.parametrize("stratified", [False, True],
+                         ids=["random", "stratified"])
+def test_adaptive_plan_chain_bitwise_its_plain_twin_on_card(
+        card, monkeypatch, stratified, w, h):
+    """The chain's re-plans against ``adaptive_plan.PlainPlan`` on the same
+    synthetic chunks (sums that depend on the pixel and the chunk, ties in
+    cost): after every step the sums, chunk statistics, exact segments,
+    order, lane map, budgets and live count bitwise; the walk's extent
+    [live count, next spp or 0]; the device counts the lanes each re-plan
+    read and its slots. One tile of keys, and tiles merged."""
+    monkeypatch.setattr(schedule, "ADAPTIVE_MIN_N", 8)
+    n, tol = w * h, 0.1
+    sizes = [4] + [5] * 8
+    g = torch.Generator().manual_seed(11)
+    mean = torch.rand(n, generator=g) * (torch.rand(n, generator=g) < 0.8)
+    # per-sample variances over three decades: pixels stop chunk by chunk
+    var = torch.exp(-8.0 * torch.rand(n, generator=g))
+    cost = torch.randint(1, 6, (n,), generator=g).to(torch.float32)
+    bounces = torch.randint(1, 9, (n,), generator=g, dtype=torch.int32)
+
+    def chunk(pixel_map, budget, k):
+        p = pixel_map[:, 1].to(torch.int64) * w + pixel_map[:, 0]
+        b = budget.to(torch.float32)
+        m = mean[p] * (1.0 + 0.1 * torch.sin(1.7 * k + p.to(torch.float32)))
+        out = torch.stack([b * m * 0.9, b * m * 1.1, b * m, b * cost[p], b,
+                           b * (m * m + var[p] * m)])
+        return out.contiguous(), (bounces[p] * budget).contiguous()
+
+    ident = cw.identity_map(w, h, "cpu")
+    acc, segs = chunk(ident, torch.full((n,), sizes[0], dtype=torch.int32),
+                      0)
+    plain = adaptive_plan.PlainPlan(acc.clone(), w, tol, stratified)
+    profiling.reset_counters()
+    chain = adaptive_plan.start(acc.to(card), w, tol, stratified, len(sizes))
+    assert isinstance(chain, adaptive_plan.CudaPlan)
+    launched = adaptive_plan.CudaPlan.launches
+    lanes_read, lives = 0, []
+    for k in range(len(sizes)):
+        nxt = sizes[k + 1] if k + 1 < len(sizes) else None
+        if k > 0:
+            out, segs = chunk(plain.pixel_map, plain.budget, k)
+        lanes_read += plain.live if nxt is not None else 0
+        plain.step(None if k == 0 else out, segs, nxt)
+        chain.step(None if k == 0 else out.to(card), segs.to(card), nxt)
+        want, live = _plan_state(plain)
+        got, live_k = _plan_state(chain)
+        assert live_k == live, k
+        for name, t in want.items():
+            assert torch.equal(got[name], t), (k, name)
+        if nxt is not None:
+            assert chain.extent.tolist() == [live, nxt if live else 0], k
+            lives.append(live)
+    # every lane live, then fewer re-plan by re-plan
+    assert lives[0] == n and lives == sorted(lives, reverse=True), lives
+    assert len({v for v in lives if 0 < v < n / 2}) >= 3, lives
+    assert adaptive_plan.CudaPlan.launches == launched + len(sizes)
+    got = profiling.counters()
+    assert got["plan_lanes"] == (lanes_read, 0.0)
+    assert got["plan_slots"] == ((len(sizes) - 1) * n, 0.0)
+
+
+@pytest.mark.parametrize("name, sampler, band", [
+    ("cover", "random", False), ("cover", "stratified", False),
+    ("cover", "stratified", True), ("demo", "stratified", False)],
+    ids=["walk_random", "walk_stratified", "walk_band", "flat_stratified"])
+def test_adaptive_render_bitwise_the_full_width_loop_on_card(
+        card, monkeypatch, name, sampler, band):
+    """Adaptive renders on the card (past one tile of sort keys) through
+    the walk, a band of its rows, and the flat scan, against the same
+    launches re-planned over every pixel, as the base revision re-planned
+    them (``walk_ab.full_width_render``): the image, the sample map and
+    the exact segments bitwise."""
+    got = []
+    real = megakernel._render_adaptive
+
+    def both(launch, sizes, width, height, opts, device):
+        new = real(launch, sizes, width, height, opts, device)
+        got.append((new, walk_ab.full_width_render(launch, sizes, width,
+                                                   height, opts, device)))
+        return new
+
+    monkeypatch.setattr(megakernel, "_render_adaptive", both)
+    w, h, spp = 160, 100, 200
+    scene, cam, *_ = presets.get_config(name, w, h)
+    opts = TraceOptions(max_depth=12, russian_roulette_depth=0,
+                        adaptive_tolerance=0.2, sampler=sampler)
+    rows = torch.arange(10, 90) if band else None
+    megakernel.render_sums(scene, derive_camera(cam), w, h, spp, (0, 5),
+                           opts, card, rows=rows)
+    ((acc, seg), (acc_r, seg_r)), = got
+    rows_n = acc.shape[1] // w
+    assert rows_n == (80 if band else h)
+    image, extra = megakernel.finish(acc, w, rows_n, spp, True)
+    image_r, extra_r = megakernel.finish(acc_r, w, rows_n, spp, True)
+    assert torch.equal(image, image_r)
+    assert torch.equal(extra["spp_map"], extra_r["spp_map"])
+    assert int(seg) == int(seg_r)
+    spp_map = extra["spp_map"]
+    assert 64 <= float(spp_map.min()) < float(spp_map.max()) <= spp
+
+
+def test_adaptive_render_launches_read_the_held_extent_on_card(card,
+                                                                monkeypatch):
+    """Every budgeted launch of an adaptive render reads the live extent
+    from the buffer held for its stream (``adaptive_plan.extent_buffer``),
+    which the chain rewrites only after that launch: a buffer freed before
+    the launch is enqueued may be overwritten before the kernel reads it.
+    The chain's kernels are not the renderer's: the walk's launch counts
+    hold the walk's launches alone."""
+    ptrs = []
+    real = cw._lib
+
+    def lib(wide=False):
+        fn = real(wide)
+
+        def call(*args):
+            ptrs.append(args[6])
+            return fn(*args)
+
+        return call
+
+    monkeypatch.setattr(cw, "_lib", lib)
+    scene, cam, *_ = presets.get_config("cover", W, H)
+    opts = TraceOptions(max_depth=8, russian_roulette_depth=3,
+                        adaptive_tolerance=0.5, sampler="stratified",
+                        adaptive_chunk_spp=16)
+    cw.reset_launch_counts()
+    launched = adaptive_plan.CudaPlan.launches
+    api.render_image(scene, cam, W, H, 200, 0, opts, device=card)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    held = adaptive_plan.extent_buffer(
+        dev, torch.cuda.current_stream(dev).cuda_stream)
+    assert ptrs[0] is None and len(ptrs) > 2
+    assert set(ptrs[1:]) == {held.data_ptr()}
+    assert cw.cluster_walk.launches == len(ptrs)
+    assert cw.cluster_walk.launches_by_variant == {
+        "cluster_walk_adaptive_stratified": len(ptrs)}
+    # one step of the chain a chunk: a re-plan after each but the last
+    assert adaptive_plan.CudaPlan.launches == launched + len(ptrs)
+
+
+def test_adaptive_render_loop_waits_for_nothing_on_card(card, monkeypatch):
+    """From the first launch to the last accumulation an adaptive render
+    never waits for the card: no read back and no copy that synchronizes
+    (a table copied from pageable memory would wait for the first
+    launch)."""
+    real = megakernel._render_adaptive
+    ran = []
+
+    def guarded(*args):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = real(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        ran.append(True)
+        return out
+
+    scene, cam, *_ = presets.get_config("cover", W, H)
+    for sampler in ("random", "stratified"):
+        opts = TraceOptions(max_depth=8, russian_roulette_depth=3,
+                            adaptive_tolerance=0.5, sampler=sampler,
+                            adaptive_chunk_spp=16)
+        api.render_image(scene, cam, W, H, 200, 0, opts, device=card)
+        with monkeypatch.context() as mp:
+            mp.setattr(megakernel, "_render_adaptive", guarded)
+            api.render_image(scene, cam, W, H, 200, 1, opts, device=card)
+    assert ran == [True, True]

@@ -8,9 +8,12 @@ package can reach them), the overlay's constants and order match the
 plain twin's, and the build cache keys on the headers a source includes. The kernels themselves run only on the card
 (``tests/test_torch_gpu.py``, ``chip_smoke.py``)."""
 
+import ctypes
+import dataclasses
 import inspect
 import re
 import shutil
+import types
 
 import numpy as np
 import pytest
@@ -19,6 +22,7 @@ import torch
 from raytracer_tpu.render import pallas_kernel as pk
 from raytracer_tpu_torch.camera.camera import derive_camera
 from raytracer_tpu_torch.core import sampling
+from raytracer_tpu_torch.render import adaptive_plan
 from raytracer_tpu_torch.render import cluster_walk as cw
 from raytracer_tpu_torch.render import flat_scan as fs
 from raytracer_tpu_torch.render import options, rng, tables
@@ -748,3 +752,157 @@ def test_probes_build_with_the_kernels_flags():
         paths.add(path)
     assert len(paths) == 3
     test_nvcc_flags_keep_rounding()
+
+
+# --- the adaptive re-plan (csrc/adaptive_plan.cu) ----------------------------
+
+PLAN = (cuda_build.CSRC_DIR / "adaptive_plan.cu").read_text()
+
+
+def test_adaptive_plan_builds_with_the_kernels_flags():
+    """One source without headers of csrc/, built by the same helper and
+    flags (sm_90a, -fmad=false, no fast math) into its own library."""
+    assert [p.name for p in cuda_build.sources("adaptive_plan")] == [
+        "adaptive_plan.cu"]
+    path = cuda_build.library_path(adaptive_plan.LIBRARY[0])
+    assert path.parent == cuda_build.BUILD_DIR
+    assert path.name.startswith("libadaptive_plan-")
+    test_nvcc_flags_keep_rounding()
+
+
+def test_load_all_builds_what_is_missing_in_one_batch(monkeypatch):
+    """``cuda_build.load_all`` loads libraries in the order asked, builds
+    those not loaded yet in one ``build_all`` batch (one nvcc each, at
+    once), and loads nothing twice."""
+    batches = []
+
+    def build_all(specs):
+        batches.append(list(specs))
+        return [f"/{name}{''.join(d)}" for name, _, d in batches[-1]]
+
+    monkeypatch.setattr(cuda_build, "_loaded", {("flat_scan", ()): "flat"})
+    monkeypatch.setattr(cuda_build, "build_all", build_all)
+    monkeypatch.setattr(cuda_build.ctypes, "CDLL", lambda path: path)
+    got = cuda_build.load_all([cw.library(True), fs.LIBRARY,
+                               adaptive_plan.LIBRARY, cw.library(True)])
+    wide = "/cluster_walk" + cw.WIDE_DEFINE
+    assert got == [wide, "flat", "/adaptive_plan", wide]
+    assert batches == [[("cluster_walk", None, (cw.WIDE_DEFINE,)),
+                        ("adaptive_plan", None, ())]]
+    assert cuda_build.load(*adaptive_plan.LIBRARY) == "/adaptive_plan"
+    assert cuda_build.load("cluster_walk", (cw.WIDE_DEFINE,)) == wide
+    assert len(batches) == 1
+
+
+@pytest.mark.parametrize("config, kernel, library", [
+    ("cover", "cluster_walk", cw.library(False)),
+    ("demo", "flat_scan", fs.LIBRARY)])
+def test_adaptive_render_builds_the_replan_beside_its_kernel(
+        monkeypatch, config, kernel, library):
+    """An adaptive render on the card loads the re-plan's library in one
+    batch with its kernel's, before its first launch; a fixed render asks
+    for no library there (its kernel's loads at its first launch)."""
+    from raytracer_tpu_torch.render import megakernel
+
+    loaded = []
+
+    class Loaded(Exception):
+        pass
+
+    def load_all(specs):
+        loaded.append(list(specs))
+        raise Loaded
+
+    scene, cam, *_ = presets.get_config(config, 16, 8)
+    dcam = derive_camera(cam)
+    opts = options.TraceOptions(max_depth=4, adaptive_tolerance=0.2)
+    choice = megakernel.choose_kernel(scene, dcam, opts, "cpu")
+    assert choice.kernel == kernel and choice.library() == library
+    monkeypatch.setattr(megakernel, "choose_kernel", lambda *a: choice)
+    monkeypatch.setattr(cuda_build, "load_all", load_all)
+    with pytest.raises(Loaded):
+        megakernel.render_sums(scene, dcam, 16, 8, 200, rng.key_data(3),
+                               opts, "cuda")
+    assert loaded == [[library, adaptive_plan.LIBRARY]]
+    fixed = dataclasses.replace(opts, adaptive_tolerance=0.0)
+    # past the choice of libraries the fixed render allocates on the card,
+    # which this build of torch refuses
+    with pytest.raises((AssertionError, RuntimeError)):
+        megakernel.render_sums(scene, dcam, 16, 8, 200, rng.key_data(3),
+                               fixed, "cuda")
+    assert len(loaded) == 1
+
+
+def test_adaptive_plan_leaves_the_renderer_builds_alone(tmp_path,
+                                                        monkeypatch):
+    """The walk's and the flat scan's build keys hash no file of the
+    re-plan: editing it rebuilds neither kernel, and it includes none of
+    their headers."""
+    assert not re.search(r'#\s*include\s+"', PLAN)
+    csrc = tmp_path / "csrc"
+    shutil.copytree(cuda_build.CSRC_DIR, csrc)
+    monkeypatch.setattr(cuda_build, "CSRC_DIR", csrc)
+    names = ("flat_scan", "cluster_walk", "adaptive_plan")
+    before = {n: cuda_build.library_path(n) for n in names}
+    with open(csrc / "adaptive_plan.cu", "a") as f:
+        f.write("\n// edited\n")
+    after = {n: cuda_build.library_path(n) for n in names}
+    assert after["flat_scan"] == before["flat_scan"]
+    assert after["cluster_walk"] == before["cluster_walk"]
+    assert after["adaptive_plan"] != before["adaptive_plan"]
+
+
+def test_adaptive_plan_kernels_are_not_the_renderers():
+    """The chain's kernels are counted as device work outside the renderer
+    (``benchmark/readers.py`` matches the renderer by these names)."""
+    names = re.findall(r"__global__ void(?: __launch_bounds__\(\w+\))? "
+                       r"(\w+)\(", PLAN)
+    assert names == ["accumulate_kernel", "sort_tiles", "merge_pass"]
+    for name in names:
+        assert "cluster_walk_kernel" not in name
+        assert "flat_scan_kernel" not in name
+
+
+@pytest.mark.parametrize("name, value", [
+    ("kOneThird", 1.0 / 3.0), ("kZ975", 1.96), ("kMinChunks", 3.0)])
+def test_adaptive_plan_constants_are_float32_roundings(name, value):
+    """The convergence test's constants are the float32 roundings of
+    ``plan_adaptive``'s Python doubles."""
+    (lit,) = re.findall(rf"constexpr float {name} = (-?0x[0-9a-fA-F.]+"
+                        r"p[-+]?\d+)f;", PLAN)
+    assert float.fromhex(lit) == float(np.float32(value))
+
+
+@pytest.mark.parametrize("banned", [
+    "cbrtf", "fmaf", "__fmaf", "__fdividef", "__frsqrt_rn", "__fsqrt_rn",
+    "rsqrtf", "__saturatef", "fminf", "fmaxf",
+])
+def test_adaptive_plan_rounds_as_plan_adaptive(banned):
+    """Every product, quotient and root rounds on its own; the clamps and
+    minimum let NaN through, as torch's do."""
+    assert not re.search(rf"\b{re.escape(banned)}\s*\(", PLAN)
+    assert "x != x ? x : (x < lo ? lo : x)" in PLAN
+    assert ("const float mean = (((a[0] + a[1]) + a[2]) * kOneThird) / "
+            "n_safe;") in PLAN
+    assert "return nn >= c.min_n && ci <= c.tol * (mean + c.abs_floor);" \
+        in PLAN
+
+
+def test_adaptive_plan_interface_matches_the_wrapper():
+    """The launcher's parameters, one by one, are the argument types that
+    ``adaptive_plan.bind`` sets: a pointer, an int or a float."""
+    sig = PLAN[PLAN.index('extern "C" int adaptive_plan_launch('):]
+    params = sig[sig.index("(") + 1:sig.index(")")].split(",")
+    kinds = [ctypes.c_void_p if "*" in p else
+             ctypes.c_float if p.split()[0] == "float" else ctypes.c_int
+             for p in params]
+    assert all(p.split()[0] in ("int", "float") or "*" in p
+               for p in params)
+
+    class Lib:
+        adaptive_plan_launch = types.SimpleNamespace(argtypes=None,
+                                                     restype=None)
+
+    fn = adaptive_plan.bind(Lib)
+    assert fn.argtypes == kinds and len(kinds) == 24
+    assert fn.restype is ctypes.c_int
