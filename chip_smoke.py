@@ -76,6 +76,15 @@ its counts of walk iterations and bounces those of its cost row and
 segments; two whole sphereflake renders at 500 spp through
 ``render_image``, bitwise each other.
 
+The motion walk (``RT_WALK_MOTION``: scenes with a shutter, moving
+spheres and the checker): *The Next Week*'s bouncing spheres at the
+benchmark cell bouncing-offline's shape (1200x675, depth 50), a 2-spp
+launch of each sampler bitwise its plain version, its counts of bounces
+its segments'; the cover made a still scene with a one-colour checker
+ground, through ``render_image``, bitwise the narrow walk's render; two
+whole renders of the cell (500 spp), each launch the motion walk's,
+bitwise each other.
+
 Then the entry points a user starts the renderer from, each through the
 kernels:
 
@@ -277,16 +286,20 @@ def phase_build():
     names = ("cluster_walk", "flat_scan", *PROBE_SOURCES)
     old = walk_ab.parent_csrc()
     specs = ([(name, None, ()) for name in names]
-             + [("cluster_walk", None, (cw.WIDE_DEFINE,))]
+             + [("cluster_walk", None, (cw.WIDE_DEFINE,)),
+                ("cluster_walk", None, (cw.MOTION_DEFINE,))]
              + walk_ab.extra_builds(old) + probe_ab.extra_builds(old))
     t0 = time.perf_counter()
     cuda_build.build_all(specs)
     extra = [f"{name} {' '.join(d) or 'base revision'}"
              for name, _, d in specs[len(names):]]
-    for line in cuda_build.build_log(
-            "cluster_walk", (cw.WIDE_DEFINE,)).splitlines():
-        if "registers" in line or "spill" in line or "nvcc took" in line:
-            print("[ptxas cluster_walk wide]", line.strip())
+    for label, define in (("wide", cw.WIDE_DEFINE),
+                          ("motion", cw.MOTION_DEFINE)):
+        for line in cuda_build.build_log(
+                "cluster_walk", (define,)).splitlines():
+            if ("registers" in line or "spill" in line
+                    or "nvcc took" in line):
+                print(f"[ptxas cluster_walk {label}]", line.strip())
     print(f"[build] {', '.join(names)} and the A/B's {', '.join(extra)} "
           f"at once: {time.perf_counter() - t0:.1f} s")
     for name in names:
@@ -3000,6 +3013,90 @@ def jnp_sharded(smi: str, one: dict, four: list) -> None:
              "ran")
 
 
+def phase_motion_walk(smi: str) -> None:
+    """The motion walk on *The Next Week*'s bouncing spheres at the cell
+    bouncing-offline's shape (1200x675, depth 50, no roulette): a 2-spp
+    launch of each sampler on the identity map bitwise its plain version
+    on the card, its bounce count its segments' sum and its member tests
+    a multiple of the cluster size; the cover with its spheres still and
+    its ground a one-colour checker, through ``render_image``, bitwise
+    the narrow walk's render of the cover; two renders of the cell at 500
+    spp through ``render_image``, every launch the motion walk's, bitwise
+    each other, finite."""
+    from raytracer_tpu_torch.camera.camera import derive_camera
+    from raytracer_tpu_torch.render import cluster_walk as cw
+    from raytracer_tpu_torch.render import megakernel
+    from raytracer_tpu_torch.render.api import render_image
+    from raytracer_tpu_torch.render.options import TraceOptions
+    from raytracer_tpu_torch.scene import presets
+    from raytracer_tpu_torch.scene.materials import Material
+    from raytracer_tpu_torch.scene.spheres import update_sphere
+    from raytracer_tpu_torch.utils import profiling
+
+    w, h = 1200, 675
+    scene = presets.bouncing_spheres_scene().to("cuda")
+    cam = presets.bouncing_camera(w, h)
+    for sampler in ("random", "stratified"):
+        opts = TraceOptions(max_depth=50, sampler=sampler)
+        choice = megakernel.choose_kernel(scene, derive_camera(cam), opts,
+                                          "cuda")
+        tabs = choice.tables
+        args = (tabs, cw.identity_map(w, h, "cuda"), 0x2545F491, 41, 2, w,
+                h, opts)
+        profiling.reset_counters()
+        out_k, seg_k = cw.cluster_walk(*args)
+        got = profiling.counters()
+        out_p, seg_p = cw.cluster_walk_plain(*args)
+        same = torch.equal(out_k, out_p) and torch.equal(seg_k, seg_p)
+        tests, bounces = (got.get(name, (0, 0.0))[0]
+                          for name in cw.MOTION_COUNTS)
+        segs = int(seg_k.sum(dtype=torch.int64))
+        group = tabs.members.shape[1]
+        print(f"[motion vs plain {sampler}] {w}x{h} 2 spp d50: bitwise "
+              f"{same}, segments {segs}, counted bounces {bounces}, member "
+              f"tests {tests} ({tests / max(bounces, 1):.2f} a bounce), "
+              f"clusters {tabs.members.shape[0]}, globals "
+              f"{tabs.globals.shape[0]}")
+        if not same:
+            fail(f"the motion walk disagrees with its plain version "
+                 f"({sampler})")
+        if bounces != segs or tests % group or not tests:
+            fail("the motion walk's counts disagree with its segments")
+    # a still scene through the motion walk is the narrow walk's render
+    cover = presets.cover_scene()
+    ground = Material.checker((0.5, 0.5, 0.5), (0.5, 0.5, 0.5))
+    still = update_sphere(cover, 0, material=ground).to("cuda")
+    cam_c = presets.cover_camera(400, 225)
+    opts = TraceOptions(max_depth=50)
+    images = {}
+    for name, sc in (("narrow", cover.to("cuda")), ("motion", still)):
+        reset_launch_counts()
+        img, st = render_image(sc, cam_c, 400, 225, 16, 5, opts, None, True)
+        images[name] = (img, st["segments_exact"], launch_counts())
+    print(f"[motion still] cover 400x225 16 spp: launches "
+          f"{images['narrow'][2]} / {images['motion'][2]}")
+    if set(images["motion"][2]) != {"cluster_walk_motion"}:
+        fail(f"the still cover rendered through {images['motion'][2]}")
+    if not (torch.equal(images["narrow"][0], images["motion"][0])
+            and images["narrow"][1] == images["motion"][1]):
+        fail("the motion walk's still cover is not the narrow walk's")
+    renders = []
+    for _ in range(2):
+        reset_launch_counts()
+        img, st = render_image(scene, cam, w, h, 500, 11,
+                               TraceOptions(max_depth=50), None, True)
+        launches = launch_counts()
+        print(f"[motion render] {w}x{h} 500 spp d50: segments "
+              f"{st['segments_exact']}, launches {launches} [{smi}]")
+        if set(launches) != {"cluster_walk_motion"}:
+            fail(f"the bouncing spheres rendered through {launches}")
+        if not torch.isfinite(img).all():
+            fail("the bouncing spheres' render is not finite")
+        renders.append(img)
+    if not torch.equal(renders[0], renders[1]):
+        fail("two renders of the bouncing spheres of one key differ")
+
+
 def timed(phase, *args):
     """``phase(*args)``, with a line of the seconds it took."""
     t0 = time.perf_counter()
@@ -3020,6 +3117,7 @@ def main():
     timed(phase_adaptive_replans, smi)
     timed(phase_walk_ab, smi)
     timed(phase_wide_walk, smi)
+    timed(phase_motion_walk, smi)
     timed(phase_cross_kernel, smi)
     timed(phase_cover_flat, smi, golden)
     timed(phase_baseline_configs, smi)

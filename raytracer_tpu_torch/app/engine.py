@@ -54,7 +54,11 @@ from raytracer_tpu_torch.render.options import (
     TraceOptions,
     check_backend,
 )
-from raytracer_tpu_torch.scene.spheres import NO_SELECTED_OBJECT_ID, Scene
+from raytracer_tpu_torch.scene.spheres import (
+    NO_SELECTED_OBJECT_ID,
+    Scene,
+    is_motion,
+)
 from raytracer_tpu_torch.utils.resilience import (
     free_cached_memory,
     is_device_fault,
@@ -89,8 +93,15 @@ class Engine:
         ``enable_debugging``; it has ``exhaust_black`` and
         ``russian_roulette_depth`` next, which the port's engine does not
         take (its step uses ``TraceOptions``' defaults), so ``sampler``,
-        ``cluster_scan`` and the port's ``device`` are keyword-only."""
+        ``cluster_scan`` and the port's ``device`` are keyword-only. A
+        scene with a shutter raises ``NotImplementedError``: the
+        progressive step and the overlay are static-only."""
         check_backend(backend)
+        if is_motion(scene):
+            raise NotImplementedError(
+                "the engine's progressive step and debug overlay render "
+                "static scenes only; a scene with a shutter (moving "
+                "spheres, a checker) renders offline through render_image")
         self.device = resolve_device(device)
         self.scene = scene
         self.camera = camera

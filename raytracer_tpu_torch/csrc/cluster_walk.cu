@@ -136,6 +136,29 @@
 // iteration, one iteration a loop trip: a bounce of v visits makes
 // max(1, v) iterations there, and the wide walk counts that.
 //
+// The motion walk, built with -DRT_WALK_MOTION into a library of its own,
+// is the narrow walk's <false, s, false, words> (fixed spp, both
+// samplers) for scenes with a shutter: spheres that move linearly from
+// c0 at time 0 to c1 at time 1, and the checker material. Its tables
+// (render/tables.py `motion_tables`) hold a global or a member as two
+// float4, [c0 xyz, r^2, c1 - c0 xyz, 0], and a winner row of 17 floats,
+// the static row's 11, then c1 - c0 and the checker's odd colour; its
+// boxes bound each sphere's swept volume. So:
+//   - each camera ray draws its time t in [0, 1): draw 0 of counter
+//     kShutterCtr + its absolute sample index, apart from every counter
+//     and rotation the other draws use;
+//   - a global or member test forms the centre at t, c0 + t (c1 - c0),
+//     and k1 = |c|^2 - r^2 from it (moving_q); the winner's normal takes
+//     the centre at t too;
+//   - a checker winner scatters as diffuse, with its odd colour where
+//     sin(10x) sin(10y) sin(10z) < 0 at the hit point, else its even one
+//     (motion_winner);
+//   - it counts its member tests and completed bounces in registers, and
+//     adds them to the launch's counts once a warp, when the warp's lanes
+//     leave the walk.
+// A static sphere (c1 = c0) is tested as the narrow walk tests it, bit
+// for bit. The narrow and the wide walk's builds hold none of this code.
+//
 // The RNG, ray generation and the bounce tail live in common.cuh, shared
 // with the flat scan (flat_scan.cu). Numerics follow the plain PyTorch
 // version (raytracer_tpu_torch/render/cluster_walk.py) operation for
@@ -146,6 +169,10 @@
 #include <algorithm>
 
 #include "common.cuh"
+
+#if defined(RT_WALK_WIDE) && defined(RT_WALK_MOTION)
+#error "the motion walk is the narrow walk's: build it without RT_WALK_WIDE"
+#endif
 
 namespace {
 
@@ -216,7 +243,8 @@ struct Params {
   // (kItemRows, item_cap): r, g, b, sum of lum^2, walk iterations,
   // bounces (as int bits) of each item's sample; each lane's count of its
   // items done (item_cap, zero between launches); the launch's counts of
-  // the samples run as items and of all samples (null: not counted)
+  // the samples run as items and of all samples (null: not counted); the
+  // motion walk's counts of member tests and completed bounces
   const int* extent;
   float* items;
   int* lane_items;
@@ -272,6 +300,85 @@ __device__ unsigned long long g_counters[kNumCounters];
 #else
 #define RT_COUNT(c, v) ((void)0)
 #define RT_WARP_COUNT(c, pred) ((void)0)
+#endif
+
+#ifdef RT_WALK_MOTION
+// a sample's time is draw 0 of counter kShutterCtr + its absolute index:
+// past every sample's block of counters while they stay below 2^31, and
+// apart from the stratified rotations (0xFFFFFFF8 and up)
+constexpr uint32_t kShutterCtr = 0x80000000u;
+constexpr float kChecker = 0x1.8p+1f;  // 3: the checker's material code
+constexpr int kMotionRow = 8;     // floats of a global or member row
+constexpr int kMotionWinner = 17; // floats of a winner row
+
+__device__ __forceinline__ float shutter_time(uint32_t pix, uint32_t s_abs) {
+  return u01(pix, kShutterCtr + s_abs, 0);
+}
+
+// exact_q of the sphere row [c0 xyz, r^2, c1 - c0 xyz, 0] at time tm: the
+// centre c0 + tm (c1 - c0), and k1 = |c|^2 - r^2
+__device__ __forceinline__ float moving_q(const float* row, float tm,
+                                          float ox, float oy, float oz,
+                                          float dx, float dy, float dz,
+                                          float a, float o_dot_d,
+                                          float o_dot_o, float min_t_a) {
+  const float4 c0 = *reinterpret_cast<const float4*>(row);
+  const float4 mv = *reinterpret_cast<const float4*>(row + 4);
+  const float cx = c0.x + tm * mv.x, cy = c0.y + tm * mv.y,
+              cz = c0.z + tm * mv.z;
+  const float c[4] = {cx, cy, cz, dot3(cx, cy, cz, cx, cy, cz) - c0.w};
+  return exact_q(c, ox, oy, oz, dx, dy, dz, a, o_dot_d, o_dot_o, min_t_a);
+}
+
+// The tail's winner from the motion walk's row w at time tm: wc the
+// centre c0 + tm (c1 - c0), wm [1/r, mat, albedo rgb, fuzz, ior]; a
+// checker hit scatters as diffuse (mat 0) with the colour at the hit
+// point the tail forms, o + (bq / |d|^2) d.
+__device__ __forceinline__ void motion_winner(const float* w, float tm,
+                                              float bq, float inv_a,
+                                              const Path& path, float* wc,
+                                              float* wm) {
+  wc[0] = w[0] + tm * w[11];
+  wc[1] = w[1] + tm * w[12];
+  wc[2] = w[2] + tm * w[13];
+  for (int j = 0; j < 7; ++j) wm[j] = w[3 + j];
+  const float best_t = bq * inv_a;
+  if (w[4] > kChecker - 0.5f && w[4] < kChecker + 0.5f && best_t < kQCut) {
+    const float hx = path.ox + best_t * path.dx;
+    const float hy = path.oy + best_t * path.dy;
+    const float hz = path.oz + best_t * path.dz;
+    wm[1] = 0.0f;
+    if (sinf(10.0f * hx) * sinf(10.0f * hy) * sinf(10.0f * hz) < 0.0f) {
+      wm[2] = w[14];
+      wm[3] = w[15];
+      wm[4] = w[16];
+    }
+  }
+}
+
+// A 32-bit count summed over the warp's active lanes, exactly, as two
+// 16-bit halves.
+__device__ __forceinline__ unsigned long long warp_sum(unsigned act,
+                                                       uint32_t v) {
+  return (unsigned long long)__reduce_add_sync(act, v & 0xFFFFu) +
+         ((unsigned long long)__reduce_add_sync(act, v >> 16) << 16);
+}
+
+// The lanes leaving the walk add their member tests and completed bounces
+// to the launch's counts (the motion walk's, where the adaptive walk has
+// its sample counts): one atomic each for the lanes that leave together.
+__device__ __forceinline__ void add_motion_counts(const Params& p,
+                                                  uint32_t tests,
+                                                  uint32_t bounces) {
+  unsigned long long* counts = p.samples;
+  const unsigned act = __activemask();
+  const unsigned long long t = warp_sum(act, tests);
+  const unsigned long long b = warp_sum(act, bounces);
+  if ((int)(threadIdx.x & 31) == __ffs(act) - 1) {
+    atomicAdd(&counts[0], t);
+    atomicAdd(&counts[1], b);
+  }
+}
 #endif
 
 // the low bits of a packed key that hold the cluster index: 7, or 9 in
@@ -897,6 +1004,11 @@ __device__ __forceinline__ void walk(const Params& p, float* smem) {
                        (uint32_t)(p.path.sample_offset + path.s), dps, px,
                        py, pix, path);
   path.cr = path.cg = path.cb = 1.0f;
+#ifdef RT_WALK_MOTION
+  // the sample's time; the member tests and completed bounces to count
+  float tm = shutter_time(pix, (uint32_t)(p.path.sample_offset + path.s));
+  uint32_t n_tests = 0u, n_bounces = 0u;
+#endif
   float bq = kFillQ, kl = kNegBig;  // best q, visited cursor (packed key)
   int bs = 0;                       // winner slot
   // boxes the bounce's ray hits, unvisited, in registers; the wide
@@ -1042,8 +1154,13 @@ __device__ __forceinline__ void walk(const Params& p, float* smem) {
           float g_best = kFillQ;
           int g_slot = 0;
           for (int g = 0; g < p.n_global; ++g) {
+#ifdef RT_WALK_MOTION
+            float q = moving_q(s_glob + kMotionRow * g, tm, ox, oy, oz, dx,
+                               dy, dz, a, o_dot_d, o_dot_o, min_t_a);
+#else
             float q = exact_q(s_glob + 4 * g, ox, oy, oz, dx, dy, dz, a,
                               o_dot_d, o_dot_o, min_t_a);
+#endif
             if (q < g_best) {
               g_best = q;
               g_slot = g;
@@ -1101,11 +1218,20 @@ __device__ __forceinline__ void walk(const Params& p, float* smem) {
           const int cidx = __float_as_int(m0) & kKeyMask<kWords>;
           const float4* mb =
               reinterpret_cast<const float4*>(s_mem + 4 * cidx * p.mstride);
+#ifdef RT_WALK_MOTION
+          n_tests += (uint32_t)p.group;
+#endif
           for (int m = 0; m < p.group; ++m) {
+#ifdef RT_WALK_MOTION
+            float q = moving_q(reinterpret_cast<const float*>(mb + 2 * m),
+                               tm, ox, oy, oz, dx, dy, dz, a, o_dot_d,
+                               o_dot_o, min_t_a);
+#else
             const float4 c4 = mb[m];
             const float c[4] = {c4.x, c4.y, c4.z, c4.w};
             float q = exact_q(c, ox, oy, oz, dx, dy, dz, a, o_dot_d, o_dot_o,
                               min_t_a);
+#endif
             if (q < bq) {
               bq = q;
               bs = p.n_global + cidx * p.group + m;
@@ -1118,6 +1244,9 @@ __device__ __forceinline__ void walk(const Params& p, float* smem) {
       } while (!bdone);
     }
     ++segs;
+#ifdef RT_WALK_MOTION
+    ++n_bounces;
+#endif
 #ifdef RT_WALK_COUNTERS
     {
       const unsigned act_ = __activemask();
@@ -1132,10 +1261,20 @@ __device__ __forceinline__ void walk(const Params& p, float* smem) {
     const uint32_t ctr = (uint32_t)(p.path.sample_offset + path.s) * dps +
                          4u + (uint32_t)path.i * kDrawsPerBounce;
     const float inv_a = 1.0f / a;
+#ifdef RT_WALK_MOTION
+    float wc[3], wm[7];
+    motion_winner(s_win + kMotionWinner * bs, tm, bq, inv_a, path, wc, wm);
+    const int next = bounce_tail<kAdaptive, kStratified, kDebug>(
+        p.path, s_cam, wc, wm, bq, inv_a, pix, dps, ctr, px, py, limit,
+        0.0f, p.dbg, path, sums);
+    if (next == kNextSample)
+      tm = shutter_time(pix, (uint32_t)(p.path.sample_offset + path.s));
+#else
     const float* w = s_win + 11 * bs;
     const int next = bounce_tail<kAdaptive, kStratified, kDebug>(
         p.path, s_cam, w, w + 3, bq, inv_a, pix, dps, ctr, px, py, limit,
         kDebug ? w[10] : 0.0f, p.dbg, path, sums);
+#endif
     bq = kFillQ;
     bs = 0;
     kl = kNegBig;
@@ -1156,10 +1295,16 @@ __device__ __forceinline__ void walk(const Params& p, float* smem) {
                          (uint32_t)(p.path.sample_offset + path.s), dps, px,
                          py, pix, path);
     path.cr = path.cg = path.cb = 1.0f;
+#ifdef RT_WALK_MOTION
+    tm = shutter_time(pix, (uint32_t)(p.path.sample_offset + path.s));
+#endif
     sums = {0.0f, 0.0f, 0.0f, 0.0f};
     cost = 0.0f;
     segs = 0;
   }
+#ifdef RT_WALK_MOTION
+  add_motion_counts(p, n_tests, n_bounces);
+#endif
 #ifdef RT_WALK_COUNTERS
   for (int c = 0; c < kNumCounters; ++c) {
     if (c == kListPeakMax)
@@ -1345,6 +1490,13 @@ extern "C" int cluster_walk_launch(
 #endif
   const size_t smem =
       need + word * (size_t)std::max(p.list_cap - p.n_words, 0);
+#elif defined(RT_WALK_MOTION)
+  // the motion walk: fixed spp without the overlay, its counts never null
+  if (k > 32 * kMaxWords || adaptive || debug || samples == nullptr)
+    return (int)cudaErrorInvalidValue;
+  p.n_grand = p.n_words = 0;
+  p.n_l3 = p.n_l4 = p.off_top = p.list_cap = 0;
+  const size_t smem = sizeof(float) * (size_t)n_floats;
 #else
   if (k > 32 * kMaxWords) return (int)cudaErrorInvalidValue;
   p.n_grand = p.n_words = 0;
@@ -1358,6 +1510,10 @@ extern "C" int cluster_walk_launch(
   const int blocks = (int)std::min<long long>(
       (work + kWalkThreads - 1) / kWalkThreads, 1 << 20);
   cudaStream_t st = (cudaStream_t)stream;
+#ifdef RT_WALK_MOTION
+  return (int)(stratified ? launch<false, true, false>(p, blocks, smem, st)
+                          : launch<false, false, false>(p, blocks, smem, st));
+#else
   if (debug) {
     if (adaptive) return (int)cudaErrorInvalidValue;
     return (int)(stratified ? launch<false, true, true>(p, blocks, smem, st)
@@ -1372,6 +1528,7 @@ extern "C" int cluster_walk_launch(
   }
   return (int)(stratified ? launch<false, true, false>(p, blocks, smem, st)
                           : launch<false, false, false>(p, blocks, smem, st));
+#endif
 }
 
 // The version of cluster_walk_launch's argument list, raised whenever it

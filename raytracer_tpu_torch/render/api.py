@@ -25,7 +25,7 @@ from raytracer_tpu_torch.render.options import (
 )
 from raytracer_tpu_torch.render.rng import fold_in, key_data
 from raytracer_tpu_torch.render.tracer import render_image_jnp
-from raytracer_tpu_torch.scene.spheres import Scene
+from raytracer_tpu_torch.scene.spheres import Scene, is_motion
 from raytracer_tpu_torch.utils.profiling import span, wait
 from raytracer_tpu_torch.utils.resilience import retry_on_device_fault
 
@@ -188,6 +188,9 @@ def render_image(scene: Scene, camera, width: int, height: int, spp: int,
     dcam, key = to_derived(camera), key_data(key)
 
     jnp = resolve_backend(opts.backend) == "jnp"
+    if jnp and is_motion(scene):
+        raise ValueError("the jnp backend renders static scenes only; a "
+                         "scene with a shutter takes the motion walk")
 
     @retry_on_device_fault
     def run():

@@ -57,6 +57,19 @@ in each thread's shared memory (a bounce whose list overflows sweeps the
 boxes instead), and reads the winner rows from global memory. It counts
 its lanes' walk iterations, completed bounces and sweeps
 (``WIDE_COUNTS`` in the span registry).
+
+A scene with a shutter (moving spheres, a checker: a
+:class:`~raytracer_tpu_torch.scene.spheres.MotionScene`) takes the
+motion walk: the same source built with ``RT_WALK_MOTION`` into a third
+library, the narrow walk's fixed-spp instantiations of both samplers
+alone, on the motion walk's tables
+(``tables.motion_tables``). Each camera ray draws its time t uniformly in
+[0, 1) (:func:`shutter_time`); every global and member test, and the
+winner's normal, take the sphere's centre at t, c0 + t·(c1 − c0), and its
+k1 = |c|² − r²; a checker winner scatters as diffuse with the albedo of
+its colour at the hit point (:func:`motion_winner`). It counts its member
+tests and completed bounces (``MOTION_COUNTS``). A static scene's tables
+and kernels are as they were.
 """
 
 from __future__ import annotations
@@ -76,7 +89,12 @@ from raytracer_tpu_torch.render.options import (
     TraceOptions,
 )
 from raytracer_tpu_torch.render.tables import (
+    MAX_CLUSTERS,
     MAX_WIDE_CLUSTERS,
+    MOTION_SPHERE_FLOATS,
+    MOTION_WINNER_FLOATS,
+    SPHERE_FLOATS,
+    WINNER_FLOATS,
     WalkTables,
     debug_uniforms,
     is_wide,
@@ -84,6 +102,7 @@ from raytracer_tpu_torch.render.tables import (
     walk_fits,
     walk_layout,
 )
+from raytracer_tpu_torch.scene.materials import CHECKER
 from raytracer_tpu_torch.utils import cuda_build, profiling
 
 LANES_TPU = 128  # the RNG's pixel id keeps the TPU's padded row width
@@ -111,6 +130,16 @@ WIDE_COUNTS = SAMPLE_COUNTS + ("walk_iterations", "walk_segments",
                                "walk_sweeps")
 #: the define that builds ``csrc/cluster_walk.cu`` as the wide walk
 WIDE_DEFINE = "RT_WALK_WIDE"
+#: the define that builds it as the motion walk
+MOTION_DEFINE = "RT_WALK_MOTION"
+#: the motion walk's counts: sphere tests of cluster members (a visit
+#: tests its cluster's ``group`` slots) and completed bounces
+MOTION_COUNTS = ("motion_member_tests", "motion_segments")
+#: a sample's time is draw 0 of counter SHUTTER_CTR + its absolute index:
+#: a counter past every sample's block [s·dps, (s + 1)·dps) while the
+#: samples' counters stay below 2^31, and apart from the stratified
+#: rotations' 0xFFFFFFF8 and up
+SHUTTER_CTR = 0x80000000
 NEG_BIG = -3e38
 #: the overlay's marker: a hit whose squared distance to the cursor is
 #: below this; the outline: the selected sphere where d·n > GRAZING
@@ -147,10 +176,12 @@ def variant_suffix(opts: TraceOptions) -> str:
             + ("_debug" if opts.enable_debug else ""))
 
 
-def variant_name(opts: TraceOptions, wide: bool = False) -> str:
+def variant_name(opts: TraceOptions, wide: bool = False,
+                 motion: bool = False) -> str:
     """The kernel instantiation that serves ``opts`` (in the wide walk
-    when ``wide``)."""
-    return "cluster_walk" + ("_wide" if wide else "") + variant_suffix(opts)
+    when ``wide``, the motion walk when ``motion``)."""
+    return ("cluster_walk" + ("_wide" if wide else "")
+            + ("_motion" if motion else "") + variant_suffix(opts))
 
 
 def _check(tables: WalkTables, pixel_map: torch.Tensor, width: int,
@@ -159,16 +190,27 @@ def _check(tables: WalkTables, pixel_map: torch.Tensor, width: int,
                           "parents", "packed"), pixel_map.device)
     k, group = tables.members.shape[:2]
     n_global = tables.globals.shape[0]
-    lay = walk_layout(n_global, k, group)
-    if (tables.camera.shape != (19,) or tables.globals.shape[1:] != (4,)
+    motion = tables.motion
+    lay = walk_layout(n_global, k, group, motion)
+    row = MOTION_SPHERE_FLOATS if motion else SPHERE_FLOATS
+    win = MOTION_WINNER_FLOATS if motion else WINNER_FLOATS
+    if (tables.camera.shape != (19,) or tables.globals.shape[1:] != (row,)
             or tables.bounds.shape != (k, 6)
-            or tables.members.shape[2:] != (4,)
-            or tables.winner.shape != (n_global + k * group, 11)
+            or tables.members.shape[2:] != (row,)
+            or tables.winner.shape != (n_global + k * group, win)
             or tables.parents.shape != (
                 lay.n_parents + lay.n_grand + lay.n_top, 6)
             or tables.packed.shape != (lay.n_floats,)):
         raise ValueError("inconsistent walk table shapes")
-    if not walk_fits(n_global, k, group):
+    if motion:
+        if k > MAX_CLUSTERS:
+            raise ValueError(f"the motion walk takes 0 to {MAX_CLUSTERS} "
+                             f"clusters, got {k}")
+        if opts.adaptive_tolerance > 0.0 or opts.enable_debug:
+            raise ValueError("the motion walk renders fixed spp without "
+                             "the debug overlay: it has no adaptive or "
+                             "debug instantiation")
+    elif not walk_fits(n_global, k, group):
         raise ValueError(
             f"a partition of {k} clusters of {group} slots beside "
             f"{n_global} globals: the walk takes 1 to {MAX_WIDE_CLUSTERS} "
@@ -258,16 +300,18 @@ def reset_launch_counts():
     profiling.reset_counters()
 
 
-def library(wide: bool = False) -> tuple:
+def library(wide: bool = False, motion: bool = False) -> tuple:
     """``(name, defines)`` of the narrow walk's library, or with ``wide``
-    the wide walk's, as ``cuda_build.load`` takes them."""
-    return ("cluster_walk", (WIDE_DEFINE,) if wide else ())
+    the wide walk's, with ``motion`` the motion walk's, as
+    ``cuda_build.load`` takes them."""
+    return ("cluster_walk", (WIDE_DEFINE,) if wide
+            else (MOTION_DEFINE,) if motion else ())
 
 
-def _lib(wide: bool = False):
-    """The narrow walk's library, or with ``wide`` the wide walk's; each
-    is built at its first use."""
-    return bind(cuda_build.load(*library(wide)))
+def _lib(wide: bool = False, motion: bool = False):
+    """The narrow walk's library, or with ``wide`` the wide walk's, with
+    ``motion`` the motion walk's; each is built at its first use."""
+    return bind(cuda_build.load(*library(wide, motion)))
 
 
 def bind(lib: ctypes.CDLL):
@@ -288,11 +332,12 @@ def bind(lib: ctypes.CDLL):
 
 def _launch(tables, pixel_map, seed, sample_offset, spp, width, height,
             opts, budget, uniforms, extent):
-    wide = is_wide(tables.members.shape[0])
-    out, segs = call(_lib(wide), tables, pixel_map, seed, sample_offset,
-                     spp, width, height, opts, budget, uniforms, extent)
+    wide, motion = is_wide(tables.members.shape[0]), tables.motion
+    out, segs = call(_lib(wide, motion), tables, pixel_map, seed,
+                     sample_offset, spp, width, height, opts, budget,
+                     uniforms, extent)
     cluster_walk.launches += 1
-    name = variant_name(opts, wide)
+    name = variant_name(opts, wide, motion)
     by_variant = cluster_walk.launches_by_variant
     by_variant[name] = by_variant.get(name, 0) + 1
     return out, segs
@@ -301,8 +346,8 @@ def _launch(tables, pixel_map, seed, sample_offset, spp, width, height,
 def call(fn, tables, pixel_map, seed, sample_offset, spp, width, height,
          opts, budget, uniforms, extent=None):
     """``(out, segs)`` of one launch of ``fn`` (``cluster_walk_launch``
-    bound by :func:`bind`, of the narrow or the wide walk's library as
-    the tables' cluster count asks) on the current stream, uncounted;
+    bound by :func:`bind`, of the narrow, the wide or the motion walk's
+    library as the tables ask) on the current stream, uncounted;
     raises on the launch's CUDA error. ``extent``: the budget's live
     extent (:func:`live_extent`), held by the caller until the launch is
     enqueued; given exactly where ``budget`` is."""
@@ -312,7 +357,7 @@ def call(fn, tables, pixel_map, seed, sample_offset, spp, width, height,
     n = pixel_map.shape[0]
     k, group = tables.members.shape[:2]
     n_global = tables.globals.shape[0]
-    lay = walk_layout(n_global, k, group)
+    lay = walk_layout(n_global, k, group, tables.motion)
     dev = pixel_map.device
     adaptive = opts.adaptive_tolerance > 0.0
     # the kernel writes every element, zeros for a lane without budget
@@ -329,12 +374,16 @@ def call(fn, tables, pixel_map, seed, sample_offset, spp, width, height,
         # the extent until the launch is enqueued: freed before, its block
         # could go to the next allocation on the stream (the counts'
         # zeros) and be overwritten before the kernel reads it. The wide
-        # walk counts on every launch, into WIDE_COUNTS.
+        # and the motion walk count on every launch, into WIDE_COUNTS and
+        # MOTION_COUNTS.
         ptrs, shape = (None,) * 4, (ITEM_ROWS, ITEM_CAP)
         wide = is_wide(k)
         if adaptive or wide:
             counts = profiling.device_counts(
                 dev, WIDE_COUNTS if wide else SAMPLE_COUNTS).data_ptr()
+            ptrs = (None, None, None, counts)
+        elif tables.motion:
+            counts = profiling.device_counts(dev, MOTION_COUNTS).data_ptr()
             ptrs = (None, None, None, counts)
         if adaptive:
             ptrs = (None if extent is None else extent.data_ptr(),
@@ -446,6 +495,50 @@ def discriminant(cx, cy, cz, k1, ox, oy, oz, dx, dy, dz, a, o_dot_d,
     nb = cdd - o_dot_d
     cc = o_dot_o - 2.0 * cdo + k1
     return nb, nb * nb - a * cc
+
+
+def shutter_time(pix, s_abs) -> torch.Tensor:
+    """The time in [0, 1) of absolute sample ``s_abs`` of the pixel with
+    hash ``pix``: draw 0 of counter ``SHUTTER_CTR + s_abs``."""
+    return rng.u01(pix, (SHUTTER_CTR + s_abs) & rng.M32, 0)
+
+
+def moving_q(rows, tm, ox, oy, oz, dx, dy, dz, a, o_dot_d, o_dot_o,
+             min_t_a):
+    """:func:`_exact_q` of the motion walk's sphere rows ``rows`` ([c0
+    xyz, r², c1 - c0 xyz, 0] on the last axis) at the time ``tm``: the
+    centre c0 + tm·(c1 - c0) and k1 = |c|² - r², in the kernel's order
+    (``csrc/cluster_walk.cu`` ``moving_q``)."""
+    cx = rows[..., 0] + tm * rows[..., 4]
+    cy = rows[..., 1] + tm * rows[..., 5]
+    cz = rows[..., 2] + tm * rows[..., 6]
+    k1 = rng.dot3(cx, cy, cz, cx, cy, cz) - rows[..., 3]
+    return _exact_q(cx, cy, cz, k1, ox, oy, oz, dx, dy, dz, a, o_dot_d,
+                    o_dot_o, min_t_a)
+
+
+def motion_winner(w, tm, bq, inv_a, st) -> list:
+    """The tail's winner columns (as :func:`bounce_tail` takes them) from
+    the motion walk's winner rows ``w`` (n, 17) at the lanes' times: the
+    centre c0 + tm·(c1 - c0), and a checker as diffuse, its albedo the
+    odd colour where sin(10x)·sin(10y)·sin(10z) < 0 at the hit point
+    (the tail's), else the even one (``csrc/cluster_walk.cu``
+    ``motion_winner``)."""
+    best_t = bq * inv_a
+    hpx = st.ox + best_t * st.dx
+    hpy = st.oy + best_t * st.dy
+    hpz = st.oz + best_t * st.dz
+    odd = (torch.sin(10.0 * hpx) * torch.sin(10.0 * hpy)
+           * torch.sin(10.0 * hpz)) < 0.0
+    mat = w[:, 4]
+    checker = (mat > CHECKER - 0.5) & (mat < CHECKER + 0.5)
+    pick = checker & odd
+    return [w[:, 0] + tm * w[:, 11], w[:, 1] + tm * w[:, 12],
+            w[:, 2] + tm * w[:, 13], w[:, 3],
+            torch.where(checker, 0.0, mat),
+            torch.where(pick, w[:, 14], w[:, 5]),
+            torch.where(pick, w[:, 15], w[:, 6]),
+            torch.where(pick, w[:, 16], w[:, 7]), w[:, 8], w[:, 9]]
 
 
 def root_of(ds):
@@ -786,6 +879,9 @@ def select_two(keys: torch.Tensor, kl: torch.Tensor):
     """(m0, m1): each lane's two smallest keys beyond its cursor ``kl``,
     INFINITY where there are none."""
     inf = float("inf")
+    if keys.shape[1] == 0:
+        none = torch.full_like(kl, inf)
+        return none, none.clone()
     m0 = torch.where(keys > _col(kl), keys, inf).min(dim=1).values
     m1 = torch.where(keys > _col(m0), keys, inf).min(dim=1).values
     return m0, m1
@@ -799,7 +895,9 @@ def cluster_walk_plain(tables: WalkTables, pixel_map: torch.Tensor,
     """The cluster walk as masked tensor code: every lane runs the same
     regeneration loop, one walk iteration per pass, ``while`` any lane is
     alive. The arithmetic and its order are the kernel's, the visit keys
-    packed as the narrow or the wide walk packs them."""
+    packed as the narrow or the wide walk packs them; on the motion
+    walk's tables, the motion walk's (each lane's time from its sample,
+    :func:`shutter_time`)."""
     dev = pixel_map.device
     f32 = torch.float32
     n = pixel_map.shape[0]
@@ -807,7 +905,9 @@ def cluster_walk_plain(tables: WalkTables, pixel_map: torch.Tensor,
     k, group = tables.members.shape[:2]
     bits = key_bits(k)
     floor = fill_floor(bits)
-    glob = [list(g.unbind(0)) for g in tables.globals]
+    motion = tables.motion
+    glob = (list(tables.globals) if motion
+            else [list(g.unbind(0)) for g in tables.globals])
     lanes, st = lane_setup(tables.camera, pixel_map, seed, sample_offset,
                            spp, width, height, opts, budget, debug)
     bq = torch.full((n,), FILLQ, dtype=f32, device=dev)
@@ -824,13 +924,16 @@ def cluster_walk_plain(tables: WalkTables, pixel_map: torch.Tensor,
         o_dot_o = rng.dot3(ox, oy, oz, ox, oy, oz)
         min_t_a = MIN_T * a
         ray = (ox, oy, oz, dx, dy, dz, a, o_dot_d, o_dot_o, min_t_a)
+        if motion:
+            tm = shutter_time(lanes.pix, lanes.sample_offset + st.s)
 
         # a fresh bounce first tests the global spheres exactly
         fresh = kl < -1e38
         g_best = torch.full((n,), FILLQ, dtype=f32, device=dev)
         g_slot = torch.zeros(n, dtype=torch.int64, device=dev)
         for g in range(n_global):
-            qg = _exact_q(*glob[g], *ray)
+            qg = (moving_q(glob[g], tm, *ray) if motion
+                  else _exact_q(*glob[g], *ray))
             upd = qg < g_best
             g_best = torch.where(upd, qg, g_best)
             g_slot = torch.where(upd, g, g_slot)
@@ -842,14 +945,18 @@ def cluster_walk_plain(tables: WalkTables, pixel_map: torch.Tensor,
 
         imm_done = (_key_floor(m0, bits) >= bq) | (m0 >= floor)
         u_live = alive & ~imm_done
-        cidx = (m0.view(torch.int32) & ((1 << bits) - 1)).to(torch.int64)
-        mem = tables.members[cidx]
-        qm = _exact_q(mem[..., 0], mem[..., 1], mem[..., 2], mem[..., 3],
-                      *(_col(t) for t in ray))
-        qmin, mfirst = _first_min(qm)
-        upd = u_live & (qmin < bq)
-        bq = torch.where(upd, qmin, bq)
-        bs = torch.where(upd, n_global + cidx * group + mfirst, bs)
+        if k:  # a motion partition may hold only globals
+            cidx = (m0.view(torch.int32) & ((1 << bits) - 1)).to(torch.int64)
+            mem = tables.members[cidx]
+            if motion:
+                qm = moving_q(mem, _col(tm), *(_col(t) for t in ray))
+            else:
+                qm = _exact_q(mem[..., 0], mem[..., 1], mem[..., 2],
+                              mem[..., 3], *(_col(t) for t in ray))
+            qmin, mfirst = _first_min(qm)
+            upd = u_live & (qmin < bq)
+            bq = torch.where(upd, qmin, bq)
+            bs = torch.where(upd, n_global + cidx * group + mfirst, bs)
         kl = torch.where(u_live, m0, kl)
         new_done = u_live & ((_key_floor(m1, bits) >= bq) | (m1 >= floor))
         bdone = imm_done | new_done
@@ -858,8 +965,9 @@ def cluster_walk_plain(tables: WalkTables, pixel_map: torch.Tensor,
 
         # the shared tail, for lanes whose bounce completed
         w = tables.winner[bs]
-        bounce_tail(st, lanes, [w[:, j] for j in range(10)], bq, inv_a, ab,
-                    w[:, 10])
+        win = (motion_winner(w, tm, bq, inv_a, st) if motion
+               else [w[:, j] for j in range(10)])
+        bounce_tail(st, lanes, win, bq, inv_a, ab, w[:, 10])
         bq = torch.where(ab, FILLQ, bq)
         bs = torch.where(ab, 0, bs)
         kl = torch.where(ab, NEG_BIG, kl)

@@ -14,7 +14,10 @@ scene the JAX package would see traced (the progressive step) turns the
 scene analysis off, and only its hints choose. A debug render (K3) never
 splits: the flat scan's outline reads the winner's slot as the scene
 index, so the slots keep the scene's order; it also renders fixed spp
-(the overlay has no adaptive instantiation).
+(the overlay has no adaptive instantiation). A scene with a shutter
+(moving spheres, a checker) always takes the motion walk, on a kd
+partition of its own (``tables.motion_partition``); it has no adaptive,
+debug, wide or flat form, and no hint stands for it.
 
 The spp run is cut by the shared schedule. With ``sort_pixels`` and more
 than one chunk, the first chunk renders in the identity lane order and
@@ -82,11 +85,12 @@ from raytracer_tpu_torch.render.tables import (
     cluster_partition,
     cluster_reorder,
     flat_tables,
+    motion_partition,
     upload,
     walk_tables,
 )
 from raytracer_tpu_torch.scene.accel import ClusteredScene
-from raytracer_tpu_torch.scene.spheres import Scene
+from raytracer_tpu_torch.scene.spheres import Scene, is_motion
 from raytracer_tpu_torch.utils import cuda_build
 from raytracer_tpu_torch.utils.profiling import span, wait
 
@@ -185,7 +189,8 @@ class KernelChoice:
         """``(name, defines)`` of the chosen kernel's library, as
         ``cuda_build.load`` takes them."""
         if self.kernel == "cluster_walk":
-            return walk_library(is_wide(self.tables.members.shape[0]))
+            return walk_library(is_wide(self.tables.members.shape[0]),
+                                self.tables.motion)
         return FLAT_LIBRARY
 
 
@@ -194,8 +199,8 @@ def permute_scene(scene: Scene, perm) -> Scene:
     with span("tables"):
         idx = upload(torch.as_tensor(np.asarray(perm, np.int64)),
                      scene.center.device)
-        return Scene(**{f.name: getattr(scene, f.name)[idx]
-                        for f in dataclasses.fields(scene)})
+        return type(scene)(**{f.name: getattr(scene, f.name)[idx]
+                              for f in dataclasses.fields(scene)})
 
 
 def choose_kernel(scene: Scene, dcam: DerivedCamera, opts: TraceOptions,
@@ -207,7 +212,22 @@ def choose_kernel(scene: Scene, dcam: DerivedCamera, opts: TraceOptions,
     is gathered into its slot layout (K1). ``static_split`` = (perm,
     g_full) from a hint (K2s). With ``analyse`` off the scene is not read
     on the host: no partition and no split of its own. With
-    ``enable_debug`` no split at all."""
+    ``enable_debug`` no split at all. A scene with a shutter takes the
+    motion walk on a partition of its own, and raises ``ValueError``
+    where that cannot render it."""
+    if is_motion(scene):
+        if static_cluster is not None or static_split is not None or (
+                not analyse):
+            raise ValueError(
+                "a scene with a shutter renders through the motion walk on "
+                "a partition of its own: no static hint stands for it")
+        if opts.adaptive_tolerance > 0.0 or opts.enable_debug:
+            raise ValueError(
+                "a scene with a shutter renders fixed spp without the debug "
+                "overlay: the motion walk has no adaptive or debug "
+                "instantiation")
+        return KernelChoice("cluster_walk", walk_tables(
+            motion_partition(scene, opts), dcam, device))
     if static_cluster is not None:
         boxes, uuid, n_global = static_cluster
         uuid = upload(torch.as_tensor(uuid), scene.center.device)

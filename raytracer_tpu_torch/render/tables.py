@@ -17,8 +17,14 @@ in the visit key (:func:`key_bits`), and only the hit-test tables in
 shared memory, the winner rows and the levels past the grandparents read
 from global memory (:func:`wide_smem_bytes`); its threads' pending lists
 take the rest of a block's shared memory (:func:`wide_list_capacity`).
-Tables are built where the scene lives and then uploaded
-(:func:`upload`).
+A :class:`~raytracer_tpu_torch.scene.spheres.MotionScene` takes the
+motion walk's tables (:func:`motion_tables`): a global or member row of
+two float4, [c0 xyz, r², c1 − c0 xyz, 0], from which the walk forms the
+centre at a ray's time and its k1, a winner row of 17 floats, the
+static row's 11 then c1 − c0 and the checker's odd colour, and the kd
+partition's boxes bounding each sphere's swept volume
+(:func:`motion_partition`). Tables are built where the scene lives and
+then uploaded (:func:`upload`).
 """
 
 from __future__ import annotations
@@ -36,7 +42,7 @@ from raytracer_tpu_torch.render.options import (
     TraceOptions,
 )
 from raytracer_tpu_torch.scene.accel import ClusteredScene, build_grid_clustered
-from raytracer_tpu_torch.scene.spheres import Scene
+from raytracer_tpu_torch.scene.spheres import MotionScene, Scene, is_motion
 from raytracer_tpu_torch.utils.profiling import span
 
 #: the packed visit key carries the cluster index in 7 mantissa bits
@@ -62,6 +68,12 @@ WIDE_EXTRA_BYTES = 48
 BOX_FLOATS = 8
 #: floats of the camera's 19 uniforms in the packed tables
 CAMERA_FLOATS = 20
+#: floats of a winner row: [c xyz, 1/r, mat, albedo rgb, fuzz, ior,
+#: uuid], and in the motion walk then c1 - c0 and the odd colour
+WINNER_FLOATS, MOTION_WINNER_FLOATS = 11, 17
+#: floats of a global or member row: [c xyz, k1], and in the motion walk
+#: [c0 xyz, r², c1 - c0 xyz, 0]
+SPHERE_FLOATS, MOTION_SPHERE_FLOATS = 4, 8
 
 
 def _sum3(v: torch.Tensor) -> torch.Tensor:
@@ -82,6 +94,23 @@ def slot_encoding(scene: Scene):
         act, _sum3(c_act * c_act) - scene.radius * scene.radius, 1.0
     )
     return act, c_act, k1
+
+
+def motion_encoding(scene: MotionScene):
+    """(act, c0, c1 - c0, r²) of the motion walk's rows: a sphere is
+    live as :func:`slot_encoding` has it, at either end of its motion;
+    an inactive one is encoded unhittable, as there: c0 and its motion
+    0 and r² = -1, so that k1 = |c|² - r² is +1 at every time. A live
+    sphere's k1 at time 0 is :func:`slot_encoding`'s, in the same
+    order."""
+    r = scene.radius
+    c0, c1 = scene.center, scene.center1
+    reach = torch.minimum(torch.sqrt(_sum3(c0 * c0)),
+                          torch.sqrt(_sum3(c1 * c1)))
+    act = (scene.active > 0.0) & (reach - torch.abs(r) <= MAX_T)
+    return (act, torch.where(act[:, None], c0, 0.0),
+            torch.where(act[:, None], c1 - c0, 0.0),
+            torch.where(act, r * r, -1.0))
 
 
 def upload(t: torch.Tensor, device) -> torch.Tensor:
@@ -191,6 +220,31 @@ def cluster_partition(scene: Scene, opts: TraceOptions):
     return part
 
 
+def motion_partition(scene: MotionScene, opts: TraceOptions) -> ClusteredScene:
+    """The kd partition of a :class:`MotionScene` for the motion walk:
+    its boxes bound each sphere's swept volume, and a scene of a few
+    spheres gets one of its own (one cluster, or only globals). Raises
+    ``ValueError`` where the motion walk cannot take it: past
+    ``MAX_CLUSTERS`` clusters (the wide walk has no motion build), or
+    tables past a block's shared memory. The span ``partition`` ⊃
+    ``swept``; its read of the scene, the waits ``scene_read``."""
+    with span("partition"):
+        part = build_grid_clustered(scene, group=opts.cluster_group,
+                                    partition=opts.cluster_partition)
+    k = part.boxes.shape[0]
+    if k > MAX_CLUSTERS:
+        raise ValueError(
+            f"a scene with a shutter renders through the motion walk, "
+            f"which takes up to {MAX_CLUSTERS} clusters; its partition has "
+            f"{k} (the wide walk and the flat scan are static-only)")
+    need = 4 * walk_layout(part.n_global, k, part.group, True).n_floats
+    if need > MAX_WALK_SMEM_BYTES:
+        raise ValueError(
+            f"the motion walk's tables take {need} bytes, past the "
+            f"{MAX_WALK_SMEM_BYTES} of a block's shared memory")
+    return part
+
+
 def cluster_reorder(scene: Scene, uuid: torch.Tensor) -> Scene:
     """``scene`` gathered into a prebuilt partition's slot layout (``uuid``
     maps slot → original index, -1 for padding; on the scene's device):
@@ -207,7 +261,7 @@ def cluster_reorder(scene: Scene, uuid: torch.Tensor) -> Scene:
         mask = live[:, None] if g.ndim == 2 else live
         return torch.where(mask, g, torch.full_like(g, fill))
 
-    return Scene(
+    fields = dict(
         center=take(scene.center, 0.0),
         radius=take(scene.radius, 1.0),
         material_type=take(scene.material_type, 0),
@@ -216,6 +270,10 @@ def cluster_reorder(scene: Scene, uuid: torch.Tensor) -> Scene:
         refraction_index=take(scene.refraction_index, 1.0),
         active=live.to(torch.float32),
     )
+    if is_motion(scene):
+        return MotionScene(**fields, center1=take(scene.center1, 0.0),
+                           albedo_odd=take(scene.albedo_odd, 0.0))
+    return Scene(**fields)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -227,12 +285,19 @@ class WalkTables:
     ``packed`` first."""
 
     camera: torch.Tensor  # (19,) origin, llc, horizontal, vertical, u, v, lens
-    globals: torch.Tensor  # (n_global, 4) [cx, cy, cz, k1]
+    globals: torch.Tensor  # (n_global, 4) [cx, cy, cz, k1]; motion: 8
     bounds: torch.Tensor  # (K, 6) member AABBs [lo xyz, hi xyz]
-    members: torch.Tensor  # (K, group, 4) [cx, cy, cz, k1]
-    winner: torch.Tensor  # (slots, 11) [c xyz, 1/r, mat, albedo, fuzz, ior, uuid]
+    members: torch.Tensor  # (K, group, 4) [cx, cy, cz, k1]; motion: 8
+    # (slots, 11) [c xyz, 1/r, mat, albedo, fuzz, ior, uuid]; motion: 17
+    winner: torch.Tensor
     parents: torch.Tensor  # (n_boxes, 6), see hierarchy_boxes
     packed: torch.Tensor  # (walk_layout(...).n_floats,), see pack_walk
+
+    @property
+    def motion(self) -> bool:
+        """Whether these are the motion walk's tables
+        (:func:`motion_tables`)."""
+        return self.members.shape[2] == MOTION_SPHERE_FLOATS
 
     def to(self, device) -> "WalkTables":
         """The tables on ``device``, in one copy."""
@@ -327,6 +392,29 @@ def cluster_tables(scene: Scene, boxes, uuid, n_global: int,
     )
 
 
+def motion_tables(scene: MotionScene, boxes, uuid, n_global: int,
+                  group: int) -> tuple:
+    """(globals, bounds, members, winner) of the motion walk, from a
+    partition's reordered :class:`MotionScene`: the rows of
+    :func:`motion_encoding`, and a winner row that extends
+    :func:`cluster_tables`' by the motion and the odd colour."""
+    k = boxes.shape[0]
+    _, c0, mv, r2 = motion_encoding(scene)
+    mem = torch.cat([c0, r2[:, None], mv, torch.zeros_like(r2)[:, None]],
+                    dim=1)
+    winner = torch.cat([
+        torch.stack([c0[:, 0], c0[:, 1], c0[:, 2], *_winner_params(scene),
+                     torch.as_tensor(uuid).to(c0.device, torch.float32)],
+                    dim=1),
+        mv, scene.albedo_odd], dim=1)
+    return (
+        mem[:n_global].contiguous(),
+        torch.as_tensor(np.asarray(boxes, np.float32)).reshape(k, 6),
+        mem[n_global:].reshape(k, group, MOTION_SPHERE_FLOATS).contiguous(),
+        winner.to(torch.float32).contiguous(),
+    )
+
+
 def parent_boxes(bounds: np.ndarray) -> np.ndarray:
     """(ceil(K / PARENT_FANOUT), 6) float32 from the (K, 6) float32 kd
     leaves: each run of PARENT_FANOUT consecutive leaves (the last run
@@ -386,7 +474,8 @@ class WalkLayout:
     ``mstride`` float4 rows) and winner rows; in the wide walk then its
     levels past the grandparents up to the root (``n_top`` boxes at
     ``off_top``, lowest level first), which it reads from global
-    memory."""
+    memory. The motion walk's (``motion``) has rows of two float4 for a
+    global or a member and of 17 floats for a winner."""
 
     n_parents: int
     n_grand: int  # grandparent boxes: 0 but in the wide walk
@@ -402,16 +491,19 @@ class WalkLayout:
     off_top: int = 0
 
 
-def walk_layout(n_global: int, k: int, group: int) -> WalkLayout:
+def walk_layout(n_global: int, k: int, group: int,
+                motion: bool = False) -> WalkLayout:
+    sphere = MOTION_SPHERE_FLOATS if motion else SPHERE_FLOATS
     n_par = -(-k // PARENT_FANOUT)
     n_grand = -(-n_par // PARENT_FANOUT) if is_wide(k) else 0
-    mstride = member_stride(group)
+    mstride = member_stride(group * sphere // 4)
     off_glob = CAMERA_FLOATS
-    off_par = off_glob + 4 * n_global
+    off_par = off_glob + sphere * n_global
     off_box = off_par + BOX_FLOATS * (n_par + n_grand)
     off_mem = off_box + BOX_FLOATS * k
     off_win = off_mem + 4 * k * mstride
-    end = -(-(off_win + 11 * (n_global + k * group)) // 4) * 4
+    win = MOTION_WINNER_FLOATS if motion else WINNER_FLOATS
+    end = -(-(off_win + win * (n_global + k * group)) // 4) * 4
     n_top = sum(upper_levels(k))
     return WalkLayout(n_par, n_grand, k, mstride, off_glob, off_par,
                       off_box, off_mem, off_win, end + BOX_FLOATS * n_top,
@@ -423,8 +515,9 @@ def pack_walk(out, camera, globals_, parents, bounds, members, winner):
     :func:`walk_layout` says: a zeroed (n_floats,) float32 numpy array or
     tensor, with the tables of the same kind (and device). Returns
     ``out``."""
-    k, group = members.shape[:2]
-    lay = walk_layout(globals_.shape[0], k, group)
+    k, group, floats = members.shape
+    lay = walk_layout(globals_.shape[0], k, group,
+                      floats == MOTION_SPHERE_FLOATS)
     out[:19] = camera
     out[lay.off_glob:lay.off_par] = globals_.reshape(-1)
     n_low = lay.n_parents + lay.n_grand
@@ -434,9 +527,11 @@ def pack_walk(out, camera, globals_, parents, bounds, members, winner):
         rows = out[off:off + BOX_FLOATS * n].reshape(n, BOX_FLOATS)
         rows[:, :3] = boxes[:, :3]
         rows[:, 4:7] = boxes[:, 3:]
-    out[lay.off_mem:lay.off_win].reshape(k, lay.mstride, 4)[:, :group] = \
-        members
-    out[lay.off_win:lay.off_win + 11 * winner.shape[0]] = winner.reshape(-1)
+    rows = group * floats // 4
+    out[lay.off_mem:lay.off_win].reshape(k, lay.mstride, 4)[:, :rows] = \
+        members.reshape(k, rows, 4)
+    out[lay.off_win:lay.off_win + winner.shape[0] * winner.shape[1]] = \
+        winner.reshape(-1)
     return out
 
 
@@ -446,9 +541,12 @@ def walk_tables(part: ClusteredScene, dcam: DerivedCamera,
     the scene lives (the boxes and their hierarchy on the host), written
     with the packed array into one buffer there, and uploaded in one
     copy; every table is a view of it. A scene on the host is packed in
-    numpy, without a PyTorch call. The span ``tables``."""
+    numpy, without a PyTorch call. A :class:`MotionScene`'s are the
+    motion walk's (:func:`motion_tables`). The span ``tables``."""
     with span("tables"):
-        globals_, bounds, members, winner = cluster_tables(
+        motion = is_motion(part.scene)
+        globals_, bounds, members, winner = (
+            motion_tables if motion else cluster_tables)(
             part.scene, part.boxes, part.uuid, part.n_global, part.group
         )
         n_global, (k, group) = globals_.shape[0], members.shape[:2]
@@ -456,7 +554,8 @@ def walk_tables(part: ClusteredScene, dcam: DerivedCamera,
         tabs = {"camera": camera_uniforms(dcam), "globals": globals_,
                 "bounds": bounds, "members": members, "winner": winner,
                 "parents": hierarchy_boxes(bounds)}
-        shapes = {"packed": (walk_layout(n_global, k, group).n_floats,),
+        shapes = {"packed": (walk_layout(n_global, k, group,
+                                         motion).n_floats,),
                   **{name: tuple(t.shape) for name, t in tabs.items()}}
         total = sum(math.prod(shape) for shape in shapes.values())
         at = members.device

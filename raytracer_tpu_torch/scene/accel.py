@@ -8,6 +8,13 @@ at the start of every bounce; the rest are split by balanced recursive
 median bisection into ceil(n/group) leaves of at most ``group`` members,
 each with a conservative member AABB. The scene is reordered to globals
 first, then each leaf padded to ``group`` slots.
+
+In a :class:`~raytracer_tpu_torch.scene.spheres.MotionScene` a sphere
+stands for its swept volume: the bisection splits at the midpoints of
+its two centres, and its box is the union of its boxes at times 0 and 1,
+which bounds it at every time between, as it moves linearly (the span
+``swept``). A static sphere's is its box, so a static scene's partition
+is the same either way.
 """
 
 from __future__ import annotations
@@ -17,6 +24,7 @@ import dataclasses
 import numpy as np
 
 from raytracer_tpu_torch.scene.spheres import Scene, scene_from_numpy
+from raytracer_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -28,10 +36,11 @@ class ClusteredScene:
     uuid: np.ndarray  # (slots,) int32: slot → original index, -1 padding
 
 
-def _kd_leaves(idx, centers, radii, group):
+def _kd_leaves(idx, centers, lo_pt, hi_pt, group):
     """Balanced recursive median bisection of sphere indices into
     ceil(n/group) leaves of <= group members each, split along the
-    longest axis of the member AABB: a node of n > group members, in the
+    longest axis of the member AABB (of the spheres' boxes ``lo_pt``,
+    ``hi_pt``): a node of n > group members, in the
     order its parent left them, sorts them stably by centre along that
     axis and gives its first half of its leaves' worth to the left child.
     Worked out a level of the tree at a time, every node of the level at
@@ -39,8 +48,6 @@ def _kd_leaves(idx, centers, radii, group):
     sizes)``: the leaves' members one leaf after another, the leaves in
     the recursion's depth-first order, and each leaf's size."""
     order = np.asarray(idx, np.int64).copy()
-    r = np.abs(radii)[:, None]
-    lo_pt, hi_pt = centers - r, centers + r
     start = np.zeros(1, np.int64)
     end = np.array([len(order)], np.int64)
     leaf_start, leaf_end = [], []
@@ -91,22 +98,32 @@ def build_grid_clustered(scene: Scene, cell_size: float = 2.0,
     host = scene.numpy()
     centers = np.asarray(host["center"], np.float64)
     radii = np.asarray(host["radius"], np.float64)
+    r = np.abs(radii)[:, None]
+    if "center1" in host:
+        with span("swept"):
+            # the union of the boxes at both ends; the split at the middle
+            ends = np.asarray(host["center1"], np.float64)
+            lo_pt = np.minimum(centers, ends) - r
+            hi_pt = np.maximum(centers, ends) + r
+            centers = (centers + ends) * 0.5
+    else:
+        lo_pt, hi_pt = centers - r, centers + r
     active = host["active"] > 0.0
     big = (np.abs(radii) > big_radius) & active
     small = active & ~big
 
     order = np.where(big)[0]
     n_global = len(order)
-    members, sizes = (_kd_leaves(np.where(small)[0], centers, radii, group)
+    members, sizes = (_kd_leaves(np.where(small)[0], centers, lo_pt, hi_pt,
+                                 group)
                       if small.any() else (np.zeros(0, np.int64),
                                            np.zeros(0, np.int64)))
 
     # each leaf's member AABB, widened by an absolute+relative margin so
     # float32 rounding cannot shave a member surface
     first = np.cumsum(sizes) - sizes
-    rs = np.abs(radii[members])[:, None]
-    lo = np.minimum.reduceat(centers[members] - rs, first, axis=0)
-    hi = np.maximum.reduceat(centers[members] + rs, first, axis=0)
+    lo = np.minimum.reduceat(lo_pt[members], first, axis=0)
+    hi = np.maximum.reduceat(hi_pt[members], first, axis=0)
     lo = lo - (1e-4 + 1e-4 * np.abs(lo))
     hi = hi + (1e-4 + 1e-4 * np.abs(hi))
     boxes = np.concatenate([lo, hi], axis=1).astype(np.float32)
@@ -124,6 +141,8 @@ def build_grid_clustered(scene: Scene, cell_size: float = 2.0,
         out[live] = a[uuid[live]]
         return out
 
+    shutter = {name: take(name) for name in ("center1", "albedo_odd")
+               if name in host}
     new_scene = scene_from_numpy(
         center=take("center"),
         radius=take("radius", 1.0),
@@ -132,6 +151,7 @@ def build_grid_clustered(scene: Scene, cell_size: float = 2.0,
         fuzz=take("fuzz"),
         refraction_index=take("refraction_index", 1.0),
         active=live.astype(np.float32),
+        **shutter,
     )
     return ClusteredScene(
         scene=new_scene,

@@ -1,6 +1,10 @@
 """Material codes and the host-side material record (counterpart of
-``raytracer_tpu/scene/materials.py``): DIFFUSE=0, METAL=1, GLASS=2; any
-other code absorbs."""
+``raytracer_tpu/scene/materials.py``): DIFFUSE=0, METAL=1, GLASS=2, and
+the port's CHECKER=3, a Lambertian surface under *The Next Week*'s
+checker texture: its albedo is the even colour, or the odd one where
+sin(10x)·sin(10y)·sin(10z) < 0 at the hit point. Only the motion walk
+reads the checker (``render/cluster_walk.py``); in any other kernel, as
+any further code, it absorbs."""
 
 from __future__ import annotations
 
@@ -10,6 +14,7 @@ from typing import Tuple
 DIFFUSE = 0
 METAL = 1
 GLASS = 2
+CHECKER = 3
 
 MATERIAL_NAMES = {DIFFUSE: "diffuse", METAL: "metal", GLASS: "glass"}
 
@@ -23,6 +28,10 @@ class Material:
     albedo: Tuple[float, float, float]
     fuzz: float = 0.0
     refraction_index: float = 0.0
+    #: a checker's odd colour (None: no checker); the port's own, so
+    #: keyword-only
+    albedo_odd: Tuple[float, float, float] | None = dataclasses.field(
+        default=None, kw_only=True)
 
     @staticmethod
     def diffuse(albedo) -> "Material":
@@ -36,3 +45,9 @@ class Material:
     def glass(refraction_index: float = 1.5,
               albedo=(1.0, 1.0, 1.0)) -> "Material":
         return Material(GLASS, albedo, refraction_index=refraction_index)
+
+    @staticmethod
+    def checker(even, odd) -> "Material":
+        """Lambertian under the checker texture of colours ``even`` and
+        ``odd``."""
+        return Material(CHECKER, even, albedo_odd=odd)

@@ -4,18 +4,22 @@ BASELINE configs from *Ray Tracing in One Weekend*. The cover scene is
 drawn from ``np.random.default_rng(seed)`` exactly as the JAX package
 draws it, so both packages build equal arrays. The port alone has the
 SPD sphereflake (:func:`sphereflake_scene`), a scene past the flat scan
-and past a 128-cluster partition."""
+and past a 128-cluster partition, and *The Next Week*'s bouncing spheres
+(:func:`bouncing_spheres_scene`), moving spheres over a checker ground:
+a :class:`~raytracer_tpu_torch.scene.spheres.MotionScene`."""
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Tuple
 
 import numpy as np
+import torch
 
 from raytracer_tpu_torch.camera.camera import CameraConfig
 from raytracer_tpu_torch.scene.materials import Material
-from raytracer_tpu_torch.scene.spheres import Scene, make_scene
+from raytracer_tpu_torch.scene.spheres import MotionScene, Scene, make_scene
 
 
 def demo_scene() -> Scene:
@@ -127,6 +131,57 @@ def cover_camera(width: int, height: int) -> CameraConfig:
         fov=math.radians(20.0), aperture=0.1, focus_distance=10.0,
         aspect_ratio=width / height,
     )
+
+
+def bouncing_spheres_scene(seed: int = 0) -> MotionScene:
+    """*Ray Tracing: The Next Week* (v3.2), section 2's
+    ``random_scene()`` with section 4's checker ground: the cover's
+    layout, drawn from ``np.random.default_rng(seed)`` in the book's
+    order as :func:`cover_scene` draws it, but every small diffuse sphere
+    moves over the shutter [0, 1] from its centre c to c + (0, u, 0),
+    u = 0.5 × a draw taken right after its albedo; the ground is
+    Lambertian under the checker of even (0.2, 0.3, 0.1) and odd (0.9,
+    0.9, 0.9)."""
+    rng = np.random.default_rng(seed)
+    d, m, g = Material.diffuse, Material.metal, Material.glass
+    checker = Material.checker((0.2, 0.3, 0.1), (0.9, 0.9, 0.9))
+    spheres = [((0.0, -1000.0, 0.0), 1000.0, checker)]
+    ends = [spheres[0][0]]
+    for a in range(-11, 11):
+        for b in range(-11, 11):
+            choose_mat = rng.random()
+            center = (a + 0.9 * rng.random(), 0.2, b + 0.9 * rng.random())
+            if np.linalg.norm(np.array(center)
+                              - np.array([4.0, 0.2, 0.0])) <= 0.9:
+                continue
+            end = center
+            if choose_mat < 0.8:
+                albedo = tuple(rng.random(3) * rng.random(3))
+                end = (center[0], center[1] + 0.5 * rng.random(), center[2])
+                spheres.append((center, 0.2, d(albedo)))
+            elif choose_mat < 0.95:
+                albedo = tuple(rng.random(3) * 0.5 + 0.5)
+                fuzz = float(rng.random() * 0.5)
+                spheres.append((center, 0.2, m(albedo, fuzz=fuzz)))
+            else:
+                spheres.append((center, 0.2, g(1.5)))
+            ends.append(end)
+    for big in (((0.0, 1.0, 0.0), 1.0, g(1.5)),
+                ((-4.0, 1.0, 0.0), 1.0, d((0.4, 0.2, 0.1))),
+                ((4.0, 1.0, 0.0), 1.0, m((0.7, 0.6, 0.5), fuzz=0.0))):
+        spheres.append(big)
+        ends.append(big[0])
+    scene = make_scene(spheres)
+    return dataclasses.replace(scene, center1=torch.tensor(
+        np.array(ends, np.float32)))
+
+
+def bouncing_camera(width: int, height: int) -> CameraConfig:
+    """The bouncing spheres' camera: the cover's (lookfrom (13,2,3) →
+    (0,0,0), fov 20°, aperture 0.1, focus 10). Its shutter opens at 0
+    and closes at 1: the motion walk draws each camera ray's time
+    uniformly in [0, 1)."""
+    return cover_camera(width, height)
 
 
 def _rotation(axis, angle: float) -> np.ndarray:

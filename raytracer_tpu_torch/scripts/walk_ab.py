@@ -33,7 +33,7 @@ interface the current wrappers pass (``cluster_walk_abi``,
    the narrow walk takes. Every output row and the segments must be
    bitwise equal to the current build's, and the SASS of every narrow
    instantiation the base revision's, instruction for instruction
-   (:func:`sass_listings`).
+   (:func:`sass_listings`); the wide walk's too (step 7).
 3. Times them in turns (old, new, then the reverse order, and again) by
    CUDA events around one launch each.
 4. The counter build on the same inputs: warp trips and the SIMT
@@ -1185,6 +1185,8 @@ def wide_ab(old: Path | None, repeats: int, smi: str,
     result = {"ptxas": _print_ptxas("wide ", paths),
               "sass": _print_sass("wide_", paths, "cluster_walk_kernel",
                                   out)}
+    if "old" in paths:
+        result["sass_equal"] = sass_equal(paths["old"], paths["new"])
     calls = _callers({b: p for b, p in paths.items() if b != "counters"},
                      walk_caller)
     args_by_name = {name: launch_args(args) for name, args in {
@@ -1251,6 +1253,9 @@ def main(argv=None) -> dict:
     bad += [f"{name}: no bounce swept" for name, c in
             result["wide_ab"]["counters"].items()
             if name.startswith("list8") and not c["sweeps"]]
+    bad += [f"{name}: SASS not the base revision's" for name, ok in {
+        **result.get("sass_equal", {}),
+        **result["wide_ab"].get("sass_equal", {})}.items() if not ok]
     if bad:
         raise SystemExit(f"walk_ab: builds disagree: {bad}")
     return result

@@ -403,6 +403,34 @@ def test_sphereflake_renders_through_the_wide_walk_on_card(card):
     assert torch.isfinite(a).all() and sa["segments_exact"] > 64 * 48 * 12
 
 
+@pytest.mark.parametrize("sampler", ["random", "stratified"])
+def test_motion_walk_bitwise_on_card(card, sampler):
+    """The motion walk on the bouncing spheres at 96x54, 3 spp, depth 12:
+    the kernel bit for bit its plain version on the card, its bounce
+    count the segments' sum and its member tests a whole number of
+    clusters; ``render_image`` runs it alone."""
+    scene = presets.bouncing_spheres_scene()
+    w, h = 96, 54
+    opts = TraceOptions(max_depth=12, russian_roulette_depth=0,
+                        sampler=sampler)
+    choice = megakernel.choose_kernel(
+        scene, derive_camera(presets.bouncing_camera(w, h)), opts, card)
+    args = (choice.tables, cw.identity_map(w, h, card), 0x1234567, 7, 3, w,
+            h, opts)
+    profiling.reset_counters()
+    out_k, seg_k = cw.cluster_walk(*args)
+    got = profiling.counters()
+    out_p, seg_p = cw.cluster_walk_plain(*args)
+    assert torch.equal(out_k, out_p) and torch.equal(seg_k, seg_p)
+    tests, bounces = (got[name][0] for name in cw.MOTION_COUNTS)
+    assert bounces == int(seg_k.sum(dtype=torch.int64))
+    assert tests > 0 and tests % choice.tables.members.shape[1] == 0
+    cw.reset_launch_counts()
+    api.render_image(scene, presets.bouncing_camera(w, h), w, h, 8, 4, opts)
+    assert set(cw.cluster_walk.launches_by_variant) == {
+        cw.variant_name(opts, motion=True)}
+
+
 def test_narrow_walk_at_128_clusters_unchanged_on_card(card):
     """A scene of exactly 128 clusters, the most the narrow walk takes,
     renders bit for bit as the base revision's walk renders it, and as
@@ -1270,8 +1298,8 @@ def test_adaptive_render_launches_read_the_held_extent_on_card(card,
     ptrs = []
     real = cw._lib
 
-    def lib(wide=False):
-        fn = real(wide)
+    def lib(wide=False, motion=False):
+        fn = real(wide, motion)
 
         def call(*args):
             ptrs.append(args[6])

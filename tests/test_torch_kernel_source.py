@@ -53,6 +53,8 @@ EXPECTED = {
     "kCursorR2": 0.01,
     "kGrazing": -0.05,
     "kMarked": 3.0,
+    # the motion walk's checker material code
+    "kChecker": float(cw.CHECKER),
 }
 
 
@@ -83,6 +85,8 @@ EXPECTED_U32 = {
     # the wide walk's box bit of a list entry: the sign bit, which a
     # positive float key leaves free
     "kListBox": 0x80000000,
+    # the motion walk's time draw: its counter block's first counter
+    "kShutterCtr": cw.SHUTTER_CTR,
 }
 
 

@@ -268,9 +268,10 @@ def test_readers_are_listed_for_their_cells():
         # there host_ms would read the device's time (PERF.md section 3)
         assert m["workloads"] == (
             ["demo-offline-1080p"] if still else
-            ["cover-offline", "flake-offline"]
+            ["cover-offline", "flake-offline", "bouncing-offline"]
             if metric == "host_ms_per_render" else
-            ["cover-offline", "cover-adaptive", "flake-offline"])
+            ["cover-offline", "cover-adaptive", "flake-offline",
+             "bouncing-offline"])
 
 
 TINY = {"cover-offline": {"width": 16, "height": 8, "spp": 4},
