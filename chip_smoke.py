@@ -801,10 +801,12 @@ def phase_walk_ab(smi: str) -> None:
 
 def phase_wide_walk(smi: str) -> None:
     """The wide walk on the SPD sphereflake: every instantiation bitwise
-    its plain version (``walk_ab.flake_check``), the base revision's build
-    and its overflow build (``walk_ab.wide_ab``, with its counters), its
-    iteration and bounce counts its cost row's and segments' sums, and
-    two whole renders (512x512, 500 spp, depth 50) through
+    its plain version (``walk_ab.flake_check``), the base revision's build,
+    its overflow build and its pool builds (``walk_ab.wide_ab``, with its
+    counters and the lanes' cycles by phase), its iteration and bounce
+    counts its cost row's and segments' sums, its visits within its
+    iterations and its pooled visits within its visits, and two whole
+    renders (512x512, 500 spp, depth 50) through
     ``render_image``, each launch the wide walk's, bitwise each other."""
     from raytracer_tpu_torch.render import cluster_walk as cw
     from raytracer_tpu_torch.render.api import render_image
@@ -827,7 +829,11 @@ def phase_wide_walk(smi: str) -> None:
               f"{c['slab_tests_per_bounce']:.2f}, list high-water mark "
               f"{c['list_peak_mean']:.2f} (most {c['list_peak_max']}), "
               f"swept {100 * c['sweep_share']:.4f} %, SIMT trip "
-              f"{c['simt_trip']:.3f} visit {c['simt_visit']:.3f}")
+              f"{c['simt_trip']:.3f} visit {c['simt_visit']:.3f}, visit "
+              f"steps pooled {100 * c['pooled_step_share']:.2f} % "
+              f"({c['rounds_per_pooled_step']:.2f} rounds), lane cycles "
+              + ", ".join(f"{ph} {100 * c[f'cycle_share_{ph}']:.2f} %"
+                          for ph in walk_ab.PHASES))
         if not (c["cost_row_equal"] and c["segs_equal"]):
             fail(f"{name}: the wide counter build disagrees with its cost "
                  "row or segments")
@@ -841,11 +847,15 @@ def phase_wide_walk(smi: str) -> None:
             int(segs.sum(dtype=torch.int64)))
     counted = (got.get("walk_iterations", (0, 0.0))[0],
                got.get("walk_segments", (0, 0.0))[0])
+    visits, pooled = (got.get(n, (0, 0.0))[0] for n in cw.VISIT_COUNTS)
     print(f"[wide counts] iterations / bounces {counted} (cost row and "
-          f"segments {want})")
+          f"segments {want}), visits {visits}, pooled {pooled}")
     if counted != want:
         fail("the wide walk's counts disagree with its cost row or "
              "segments")
+    if not 0 <= pooled <= visits <= counted[0] or visits == 0:
+        fail(f"the wide walk's visit counts ({visits}, pooled {pooled}) are "
+             f"not within its {counted[0]} iterations")
     scene = presets.sphereflake_scene().to("cuda")
     cam = presets.sphereflake_camera(512, 512)
     images = []

@@ -113,8 +113,16 @@
 //     (512 ulps) below its entry, so at an equal floored entry it comes
 //     off before any leaf, and a leaf under it with a smaller cluster
 //     index before a leaf already listed;
-//   - a lane expands boxes until its nearest entry is a leaf, then the
-//     warp visits together (Aila and Laine's while-while again);
+//   - a warp's 32 lanes start every bounce together (a lane without work
+//     stays as a helper until none of the warp has any) and walk it in
+//     trips: each lane expands boxes until its nearest entry is a leaf
+//     (or its bounce is done), then the lanes with a leaf visit together
+//     (Aila and Laine's while-while again), and the trips end when none
+//     visits. Where at most kPoolMax lanes visit, the warp's other lanes
+//     take part in their member tests (pool_visit: an H100 at 700 W ran
+//     the sphereflake's 29-spp launch in 46.9 ms with the trips alone,
+//     45.4 with the pool, 55.1-55.6 as lanes that left the loop one by
+//     one);
 //   - a bounce whose list would pass its capacity (the mask's words and
 //     every word a thread's share of the block's shared memory leaves:
 //     85 on the sphereflake) starts over as the sweep that came before
@@ -204,6 +212,19 @@ constexpr int kWideExtraBytes = 48;
 // the shared memory a block may opt in to (227 KiB on the H100): the wide
 // walk's lists take what its tables, counts and masks leave of it
 constexpr int kMaxWalkSmemBytes = 232448;
+// The wide walk pools a trip's visits across the warp (pool_visit) where
+// at most kPoolMax of its lanes visit and a cluster holds at most 32
+// members; else each visiting lane tests its cluster's members itself.
+// Both give the same bits, so this is placement alone: on the
+// sphereflake's 29-spp launch (an H100 at 700 W) the pool gains at 4 to 12
+// visiting lanes and loses from 16, its rounds of one member test each
+// costing about three of the member loop's; a test build sets it with
+// -DRT_WALK_POOL_MAX.
+#ifdef RT_WALK_POOL_MAX
+constexpr int kPoolMax = RT_WALK_POOL_MAX;
+#else
+constexpr int kPoolMax = 8;
+#endif
 // A list entry of the wide walk is a packed key: a kd leaf's is its
 // entry's bits floored to a bucket | cluster, as the flat walk's; a box's
 // carries kListBox and its index among the listed levels (parents from
@@ -286,6 +307,14 @@ enum WalkCounter {
   kListPeak,       // the bounces' high-water marks, summed
   kListPeakMax,    // the highest high-water mark (an atomicMax)
   kSweeps,         // bounces whose list overflowed, swept instead
+  kWarpPooled,     // visit steps of a warp run pooled (pool_visit)
+  kPoolRounds,     // their rounds
+  // the wide walk's lane cycles (clock64) by phase, each lane charging
+  // the cycles since its last mark: the bounce's start (globals and the
+  // levels past the grandparents), the expansions up to a trip's visit,
+  // the visits, the wait after its list is done for the warp's other
+  // lanes, the sweep, and the rest (the tail, the next work's setup)
+  kCycTop, kCycExpand, kCycVisit, kCycWait, kCycSweep, kCycTail,
   kNumCounters
 };
 
@@ -297,9 +326,27 @@ __device__ unsigned long long g_counters[kNumCounters];
     const unsigned any_ = __ballot_sync(act_, (pred));                 \
     cnt[c] += (leader_ && any_ != 0u) ? 1u : 0u;                       \
   } while (0)
+#define RT_PHASE(c)                                                    \
+  do {                                                                 \
+    const long long now_ = clock64();                                  \
+    cnt[idle ? (int)kCycWait : (int)(c)] +=                            \
+        (unsigned long long)(now_ - mark_);                            \
+    mark_ = now_;                                                      \
+  } while (0)
 #else
 #define RT_COUNT(c, v) ((void)0)
 #define RT_WARP_COUNT(c, pred) ((void)0)
+#define RT_PHASE(c) ((void)0)
+#endif
+
+#if defined(RT_WALK_MOTION) || defined(RT_WALK_WIDE)
+// A 32-bit count summed over the warp's active lanes, exactly, as two
+// 16-bit halves.
+__device__ __forceinline__ unsigned long long warp_sum(unsigned act,
+                                                       uint32_t v) {
+  return (unsigned long long)__reduce_add_sync(act, v & 0xFFFFu) +
+         ((unsigned long long)__reduce_add_sync(act, v >> 16) << 16);
+}
 #endif
 
 #ifdef RT_WALK_MOTION
@@ -354,14 +401,6 @@ __device__ __forceinline__ void motion_winner(const float* w, float tm,
       wm[4] = w[16];
     }
   }
-}
-
-// A 32-bit count summed over the warp's active lanes, exactly, as two
-// 16-bit halves.
-__device__ __forceinline__ unsigned long long warp_sum(unsigned act,
-                                                       uint32_t v) {
-  return (unsigned long long)__reduce_add_sync(act, v & 0xFFFFu) +
-         ((unsigned long long)__reduce_add_sync(act, v >> 16) << 16);
 }
 
 // The lanes leaving the walk add their member tests and completed bounces
@@ -470,9 +509,13 @@ enum SampleCount { kItemSamples, kLaneSamples };
 // after the tables: the two sample counts (16 bytes), then the deal; the
 // wide walk's count of sweeps after the deal (at 28 bytes, 32 bits),
 // its iteration and bounce counts at 32 bytes (its block's counts 4 and
-// 5); they go to the launch's counts 4, 2 and 3
+// 5); they go to the launch's counts 4, 2 and 3. Its visits and those the
+// pool served go to the launch's 5 and 6 from each warp (add_visits).
 constexpr int kAdaptiveSmemBytes = 32;
-enum WalkCount { kWalkIterations = 2, kWalkSegments = 3, kWalkSweeps = 4 };
+enum WalkCount {
+  kWalkIterations = 2, kWalkSegments = 3, kWalkSweeps = 4, kWalkVisits = 5,
+  kWalkPooled = 6
+};
 constexpr int kWalkCountsAt = 2;  // the block's: kWalkIterations + 2
 
 __device__ __forceinline__ unsigned long long* counts_of(const Params& p,
@@ -646,6 +689,84 @@ __device__ __forceinline__ void visit_cluster(const Params& p,
     if (q < bq) {
       bq = q;
       bs = p.n_global + cidx * p.group + m;
+    }
+  }
+}
+
+// A trip's visits pooled across the warp: each lane of `vis` visits its
+// cluster cidx. The clusters' member tests are dealt over the warp's 32
+// lanes in rounds, in slots of 2^shift lanes (16, or 32 for a group past
+// 16), one visiting lane a slot: in round r, lane h·2^shift + m tests
+// member m of the cluster of the (r·(32 >> shift) + h)-th lowest visiting
+// lane, with that lane's ray, taken by shuffles (a lane past the group
+// tests a member too, and drops its q). Each slot's least q comes from a
+// whole-warp reduction (one over part of the warp runs as a loop), and a
+// ballot of the lanes that hold their slot's least gives the least member
+// among equal q: the slot's first such lane. The visiting lane applies
+// that once with the member loop's strict <: the serial loop over the
+// members in order (visit_cluster) gives that same bq and bs, ties
+// included. q lies in (0, kFillQ] (a ray whose min_t_a could make it 0
+// sweeps), so its bits order as its value. Every lane of the warp takes
+// part; a lane without a visit helps.
+__device__ __forceinline__ void pool_visit(const Params& p,
+                                           const float* s_mem,
+                                           unsigned vis, int shift,
+                                           bool leaf, int cidx, float ox,
+                                           float oy, float oz, float dx,
+                                           float dy, float dz, float a,
+                                           float o_dot_d, float o_dot_o,
+                                           float min_t_a, float& bq,
+                                           int& bs) {
+  const int lane = (int)(threadIdx.x & 31);
+  const int per = 32 >> shift;  // visiting lanes a round: 2 or 1
+  const int slot = lane >> shift, m = lane & ((1 << shift) - 1);
+  const int mm = min(m, p.group - 1);  // the member this lane reads
+  // this lane's round and slot as a visitor: its rank among them
+  const int rank = __popc(vis & ((1u << lane) - 1u));
+  const int my_round = rank >> (5 - shift), my_slot = rank & (per - 1);
+  uint32_t gq = 0u, gm = 0u;  // its slot's least, as a visitor
+  unsigned left = vis;
+  for (int r = 0; left != 0u; ++r) {
+    // the visiting lane this slot serves: the slot-th lowest one left
+    const unsigned l1 = left & (left - 1u);
+    const unsigned o = slot != 0 ? l1 : left;
+    left = per == 2 ? l1 & (l1 - 1u) : l1;
+    const int src = o != 0u ? __ffs(o) - 1 : lane;
+    const float rox = __shfl_sync(~0u, ox, src);
+    const float roy = __shfl_sync(~0u, oy, src);
+    const float roz = __shfl_sync(~0u, oz, src);
+    const float rdx = __shfl_sync(~0u, dx, src);
+    const float rdy = __shfl_sync(~0u, dy, src);
+    const float rdz = __shfl_sync(~0u, dz, src);
+    const float ra = __shfl_sync(~0u, a, src);
+    const float rod = __shfl_sync(~0u, o_dot_d, src);
+    const float roo = __shfl_sync(~0u, o_dot_o, src);
+    const float rmin = __shfl_sync(~0u, min_t_a, src);
+    const int rc = __shfl_sync(~0u, cidx, src);
+    const float4 c4 =
+        reinterpret_cast<const float4*>(s_mem + 4 * rc * p.mstride)[mm];
+    const float c[4] = {c4.x, c4.y, c4.z, c4.w};
+    const float q =
+        exact_q(c, rox, roy, roz, rdx, rdy, rdz, ra, rod, roo, rmin);
+    const uint32_t key =
+        o != 0u && m < p.group ? (uint32_t)__float_as_int(q) : ~0u;
+    // each slot's least q, then the lanes that hold their slot's: the
+    // first of them in a slot holds its least member
+    const uint32_t least0 = __reduce_min_sync(~0u, slot == 0 ? key : ~0u);
+    const uint32_t least1 =
+        per == 2 ? __reduce_min_sync(~0u, slot != 0 ? key : ~0u) : ~0u;
+    const unsigned at =
+        __ballot_sync(~0u, key == (slot == 0 ? least0 : least1));
+    if (my_round == r) {
+      gq = my_slot == 0 ? least0 : least1;
+      gm = (uint32_t)__ffs(my_slot == 0 ? at : at >> 16) - 1u;
+    }
+  }
+  if (leaf) {
+    const float q = __int_as_float((int)gq);
+    if (q < bq) {
+      bq = q;
+      bs = p.n_global + cidx * p.group + (int)gm;
     }
   }
 }
@@ -975,6 +1096,22 @@ __device__ __forceinline__ void count_walk(const Params& p, float* smem,
   atomicAdd(&counts[kWalkSegments], (unsigned long long)segs);
 }
 
+#ifdef RT_WALK_WIDE
+// The lanes leaving the wide walk add their visits, and those of them the
+// pool served, to the launch's counts: one atomic each for the lanes that
+// leave together.
+__device__ __forceinline__ void add_visits(const Params& p, uint32_t visits,
+                                           uint32_t pooled) {
+  const unsigned act = __activemask();
+  const unsigned long long v = warp_sum(act, visits);
+  const unsigned long long q = warp_sum(act, pooled);
+  if ((int)(threadIdx.x & 31) == __ffs(act) - 1) {
+    atomicAdd(&p.samples[kWalkVisits], v);
+    atomicAdd(&p.samples[kWalkPooled], q);
+  }
+}
+#endif
+
 template <bool kAdaptive, bool kStratified, bool kDebug, int kWords>
 __device__ __forceinline__ void walk(const Params& p, float* smem) {
   constexpr bool kIsWide = kWords == kWide;
@@ -994,8 +1131,18 @@ __device__ __forceinline__ void walk(const Params& p, float* smem) {
   uint32_t pix;
   int limit;
   Path path;
+  // the wide walk: a thread without work stays as a helper of its warp's
+  // others (idle) until every lane of the warp has none
+  [[maybe_unused]] bool idle = false;
   for (;;) {
-    if (lane >= work_end<kAdaptive>(p, smem)) return;
+    if (lane >= work_end<kAdaptive>(p, smem)) {
+      if constexpr (!kIsWide) return;
+      idle = true;
+      px = py = 0.0f;
+      pix = 0u;
+      limit = path.s = 0;
+      break;
+    }
     if (take<kAdaptive>(p, smem, lane, px, py, pix, limit, path.s)) break;
     lane = next_lane(p.next_lane);
   }
@@ -1015,14 +1162,25 @@ __device__ __forceinline__ void walk(const Params& p, float* smem) {
   // walk's pending list (or its sweep's mask) in shared memory
   BoxMask<kIsWide ? 1 : kWords> hits = {};
   uint32_t* const mask = kIsWide ? wide_mask(p, smem) : nullptr;
+  // the wide walk's pool: whether it takes the partition's clusters, its
+  // slots' width (log2: 16 lanes, or 32 for a group past 16), and the
+  // lane's visits and those of them the pool served
+  [[maybe_unused]] const bool pool = p.group <= 32;
+  [[maybe_unused]] const int pool_shift = p.group > 16 ? 5 : 4;
+  [[maybe_unused]] uint32_t n_visits = 0u, pooled = 0u;
   Sums sums = {0.0f, 0.0f, 0.0f, 0.0f};
   float cost = 0.0f;
   int segs = 0;
 #ifdef RT_WALK_COUNTERS
   unsigned long long cnt[kNumCounters] = {};
+  [[maybe_unused]] long long mark_ = kIsWide ? clock64() : 0ll;
 #endif
 
   for (;;) {
+    if constexpr (kIsWide) {
+      // the warp's lanes start each bounce together, until none has work
+      if (__all_sync(~0u, idle)) break;
+    }
     const float ox = path.ox, oy = path.oy, oz = path.oz;
     const float dx = path.dx, dy = path.dy, dz = path.dz;
     const float a = dot3(dx, dy, dz, dx, dy, dz);
@@ -1038,38 +1196,45 @@ __device__ __forceinline__ void walk(const Params& p, float* smem) {
       {
         const unsigned act_ = __activemask();
         const bool leader_ = (int)(threadIdx.x & 31) == __ffs(act_) - 1;
-        RT_WARP_COUNT(kWarpFresh, true);
-        RT_COUNT(kLaneFresh, 1u);
+        RT_WARP_COUNT(kWarpFresh, !idle);
+        RT_COUNT(kLaneFresh, idle ? 0u : 1u);
       }
       int peak = 0;
 #endif
-      global_best(p, s_glob, ox, oy, oz, dx, dy, dz, a, o_dot_d, o_dot_o,
-                  min_t_a, bq, bs);
+      RT_PHASE(kCycTail);
       int len = 0;
       uint32_t head = 0u;  // the list's nearest entry, while len > 0
-      // a box keyed a bucket below its entry needs entries past the
-      // lowest buckets: a ray whose least entry (min_t_a) lies there, of
-      // a degenerate direction, sweeps
-      bool over = (uint32_t)__float_as_int(min_t_a) < 2u * kBucket ||
-                  !wide_top(p, s_par, mask, len, head, ox, oy, oz, ivx, ivy,
-                            ivz, a, min_t_a, tested, moved);
+      bool over = false;
+      if (!idle) {
+        global_best(p, s_glob, ox, oy, oz, dx, dy, dz, a, o_dot_d, o_dot_o,
+                    min_t_a, bq, bs);
+        // a box keyed a bucket below its entry needs entries past the
+        // lowest buckets: a ray whose least entry (min_t_a) lies there, of
+        // a degenerate direction, sweeps
+        over = (uint32_t)__float_as_int(min_t_a) < 2u * kBucket ||
+               !wide_top(p, s_par, mask, len, head, ox, oy, oz, ivx, ivy,
+                         ivz, a, min_t_a, tested, moved);
+      }
+      RT_PHASE(kCycTop);
 #ifdef RT_WALK_COUNTERS
       peak = len;
 #endif
       int visits = 0;
-      while (!over) {
+      // the warp's lanes walk the bounce in trips: each lane expands
+      // boxes until its nearest entry is a kd leaf or its bounce is done,
+      // then the lanes with a leaf visit it, their member tests pooled
+      // across the warp where they are few. A lane whose bounce is done
+      // (whose list overflowed, or without work) helps until none visits.
+      bool walking = !idle && !over;
+      for (;;) {
 #ifdef RT_WALK_COUNTERS
-        {
-          const unsigned act_ = __activemask();
-          const bool leader_ = (int)(threadIdx.x & 31) == __ffs(act_) - 1;
-          RT_COUNT(kWarpTrips, leader_ ? 1u : 0u);
-          RT_COUNT(kLanePasses, 1u);
-        }
+        const unsigned act_ = ~0u;
+        const bool leader_ = (int)(threadIdx.x & 31) == __ffs(act_) - 1;
+        RT_WARP_COUNT(kWarpTrips, walking);
+        RT_COUNT(kLanePasses, walking ? 1u : 0u);
 #endif
-        // the lane expands boxes until its nearest entry is a kd leaf or
-        // the bounce is done
         bool leaf = false;
-        while (len > 0) {
+        while (walking && len > 0) {
           const uint32_t e = head;
           if (__int_as_float(e & kOrderFloor) >= bq) break;
           if ((e & kListBox) == 0u) {
@@ -1095,36 +1260,54 @@ __device__ __forceinline__ void walk(const Params& p, float* smem) {
 #endif
           if (over) break;
         }
-        if (!leaf) break;
-        // the warp's lanes with a leaf visit it together
-#ifdef RT_WALK_COUNTERS
-        {
-          const unsigned act_ = __activemask();
-          const bool leader_ = (int)(threadIdx.x & 31) == __ffs(act_) - 1;
-          RT_WARP_COUNT(kWarpVisit, true);
-          RT_COUNT(kLaneVisit, 1u);
+        walking = leaf;
+        const unsigned vis = __ballot_sync(~0u, leaf);
+        RT_PHASE(kCycExpand);
+        if (vis == 0u) break;
+        RT_WARP_COUNT(kWarpVisit, leaf);
+        RT_COUNT(kLaneVisit, leaf ? 1u : 0u);
+        int cidx = 0;
+        if (leaf) {
+          cidx = (int)(head & (kBucket - 1u));
+          --len;
+          if (len > 0) head = mask[(len - 1) * kWalkThreads];
+          ++visits;
         }
+        if (pool && __popc(vis) <= kPoolMax) {
+          pool_visit(p, s_mem, vis, pool_shift, leaf, cidx, ox, oy, oz, dx,
+                     dy, dz, a, o_dot_d, o_dot_o, min_t_a, bq, bs);
+          pooled += leaf ? 1u : 0u;
+#ifdef RT_WALK_COUNTERS
+          RT_COUNT(kWarpPooled, leader_ ? 1u : 0u);
+          RT_COUNT(kPoolRounds,
+                   leader_ ? (unsigned long long)((__popc(vis) + (32 >>
+                                                  pool_shift) - 1) >>
+                                                 (5 - pool_shift))
+                           : 0ull);
 #endif
-        const int cidx = (int)(head & (kBucket - 1u));
-        --len;
-        if (len > 0) head = mask[(len - 1) * kWalkThreads];
-        ++visits;
-        visit_cluster(p, s_mem, cidx, ox, oy, oz, dx, dy, dz, a, o_dot_d,
-                      o_dot_o, min_t_a, bq, bs);
+        } else if (leaf) {
+          visit_cluster(p, s_mem, cidx, ox, oy, oz, dx, dy, dz, a, o_dot_d,
+                        o_dot_o, min_t_a, bq, bs);
+        }
+        RT_PHASE(kCycVisit);
       }
+      RT_PHASE(kCycWait);
       if (over) {
         // the list overflowed: the bounce starts over as the sweep
         atomicAdd(sweeps_of(p, smem), 1u);
         visits = wide_sweep(p, s_glob, s_par, s_box, s_mem, mask, ox, oy,
                             oz, dx, dy, dz, ivx, ivy, ivz, a, o_dot_d,
                             o_dot_o, min_t_a, bq, bs, tested);
+        RT_PHASE(kCycSweep);
 #ifdef RT_WALK_COUNTERS
         RT_COUNT(kSweeps, 1u);
         RT_COUNT(kLaneVisit, (unsigned long long)visits);
 #endif
       }
+      if (idle) continue;
       // the flat walk's iterations: one a visit, at least one
       cost += (float)max(visits, 1);
+      n_visits += (uint32_t)visits;
 #ifdef RT_WALK_COUNTERS
       RT_COUNT(kLaneTrips, (unsigned long long)max(visits, 1));
       RT_COUNT(kSlabTests, (unsigned long long)tested);
@@ -1289,7 +1472,11 @@ __device__ __forceinline__ void walk(const Params& p, float* smem) {
       if (lane >= work_end<kAdaptive>(p, smem)) break;
       if (take<kAdaptive>(p, smem, lane, px, py, pix, limit, path.s)) break;
     }
-    if (lane >= work_end<kAdaptive>(p, smem)) break;
+    if (lane >= work_end<kAdaptive>(p, smem)) {
+      if constexpr (!kIsWide) break;
+      idle = true;
+      continue;
+    }
     path.i = 0;
     gen_ray<kStratified>(s_cam, p.path,
                          (uint32_t)(p.path.sample_offset + path.s), dps, px,
@@ -1305,7 +1492,11 @@ __device__ __forceinline__ void walk(const Params& p, float* smem) {
 #ifdef RT_WALK_MOTION
   add_motion_counts(p, n_tests, n_bounces);
 #endif
+#ifdef RT_WALK_WIDE
+  add_visits(p, n_visits, pooled);
+#endif
 #ifdef RT_WALK_COUNTERS
+  if constexpr (kIsWide) RT_PHASE(kCycTail);
   for (int c = 0; c < kNumCounters; ++c) {
     if (c == kListPeakMax)
       atomicMax(&g_counters[c], cnt[c]);
@@ -1412,8 +1603,9 @@ cudaError_t launch(const Params& p, int blocks, size_t smem,
 // without one), lane counter (one int), live extent (two ints, null
 // without a budget), item scratch (item_rows x item_cap floats),
 // per-lane item counts (item_cap ints, all zero) and counts (two sample
-// counts, or null; in the wide walk five, never null: the sample counts,
-// walk iterations, bounces and sweeps) are device pointers; the caller
+// counts, or null; in the wide walk seven, never null: the sample counts,
+// walk iterations, bounces, sweeps, visits and pooled visits) are device
+// pointers; the caller
 // checks shapes and the tables' layout. The wide walk's tables end with
 // its levels past the grandparents, after the winner rows (a launch whose
 // n_floats leaves no room for them is refused). The launch zeroes the

@@ -54,9 +54,11 @@ cluster index in 9 bits (``tables.key_bits``), and the plain version
 packs its keys the same way; it finds a bounce's clusters nearest
 first, from a short ordered list of pending boxes of the whole box tree
 in each thread's shared memory (a bounce whose list overflows sweeps the
-boxes instead), and reads the winner rows from global memory. It counts
-its lanes' walk iterations, completed bounces and sweeps
-(``WIDE_COUNTS`` in the span registry).
+boxes instead), and reads the winner rows from global memory. Where few
+of a warp's lanes visit a cluster at once, the warp's other lanes share
+their member tests (every output bit for bit the same). It counts its
+lanes' walk iterations, completed bounces and sweeps (``WIDE_COUNTS`` in
+the span registry), and its visits and those pooled (``VISIT_COUNTS``).
 
 A scene with a shutter (moving spheres, a checker: a
 :class:`~raytracer_tpu_torch.scene.spheres.MotionScene`) takes the
@@ -128,6 +130,9 @@ SAMPLE_COUNTS = ("walk_item_samples", "walk_samples")
 #: bounces whose pending list overflowed and that swept the boxes instead
 WIDE_COUNTS = SAMPLE_COUNTS + ("walk_iterations", "walk_segments",
                                "walk_sweeps")
+#: after them, in the same buffer: the wide walk's cluster visits, and
+#: those of them whose member tests were pooled across the warp
+VISIT_COUNTS = ("walk_visits", "walk_pooled")
 #: the define that builds ``csrc/cluster_walk.cu`` as the wide walk
 WIDE_DEFINE = "RT_WALK_WIDE"
 #: the define that builds it as the motion walk
@@ -375,12 +380,13 @@ def call(fn, tables, pixel_map, seed, sample_offset, spp, width, height,
         # could go to the next allocation on the stream (the counts'
         # zeros) and be overwritten before the kernel reads it. The wide
         # and the motion walk count on every launch, into WIDE_COUNTS and
-        # MOTION_COUNTS.
+        # VISIT_COUNTS, and MOTION_COUNTS.
         ptrs, shape = (None,) * 4, (ITEM_ROWS, ITEM_CAP)
         wide = is_wide(k)
         if adaptive or wide:
             counts = profiling.device_counts(
-                dev, WIDE_COUNTS if wide else SAMPLE_COUNTS).data_ptr()
+                dev, WIDE_COUNTS + VISIT_COUNTS if wide else SAMPLE_COUNTS
+            ).data_ptr()
             ptrs = (None, None, None, counts)
         elif tables.motion:
             counts = profiling.device_counts(dev, MOTION_COUNTS).data_ptr()

@@ -68,15 +68,23 @@ interface the current wrappers pass (``cluster_walk_abi``,
    K1w): its six instantiations on the SPD sphereflake (:func:`flake_cases`)
    bitwise against their plain versions (:func:`flake_check`); then
    (:func:`wide_ab`) the base revision's wide build, the current one, its
-   counter build and a build whose pending list holds
-   ``TEST_LIST_CAP`` entries (``-DRT_WALK_LIST_CAP``, so that bounces
-   overflow into the sweep), bitwise on those cases and on the
-   benchmark cell's 29-spp launch (:func:`flake_launch`), timed in turns,
-   with ``-Xptxas -v``, the SASS loops, and the counters: slab tests a
+   counter build, a build whose pending list holds ``TEST_LIST_CAP``
+   entries (``-DRT_WALK_LIST_CAP``, so that bounces overflow into the
+   sweep), and builds that pool a trip's visits across the warp at every
+   count of visiting lanes and at none (``-DRT_WALK_POOL_MAX``), each also
+   with the short list, bitwise on those cases and on the benchmark
+   cell's 29-spp launch (:func:`flake_launch`), timed in turns, with
+   ``-Xptxas -v``, the SASS loops, and the counters: slab tests a
    completed bounce, the list's high-water mark (mean and highest), the
    share of bounces that swept, the list's inserts and moves a bounce,
-   and the SIMT efficiency of a pass of the bounce loop, of a box
-   expansion, of a visit and of the tail.
+   the SIMT efficiency of a pass of the bounce loop, of a box expansion,
+   of a visit and of the tail, the visit steps pooled and their rounds,
+   and the lanes' cycles by phase (``PHASES``: ``clock64`` marks).
+8. The motion walk (``RT_WALK_MOTION``, K1m): the SASS of the base
+   revision's build and of the current one (:func:`motion_sass`).
+
+The SASS of the builds ``SASS_HELD`` names must equal the base
+revision's, instruction for instruction; the wide walk's is reported.
 
 Writes everything to ``<out>/walk_ab.json`` as well, and the SASS
 listings, gzipped, under ``<out>/sass/`` (``--out``, ``build/walk_ab`` by
@@ -110,12 +118,15 @@ OUT_DIR = ROOT / "build" / "walk_ab"
 PACKAGE_REL = "raytracer_tpu_torch"
 CSRC_REL = f"{PACKAGE_REL}/csrc"
 #: the walk counter build's totals (``WalkCounter`` in cluster_walk.cu);
-#: from ``lane_passes`` on the wide walk's list alone
+#: from ``lane_passes`` on the wide walk's list alone, the last its lanes'
+#: cycles by phase (``PHASES``)
+PHASES = ("top", "expand", "visit", "wait", "sweep", "tail")
 COUNTERS = ("warp_trips", "lane_trips", "warp_fresh", "lane_fresh",
             "warp_visit", "lane_visit", "warp_tail", "lane_tail",
             "slab_tests", "lane_passes", "warp_expand", "lane_expand",
             "list_inserts", "list_moves", "list_peak", "list_peak_max",
-            "sweeps")
+            "sweeps", "warp_pooled", "pool_rounds",
+            *(f"cycles_{ph}" for ph in PHASES))
 #: the flat counter build's totals (``FlatCounter`` in flat_scan.cu), then
 #: a histogram of the active lanes of a warp trip, 0..32
 FLAT_COUNTERS = ("warp_trips", "lane_trips", "warp_slots", "lane_slots",
@@ -494,13 +505,24 @@ FLAKE_LAUNCH = "29 spp sorted"
 #: about a fifth of its bounces, some at their start, overflow into the
 #: sweep
 TEST_LIST_CAP = 8
-#: the wide walk's builds besides the base revision's
+#: the wide walk's builds besides the base revision's: the pool builds
+#: pool a trip's visits at every count of visiting lanes (32) and at none
 WIDE_BUILDS = {
     "new": (cw.WIDE_DEFINE,),
     "counters": (cw.WIDE_DEFINE, "RT_WALK_COUNTERS"),
     "list8": (cw.WIDE_DEFINE, "RT_WALK_COUNTERS",
               f"RT_WALK_LIST_CAP={TEST_LIST_CAP}"),
+    **{f"pool{k}{tag}": (cw.WIDE_DEFINE, f"RT_WALK_POOL_MAX={k}", *cap)
+       for k in (32, 0)
+       for tag, cap in (("", ()), ("_list8",
+                                   (f"RT_WALK_LIST_CAP={TEST_LIST_CAP}",)))},
 }
+#: the counter builds of the wide walk
+WIDE_COUNTER_BUILDS = ("counters", "list8")
+#: the builds whose SASS must equal the base revision's (the narrow walk's
+#: six instantiations and the motion walk's two); the wide walk's is
+#: reported
+SASS_HELD = ("narrow", "motion")
 
 #: the item checks' launches of the cover's adaptive render (1-based) at
 #: the benchmark cell's settings (1200x800, 500 spp cap, depth 50, rr0,
@@ -833,6 +855,7 @@ def counters(lib: ctypes.CDLL, args_by_name: dict) -> dict:
         c = dict(zip(COUNTERS, (int(v) for v in buf)))
         k = args[0].members.shape[0]
         bounces = max(c["lane_tail"], 1)
+        cycles = sum(c[f"cycles_{ph}"] for ph in PHASES)
         # a trip of the wide walk's list is a pass of its bounce loop
         passes = c["lane_passes"] or c["lane_trips"]
         got[name] = {
@@ -850,6 +873,12 @@ def counters(lib: ctypes.CDLL, args_by_name: dict) -> dict:
             "list_inserts_per_bounce": c["list_inserts"] / bounces,
             "list_moves_per_bounce": c["list_moves"] / bounces,
             "sweep_share": c["sweeps"] / bounces,
+            "pooled_step_share": c["warp_pooled"] / max(c["warp_visit"], 1),
+            "rounds_per_pooled_step": c["pool_rounds"]
+            / max(c["warp_pooled"], 1),
+            **{f"cycle_share_{ph}": c[f"cycles_{ph}"] / max(cycles, 1)
+               for ph in PHASES},
+            "cycles_per_bounce": cycles / bounces,
             "cost_row_equal": int(out[3].sum(dtype=torch.float64))
             == c["lane_trips"],
             "segs_equal": int(segs.sum(dtype=torch.int64)) == c["lane_tail"],
@@ -1175,32 +1204,46 @@ def wide_ab(old: Path | None, repeats: int, smi: str,
     """Step 7's A/B of the wide walk: the base revision's wide build (where
     there is one), the current one and ``WIDE_BUILDS``' others, bitwise on
     :func:`flake_cases` and :func:`flake_launch`, the base and current
-    builds timed in turns, ``-Xptxas -v`` and the SASS loops, and both
-    counter builds' counts."""
+    builds and the two pool builds without the short list timed in turns,
+    ``-Xptxas -v`` and the SASS loops, and both counter builds' counts."""
     builds = {"old": (old, (cw.WIDE_DEFINE,))} if old is not None else {}
     builds.update({b: (cuda_build.CSRC_DIR, d)
                    for b, d in WIDE_BUILDS.items()})
     paths = dict(zip(builds, cuda_build.build_all(
         ("cluster_walk", *b) for b in builds.values())))
     result = {"ptxas": _print_ptxas("wide ", paths),
-              "sass": _print_sass("wide_", paths, "cluster_walk_kernel",
-                                  out)}
+              "sass": _print_sass("wide_", {
+                  b: path for b, path in paths.items()
+                  if b not in WIDE_COUNTER_BUILDS and "list" not in b},
+                  "cluster_walk_kernel", out)}
     if "old" in paths:
         result["sass_equal"] = sass_equal(paths["old"], paths["new"])
-    calls = _callers({b: p for b, p in paths.items() if b != "counters"},
-                     walk_caller)
+    calls = _callers({b: p for b, p in paths.items()
+                      if b not in WIDE_COUNTER_BUILDS}, walk_caller)
     args_by_name = {name: launch_args(args) for name, args in {
         **flake_cases(),
         f"cluster_walk {FLAKE_LAUNCH}": flake_launch()}.items()}
     same = bitwise(calls, args_by_name, "new")
     result["bitwise"] = {f"{n} {b}": ok for (n, b), ok in same.items()}
-    timed = {b: calls[b] for b in ("old", "new") if b in calls}
+    timed = {b: calls[b] for b in ("old", "new", "pool32", "pool0")
+             if b in calls}
     result["times"] = time_in_turns(timed, args_by_name, repeats, smi)
     result["counters"] = {
-        f"{b} {n}": c for b in ("counters", "list8")
+        f"{b} {n}": c for b in WIDE_COUNTER_BUILDS
         for n, c in counters(ctypes.CDLL(str(paths[b])),
                              args_by_name).items()}
     return result
+
+
+def motion_sass(old: Path | None) -> dict:
+    """Step 8: per function of the base revision's motion walk, its SASS
+    the current build's (:func:`sass_equal`); empty without a base."""
+    if old is None:
+        return {}
+    paths = cuda_build.build_all(
+        ("cluster_walk", csrc, (cw.MOTION_DEFINE,))
+        for csrc in (old, cuda_build.CSRC_DIR))
+    return sass_equal(*paths)
 
 
 def run(old: Path | None, repeats: int, smi: str,
@@ -1253,9 +1296,13 @@ def main(argv=None) -> dict:
     bad += [f"{name}: no bounce swept" for name, c in
             result["wide_ab"]["counters"].items()
             if name.startswith("list8") and not c["sweeps"]]
-    bad += [f"{name}: SASS not the base revision's" for name, ok in {
-        **result.get("sass_equal", {}),
-        **result["wide_ab"].get("sass_equal", {})}.items() if not ok]
+    result["motion_sass_equal"] = motion_sass(old)
+    held = {"narrow": result.get("sass_equal", {}),
+            "motion": result["motion_sass_equal"],
+            "wide": result["wide_ab"].get("sass_equal", {})}
+    bad += [f"{build} {name}: SASS not the base revision's"
+            for build in SASS_HELD for name, ok in held[build].items()
+            if not ok]
     if bad:
         raise SystemExit(f"walk_ab: builds disagree: {bad}")
     return result

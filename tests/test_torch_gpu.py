@@ -319,7 +319,8 @@ def test_wide_walk_bitwise_on_card(flake_cases, case):
 
 def test_wide_walk_counts_iterations_and_bounces_on_card(flake_cases):
     """The wide walk's device counts are its cost row's and its
-    segments' sums, and it counts its bounces that swept."""
+    segments' sums, and it counts its bounces that swept, its visits and
+    those pooled across the warp: pooled <= visits <= iterations."""
     args = flake_cases["cluster_walk"]
     profiling.reset_counters()
     out, segs = cw.cluster_walk(*args)
@@ -328,12 +329,16 @@ def test_wide_walk_counts_iterations_and_bounces_on_card(flake_cases):
     assert got["walk_segments"][0] == int(segs.sum(dtype=torch.int64))
     assert got["walk_segments"][0] > args[1].shape[0]
     assert 0 <= got["walk_sweeps"][0] < got["walk_segments"][0]
+    assert 0 <= got["walk_pooled"][0] <= got["walk_visits"][0] \
+        <= got["walk_iterations"][0]
+    assert got["walk_visits"][0] > got["walk_segments"][0]
 
 
 def _wide_build(csrc, defines):
     """``call(*case)`` of the wide walk built from ``csrc`` with
-    ``defines``, and the device counts it adds to: ``(out, segs,
-    counts)``."""
+    ``defines``, and the device counts it adds to (``WIDE_COUNTS`` and
+    ``VISIT_COUNTS``; a build without the latter reads them 0): ``(out,
+    segs, counts)``."""
     import ctypes
 
     from raytracer_tpu_torch.utils import cuda_build
@@ -346,7 +351,7 @@ def _wide_build(csrc, defines):
         out, segs = call(*walk_ab.launch_args(args))
         got = profiling.counters()
         return out, segs, {name: got.get(name, (0, 0.0))[0]
-                           for name in cw.WIDE_COUNTS}
+                           for name in cw.WIDE_COUNTS + cw.VISIT_COUNTS}
 
     return run
 
@@ -368,6 +373,35 @@ def test_wide_walk_bitwise_the_base_revision_on_card(flake_cases, case):
     assert {n: cnt_k[n] for n in cw.WIDE_COUNTS[:4]} == {
         n: cnt_b[n] for n in cw.WIDE_COUNTS[:4]}
     assert cnt_k["walk_segments"] == int(seg_k.sum(dtype=torch.int64))
+
+
+POOL_BUILDS = [b for b in walk_ab.WIDE_BUILDS if b.startswith("pool")]
+
+
+@pytest.mark.parametrize("build", POOL_BUILDS)
+@pytest.mark.parametrize("case", FLAKE_CASES)
+def test_wide_walk_pool_builds_bitwise_on_card(flake_cases, case, build):
+    """Test builds that pool a trip's visits across the warp at every
+    count of visiting lanes (``-DRT_WALK_POOL_MAX=32``) and at none
+    (``=0``), each also with the short list where pool and sweep meet
+    (``-DRT_WALK_LIST_CAP``): every output row, the segments and the
+    sample, iteration and bounce counts bit for bit the main build's;
+    without the short list, the visits counted the same, and pooled at
+    least as often as the main build's at every count, never at none."""
+    args = flake_cases[case]
+    out_k, seg_k, cnt_k = _wide_build(None, (cw.WIDE_DEFINE,))(*args)
+    out_b, seg_b, cnt_b = _wide_build(None, walk_ab.WIDE_BUILDS[build])(
+        *args)
+    assert torch.equal(out_b, out_k) and torch.equal(seg_b, seg_k)
+    assert {n: cnt_b[n] for n in cw.WIDE_COUNTS[:4]} == {
+        n: cnt_k[n] for n in cw.WIDE_COUNTS[:4]}
+    assert cnt_b["walk_pooled"] <= cnt_b["walk_visits"]
+    if build.startswith("pool0"):
+        assert cnt_b["walk_pooled"] == 0
+    if "list" not in build:  # (a sweep's visits are its lane's own)
+        assert cnt_b["walk_visits"] == cnt_k["walk_visits"] > 0
+        if build.startswith("pool32"):
+            assert cnt_b["walk_pooled"] >= cnt_k["walk_pooled"]
 
 
 @pytest.mark.parametrize("case", FLAKE_CASES)

@@ -389,8 +389,8 @@ def test_walk_items_only_under_adaptive_in_source():
     assert "if (items == nullptr || lane_items == nullptr ||" in WALK
     wrapper = inspect.getsource(cw.call)
     assert "if adaptive:" in wrapper and "_item_scratch(dev, stream)" in wrapper
-    assert ("profiling.device_counts(\n                dev, WIDE_COUNTS "
-            "if wide else SAMPLE_COUNTS)") in wrapper
+    assert ("profiling.device_counts(\n                dev, WIDE_COUNTS + "
+            "VISIT_COUNTS if wide else SAMPLE_COUNTS\n            )") in wrapper
     assert "(ITEM_ROWS, ITEM_CAP)" in wrapper
 
 
@@ -490,9 +490,12 @@ def test_wide_walk_in_source():
     assert "if constexpr (kIsWide) count_walk(p, smem, cost, segs);" in walk
     # the sweep's count: 32 bits after the deal (28 bytes in), the
     # launch's fifth
-    assert "enum WalkCount { kWalkIterations = 2, kWalkSegments = 3, " \
-        "kWalkSweeps = 4 };" in WALK
+    assert "enum WalkCount {\n  kWalkIterations = 2, kWalkSegments = 3, " \
+        "kWalkSweeps = 4, kWalkVisits = 5,\n  kWalkPooled = 6\n};" in WALK
     assert cw.WIDE_COUNTS[4] == "walk_sweeps"
+    # the visits and pooled visits after them, in the same buffer
+    assert len(cw.WIDE_COUNTS) == 5
+    assert cw.VISIT_COUNTS == ("walk_visits", "walk_pooled")
     assert "smem + p.n_floats + 7" in _body(
         WALK, "__device__ __forceinline__ uint32_t* sweeps_of(")
     assert "atomicAdd(sweeps_of(p, smem), 1u);" in walk
@@ -542,7 +545,8 @@ def test_wide_walk_list_in_source():
               "visits = wide_sweep(", "cost += (float)max(visits, 1);",
               "if (len > 0) head = mask[(len - 1) * kWalkThreads];"):
         assert t in wide, t
-    assert wide.index("wide_top(") < wide.index("while (!over) {")
+    assert wide.index("wide_top(") < wide.index(
+        "bool walking = !idle && !over;")
     for t in ("wide_", "kListBox", "list_"):
         assert t not in narrow.split("} while (!bdone);")[0], t
 
@@ -614,6 +618,119 @@ def test_wide_list_capacity_matches_the_tables():
     flake = tables.walk_layout(1, 462, 16)
     assert tables.wide_smem_bytes(flake) == 206672
     assert tables.wide_list_capacity(flake) == 15 + 70
+
+
+def test_wide_walk_pools_its_visits_in_source():
+    """The wide walk's warps start every bounce with all 32 lanes (a lane
+    without work stays idle, as a helper, until every lane of the warp is
+    idle), and walk the list in warp-uniform trips: each trip every lane
+    expands until its nearest entry is a kd leaf or its bounce is done, a
+    ballot gives the visiting lanes, and the trips end when none visits.
+    The visits go to ``pool_visit`` where at most ``kPoolMax`` lanes visit
+    (and a cluster holds at most 32 members), else to the serial member
+    loop; a test build sets ``kPoolMax`` with ``RT_WALK_POOL_MAX``. The
+    pool deals each round's member tests over slots of the warp, each slot
+    reduces its least q bits over the whole warp and a ballot finds the
+    first lane that holds them (the least member), and the visiting lane
+    applies that with the member loop's strict <. The production build
+    counts the lanes' visits and pooled visits, one atomic each a warp, at
+    the launch's counts 5 and 6."""
+    test_build, main = re.findall(
+        r"#ifdef RT_WALK_POOL_MAX\nconstexpr int kPoolMax = (\w+);\n#else\n"
+        r"constexpr int kPoolMax = (\d+);\n#endif", WALK)[0]
+    assert test_build == "RT_WALK_POOL_MAX" and 1 <= int(main) <= 32
+    walk = _body(WALK, "__device__ __forceinline__ void walk(")
+    # the warp together: idle lanes stay until every lane is idle
+    assert "if constexpr (!kIsWide) return;" in walk
+    assert "if (__all_sync(~0u, idle)) break;" in walk
+    assert "if constexpr (!kIsWide) break;" in walk
+    wide = walk.split("    } else {\n", 1)[0]
+    assert "if (idle) continue;" in wide
+    assert wide.index("if (idle) continue;") < wide.index(
+        "cost += (float)max(visits, 1);")
+    loop = wide[wide.index("bool walking = !idle && !over;"):
+                wide.index("RT_PHASE(kCycWait);")]
+    assert "const bool pool = p.group <= 32;" in walk
+    for t in ("bool walking = !idle && !over;",
+              "while (walking && len > 0) {", "walking = leaf;",
+              "const unsigned vis = __ballot_sync(~0u, leaf);",
+              "if (vis == 0u) break;",
+              "if (pool && __popc(vis) <= kPoolMax) {",
+              "pool_visit(p, s_mem, vis, pool_shift, leaf, cidx,",
+              "} else if (leaf) {", "visit_cluster(p, s_mem, cidx,",
+              "pooled += leaf ? 1u : 0u;"):
+        assert t in loop, t
+    order = [loop.index(t) for t in (
+        "while (walking && len > 0) {", "__ballot_sync(~0u, leaf)",
+        "if (vis == 0u) break;", "pool_visit(", "visit_cluster(")]
+    assert order == sorted(order)
+    # no lane leaves the trips early: the loop's only exit is the ballot's
+    assert loop.count("break;") == 4  # the expansion's three, the ballot's
+    assert "if (!leaf) break;" not in wide
+    assert "const int pool_shift = p.group > 16 ? 5 : 4;" in walk
+    pool = _body(WALK, "__device__ __forceinline__ void pool_visit(")
+    for t in ("const int rank = __popc(vis & ((1u << lane) - 1u));",
+              "const int my_round = rank >> (5 - shift), my_slot = rank & "
+              "(per - 1);",
+              "const int mm = min(m, p.group - 1);",
+              "exact_q(c, rox, roy, roz, rdx, rdy, rdz, ra, rod, roo, rmin);",
+              "o != 0u && m < p.group ? (uint32_t)__float_as_int(q) : ~0u;",
+              "__reduce_min_sync(~0u, slot == 0 ? key : ~0u);",
+              "per == 2 ? __reduce_min_sync(~0u, slot != 0 ? key : ~0u) : "
+              "~0u;",
+              "__ballot_sync(~0u, key == (slot == 0 ? least0 : least1));",
+              "gm = (uint32_t)__ffs(my_slot == 0 ? at : at >> 16) - 1u;",
+              "if (q < bq) {",
+              "bs = p.n_global + cidx * p.group + (int)gm;"):
+        assert t in pool, t
+    for name in ("ox", "oy", "oz", "dx", "dy", "dz", "a", "o_dot_d",
+                 "o_dot_o", "min_t_a", "cidx"):
+        assert f"__shfl_sync(~0u, {name}, src);" in pool, name
+    # the whole warp in every reduction: one over part of it runs as a loop
+    assert "__reduce_min_sync(~0u," in pool
+    assert not re.search(r"_sync\((?!~0u)", pool)
+    # the counts: every visit, sweeps' too, and the pooled ones
+    assert "n_visits += (uint32_t)visits;" in wide
+    assert "add_visits(p, n_visits, pooled);" in walk
+    add = _body(WALK, "__device__ __forceinline__ void add_visits(")
+    assert "atomicAdd(&p.samples[kWalkVisits], v);" in add
+    assert "atomicAdd(&p.samples[kWalkPooled], q);" in add
+    assert WALK.index("#ifdef RT_WALK_WIDE\n// The lanes leaving the wide "
+                      "walk") < WALK.index("void add_visits(")
+
+
+#: sha256 of the narrow walk's loop (the motion walk's, under its
+#: #ifdefs) and of the motion walk's helpers, as the pool left them
+NARROW_LOOP_SHA = (
+    "83a84193d3fe916fdfb12c1d6f0d23cc4ced16178468a09e2ed5a6c0fbf0ed45")
+MOTION_HELPERS_SHA = (
+    "4e13cd7429b99ac3371888a657df61307324ed1d99e715911d43e7a530e7f6a0")
+MOTION_HELPERS = ("float shutter_time(", "float moving_q(",
+                  "void motion_winner(", "unsigned long long warp_sum(",
+                  "void add_motion_counts(")
+
+
+def test_narrow_and_motion_loops_unchanged_in_source():
+    """The pool is the wide walk's alone: the narrow walk's bounce loop
+    (which the motion walk's build shares, with its ``RT_WALK_MOTION``
+    lines) and the motion walk's helpers are those the wide walk's pool
+    was written against, character for character (their SASS is held to
+    the base revision's on the card by ``scripts/walk_ab.py``)."""
+    import hashlib
+
+    walk = _body(WALK, "__device__ __forceinline__ void walk(")
+    narrow = walk.split("    } else {\n      bool bdone;", 1)[1]
+    narrow = "      bool bdone;" + narrow[:narrow.index(
+        "} while (!bdone);") + len("} while (!bdone);")]
+    assert "pool" not in narrow and "walking" not in narrow
+    assert hashlib.sha256(narrow.encode()).hexdigest() == NARROW_LOOP_SHA
+    helpers = "".join(_body(WALK, f"__device__ __forceinline__ {h}")
+                      for h in MOTION_HELPERS)
+    assert hashlib.sha256(helpers.encode()).hexdigest() == MOTION_HELPERS_SHA
+    # the pool, its counts and its count helper exist in the wide build
+    # alone
+    assert "#if defined(RT_WALK_MOTION) || defined(RT_WALK_WIDE)" in WALK
+    assert "#ifdef RT_WALK_WIDE\n  add_visits(p, n_visits, pooled);" in walk
 
 
 def test_debug_overlay_in_source_and_plain_twin():

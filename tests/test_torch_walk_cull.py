@@ -24,7 +24,12 @@ runs only on the card):
   to the hit grandparents, then the nearest entry taken each step, a box
   expanded into its hit children, a kd leaf visited) takes the flat
   walk's clusters in the flat walk's order and ends at its key, on the
-  same rays; a box and a leaf of one floored entry come off box first.
+  same rays; a box and a leaf of one floored entry come off box first;
+- a plain model of the wide walk's pooled visit (:func:`pooled_visits`:
+  a trip's member tests dealt over the warp's lanes in rounds of two
+  slots of 16, each slot's least q bits and the first lane that holds
+  them, one strict < by the visiting lane) gives the serial member loop's
+  best and member, on seeded q and on constructed ties.
 """
 
 import numpy as np
@@ -579,3 +584,109 @@ def test_list_keys_a_box_below_leaves_of_its_bucket():
     # a best at the bucket's floor ends the bounce before either leaf
     visits, _, _, _ = list_bounce(leaf, upper, counts, f, no_hit, 21)
     assert visits == []
+
+
+# --- the wide walk's pooled visits (``pool_visit``) --------------------------
+
+FILLQ32 = np.float32(cw.FILLQ)
+
+
+def serial_visits(q: np.ndarray, bq: np.ndarray):
+    """The member loop (``visit_cluster``) of each visiting lane: over
+    its cluster's members in order, a member whose q is below the best so
+    far takes it. q (k, group) float32, bq (k,) the lanes' incoming best;
+    returns the lanes' best and member (-1: no member took it)."""
+    bq, bs = bq.copy(), np.full(q.shape[0], -1)
+    for j in range(q.shape[0]):
+        for m in range(q.shape[1]):
+            if q[j, m] < bq[j]:
+                bq[j], bs[j] = q[j, m], m
+    return bq, bs
+
+
+def pooled_visits(q: np.ndarray, bq: np.ndarray):
+    """A plain model of the pool: the k visiting lanes' member tests dealt
+    over the warp's 32 lanes in rounds, in slots of 16 lanes (32 for a
+    group past 16): lane h·16 + m of round r tests member m of visiting
+    lane r·2 + h (a lane past the group or the visiting lanes keeps the key
+    ~0); each slot's least key (the float32 bits of q, as unsigned), then
+    a ballot of the lanes that hold their slot's least, whose first lane in
+    the slot is the least member; the visiting lane applies that once with
+    a strict <."""
+    k, group = q.shape
+    shift = 5 if group > 16 else 4
+    slot, per = 1 << shift, 32 >> shift
+    rounds = -(-k // per)
+    keys = np.full((rounds * per, slot), 0xFFFFFFFF, np.uint64)
+    keys[:k, :group] = q.view(np.uint32)
+    lanes = keys.reshape(rounds, 32)  # round r's 32 lanes
+    slots = lanes.reshape(rounds, per, slot)
+    least = slots.min(axis=2)
+    ballot = slots == least[..., None]
+    first = ballot.argmax(axis=2)  # the slot's first lane in the ballot
+    got_q = least.reshape(-1)[:k].astype(np.uint32).view(np.float32)
+    got_m = first.reshape(-1)[:k].astype(np.int64)
+    take = got_q < bq
+    return np.where(take, got_q, bq), np.where(take, got_m, -1)
+
+
+def _pool_case(rng, k, group, miss=0.3):
+    q = rng.uniform(0.001, 50.0, (k, group)).astype(np.float32)
+    q[rng.random((k, group)) < miss] = FILLQ32
+    bq = rng.uniform(0.001, 60.0, k).astype(np.float32)
+    bq[rng.random(k) < 0.3] = FILLQ32
+    return q, bq
+
+
+@pytest.mark.parametrize("group", [16, 1, 5, 9, 32])
+@pytest.mark.parametrize("k", [1, 2, 7, 9, 24, 32])
+def test_pooled_visits_equal_the_member_loop(group, k):
+    """The pool's deal and reduction give the member loop's best and
+    member, bit for bit, on seeded q (hits below and above the incoming
+    best, misses at kFillQ), for every count of visiting lanes a warp
+    holds, and groups that fill a slot or leave it part empty."""
+    rng = np.random.default_rng(1000 * group + k)
+    for _ in range(20):
+        q, bq = _pool_case(rng, k, group)
+        want_q, want_m = serial_visits(q, bq)
+        got_q, got_m = pooled_visits(q, bq)
+        assert np.array_equal(got_q.view(np.uint32), want_q.view(np.uint32))
+        assert np.array_equal(got_m, want_m)
+
+
+def test_pooled_visits_ties():
+    """Constructed ties: two members at the least q (the lower member
+    wins, as the loop's first), a member at q equal to the incoming best
+    (it takes nothing; one below it does), and every member a miss (the
+    best stays)."""
+    q = np.full((4, 16), np.float32(9.0), np.float32)
+    q[0, 11] = q[0, 3] = np.float32(2.5)           # a tie at the least
+    q[1, 6] = np.float32(4.0)                       # equal to the best
+    q[2, 6] = np.float32(4.0)
+    q[2, 13] = np.nextafter(np.float32(4.0), np.float32(0))  # just below
+    q[3] = FILLQ32                                  # all misses
+    bq = np.array([8.0, 4.0, 4.0, FILLQ32], np.float32)
+    want_q, want_m = serial_visits(q, bq)
+    got_q, got_m = pooled_visits(q, bq)
+    assert want_m.tolist() == [3, -1, 13, -1]
+    assert np.array_equal(got_q.view(np.uint32), want_q.view(np.uint32))
+    assert got_m.tolist() == want_m.tolist()
+    # nine visiting lanes at the sphereflake's group of 16: five rounds of
+    # two slots
+    assert -(-9 // 2) == 5
+
+
+def test_pool_keys_order_as_their_q():
+    """The pool orders q by its float32 bits as unsigned integers: true
+    for q in (0, kFillQ], where the kernel's q lies (a ray whose least
+    entry min_t_a could make q zero sweeps instead), denormals and the
+    list's least admissible min_t_a among them."""
+    rng = np.random.default_rng(7)
+    q = np.concatenate([
+        rng.uniform(1e-3, 1e3, 4000), 10.0 ** rng.uniform(-40, 38, 4000),
+        [2 * BUCKET * 1.401298464324817e-45, 1e-45, float(FILLQ32)]]
+    ).astype(np.float32)
+    q = q[(q > 0) & (q <= FILLQ32)]
+    by_bits = np.argsort(q.view(np.uint32), kind="stable")
+    by_value = np.argsort(q, kind="stable")
+    assert np.array_equal(q[by_bits], q[by_value])
